@@ -12,9 +12,16 @@ Phases (any failure raises and the script exits non-zero before its last line):
    320/640/1280/1280, SD-v1.5 ControlNet, the 13-block adapter at A-D + M, the
    temporal VAE) in bf16 with weights drawn from a seeded generator, 14 frames
    at 512x512, a few Euler steps with CFG and latent skipping, then decode;
-   check the video and that every kernel was launched; then, on a small input,
-   check the kernel path against an fp32 reference of the same weights;
-5. print the per-kernel JSON line, the card line, and the result line.
+   check the video, that every kernel of the path was launched and that the
+   temporal blocks took the JAX dispatch (K3 "full" at UNet level 0, K3
+   "hybrid" at level 1 and in the adapter); then, on a small input, check the
+   kernel path against an fp32 reference of the same weights;
+5. the same pipeline in the fused-block configuration
+   (``CTRL_ADAPTER_FUSED_BLOCK=1``, a switch of the JAX package) for 2 steps:
+   the same checks, and K4 must launch; ms/step beside the default's;
+6. K5, which no model path reaches: the port's ``FeedForward`` under
+   ``CTRL_ADAPTER_FUSED_FF=1`` at the level-0 shape, against its plain run;
+7. print the per-kernel JSON line, the card line, and the result line.
 
 Imports nothing of JAX.
 """
@@ -79,6 +86,8 @@ def compare(name, got, want, atol, rtol):
 # ------------------------------------------------------------------ kernels
 def check_kernels(dev, card):
     from ctrl_adapter_tpu_torch.ops import flash_attention as fa
+    from ctrl_adapter_tpu_torch.ops import fused_block as fb
+    from ctrl_adapter_tpu_torch.ops import fused_ff as ff
     from ctrl_adapter_tpu_torch.ops import fused_temporal as ft
     from ctrl_adapter_tpu_torch.ops import group_norm as gn
 
@@ -149,6 +158,69 @@ def check_kernels(dev, card):
         print(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
         k3.append((err, ms, pms))
     results["temporal_block"] = k3
+
+    def ff_weights(c_, inner, cout):
+        return ((1.0 + rand(c_, scale=0.1)).to(bf), rand(c_, scale=0.1).to(bf),
+                rand(2 * inner, c_, scale=c_ ** -0.5).to(bf), rand(2 * inner, scale=0.1).to(bf),
+                rand(cout, inner, scale=inner ** -0.5).to(bf), rand(cout, scale=0.1).to(bf))
+
+    # K3 "full": the whole UNet level-0 temporal block in one launch.
+    print(f"K3 full temporal block (bf16, (2,14,4096,320), 5 heads, cross bias) on {card}")
+    x = rand(2, 14, 4096, 320).to(bf)
+    cb = rand(2, 4096, 320, scale=0.5).to(bf)
+    args = ((1.0 + rand(320, scale=0.1)).to(bf), rand(320, scale=0.1).to(bf),
+            *(rand(320, 320, scale=320 ** -0.5).to(bf) for _ in range(4)),
+            rand(320, scale=0.1).to(bf), 5, 1e-5, ff_weights(320, 1280, 320),
+            ff_weights(320, 1280, 320))
+    got = ft.temporal_block_full(x, cb, *args)
+    want = ft._torch_temporal_block(x, cb, *args)
+    torch.cuda.synchronize()
+    # three residual sub-blocks, each rounding the bf16 stream at other points
+    # in the two versions; both are also held against an fp32 run of the plain version
+    err = compare("K3 full UNet (2,14,4096,320)", got, want, atol=1e-1, rtol=2e-2)
+    f32 = lambda a: tuple(map(f32, a)) if isinstance(a, tuple) else (  # noqa: E731
+        a.float() if torch.is_tensor(a) else a)
+    ref = ft._torch_temporal_block(x.float(), cb.float(), *f32(args))
+    err_k, err_p = ((t.float() - ref).abs().max().item() for t in (got, want))
+    print(f"    vs fp32: kernel {err_k:.3e}, plain {err_p:.3e} (tolerance: kernel within "
+          f"1.25x the plain version's error + 1e-2)")
+    if err_k > 1.25 * err_p + 1e-2:
+        raise RuntimeError("K3 full: farther from the fp32 reference than its plain version")
+    del ref
+    ms = cuda_ms(lambda: ft.temporal_block_full(x, cb, *args))
+    pms = cuda_ms(lambda: ft._torch_temporal_block(x, cb, *args))
+    print(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    results["temporal_block_full"] = [(err, ms, pms)]
+
+    # K4: the level-0 spatial transformer FF, 28 x 4096 rows.
+    print(f"K4 ln_ff_residual (bf16, tanh gelu, residual) on {card}")
+    x = rand(114688, 320).to(bf)
+    w = ff_weights(320, 1280, 320)
+    got = fb.ln_ff_kernel(x, *w, 1e-5, True, True)
+    want = fb._torch_ln_ff_residual(x, *w, 1e-5, True, True)
+    torch.cuda.synchronize()
+    err = compare("K4 (114688,320) inner 1280", got, want, atol=3e-2, rtol=2e-2)
+    ms = cuda_ms(lambda: fb.ln_ff_kernel(x, *w, 1e-5, True, True))
+    pms = cuda_ms(lambda: fb._torch_ln_ff_residual(x, *w, 1e-5, True, True))
+    print(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    results["ln_ff_residual"] = [(err, ms, pms)]
+
+    # K5: GEGLU projection at the level-0 and level-1 widths.
+    print(f"K5 geglu (bf16, tanh gelu) on {card}")
+    k5 = []
+    for m_, c_ in ((114688, 320), (28672, 640)):
+        x = rand(m_, c_).to(bf)
+        w = rand(8 * c_, c_, scale=c_ ** -0.5).to(bf)
+        b_ = rand(8 * c_, scale=0.1).to(bf)
+        got = ff.geglu_kernel(x, w, b_, True)
+        want = ff._torch_geglu(x, w, b_, True)
+        torch.cuda.synchronize()
+        err = compare(f"K5 ({m_},{c_}) -> 2x{4 * c_}", got, want, atol=2e-2, rtol=2e-2)
+        ms = cuda_ms(lambda: ff.geglu_kernel(x, w, b_, True))
+        pms = cuda_ms(lambda: ff._torch_geglu(x, w, b_, True))
+        print(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms")
+        k5.append((err, ms, pms))
+    results["geglu"] = k5
     return results
 
 
@@ -196,78 +268,79 @@ def plain_kernels():
     """Swap each kernel wrapper in its ops module for its plain version (the
     modules call the wrappers through those modules), for the reference runs."""
     import ctrl_adapter_tpu_torch.ops.flash_attention as fa
+    import ctrl_adapter_tpu_torch.ops.fused_block as fb
+    import ctrl_adapter_tpu_torch.ops.fused_ff as ff
     import ctrl_adapter_tpu_torch.ops.fused_temporal as ft
     import ctrl_adapter_tpu_torch.ops.group_norm as gn
 
-    saved = (gn.group_norm_silu, fa.attention_bnth, ft.temporal_block)
-    gn.group_norm_silu = gn._torch_group_norm_silu
-    fa.attention_bnth = fa._torch_attention
-    ft.temporal_block = ft._torch_temporal_block
+    swaps = [(gn, "group_norm_silu", gn._torch_group_norm_silu),
+             (fa, "attention_bnth", fa._torch_attention),
+             (ft, "temporal_block", ft._torch_temporal_block),
+             (ft, "temporal_block_full", ft._torch_temporal_block),
+             (fb, "ln_ff_kernel", fb._torch_ln_ff_residual),
+             (ff, "geglu_kernel", ff._torch_geglu)]
+    saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
+    for module, name, plain in swaps:
+        setattr(module, name, plain)
     try:
         yield
     finally:
-        gn.group_norm_silu, fa.attention_bnth, ft.temporal_block = saved
+        for module, name, wrapper in saved:
+            setattr(module, name, wrapper)
 
 
-def run_slice(dev, card, kernels):
-    from ctrl_adapter_tpu_torch.pipelines.common import control_window
+@contextlib.contextmanager
+def env_switch(name: str):
+    """Set an opt-in switch of the JAX package (``name=1``) and restore it."""
+    saved = os.environ.get(name)
+    os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = saved
 
-    bf = torch.bfloat16
-    t0 = time.perf_counter()
-    pipe, n_params = build_pipeline(dev, bf)
-    torch.cuda.synchronize()
-    print(f"slice: built SVD UNet + ControlNet + adapter + temporal VAE, {n_params / 1e9:.3f} B "
-          f"params bf16, in {time.perf_counter() - t0:.1f} s")
-    inputs = slice_inputs(dev, bf, FRAMES, SIZE, SEED + 1)
-    kw = dict(height=SIZE, width=SIZE, num_frames=FRAMES, num_inference_steps=STEPS,
-              skip_conv_in=True, control_latent_size=SIZE // 8, device=dev)
 
-    # the main path run: counters from 0, one generate() call to the video
-    for k in kernels.values():
-        k.reset()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    video = pipe.generate(**inputs, **kw)
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"slice: launches during the run {launches}")
-
+def check_video(video, label):
     if tuple(video.shape) != (1, FRAMES, SIZE, SIZE, 3):
-        raise RuntimeError(f"video shape {tuple(video.shape)}")
+        raise RuntimeError(f"{label}: video shape {tuple(video.shape)}")
     vf = video.float()
     if not torch.isfinite(vf).all():
-        raise RuntimeError("video has non-finite values")
+        raise RuntimeError(f"{label}: video has non-finite values")
     if vf.min().item() < 0.0 or vf.max().item() > 1.0:
-        raise RuntimeError("video values outside [0, 1]")
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the main path: {missing}")
-    print(f"slice: video {tuple(video.shape)} finite, range [{vf.min().item():.4f}, "
+        raise RuntimeError(f"{label}: video values outside [0, 1]")
+    print(f"{label}: video {tuple(video.shape)} finite, range [{vf.min().item():.4f}, "
           f"{vf.max().item():.4f}], std {vf.std().item():.4f}")
 
-    # steady state: the denoise loop and the decode again, timed apart
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    latents = pipe.generate(**inputs, output_type="latent", **kw)
-    torch.cuda.synchronize()
-    t_steady = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pipe._decode(latents, 0.18215)
-    torch.cuda.synchronize()
-    t_decode = time.perf_counter() - t0
-    lo, hi = control_window(STEPS, 0.0, 0.8)  # generate()'s default control window
-    print(f"slice on {card}: {STEPS} steps, 1x{FRAMES}x{SIZE}x{SIZE}, CFG, skip_conv_in:")
-    print(f"  first generate() {t_first:.3f} s (denoise + decode, cold); denoise "
-          f"{1000 * t_steady / STEPS:.1f} ms/step second run "
-          f"(control window covers {hi - lo} of {STEPS} steps)")
-    print(f"  decode {t_decode:.3f} s second run (one chunk of {FRAMES} frames)")
-    print(f"  peak device memory {peak_gb:.2f} GiB (first generate())")
 
-    # reference on a small input: the bf16 kernel path and the bf16 plain path,
-    # each against the same weights in fp32 through the plain path
+def drive(pipe, inputs, kw, kernels, steps):
+    """One generate() to the video with every launch count from 0 just before
+    it; returns the video, the counts read just after, and the seconds."""
+    for k in kernels.values():
+        k.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    video = pipe.generate(**inputs, **kw, num_inference_steps=steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return video, {name: k.launches for name, k in kernels.items()}, seconds
+
+
+def ms_per_step(pipe, inputs, kw, steps):
+    """Host-clock ms per denoise step of a generate() to the latents, and the latents."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    latents = pipe.generate(**inputs, **kw, num_inference_steps=steps, output_type="latent")
+    torch.cuda.synchronize()
+    return 1000 * (time.perf_counter() - t0) / steps, latents
+
+
+def reference_check(pipe, dev, label):
+    """On a small input, the bf16 kernel path and the bf16 plain path, each
+    against the same weights in fp32 through the plain path."""
+    bf = torch.bfloat16
     small = slice_inputs(dev, bf, 4, 256, SEED + 2)
     skw = dict(height=256, width=256, num_frames=4, num_inference_steps=2, skip_conv_in=True,
                control_latent_size=32, device=dev, output_type="latent")
@@ -283,12 +356,114 @@ def run_slice(dev, card, kernels):
     err_k = ((got - ref).abs().max() / scale).item()
     err_p = ((plain - ref).abs().max() / scale).item()
     err_kp = ((got - plain).abs().max() / scale).item()
-    print(f"slice reference (1x4x256x256, 2 steps, latents, errors relative to max|fp32|): "
+    print(f"{label} reference (1x4x256x256, 2 steps, latents, errors relative to max|fp32|): "
           f"bf16 kernel path vs fp32 {err_k:.3e}, bf16 plain path vs fp32 {err_p:.3e}, "
           f"kernel vs plain {err_kp:.3e}; tolerance: kernel path within 2x the plain "
           f"path's error + 1e-2")
     if not (torch.isfinite(got).all() and err_k <= 2 * err_p + 1e-2):
-        raise RuntimeError("kernel path is farther from the fp32 reference than allowed")
+        raise RuntimeError(f"{label}: kernel path is farther from the fp32 reference than allowed")
+
+
+def run_slices(dev, card, kernels):
+    """Phases 4 and 5; returns the launch counts of the default and the
+    fused-block runs."""
+    from ctrl_adapter_tpu_torch.pipelines.common import control_window
+
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    pipe, n_params = build_pipeline(dev, bf)
+    torch.cuda.synchronize()
+    print(f"slice: built SVD UNet + ControlNet + adapter + temporal VAE, {n_params / 1e9:.3f} B "
+          f"params bf16, in {time.perf_counter() - t0:.1f} s")
+    inputs = slice_inputs(dev, bf, FRAMES, SIZE, SEED + 1)
+    kw = dict(height=SIZE, width=SIZE, num_frames=FRAMES, skip_conv_in=True,
+              control_latent_size=SIZE // 8, device=dev)
+
+    # phase 4, the default configuration: the main path run
+    torch.cuda.reset_peak_memory_stats()
+    video, launches, t_first = drive(pipe, inputs, kw, kernels, STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"slice: launches during the run {launches}")
+    check_video(video, "slice")
+    on_path = ("group_norm_silu", "flash_attention", "temporal_block", "temporal_block_full")
+    missing = [name for name in on_path if launches[name] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the main path: {missing}")
+    # the JAX dispatch: per UNet call (one per step) K3 "full" at level 0 (down 2 +
+    # up 3 blocks) and K3 "hybrid" at level 1 (5 blocks), the module path at level 2
+    # and mid; K3 "hybrid" in the 13 adapter blocks of each controlled step; K4
+    # and K5 only under their switches
+    lo, hi = control_window(STEPS, 0.0, 0.8)  # generate()'s default control window
+    want = dict(temporal_block_full=5 * STEPS, temporal_block=5 * STEPS + 13 * (hi - lo),
+                ln_ff_residual=0, geglu=0)
+    wrong = {name: (launches[name], n) for name, n in want.items() if launches[name] != n}
+    if wrong:
+        raise RuntimeError(f"temporal dispatch differs from the JAX rule (got, want): {wrong}")
+    print(f"slice: dispatch as JAX: K3 full {want['temporal_block_full']} "
+          f"(5 per UNet call), K3 hybrid {want['temporal_block']} (5 per UNet call + 13 per "
+          f"adapter call), K4 and K5 none")
+    # steady state: the denoise loop and the decode again, timed apart
+    steady, latents = ms_per_step(pipe, inputs, kw, STEPS)
+    t0 = time.perf_counter()
+    pipe._decode(latents, 0.18215)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    print(f"slice on {card}: {STEPS} steps, 1x{FRAMES}x{SIZE}x{SIZE}, CFG, skip_conv_in:")
+    print(f"  first generate() {t_first:.3f} s (denoise + decode, cold); denoise "
+          f"{steady:.1f} ms/step second run (control window covers {hi - lo} of {STEPS} steps)")
+    print(f"  decode {t_decode:.3f} s second run (one chunk of {FRAMES} frames)")
+    print(f"  peak device memory {peak_gb:.2f} GiB (first generate())")
+    reference_check(pipe, dev, "slice")
+
+    # phase 5, the fused-block configuration (K4 on the 320-wide FFs)
+    fb_steps = 2
+    with env_switch("CTRL_ADAPTER_FUSED_BLOCK"):
+        video, launches_fb, t_fb = drive(pipe, inputs, kw, kernels, fb_steps)
+        print(f"fused-block slice: launches during the run {launches_fb}")
+        check_video(video, "fused-block slice")
+        missing = [name for name in (*on_path, "ln_ff_residual") if launches_fb[name] == 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched on the fused-block path: {missing}")
+        # K4 on the 320-wide spatial blocks: UNet level 0 (down 2 + up 3) per
+        # step, ControlNet level 0 (2) per controlled step
+        lo, hi = control_window(fb_steps, 0.0, 0.8)
+        if launches_fb["ln_ff_residual"] != 5 * fb_steps + 2 * (hi - lo):
+            raise RuntimeError(f"K4 launched {launches_fb['ln_ff_residual']} times, want "
+                               f"{5 * fb_steps + 2 * (hi - lo)} (the JAX rule's 320-wide FFs)")
+        fused_ms, _ = ms_per_step(pipe, inputs, kw, fb_steps)
+        reference_check(pipe, dev, "fused-block slice")
+    default_ms, _ = ms_per_step(pipe, inputs, kw, fb_steps)
+    print(f"fused-block slice on {card}: {fb_steps} steps (control window covers {hi - lo}), "
+          f"first generate() {t_fb:.3f} s; denoise {fused_ms:.1f} ms/step with "
+          f"CTRL_ADAPTER_FUSED_BLOCK=1, {default_ms:.1f} ms/step default (same steps, run "
+          f"right after)")
+    del pipe
+    return launches, launches_fb
+
+
+def run_feed_forward(dev, card, kernel):
+    """Phase 6: K5 sits on no model path (no model builds ``FeedForward`` on its
+    own); drive it through the port's ``FeedForward`` at the level-0 shape."""
+    from ctrl_adapter_tpu_torch.nn.attention import FeedForward
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    with torch.no_grad():
+        module = FeedForward(320, 320, device=dev, dtype=bf)
+        for p in module.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.05)
+        x = torch.randn(28, 4096, 320, generator=g, device=dev).to(bf)
+        want = module(x)
+        kernel.reset()
+        with env_switch("CTRL_ADAPTER_FUSED_FF"):
+            got = module(x)
+        torch.cuda.synchronize()
+        launches = kernel.launches
+    print(f"FeedForward (28,4096,320) under CTRL_ADAPTER_FUSED_FF=1 on {card}: K5 launches "
+          f"{launches}")
+    if launches != 1:
+        raise RuntimeError("FeedForward under CTRL_ADAPTER_FUSED_FF=1 did not launch K5")
+    compare("FeedForward with K5 vs plain", got, want, atol=3e-2, rtol=2e-2)
     return launches
 
 
@@ -302,6 +477,8 @@ def main() -> int:
     # before any output: outside a checkout of the repo the script prints nothing
     from ctrl_adapter_tpu_torch.ops import _build
     from ctrl_adapter_tpu_torch.ops import flash_attention as fa
+    from ctrl_adapter_tpu_torch.ops import fused_block as fb
+    from ctrl_adapter_tpu_torch.ops import fused_ff as ff
     from ctrl_adapter_tpu_torch.ops import fused_temporal as ft
     from ctrl_adapter_tpu_torch.ops import group_norm as gn
 
@@ -323,20 +500,34 @@ def main() -> int:
 
     results = check_kernels(dev, card)
     kernels = {"group_norm_silu": gn.KERNEL, "flash_attention": fa.KERNEL,
-               "temporal_block": ft.KERNEL}
-    launches = run_slice(dev, card, kernels)
+               "temporal_block": ft.KERNEL, "temporal_block_full": ft.KERNEL_FULL,
+               "ln_ff_residual": fb.KERNEL, "geglu": ff.KERNEL}
+    launches, launches_fb = run_slices(dev, card, kernels)
+    launches_ff = run_feed_forward(dev, card, ff.KERNEL)
+    print("K5 geglu is off every model path: the models' BasicTransformerBlocks run their "
+          "FF through K4's op (as the JAX package's do) and no model builds FeedForward on "
+          "its own; its launches below are those of the FeedForward run")
 
-    meta = {
+    meta = {  # name: (source, replaces, the run its launches come from)
         "group_norm_silu": ("ctrl_adapter_tpu_torch/csrc/group_norm.cu",
-                            "ctrl_adapter_tpu/ops/group_norm.py:166"),
+                            "ctrl_adapter_tpu/ops/group_norm.py:166", "svd default"),
         "flash_attention": ("ctrl_adapter_tpu_torch/csrc/flash_attention.cu",
-                            "ctrl_adapter_tpu/ops/flash_attention.py:97"),
+                            "ctrl_adapter_tpu/ops/flash_attention.py:97", "svd default"),
         "temporal_block": ("ctrl_adapter_tpu_torch/csrc/temporal_attention.cu",
-                           "ctrl_adapter_tpu/ops/fused_temporal.py:265"),
+                           "ctrl_adapter_tpu/ops/fused_temporal.py:265", "svd default"),
+        "temporal_block_full": ("ctrl_adapter_tpu_torch/csrc/temporal_full.cu",
+                                "ctrl_adapter_tpu/ops/fused_temporal.py:265", "svd default"),
+        "ln_ff_residual": ("ctrl_adapter_tpu_torch/csrc/ln_ff.cu",
+                           "ctrl_adapter_tpu/ops/fused_block.py:142", "svd fused-block"),
+        "geglu": ("ctrl_adapter_tpu_torch/csrc/geglu.cu", "ctrl_adapter_tpu/ops/fused_ff.py:70",
+                  "FeedForward, no model path"),
     }
+    counts = {"svd default": launches, "svd fused-block": launches_fb,
+              "FeedForward, no model path": {"geglu": launches_ff}}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
-         "launches": launches[name], "max_abs_err": max(r[0] for r in results[name]),
+         "launches": counts[meta[name][2]][name], "path": meta[name][2],
+         "max_abs_err": max(r[0] for r in results[name]),
          "ms": results[name][0][1], "plain_ms": results[name][0][2]}
         for name in kernels]}
     print(json.dumps(line))

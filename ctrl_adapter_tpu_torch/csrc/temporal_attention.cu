@@ -23,8 +23,9 @@
 //      (f*TS) x c tile never has to fit in shared memory (it would not at
 //      c = 1280). Q/K/V, rounded to bf16, then overwrite the same shared
 //      memory, and each warp runs the f x f softmax attention of one
-//      (position, query frame) at a time in fp32 (lane j scores key frame j),
-//      writing O (b, f, s, ia) in bf16. No masked dense (f*TS)^2 score matrix.
+//      (position, query frame) at a time in fp32 (lane j scores key frame j;
+//      common.cuh:frame_attention_64, shared with K3 "full"), writing O
+//      (b, f, s, ia) in bf16. No masked dense (f*TS)^2 score matrix.
 //  (b) out_proj_kernel: a tiled mma.sync GEMM (M = b*f*s, K = ia, N = c) whose
 //      epilogue adds bo, the residual x and cross_bias[b, s], rounding to bf16
 //      at the same points as the reference (ops/fused_temporal.py
@@ -184,36 +185,13 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // Frame attention: one (position si, query frame i) per warp iteration.
-  for (int task = warp; task < rows; task += kWarps) {
-    const int si = task % ts, i = task / ts;
-    const bf16* qr = qs + (i * ts + si) * kLD;
-    float logit = -INFINITY;
-    if (lane < f) {
-      const bf16* kr = kss + (lane * ts + si) * kLD;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < kHD; d += 2) {
-        const __nv_bfloat162 qa = *reinterpret_cast<const __nv_bfloat162*>(qr + d);
-        const __nv_bfloat162 ka = *reinterpret_cast<const __nv_bfloat162*>(kr + d);
-        dot += bf2f(qa.x) * bf2f(ka.x) + bf2f(qa.y) * bf2f(ka.y);
-      }
-      // reference: bf16 logits, times the scale in bf16, softmax in fp32
-      logit = round_bf16(round_bf16(dot) * scale);
-    }
-    const float mx = warp_max(logit);
-    const float e = lane < f ? expf(logit - mx) : 0.f;
-    const float p = round_bf16(e / warp_sum(e));
-    float o0 = 0.f, o1 = 0.f;
-    for (int j = 0; j < f; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, p, j);
-      const bf16* vr = vs + (j * ts + si) * kLD;
-      o0 += pj * bf2f(vr[lane]);
-      o1 += pj * bf2f(vr[lane + 32]);
-    }
-    bf16* orow = o + ((int64_t(bi) * f + i) * s + s0 + si) * ia + head * kHD;
-    orow[lane] = f2bf(o0);
-    orow[lane + 32] = f2bf(o1);
-  }
+  frame_attention_64(qs, kss, vs, kLD, f, ts, scale, kWarps,
+                     [&](int r, int l, float o0, float o1) {
+                       bf16* orow = o + ((int64_t(bi) * f + r / ts) * s + s0 + r % ts) * ia +
+                                    head * kHD;
+                       orow[l] = f2bf(o0);
+                       orow[l + 32] = f2bf(o1);
+                     });
 }
 
 constexpr int kBM = 64, kBN = 64, kBKo = 32, kLDo = kBKo + 8;

@@ -8,10 +8,15 @@ diffusers ones (``to_q``, ``to_out.0``, ``ff.net.0.proj``, ``ff.net.2``).
   (no transposes); single-key
   attention returns V broadcast; sequences of 32 or fewer use an einsum with an
   fp32 softmax; everything else is plain attention.
-- ``TemporalBasicTransformerBlock`` runs the "hybrid" decomposition (GEGLU FFs
-  in plain torch on the (b, f, s, c) layout, the attention sub-block as kernel
-  K3) wherever the JAX dispatch would (``nn/attention.py:480-496``, bf16 and
-  at most 32 frames), and the transposing module path otherwise.
+- ``TemporalBasicTransformerBlock`` branches three ways on the JAX
+  ``dispatch_mode``, ``_plan`` included (``nn/attention.py:487-496``): "full"
+  runs the whole block as kernel K3 "full" (one launch), "hybrid" the
+  attention sub-block as kernel K3 with the GEGLU FFs in plain torch on the
+  (b, f, s, c) layout, and None the transposing module path.
+- The LayerNorm -> GEGLU FF (+residual) sub-blocks of ``BasicTransformerBlock``
+  and of the temporal module path go through ``fused_block.ln_ff_residual``
+  (kernel K4 under ``CTRL_ADAPTER_FUSED_BLOCK=1`` at the JAX shapes), and
+  ``GEGLU`` through ``fused_ff.geglu`` (kernel K5 under ``CTRL_ADAPTER_FUSED_FF=1``).
 
 Each kernel's wrapper owns its checks: it runs the plain version for a tensor
 on the CPU and launches the kernel, or raises, for a tensor on a card.
@@ -27,6 +32,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import flash_attention as fa
+from ..ops import fused_block as fb
+from ..ops import fused_ff
 from ..ops import fused_temporal as ft
 
 
@@ -81,9 +88,8 @@ class GEGLU(nn.Module):
         self.proj = nn.Linear(dim_in, 2 * dim_out, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        value, gate = self.proj(x).chunk(2, dim=-1)
-        approx = "tanh" if self.proj.weight.dtype == torch.bfloat16 else "none"
-        return value * F.gelu(gate, approximate=approx)
+        approx = self.proj.weight.dtype == torch.bfloat16
+        return fused_ff.geglu(x, self.proj.weight, self.proj.bias, approx)
 
 
 class FeedForward(nn.Module):
@@ -124,7 +130,9 @@ class BasicTransformerBlock(nn.Module):
         if self.attn2 is not None:
             hidden_states = self.attn2(self.norm2(hidden_states),
                                        encoder_hidden_states) + hidden_states
-        return self.ff(self.norm3(hidden_states)) + hidden_states
+        approx = self.norm3.weight.dtype == torch.bfloat16
+        return fb.ln_ff_residual(hidden_states, *_ff_args(self.norm3, self.ff), 1e-5, approx,
+                                 True)
 
 
 def _ff_args(norm: LayerNorm, ff: FeedForward):
@@ -162,18 +170,33 @@ class TemporalBasicTransformerBlock(nn.Module):
         b = bf // num_frames
         approx = self.norm1.weight.dtype == torch.bfloat16
         x4 = hidden_states.reshape(b, num_frames, s, c)
-        cur = ft.ln_geglu_ff(x4, *_ff_args(self.norm_in, self.ff_in), 1e-5, approx, True)
-        cross_bias = None
-        if self.attn2 is not None:
-            # softmax over one key is 1: the output is to_out(to_v(ctx)) per (b, s)
-            v = F.linear(ctx[:, 0].to(cur.dtype), self.attn2.to_v.weight)
-            cross_bias = self.attn2.to_out[0](v).reshape(b, s, c).contiguous()
-        a = self.attn1
-        cur = ft.temporal_block(cur.contiguous(), cross_bias, self.norm1.weight,
-                                self.norm1.bias, a.to_q.weight, a.to_k.weight, a.to_v.weight,
-                                a.to_out[0].weight, a.to_out[0].bias, self.heads, 1e-5)
-        out = ft.ln_geglu_ff(cur, *_ff_args(self.norm3, self.ff), 1e-5, approx, True)
+        cur = fb._torch_ln_ff_residual(x4, *_ff_args(self.norm_in, self.ff_in), 1e-5, approx,
+                                       True)
+        cur = ft.temporal_block(cur.contiguous(), self._cross_bias(ctx, b, s, c),
+                                *self._attn_args(), self.heads, 1e-5)
+        out = fb._torch_ln_ff_residual(cur, *_ff_args(self.norm3, self.ff), 1e-5, approx, True)
         return out.reshape(bf, s, c)
+
+    def _full(self, hidden_states, num_frames, ctx):
+        bf, s, c = hidden_states.shape
+        b = bf // num_frames
+        out = ft.temporal_block_full(
+            hidden_states.reshape(b, num_frames, s, c).contiguous(),
+            self._cross_bias(ctx, b, s, c), *self._attn_args(), self.heads, 1e-5,
+            _ff_args(self.norm_in, self.ff_in), _ff_args(self.norm3, self.ff))
+        return out.reshape(bf, s, c)
+
+    def _cross_bias(self, ctx, b, s, c):
+        if self.attn2 is None:
+            return None
+        # softmax over one key is 1: the output is to_out(to_v(ctx)) per (b, s)
+        v = F.linear(ctx[:, 0].to(self.norm1.weight.dtype), self.attn2.to_v.weight)
+        return self.attn2.to_out[0](v).reshape(b, s, c).contiguous()
+
+    def _attn_args(self):
+        a = self.attn1
+        return (self.norm1.weight, self.norm1.bias, a.to_q.weight, a.to_k.weight,
+                a.to_v.weight, a.to_out[0].weight, a.to_out[0].bias)
 
     def forward(self, hidden_states: torch.Tensor, num_frames: int,
                 encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -184,17 +207,20 @@ class TemporalBasicTransformerBlock(nn.Module):
         ctx_ok = (self.attn2 is None and ctx is None) or (
             self.attn2 is not None and ctx is not None and ctx.dim() == 3
             and ctx.shape[1] == 1 and ctx.shape[0] == b * s)
-        if is_res and c == self.dim and ctx_ok and ft.eligible(num_frames, hidden_states.dtype):
-            return self._hybrid(hidden_states, num_frames, ctx)
+        mode = ft.dispatch_mode(b, num_frames, s, self.tmid, self.heads * self.attn1.dim_head,
+                                4 * self.tmid, hidden_states.dtype)
+        if is_res and c == self.dim and ctx_ok and mode is not None:
+            run = self._full if mode == "full" else self._hybrid
+            return run(hidden_states, num_frames, ctx)
 
         # (b*f, s, c) -> (b*s, f, c): frames become the attention sequence
         h = hidden_states.reshape(b, num_frames, s, c).permute(0, 2, 1, 3)
         h = h.reshape(b * s, num_frames, c)
         approx = self.norm1.weight.dtype == torch.bfloat16
-        h = ft.ln_geglu_ff(h, *_ff_args(self.norm_in, self.ff_in), 1e-5, approx, is_res)
+        h = fb.ln_ff_residual(h, *_ff_args(self.norm_in, self.ff_in), 1e-5, approx, is_res)
         h = self.attn1(self.norm1(h)) + h
         if self.attn2 is not None:
             h = self.attn2(self.norm2(h), encoder_hidden_states) + h
-        h = ft.ln_geglu_ff(h, *_ff_args(self.norm3, self.ff), 1e-5, approx, is_res)
+        h = fb.ln_ff_residual(h, *_ff_args(self.norm3, self.ff), 1e-5, approx, is_res)
         h = h.reshape(b, s, num_frames, self.tmid).permute(0, 2, 1, 3)
         return h.reshape(bf, s, self.tmid)

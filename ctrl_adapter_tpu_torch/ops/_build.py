@@ -1,10 +1,12 @@
 """Build the CUDA sources in ``csrc/`` with ``nvcc`` and bind them with ``ctypes``.
 
-All ``csrc/*.cu`` files compile in one ``nvcc`` call into one shared library with
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects into one shared library with
 a plain C interface (no PyTorch headers, so the build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c -o <source>.o csrc/<source>.cu          (one per source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o build/kernels/<name>.so *.o
 
 The library lands in ``build/kernels/`` at the repository root, named by a hash
 of the sources, so an edited source rebuilds. ``ptxas`` register and
@@ -29,8 +31,8 @@ from typing import Optional, Sequence
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -69,15 +71,37 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
+    stem = f"{out[:-3]}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in _sources():
+        obj = f"{stem}.{os.path.basename(src)[:-3]}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", obj, src]
+        with open(obj + ".log", "w") as log:
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+    report, failed = [], []
+    for cmd, obj, proc in jobs:
+        proc.wait()
+        with open(obj + ".log") as log:
+            report.append(" ".join(cmd) + "\n" + log.read())
+        os.remove(obj + ".log")
+        if proc.returncode != 0:
+            failed.append(report[-1])
+    objs = [obj for _, obj, _ in jobs]
+    if not failed:
+        cmd = [nvcc, *_ARCH, "-shared", "-o", f"{stem}.tmp", *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        report.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(report[-1])
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(out[:-3] + ".log", "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
+        fh.write("\n".join(report))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    os.replace(f"{stem}.tmp", out)
     return out
 
 

@@ -1,17 +1,26 @@
-"""Temporal transformer block on (b, f, s, c): kernel K3 ("hybrid" mode).
+"""Temporal transformer block on (b, f, s, c): kernel K3, "full" and "hybrid".
 
-Counterpart of ``ctrl_adapter_tpu/ops/fused_temporal.py``. The port runs the
-TPU's "hybrid" decomposition of ``TemporalBasicTransformerBlock``:
+Counterpart of ``ctrl_adapter_tpu/ops/fused_temporal.py``. The block of
+``TemporalBasicTransformerBlock``, on the transpose-free (b, f, s, c) layout:
 
-    x -> [LN_in -> GEGLU FF_in (+res)]        plain torch, :func:`ln_geglu_ff`
+    x -> [LN_in -> GEGLU FF_in (+res)]                      part "ffin"
       -> [LN1 -> Q,K,V -> attention over the f frames at each (b, s, head)
-          -> out-proj (+bo) + res + cross bias]   :func:`temporal_block` (K3)
-      -> [LN3 -> GEGLU FF (+res)]             plain torch, :func:`ln_geglu_ff`
+          -> out-proj (+bo) + res + cross bias]              part "attn"
+      -> [LN3 -> GEGLU FF (+res)]                            part "ff"
 
-all on the transpose-free (b, f, s, c) layout. The cross bias is the single-key
-cross-attention ``to_out(to_v(ctx))`` per (b, s), computed by the caller.
+:func:`dispatch_mode` is the JAX rule (``dispatch_mode`` with ``_plan``)
+without its device test; the block module follows it:
 
-Weights are in torch ``nn.Linear`` layout: ``wq/wk/wv`` (ia, c), ``wo`` (c, ia).
+- "full": the whole block in one launch, :func:`temporal_block_full`
+  (``csrc/temporal_full.cu``);
+- "hybrid": the "attn" part as :func:`temporal_block` (``csrc/temporal_attention.cu``),
+  the two FFs plain on the same layout (``fused_block._torch_ln_ff_residual``);
+- None: the module path (transposes to (b*s, f, c)).
+
+The cross bias is the single-key cross-attention ``to_out(to_v(ctx))`` per
+(b, s), computed by the caller. Weights are in torch ``nn.Linear`` layout:
+``wq/wk/wv`` (ia, c), ``wo`` (c, ia); an FF is the tuple
+``(ln_w, ln_b, wg, bg, w2, b2)`` with ``wg`` (2*iff, c) and ``w2`` (c, iff).
 """
 
 from __future__ import annotations
@@ -24,39 +33,39 @@ import torch.nn.functional as F
 
 from ._build import Kernel, ptr, stream_of
 from .backend import is_hopper
+from .fused_block import _ln, _torch_ln_ff_residual
 
 KERNEL = Kernel("cak_temporal_attention", [
     *([ctypes.c_void_p] * 11), *([ctypes.c_int] * 6), ctypes.c_float, ctypes.c_float,
     ctypes.c_void_p,
 ])
+KERNEL_FULL = Kernel("cak_temporal_full", [
+    *([ctypes.c_void_p] * 22), *([ctypes.c_int] * 8), ctypes.c_float, ctypes.c_float,
+    ctypes.c_void_p,
+])
 
 KERNEL_HEAD_DIM = 64
-_MAX_ROWS = 128  # f * ts rows per CTA of the kernel
+_MAX_ROWS = 128       # f * ts rows per CTA of the hybrid kernel
+_FULL_ROWS = 64       # f * ts rows per CTA of the full kernel
+_FULL_WIDTHS = (64, 128, 192, 256, 320)
+_FULL_CHUNK = 32      # the full kernel streams the FF inner width in chunks of 32
 
-
-def _ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
-    """LayerNorm with fp32 statistics (two-pass variance, clamped at 0)."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(-1, keepdim=True).clamp_min(0.0)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * w.float() + b.float()).to(x.dtype)
-
-
-def ln_geglu_ff(x: torch.Tensor, ln_w, ln_b, wg, bg, w2, b2, eps: float,
-                approximate: bool, residual: bool) -> torch.Tensor:
-    """``x + W2 (value * gelu(gate)) + b2`` with [value; gate] = LN(x) Wg + bg
-    (the math of ``ops/fused_block.py:_xla_ln_ff_residual``)."""
-    a = F.linear(_ln(x, ln_w, ln_b, eps), wg, bg)
-    value, gate = a.chunk(2, dim=-1)
-    h = value * F.gelu(gate, approximate="tanh" if approximate else "none")
-    out = F.linear(h, w2, b2)
-    return out + x if residual else out
+# The TPU's VMEM budgets of ``_plan`` (resident weight bytes per pallas_call, and
+# weights + activations). They are a TPU rule, kept so that both packages pick
+# the same path for every block.
+_WEIGHT_BUDGET = 9 * 1024 * 1024
+_VMEM_BUDGET = 14 * 1024 * 1024
 
 
 def _torch_temporal_block(x, cross_bias, ln_w, ln_b, wq, wk, wv, wo, bo, heads: int,
-                          eps: float) -> torch.Tensor:
-    """Plain version of K3 (``_xla_temporal_block`` with parts=("attn",))."""
+                          eps: float = 1e-5, ffin: Optional[tuple] = None,
+                          ff: Optional[tuple] = None) -> torch.Tensor:
+    """Plain version of K3 (``_xla_temporal_block``): the "attn" part, with the
+    "ffin" and "ff" parts before and after it when their weights are given
+    (gelu is tanh under bf16, exact under fp32)."""
+    approximate = x.dtype == torch.bfloat16
+    if ffin is not None:
+        x = _torch_ln_ff_residual(x, *ffin, eps, approximate, True)
     b, f, s, c = x.shape
     hd = wq.shape[0] // heads
     y = _ln(x, ln_w, ln_b, eps)
@@ -69,14 +78,70 @@ def _torch_temporal_block(x, cross_bias, ln_w, ln_b, wq, wk, wv, wo, bo, heads: 
     out = x + F.linear(o, wo, bo)
     if cross_bias is not None:
         out = out + cross_bias[:, None]
+    if ff is not None:
+        out = _torch_ln_ff_residual(out, *ff, eps, approximate, True)
     return out
 
 
-def eligible(num_frames: int, dtype: torch.dtype) -> bool:
-    """The JAX dispatch rule (``dispatch_mode``) without the TPU's VMEM plan:
-    bf16 activations and at most 32 frames. :func:`temporal_block` raises for a
-    shape on the card that its kernel does not take."""
-    return dtype == torch.bfloat16 and num_frames <= 32
+def _part_weight_bytes(c: int, ia: int, iff: int, itemsize: int) -> dict:
+    return {
+        "ffin": (c * 2 * iff + 2 * iff + iff * c + c) * itemsize,
+        "attn": (3 * c * ia + ia * c + c) * itemsize,
+        "ff": (c * 2 * iff + 2 * iff + iff * c + c) * itemsize,
+    }
+
+
+def _plan(parts, c: int, ia: int, iff: int, s: int, f: int, itemsize: int):
+    """The JAX ``_plan``, a pure function of shapes: consecutive parts grouped
+    into calls within the weight budget, and a spatial tile within the VMEM
+    budget; (groups, ts) or None."""
+    sizes = _part_weight_bytes(c, ia, iff, itemsize)
+    if any(sizes[p] > _WEIGHT_BUDGET for p in parts):
+        return None
+    groups, cur, cur_bytes = [], [], 0
+    for part in parts:
+        if cur and cur_bytes + sizes[part] > _WEIGHT_BUDGET:
+            groups.append(tuple(cur))
+            cur, cur_bytes = [], 0
+        cur.append(part)
+        cur_bytes += sizes[part]
+    if cur:
+        groups.append(tuple(cur))
+
+    def act_bytes(group, cand):
+        a = f * cand * 4 * c
+        if "attn" in group:
+            a += f * cand * 6 * max(c, ia) * itemsize
+            a += 10 * (f * cand) ** 2
+        if "ffin" in group or "ff" in group:
+            a += f * cand * 4 * iff * itemsize
+        return a
+
+    for cand in (64, 32, 16, 8):
+        if s % cand:
+            continue
+        worst = max(sum(sizes[p] for p in g) + act_bytes(g, cand) for g in groups)
+        if worst <= _VMEM_BUDGET:
+            return groups, cand
+    return None
+
+
+def dispatch_mode(b: int, f: int, s: int, c: int, ia: int, iff: int,
+                  dtype: torch.dtype) -> Optional[str]:
+    """How to run a (b, f, s, c) temporal block with attention inner dim ia and
+    FF inner dim iff: "full", "hybrid" or None (the module path). The JAX rule
+    (``ops/fused_temporal.py:dispatch_mode``) without its device test and its
+    tuning switches: bf16 and at most 32 frames, then "full" where ``_plan``
+    puts the three parts in one call, "hybrid" where it takes the "attn" part."""
+    if dtype != torch.bfloat16 or f > 32:
+        return None
+    itemsize = 2
+    full = _plan(("ffin", "attn", "ff"), c, ia, iff, s, f, itemsize)
+    if full is not None and len(full[0]) == 1:
+        return "full"
+    if _plan(("attn",), c, ia, iff, s, f, itemsize) is not None:
+        return "hybrid"
+    return None
 
 
 def _spatial_tile(f: int, s: int) -> int:
@@ -89,7 +154,7 @@ def _spatial_tile(f: int, s: int) -> int:
 def temporal_block(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_w, ln_b, wq,
                    wk, wv, wo, bo, heads: int, eps: float = 1e-5) -> torch.Tensor:
     """``x + to_out(attn_over_frames(LN1(x))) (+ cross_bias[:, None])`` on
-    (b, f, s, c). Kernel K3 on a Hopper card, the plain version on the CPU."""
+    (b, f, s, c): K3 "hybrid" on a Hopper card, the plain version on the CPU."""
     if x.device.type == "cpu":
         return _torch_temporal_block(x, cross_bias, ln_w, ln_b, wq, wk, wv, wo, bo, heads, eps)
     if not is_hopper(x):
@@ -119,4 +184,59 @@ def temporal_block(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_w, ln
            None if cross_bias is None else ptr(cross_bias), ptr(out),
            b, f, s, c, heads, _spatial_tile(f, s), float(eps),
            float(KERNEL_HEAD_DIM ** -0.5), stream_of(x))
+    return out
+
+
+def _full_tile(f: int, s: int) -> int:
+    ts = 1
+    while f * ts * 2 <= _FULL_ROWS and s % (ts * 2) == 0:
+        ts *= 2
+    return ts
+
+
+def temporal_block_full(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_w, ln_b, wq,
+                        wk, wv, wo, bo, heads: int, eps: float, ffin: tuple,
+                        ff: tuple) -> torch.Tensor:
+    """The whole block, ``ff(attn(ffin(x)))`` on (b, f, s, c): K3 "full" (one
+    launch) on a Hopper card, the plain version on the CPU. ``ffin`` and ``ff``
+    are ``(ln_w, ln_b, wg, bg, w2, b2)``."""
+    if x.device.type == "cpu":
+        return _torch_temporal_block(x, cross_bias, ln_w, ln_b, wq, wk, wv, wo, bo, heads, eps,
+                                     ffin, ff)
+    if not is_hopper(x):
+        raise RuntimeError(f"temporal_block_full: kernel needs an sm_90 device, got {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"temporal_block_full: x must be (b, f, s, c), got {tuple(x.shape)}")
+    b, f, s, c = x.shape
+    ia = heads * KERNEL_HEAD_DIM
+    iff = ffin[4].shape[1]
+    if f > 32 or c not in _FULL_WIDTHS or wq.shape[0] != ia or iff % _FULL_CHUNK:
+        raise ValueError(f"temporal_block_full: kernel needs f <= 32, c in {_FULL_WIDTHS}, "
+                         f"head dim 64 and an FF inner width % {_FULL_CHUNK} == 0; got f={f} "
+                         f"c={c} ia={wq.shape[0]} heads={heads} inner={iff}")
+    ff_shapes = ((c,), (c,), (2 * iff, c), (2 * iff,), (c, iff), (c,))
+    expect = {"ln_w": (c,), "ln_b": (c,), "wq": (ia, c), "wk": (ia, c), "wv": (ia, c),
+              "wo": (c, ia), "bo": (c,)}
+    tensors = dict(x=x, ln_w=ln_w, ln_b=ln_b, wq=wq, wk=wk, wv=wv, wo=wo, bo=bo)
+    for prefix, weights in (("ffin", ffin), ("ff", ff)):
+        for i, (t, shape) in enumerate(zip(weights, ff_shapes)):
+            tensors[f"{prefix}[{i}]"] = t
+            expect[f"{prefix}[{i}]"] = shape
+    if cross_bias is not None:
+        expect["cross_bias"] = (b, s, c)
+        tensors["cross_bias"] = cross_bias
+    for name, t in tensors.items():
+        if name in expect and tuple(t.shape) != expect[name]:
+            raise ValueError(f"temporal_block_full: {name} shape {tuple(t.shape)}, "
+                             f"expected {expect[name]}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"temporal_block_full: {name} must be bfloat16, got {t.dtype}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"temporal_block_full: {name} must be contiguous on {x.device}")
+    out = torch.empty_like(x)
+    KERNEL_FULL(ptr(x), *(ptr(t) for t in ffin), ptr(ln_w), ptr(ln_b), ptr(wq), ptr(wk),
+                ptr(wv), ptr(wo), ptr(bo), *(ptr(t) for t in ff),
+                None if cross_bias is None else ptr(cross_bias), ptr(out),
+                b, f, s, c, heads, iff, _full_tile(f, s), 0, float(eps),
+                float(KERNEL_HEAD_DIM ** -0.5), stream_of(x))
     return out

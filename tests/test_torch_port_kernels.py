@@ -12,6 +12,9 @@ package's own tests do:
 - K3 ``temporal_block`` (the "attn" part of the hybrid decomposition) vs JAX
   ``temporal_block(..., force_pallas=True)``.
 
+K3 "full", K4 and K5 are held against JAX in ``test_torch_port_ff_kernels.py``;
+here they join the check that a CPU tensor runs the plain version.
+
 Tolerances: fp32 everywhere; 2e-5 absolute for single ops (summation order
 only), 1e-4 where a projection or softmax chain sits in between.
 
@@ -31,6 +34,8 @@ from ctrl_adapter_tpu.ops import fused_temporal as jft
 from ctrl_adapter_tpu.ops.group_norm import group_norm_silu as j_group_norm_silu
 from ctrl_adapter_tpu_torch.nn.attention import Attention
 from ctrl_adapter_tpu_torch.ops import flash_attention as tfa
+from ctrl_adapter_tpu_torch.ops import fused_block as tfb
+from ctrl_adapter_tpu_torch.ops import fused_ff as tff
 from ctrl_adapter_tpu_torch.ops import fused_temporal as tft
 from ctrl_adapter_tpu_torch.ops import group_norm as tgn
 
@@ -83,12 +88,22 @@ def _cpu_dispatch_case(name):
         return tfa.KERNEL, tfa.attention_bnth, tfa._torch_attention, args
     c = 128
     w = lambda *s: torch.randn(*s, generator=g) * 0.1  # noqa: E731
+    ff = lambda: (1.0 + w(c), w(c), w(8 * c, c), w(8 * c), w(c, 4 * c), w(c))  # noqa: E731
+    if name == "k4":
+        args = (torch.randn(2, 5, c, generator=g), *ff(), 1e-5, False, True)
+        return tfb.KERNEL, tfb.ln_ff_kernel, tfb._torch_ln_ff_residual, args
+    if name == "k5":
+        args = (torch.randn(2, 5, c, generator=g), w(8 * c, c), w(8 * c), False)
+        return tff.KERNEL, tff.geglu_kernel, tff._torch_geglu, args
     args = (torch.randn(2, 6, 8, c, generator=g), w(2, 8, c), 1.0 + w(c), w(c), w(c, c),
             w(c, c), w(c, c), w(c, c), w(c), 2, 1e-5)
+    if name == "k3-full":
+        args = (*args, ff(), ff())
+        return tft.KERNEL_FULL, tft.temporal_block_full, tft._torch_temporal_block, args
     return tft.KERNEL, tft.temporal_block, tft._torch_temporal_block, args
 
 
-@pytest.mark.parametrize("name", ["k1", "k2", "k3"])
+@pytest.mark.parametrize("name", ["k1", "k2", "k3", "k3-full", "k4", "k5"])
 def test_cpu_dispatch_runs_plain_and_counts_nothing(name):
     """On a CPU tensor each wrapper runs its plain version; only a kernel launch
     on the card moves its counter."""

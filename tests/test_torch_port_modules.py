@@ -107,13 +107,15 @@ def test_temporal_transformer_block_matches_jax(nh, hd, ctx_keys):
                          ids=["bf16-hybrid", "fp32-module-path"])
 def test_temporal_transformer_block_dispatch_follows_jax_rule(dtype, hybrid):
     """The JAX dispatch rule: bf16 with a single-key context goes through
-    ``ft.temporal_block`` (K3 on a card, its plain version here); fp32 takes
-    the module path whatever the device."""
+    ``ft.temporal_block`` (K3 on a card, its plain version here) at a width
+    whose FF weights exceed the single-call budget (c = 640, "hybrid"); fp32
+    takes the module path whatever the device."""
     from ctrl_adapter_tpu_torch.ops import fused_temporal as ft
 
-    b, f, s, c = 1, 4, 8, 128
+    b, f, s, c = 1, 4, 8, 640
+    assert ft.dispatch_mode(b, f, s, c, c, 4 * c, dtype) == ("hybrid" if hybrid else None)
     g = torch.Generator().manual_seed(0)
-    module = TemporalBasicTransformerBlock(c, c, 2, 64, 32, dtype=dtype)
+    module = TemporalBasicTransformerBlock(c, c, 10, 64, 32, dtype=dtype)
     calls = []
     orig = ft.temporal_block
 
