@@ -11,204 +11,657 @@
 //
 // What bounds it on the H100: per row 2*(2*8c*c + 4c*c) (two FFs) + 8*c*ia
 // (projections) flops against 4*c bytes of x and out: ~660 GFLOP per block at
-// (2, 14, 4096, 320), above the ridge, so tensor cores bound it in principle.
-// In this first design every CTA re-reads all of the block's weights (5.75 MB
-// at c = 320) from L2, 2,048 times at the main path's shape, and mma.sync
-// reaches only part of the wgmma peak; larger tiles, TMA and wgmma come later.
+// (2, 14, 4096, 320), 0.67 ms at the bf16 tensor-core peak. Every CTA needs
+// all of the block's weights (5.75 MB at c = 320) from L2.
 //
-// Design: one CTA of 8 warps per (tile of ts positions, batch): its f*ts <= 64
-// rows (row r = frame r / ts, position r % ts; padded to 64) keep all c
-// channels. The residual stream lives in shared memory as bf16 (cur_s, the
-// TPU kernel rounds it to bf16 after every part). Each part LayerNorms cur_s
-// into a_s (fp32 statistics) and streams its weights through the two-slot
-// cp.async ring of ln_ff.cuh:
-//  - the FFs run ff_tile (chunks of 32 inner columns, fp32 accumulator of
-//    64 x c in registers);
-//  - the attention streams, per head, the 64 rows of Wq, Wk and Wv (Q, K, V
-//    land in shared memory as bf16), then runs the frame attention of every
-//    (position, query frame) one warp at a time (lane j scores key frame j,
-//    fp32 softmax; common.cuh:frame_attention_64, shared with K3 hybrid), then
-//    streams the head's 64 columns of Wo and adds O_h . Wo_h^T to the same
-//    register accumulator.
+// Design (Hopper, warp-specialised; 384 threads, one CTA per tile of ts
+// positions x f frames = up to 128 rows, row r = frame r / ts, position r % ts):
+// - warpgroup 0 is the producer: one thread streams every weight tile of the
+//   block, in the order the consumers use them, through a two-slot ring of
+//   128*c-byte tiles (TMA, 128-byte swizzle, a full and an empty mbarrier per
+//   slot). The tiles: per 64 inner columns of an FF, two 64-row [value; gate]
+//   tiles of Wg (32 columns each) and one (c x 64) tile of W2; per head, the
+//   64 rows of Wq, Wk, Wv and the 64 columns of Wo.
+// - warpgroups 1 and 2 are consumers, 64 rows each. A part starts from the
+//   LayerNormed residual stream in the A tile (bf16, shared memory, 128-byte
+//   swizzled K-major: the wgmma A operand), then:
+//   - FF: G = LN . Wg^T on wgmma (m64n64k16, both operands in shared memory);
+//     GEGLU in registers (bf16 pair adds and products, the SFU's tanh), its
+//     result as the register A operand of acc += h . W2^T (wgmma m64nNk16,
+//     N = c split into 1-3 blocks); the 64 x c fp32 accumulator stays in
+//     registers across the inner width;
+//   - attn: per head Q, K, V = LN . W^T on wgmma, stored to shared memory
+//     position-major; the frame attention on mma.sync, one warp per position
+//     (frame_attention_mma); O into a swizzled tile; acc += O . Wo_h^T on
+//     wgmma.
+//   A part ends by staging its product, rounded to bf16, in the A tile; then
+//   one pass with a warp per row (four rows' loads in flight at once) adds
+//   bias, residual and cross bias in bf16, writes the row to the output
+//   buffer, which holds the residual stream between parts, and LayerNorms it
+//   in registers into the A tile for the next part.
 // Rounding follows the TPU kernel (ops/fused_temporal.py:147-157, 193): every
 // product is rounded to bf16 and every bias and residual add is a bf16 add.
-// Shapes: head_dim 64, c in {64, ..., 320} (c % 64 == 0), inner % 32 == 0,
-// f * ts <= 64, s % ts == 0.
+// Shapes: head_dim 64, c in {64, ..., 320} (c % 64 == 0), inner % 64 == 0,
+// f * ts + (-f mod 16) <= 128, s % ts == 0. The host plan
+// (ops/fused_temporal.py:full_plan) chooses ts, the grid and the shared memory;
+// cak_temporal_full refuses a plan that does not match FullCfg.
+#include "hopper.cuh"
 #include "ln_ff.cuh"
 
 namespace {
 
-using namespace lnff;
-
+constexpr int kRowsT = 128;     // tile rows: two consumer warpgroups of 64
+constexpr int kThreads = 384;   // producer warpgroup + two consumer warpgroups
 constexpr int kHD = 64;         // head dim
-constexpr int kLDH = kHD + 8;   // leading dim of the Q, K, V and O tiles
+constexpr int kAtom = 128;      // bytes of one swizzled row of 64 bf16 columns
 
-struct FFW {
-  const bf16 *ln_w, *ln_b, *wg, *bg, *w2, *b2;
-};
-struct AttnW {
-  const bf16 *ln_w, *ln_b, *wq, *wk, *wv, *wo, *bo;
+template <int C>
+struct FullCfg {
+  // the out-projections (W2, Wo) in kNO column blocks of kCB <= 160 (wgmma N)
+  static constexpr int kNO = C == 320 ? 2 : (C == 256 ? 2 : (C == 192 ? 3 : 1));
+  static constexpr int kCB = C / kNO;
+  static constexpr int kTile = 128 * C;  // bytes of every weight tile
+  static constexpr int kRing = kRowsT * C * 2;  // the A tile (LN output) at 0
+  static constexpr int kO = kRing + 2 * kTile;
+  static constexpr int kQ = kO + kRowsT * kHD * 2;
+  static constexpr int kK = kQ + kRowsT * kAtom;
+  static constexpr int kV = kK + kRowsT * kAtom;
+  static constexpr int kBar = kV + kRowsT * kAtom;
+  static constexpr int kSmem = kBar + 32 + 1024;  // + alignment slack
 };
 
-__host__ __device__ constexpr int full_smem_elems(int c) {
-  return 2 * kRows * ld_of(c) + 2 * slot_elems(c, c) + 4 * kRows * kLDH;
+struct FullMaps {  // TMA maps of the weight matrices
+  CUtensorMap ffin_wg, ffin_w2, wq, wk, wv, wo, ff_wg, ff_w2;
+};
+
+struct FullArgs {
+  const bf16* x;
+  bf16* out;
+  const bf16* cross_bias;
+  const bf16 *lnin_w, *lnin_b, *ffin_bg, *ffin_b2;
+  const bf16 *ln1_w, *ln1_b, *bo;
+  const bf16 *ln3_w, *ln3_b, *ff_bg, *ff_b2;
+  int f, s, heads, inner, ts;
+  float eps, scale;
+};
+
+// Tanh-approximated GELU (the bf16 rule of the TPU kernel) with the SFU's tanh
+// (tanh.approx.f32, relative error ~2^-11, below the bf16 rounding that follows it).
+__device__ __forceinline__ float gelu_fast(float g) {
+  float th;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(th) : "f"(0.7978845608028654f * (g + 0.044715f * g * g * g)));
+  return 0.5f * g * (1.f + th);
 }
 
-// cur = bf16(bf16(acc) + b) + cur [+ cross_bias] on the tile's real rows:
-// the FFs' y + cur with y = bf16(h . W2) + b2, or the attention's
-// (cur + bf16(o . Wo)) + bo (+ cb), each add rounded to bf16.
-template <int NT, bool kAttn>
-__device__ __forceinline__ void add_to_stream(const float (&acc)[NT][4], bf16* cur_s, int ld,
-                                              const bf16* __restrict__ bias,
-                                              const bf16* __restrict__ cb, int rows, int ts,
-                                              int c) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t = lane & 3;
+// Byte offset of 16-byte chunk `chunk` of row `row` in a tile of 128-byte rows
+// (64 bf16 columns) swizzled as TMA's 128-byte mode does: chunks XOR row % 8.
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * kAtom + ((chunk ^ (row % 8)) << 4);
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The frame attention of one head for the tile's ts positions on mma.sync,
+// warp `warp` of 8 taking positions warp, warp + 8, ...: per position, the f
+// query rows against the f key rows (16-row query tiles, 8-key blocks; keys
+// >= f masked), softmax per query row across the 4 lanes that hold it, then
+// P . V. Q, K and V (sq, sk, sv: shared addresses) are position-major (row
+// p * f + i), 128-byte swizzled rows; rows past the last position must be
+// finite. Rounds as the TPU kernel (and K3 hybrid's common.cuh:frame_attention_64)
+// does: bf16 logits, times the scale in bf16, fp32 softmax, bf16
+// probabilities, fp32 P . V. out(r, d, o0, o1) gets dims d, d + 1 of tile
+// row r = i * ts + p.
+template <class Out>
+__device__ __forceinline__ void frame_attention_mma(uint32_t sq, uint32_t sk, uint32_t sv, int f,
+                                                    int ts, float scale, int warp, Out out) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int m_tiles = (f + 15) / 16;  // 16-row query tiles (and 16-key P . V steps)
+  for (int p = warp; p < ts; p += 8) {
+    const int base = p * f;
+    for (int mt = 0; mt < m_tiles; ++mt) {
+      float sc[4][4];  // logits: 16 rows x 32 keys
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = wm * 16 + g + 8 * h;
-    if (r >= rows) continue;
+      for (int nb = 0; nb < 4; ++nb) sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = (wn * NT + j) * 8 + 2 * t;
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(cur_s + r * ld + n);
-      const __nv_bfloat162 cv = *p;
-      const float cur[2] = {bf2f(cv.x), bf2f(cv.y)};
-      float y[2];
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, sq + swz(base + 16 * mt + (lane & 15), 2 * kk + (lane >> 4)));
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float prod = round_bf16(acc[j][2 * h + e]);
-        const float bn = bf2f(bias[n + e]);
-        if (kAttn) {
-          y[e] = round_bf16(round_bf16(cur[e] + prod) + bn);
-          if (cb != nullptr) y[e] = round_bf16(y[e] + bf2f(cb[(r % ts) * c + n + e]));
-        } else {
-          y[e] = round_bf16(round_bf16(prod + bn) + cur[e]);
+        for (int nb = 0; nb < 4; nb += 2) {
+          if (8 * nb < f) {
+            uint32_t b[4];
+            ldsm_x4(b, sk + swz(base + 8 * nb + (lane & 7) + (lane >> 4) * 8,
+                                2 * kk + ((lane >> 3) & 1)));
+            mma_16816(sc[nb], a, b[0], b[1]);
+            mma_16816(sc[nb + 1], a, b[2], b[3]);
+          }
         }
       }
-      *reinterpret_cast<uint32_t*>(p) = pack_bf16(y[0], y[1]);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = 8 * nb + 2 * t4 + (i & 1);
+          const float l = key < f ? round_bf16(round_bf16(sc[nb][i]) * scale) : -INFINITY;
+          sc[nb][i] = l;
+          mx[i >> 1] = fmaxf(mx[i >> 1], l);
+        }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      }
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float e = expf(sc[nb][i] - mx[i >> 1]);
+          sc[nb][i] = e;
+          sum[i >> 1] += e;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      }
+      uint32_t pa[2][4];  // bf16 P as the A operand, keys 16*ks ..
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        pa[ks][0] = pack_bf16(sc[2 * ks][0] / sum[0], sc[2 * ks][1] / sum[0]);
+        pa[ks][1] = pack_bf16(sc[2 * ks][2] / sum[1], sc[2 * ks][3] / sum[1]);
+        pa[ks][2] = pack_bf16(sc[2 * ks + 1][0] / sum[0], sc[2 * ks + 1][1] / sum[0]);
+        pa[ks][3] = pack_bf16(sc[2 * ks + 1][2] / sum[1], sc[2 * ks + 1][3] / sum[1]);
+      }
+#pragma unroll
+      for (int db = 0; db < 8; db += 2) {  // output dims 8*db .. 8*db + 15
+        float o[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          if (16 * ks < f) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, sv + swz(base + 16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                      db + (lane >> 4)));
+            mma_16816(o[0], pa[ks], b[0], b[1]);
+            mma_16816(o[1], pa[ks], b[2], b[3]);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 16 * mt + g + 8 * h;
+          if (i < f) {
+            out(i * ts + p, 8 * db + 2 * t4, o[0][2 * h], o[0][2 * h + 1]);
+            out(i * ts + p, 8 * db + 8 + 2 * t4, o[1][2 * h], o[1][2 * h + 1]);
+          }
+        }
+      }
     }
   }
 }
 
-template <int NT>
-__global__ void __launch_bounds__(kThreads, 1)
-    temporal_full_kernel(const bf16* __restrict__ x, FFW ffin, AttnW at, FFW ff,
-                         const bf16* __restrict__ cross_bias, bf16* __restrict__ out, int f,
-                         int s, int heads, int inner, int ts, int exact, float eps,
-                         float scale) {
-  constexpr int c = NT * 16;
-  constexpr int ld = ld_of(c);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* cur_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* a_s = cur_s + kRows * ld;
-  bf16* slot0 = a_s + kRows * ld;
-  bf16* slot1 = slot0 + slot_elems(c, c);
-  bf16* h_s = slot1 + slot_elems(c, c);  // GEGLU chunk (64 x kLDI) or O_h (64 x kLDH)
-  bf16* q_s = h_s + kRows * kLDH;
-  bf16* k_s = q_s + kRows * kLDH;
-  bf16* v_s = k_s + kRows * kLDH;
-
-  const int s0 = blockIdx.x * ts, bi = blockIdx.y;
-  const int rows = f * ts;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t4 = lane & 3;
-  const bool gelu_exact = exact != 0;
-  auto grow = [&](int r) -> int64_t { return (int64_t(bi) * f + r / ts) * s + s0 + r % ts; };
-
-  for (int i = threadIdx.x; i < kRows * (c / 8); i += kThreads) {
-    const int r = i / (c / 8), cc = (i % (c / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) v = *reinterpret_cast<const uint4*>(x + grow(r) * c + cc);
-    *reinterpret_cast<uint4*>(cur_s + r * ld + cc) = v;
-  }
-  __syncthreads();
-  auto norm = [&](const bf16* w, const bf16* b) {
-    layer_norm_tile(a_s, ld, [&](int r) -> const bf16* { return cur_s + r * ld; }, rows, c, w,
-                    b, eps);
-  };
-
-  float acc[NT][4];
-  // ffin: cur = x + FF_in(LN_in(x))
-  norm(ffin.ln_w, ffin.ln_b);
-  ff_tile<NT, true>(acc, a_s, c, slot0, slot1, h_s, ffin.wg, ffin.bg, ffin.w2, inner,
-                    gelu_exact);
-  add_to_stream<NT, false>(acc, cur_s, ld, ffin.b2, nullptr, rows, ts, c);
-  __syncthreads();
-
-  // attn: per head, tiles Wq_h, Wk_h, Wv_h (64 x c) and Wo[:, h*64 + {0, 32}] (c x 32)
-  norm(at.ln_w, at.ln_b);
-  zero_acc(acc);
-  const int ia = heads * kHD;
-  stream_tiles(
-      5 * heads, slot0, slot1,
-      [&](int tile, bf16* dst) {
-        const int h = tile / 5, part = tile % 5;
-        if (part < 3) {
-          const bf16* w = part == 0 ? at.wq : (part == 1 ? at.wk : at.wv);
-          async_tile(dst, ld, w + int64_t(h * kHD) * c, c, kHD, c);
-        } else {
-          async_tile(dst, kLDI, at.wo + h * kHD + (part - 3) * kKI, ia, c, kKI);
-        }
-      },
-      [&](int tile, const bf16* w_s) {
-        const int part = tile % 5;
-        if (part < 3) {
-          float p4[4][4];
-          zero_acc(p4);
-          mma_rows64(p4, a_s, ld, w_s, ld, c, wm, wn, lane);
-          bf16* dst = part == 0 ? q_s : (part == 1 ? k_s : v_s);
+// Eight bf16 pair-wise adds, each rounded once (a bf16 add).
+__device__ __forceinline__ uint4 add8(uint4 a, uint4 b) {
+  __nv_bfloat162* pa = reinterpret_cast<__nv_bfloat162*>(&a);
+  const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int col = rows64_col(i, wn) + 2 * t4;
-            const int r = wm * 16 + g;
-            *reinterpret_cast<uint32_t*>(dst + r * kLDH + col) = pack_bf16(p4[i][0], p4[i][1]);
-            *reinterpret_cast<uint32_t*>(dst + (r + 8) * kLDH + col) =
-                pack_bf16(p4[i][2], p4[i][3]);
-          }
-        } else {
-          if (part == 3) {
-            frame_attention_64(q_s, k_s, v_s, kLDH, f, ts, scale, kWarps,
-                               [&](int r, int l, float o0, float o1) {
-                                 h_s[r * kLDH + l] = f2bf(o0);
-                                 h_s[r * kLDH + l + 32] = f2bf(o1);
-                               });
-            __syncthreads();
-          }
-          mma_out<NT>(acc, h_s + (part - 3) * kKI, kLDH, w_s, kLDI, kKI, wm, wn, lane);
-        }
-      });
-  add_to_stream<NT, true>(acc, cur_s, ld, at.bo,
-                          cross_bias == nullptr ? nullptr
-                                                : cross_bias + (int64_t(bi) * s + s0) * c,
-                          rows, ts, c);
-  __syncthreads();
+  for (int i = 0; i < 4; ++i) pa[i] = __hadd2(pa[i], pb[i]);
+  return a;
+}
 
-  // ff: out = cur + FF(LN3(cur))
-  norm(ff.ln_w, ff.ln_b);
-  ff_tile<NT, true>(acc, a_s, c, slot0, slot1, h_s, ff.wg, ff.bg, ff.w2, inner, gelu_exact);
-  add_to_stream<NT, false>(acc, cur_s, ld, ff.b2, nullptr, rows, ts, c);
-  __syncthreads();
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return wgmma_desc(addr, 16, 1024, 1);
+}
 
-  for (int i = threadIdx.x; i < rows * (c / 8); i += kThreads) {
-    const int r = i / (c / 8), cc = (i % (c / 8)) * 8;
-    *reinterpret_cast<uint4*>(out + grow(r) * c + cc) =
-        *reinterpret_cast<const uint4*>(cur_s + r * ld + cc);
+template <int CB>
+__device__ __forceinline__ void wgmma_rs_cb(float (&d)[CB / 2], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (CB == 64) {
+    wgmma_rs_n64<0>(d, a, db);
+  } else if constexpr (CB == 128) {
+    wgmma_rs_n128<0>(d, a, db);
+  } else {
+    wgmma_rs_n160<0>(d, a, db);
   }
 }
 
-template <int NT>
-cudaError_t launch(const void* x, const FFW& ffin, const AttnW& at, const FFW& ff,
-                   const void* cross_bias, void* out, int b, int f, int s, int heads, int inner,
-                   int ts, int exact, float eps, float scale, cudaStream_t st) {
-  constexpr int smem = full_smem_elems(NT * 16) * 2;
-  cudaError_t e = cudaFuncSetAttribute(temporal_full_kernel<NT>,
+template <int CB>
+__device__ __forceinline__ void wgmma_ss_cb(float (&d)[CB / 2], uint64_t da, uint64_t db) {
+  if constexpr (CB == 64) {
+    wgmma_ss_n64<0>(d, da, db, 1);
+  } else if constexpr (CB == 128) {
+    wgmma_ss_n128<0>(d, da, db, 1);
+  } else {
+    wgmma_ss_n160<0>(d, da, db, 1);
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+    temporal_full_kernel(const __grid_constant__ FullMaps maps, const FullArgs a) {
+  using K = FullCfg<C>;
+  constexpr int NO = K::kNO, CB = K::kCB;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t sA = base, sRing = base + K::kRing, sO = base + K::kO;
+  bf16* o_g = reinterpret_cast<bf16*>(gbase + K::kO);
+  unsigned char* qkv_g = gbase + K::kQ;  // Q, K, V tiles, kRowsT * kAtom bytes each
+  const uint32_t bar = base + K::kBar;
+  auto full = [&](int st) { return bar + 8 * st; };
+  auto empty = [&](int st) { return bar + 16 + 8 * st; };
+
+  const int wg = warpgroup_index();
+  const int f = a.f, ts = a.ts, rows = f * ts;
+  const int s0 = blockIdx.x * ts, bi = blockIdx.y;
+  const int n_ff = a.inner / 64;  // 64-inner-column steps of an FF: 3 tiles each
+  const int n_tiles = 2 * 3 * n_ff + 4 * a.heads;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 2);  // one arrival per consumer warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t & 1;
+        if (t >= 2) mbar_wait(empty(st), ((t >> 1) & 1) ^ 1);
+        mbar_expect_tx(full(st), K::kTile);
+        const uint32_t dst = sRing + st * K::kTile;
+        auto load2 = [&](const CUtensorMap* m, uint32_t d, int c0, int c1) {
+          tma_load_2d(d, m, full(st), c0, c1);
+        };
+        auto load3 = [&](const CUtensorMap* m, uint32_t d, int c0, int c1) {
+          tma_load_3d(d, m, full(st), c0, c1, 0);
+        };
+        const int attn0 = 3 * n_ff, ff0 = attn0 + 4 * a.heads;
+        if (t < attn0 || t >= ff0) {
+          const int u = t < attn0 ? t : t - ff0;
+          const int step = u / 3, part = u % 3;
+          const CUtensorMap* mg = t < attn0 ? &maps.ffin_wg : &maps.ff_wg;
+          const CUtensorMap* m2 = t < attn0 ? &maps.ffin_w2 : &maps.ff_w2;
+          if (part < 2) {  // [value; gate] rows of 32 inner columns, 64-column blocks
+            for (int cb = 0; cb < C / 64; ++cb)
+              load3(mg, dst + cb * 64 * kAtom, cb * 64, 64 * step + 32 * part);
+          } else {  // W2 columns of the 64 inner columns, kNO blocks of kCB rows
+            for (int o = 0; o < NO; ++o) load2(m2, dst + o * CB * kAtom, 64 * step, o * CB);
+          }
+        } else {
+          const int h = (t - attn0) / 4, part = (t - attn0) % 4;
+          if (part < 3) {
+            const CUtensorMap* m = part == 0 ? &maps.wq : (part == 1 ? &maps.wk : &maps.wv);
+            for (int cb = 0; cb < C / 64; ++cb)
+              load2(m, dst + cb * 64 * kAtom, cb * 64, h * kHD);
+          } else {
+            for (int o = 0; o < NO; ++o) load2(&maps.wo, dst + o * CB * kAtom, h * kHD, o * CB);
+          }
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<240>();
+    const int wc = wg - 1;  // tile rows 64*wc .. +64
+    const int ctid = threadIdx.x - 128;
+    const int warp8 = ctid / 32, warp = warp8 & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    for (int i = ctid; i < 3 * (kRowsT - rows) * 8; i += 256) {
+      const int plane = i / ((kRowsT - rows) * 8), rem = i % ((kRowsT - rows) * 8);
+      *reinterpret_cast<uint4*>(qkv_g + plane * kRowsT * kAtom + (rows + rem / 8) * kAtom +
+                                (rem % 8) * 16) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    int t = 0;  // tiles consumed
+    auto wait_tile = [&]() -> uint32_t {
+      mbar_wait(full(t & 1), (t >> 1) & 1);
+      return sRing + (t & 1) * K::kTile;
+    };
+    auto release_tile = [&]() {
+      const int r = ctid & 127;
+      if (r == 0) mbar_arrive(empty(t & 1));
+      ++t;
+    };
+    auto team_sync = [&]() { named_bar_sync(1, 256); };
+    auto grow = [&](int r) -> int64_t {
+      return (int64_t(bi) * f + r / ts) * a.s + s0 + r % ts;
+    };
+    // descriptors: A rows of this warpgroup (k-step kk of 16 channels), a
+    // 64-row weight tile, column block o of a W2 / Wo tile, the O tile
+    auto desc_a = [&](int kk) {
+      return sw128_desc(sA + (kk / 4) * kRowsT * kAtom + wc * 64 * kAtom + (kk % 4) * 32);
+    };
+    auto desc_w64 = [&](uint32_t w, int kk) {
+      return sw128_desc(w + (kk / 4) * 64 * kAtom + (kk % 4) * 32);
+    };
+    auto desc_wcb = [&](uint32_t w, int o, int ks) {
+      return sw128_desc(w + o * CB * kAtom + ks * 32);
+    };
+    auto desc_o = [&](int ks) { return sw128_desc(sO + wc * 64 * kAtom + ks * 32); };
+
+    unsigned char* a_b = gbase;  // the A tile
+    // byte offset of 8-channel chunk ch of row r in the A tile
+    auto a_off = [&](int r, int ch) {
+      return (ch / 8) * kRowsT * kAtom + r * kAtom + (((ch % 8) ^ (r % 8)) << 4);
+    };
+
+    // The part's product (this warpgroup's 64 rows x C, fp32) rounded to bf16
+    // into its rows of the A tile, which its products no longer read.
+    auto stage = [&](float (&acc)[NO][CB / 2]) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int r = wc * 64 + warp * 16 + g + 8 * h2;
+#pragma unroll
+        for (int o = 0; o < NO; ++o)
+#pragma unroll
+          for (int jb = 0; jb < CB / 8; ++jb) {
+            const int col = o * CB + jb * 8 + 2 * t4;
+            *reinterpret_cast<uint32_t*>(a_b + a_off(r, col / 8) + (col % 8) * 2) =
+                pack_bf16(acc[o][4 * jb + 2 * h2], acc[o][4 * jb + 2 * h2 + 1]);
+          }
+      }
+      team_sync();
+    };
+
+    // One pass over the tile's rows, warp w taking rows w, w + 8, ..., kRB of
+    // them with their loads in flight together. mode 0: y = src's row; mode 1
+    // (FF): y = (p + bias) + src; mode 2 (attn): y = (src + p) + bias (+ the
+    // cross bias); p the staged product, each add a bf16 add; modes 1 and 2
+    // write y to out. With ln_w, LN(y) replaces the row in the A tile (fp32
+    // mean, then the mean squared deviation clamped at 0, (y - mean) * rstd *
+    // w + b rounded to bf16; padding rows zero), the next part's A operand.
+    auto row_pass = [&](int mode, const bf16* src, const bf16* __restrict__ bias,
+                        const bf16* __restrict__ ln_w, const bf16* __restrict__ ln_b) {
+      constexpr int NCH = C / 8, PER = (NCH + 31) / 32, kRB = 4;
+      uint4 bb[PER], lw[PER], lb[PER];
+#pragma unroll
+      for (int p = 0; p < PER; ++p) {
+        const int ch = min(lane + 32 * p, NCH - 1);
+        bb[p] = mode ? *reinterpret_cast<const uint4*>(bias + ch * 8) : make_uint4(0, 0, 0, 0);
+        lw[p] = ln_w ? *reinterpret_cast<const uint4*>(ln_w + ch * 8) : make_uint4(0, 0, 0, 0);
+        lb[p] = ln_w ? *reinterpret_cast<const uint4*>(ln_b + ch * 8) : make_uint4(0, 0, 0, 0);
+      }
+      for (int r0 = warp8; r0 < kRowsT; r0 += 8 * kRB) {
+        uint4 y[kRB][PER], pr[kRB][PER], cb[kRB][PER];
+#pragma unroll
+        for (int i = 0; i < kRB; ++i) {  // loads first, so that they overlap
+          const int r = r0 + 8 * i;
+#pragma unroll
+          for (int p = 0; p < PER; ++p) {
+            const int ch = lane + 32 * p;
+            y[i][p] = pr[i][p] = cb[i][p] = make_uint4(0u, 0u, 0u, 0u);
+            if (r < rows && ch < NCH) {
+              y[i][p] = *reinterpret_cast<const uint4*>(src + grow(r) * C + ch * 8);
+              if (mode) pr[i][p] = *reinterpret_cast<const uint4*>(a_b + a_off(r, ch));
+              if (mode == 2 && a.cross_bias != nullptr)
+                cb[i][p] = *reinterpret_cast<const uint4*>(
+                    a.cross_bias + (int64_t(bi) * a.s + s0 + r % ts) * C + ch * 8);
+            }
+          }
+        }
+        if (mode) {
+#pragma unroll
+          for (int i = 0; i < kRB; ++i) {
+            const int r = r0 + 8 * i;
+#pragma unroll
+            for (int p = 0; p < PER; ++p) {
+              const int ch = lane + 32 * p;
+              if (r < rows && ch < NCH) {
+                y[i][p] = mode == 1 ? add8(add8(pr[i][p], bb[p]), y[i][p])
+                                    : add8(add8(y[i][p], pr[i][p]), bb[p]);
+                if (mode == 2 && a.cross_bias != nullptr) y[i][p] = add8(y[i][p], cb[i][p]);
+                *reinterpret_cast<uint4*>(a.out + grow(r) * C + ch * 8) = y[i][p];
+              }
+            }
+          }
+        }
+        if (ln_w == nullptr) continue;
+        float mu[kRB], rs[kRB];
+#pragma unroll
+        for (int i = 0; i < kRB; ++i) {
+          float sum = 0.f;
+#pragma unroll
+          for (int p = 0; p < PER; ++p) {
+            const bf16* e = reinterpret_cast<const bf16*>(&y[i][p]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) sum += bf2f(e[j]);
+          }
+          mu[i] = warp_sum(sum) / C;
+          float sq = 0.f;
+#pragma unroll
+          for (int p = 0; p < PER; ++p) {
+            if (lane + 32 * p < NCH) {
+              const bf16* e = reinterpret_cast<const bf16*>(&y[i][p]);
+#pragma unroll
+              for (int j = 0; j < 8; ++j) sq += (bf2f(e[j]) - mu[i]) * (bf2f(e[j]) - mu[i]);
+            }
+          }
+          rs[i] = rsqrtf(fmaxf(warp_sum(sq) / C, 0.f) + a.eps);
+        }
+#pragma unroll
+        for (int i = 0; i < kRB; ++i) {
+          const int r = r0 + 8 * i;
+#pragma unroll
+          for (int p = 0; p < PER; ++p) {
+            const int ch = lane + 32 * p;
+            if (ch >= NCH) continue;
+            uint4 outv = make_uint4(0u, 0u, 0u, 0u);
+            if (r < rows) {
+              const bf16* e = reinterpret_cast<const bf16*>(&y[i][p]);
+              const bf16* we = reinterpret_cast<const bf16*>(&lw[p]);
+              const bf16* be = reinterpret_cast<const bf16*>(&lb[p]);
+              bf16* ov = reinterpret_cast<bf16*>(&outv);
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                ov[j] = f2bf((bf2f(e[j]) - mu[i]) * rs[i] * bf2f(we[j]) + bf2f(be[j]));
+            }
+            *reinterpret_cast<uint4*>(a_b + a_off(r, ch)) = outv;
+          }
+        }
+      }
+      fence_async_smem();
+      team_sync();
+    };
+
+    auto zero = [&](float (&acc)[NO][CB / 2]) {
+#pragma unroll
+      for (int o = 0; o < NO; ++o)
+#pragma unroll
+        for (int i = 0; i < CB / 2; ++i) acc[o][i] = 0.f;
+    };
+    auto fence_acc = [&](float (&acc)[NO][CB / 2]) {
+#pragma unroll
+      for (int o = 0; o < NO; ++o) fence_regs(acc[o]);
+    };
+    // p (64 rows x 64 columns) = A . W^T for a 64-row weight tile in the ring
+    auto rows64 = [&](float (&p)[32]) {
+      const uint32_t w = wait_tile();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk) wgmma_ss_n64<0>(p, desc_a(kk), desc_w64(w, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(p);
+      release_tile();
+    };
+
+    // acc = GEGLU(A . Wg^T + bg) . W2^T, the FF's weights streamed through the ring
+    auto ff_products = [&](float (&acc)[NO][CB / 2], const bf16* __restrict__ bg) {
+      zero(acc);
+      for (int step = 0; step < n_ff; ++step) {
+        uint32_t hf[4][4];  // h = value * gelu(gate), 64 rows x 64 inner columns
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          // the bias pairs of this thread's columns, loaded before the MMA wait
+          const int j0 = 64 * step + 32 * half + 2 * t4;
+          __nv_bfloat162 bv[4], bgt[4];
+#pragma unroll
+          for (int jb = 0; jb < 4; ++jb) {
+            bv[jb] = *reinterpret_cast<const __nv_bfloat162*>(bg + j0 + 8 * jb);
+            bgt[jb] = *reinterpret_cast<const __nv_bfloat162*>(bg + a.inner + j0 + 8 * jb);
+          }
+          float gacc[32];  // columns 0..31 value, 32..63 gate
+          rows64(gacc);
+          // value = bf16(bf16(x.Wv) + bv), gate likewise, h = bf16(value *
+          // bf16(gelu(gate))): bf16 pair adds and products round once, as
+          // the TPU kernel's bf16 steps do
+#pragma unroll
+          for (int jb = 0; jb < 4; ++jb)
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const __nv_bfloat162 v2 = __hadd2(
+                  __floats2bfloat162_rn(gacc[4 * jb + 2 * h2], gacc[4 * jb + 2 * h2 + 1]), bv[jb]);
+              const float2 gt = __bfloat1622float2(__hadd2(
+                  __floats2bfloat162_rn(gacc[4 * (jb + 4) + 2 * h2],
+                                        gacc[4 * (jb + 4) + 2 * h2 + 1]),
+                  bgt[jb]));
+              __nv_bfloat162 h = __hmul2(
+                  v2, __floats2bfloat162_rn(gelu_fast(gt.x), gelu_fast(gt.y)));
+              // n-block jb of the 32 columns: k-step jb / 2, register 2 * (jb % 2) + h2
+              hf[2 * half + jb / 2][2 * (jb % 2) + h2] = *reinterpret_cast<uint32_t*>(&h);
+            }
+        }
+        const uint32_t w = wait_tile();
+        fence_acc(acc);
+        fence_regs(hf);
+        wgmma_fence();
+#pragma unroll
+        for (int o = 0; o < NO; ++o)
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) wgmma_rs_cb<CB>(acc[o], hf[ks], desc_wcb(w, o, ks));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(acc);
+        fence_regs(hf);
+        release_tile();
+      }
+    };
+
+    // ffin: cur = x + FF_in(LN_in(x)), then LN1(cur) into the A tile
+    row_pass(0, a.x, nullptr, a.lnin_w, a.lnin_b);
+    {
+      float acc[NO][CB / 2];
+      ff_products(acc, a.ffin_bg);
+      stage(acc);
+    }
+    row_pass(1, a.x, a.ffin_b2, a.ln1_w, a.ln1_b);
+
+    // attn: cur = cur + O . Wo^T + bo (+ cross bias), then LN3(cur)
+    {
+      float acc[NO][CB / 2];
+      zero(acc);
+      for (int h = 0; h < a.heads; ++h) {
+#pragma unroll 1
+        for (int part = 0; part < 3; ++part) {
+          float p[32];
+          rows64(p);
+          unsigned char* dst = qkv_g + part * kRowsT * kAtom;
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int r = wc * 64 + warp * 16 + g + 8 * h2;
+            if (r >= rows) continue;
+            const int pr = (r % ts) * f + r / ts;  // position-major rows
+#pragma unroll
+            for (int jb = 0; jb < 8; ++jb)
+              *reinterpret_cast<uint32_t*>(dst + swz(pr, jb) + 4 * t4) =
+                  pack_bf16(p[4 * jb + 2 * h2], p[4 * jb + 2 * h2 + 1]);
+          }
+        }
+        team_sync();
+        frame_attention_mma(
+            base + K::kQ, base + K::kK, base + K::kV, f, ts, a.scale, warp8,
+            [&](int r, int d, float o0, float o1) {
+              *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(o_g) + swz(r, d / 8) +
+                                           (d % 8) * 2) = pack_bf16(o0, o1);
+            });
+        fence_async_smem();
+        team_sync();
+        const uint32_t w = wait_tile();
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int o = 0; o < NO; ++o)
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) wgmma_ss_cb<CB>(acc[o], desc_o(ks), desc_wcb(w, o, ks));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(acc);
+        release_tile();
+      }
+      stage(acc);
+    }
+    row_pass(2, a.out, a.bo, a.ln3_w, a.ln3_b);
+
+    // ff: out = cur + FF(LN3(cur))
+    {
+      float acc[NO][CB / 2];
+      ff_products(acc, a.ff_bg);
+      stage(acc);
+    }
+    row_pass(1, a.out, a.ff_b2, nullptr, nullptr);
+  }
+}
+
+template <int C>
+bool make_maps(FullMaps* m, const void* ffin_wg, const void* ffin_w2, const void* wq,
+               const void* wk, const void* wv, const void* wo, const void* ff_wg,
+               const void* ff_w2, int heads, int inner) {
+  constexpr uint32_t CB = FullCfg<C>::kCB;
+  const uint64_t ia = uint64_t(heads) * kHD, in = uint64_t(inner), c = C;
+  auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  // Wg (2*inner, c) as (c, inner, [value, gate]): 64 columns x 32 rows x 2
+  auto wg_map = [&](CUtensorMap* mp, const void* p) {
+    const uint64_t dims[3] = {c, in, 2}, strides[2] = {c * 2, in * c * 2};
+    const uint32_t box[3] = {64, 32, 2};
+    return encode_bf16_map(mp, p, 3, dims, strides, box, sw);
+  };
+  auto w2_map = [&](CUtensorMap* mp, const void* p) {  // W2 (c, inner): 64 x kCB
+    const uint64_t dims[2] = {in, c}, strides[1] = {in * 2};
+    const uint32_t box[2] = {64, CB};
+    return encode_bf16_map(mp, p, 2, dims, strides, box, sw);
+  };
+  auto wqkv_map = [&](CUtensorMap* mp, const void* p) {  // (ia, c): 64 x 64
+    const uint64_t dims[2] = {c, ia}, strides[1] = {c * 2};
+    const uint32_t box[2] = {64, 64};
+    return encode_bf16_map(mp, p, 2, dims, strides, box, sw);
+  };
+  const uint64_t wo_dims[2] = {ia, c}, wo_strides[1] = {ia * 2};  // Wo (c, ia): 64 x kCB
+  const uint32_t wo_box[2] = {64, CB};
+  return wg_map(&m->ffin_wg, ffin_wg) && w2_map(&m->ffin_w2, ffin_w2) &&
+         wqkv_map(&m->wq, wq) && wqkv_map(&m->wk, wk) && wqkv_map(&m->wv, wv) &&
+         encode_bf16_map(&m->wo, wo, 2, wo_dims, wo_strides, wo_box, sw) &&
+         wg_map(&m->ff_wg, ff_wg) && w2_map(&m->ff_w2, ff_w2);
+}
+
+// Launches the plan's grid (s / ts, b) with its shared memory, which must be
+// FullCfg<C>'s.
+template <int C>
+cudaError_t launch(const void* const* w, const FullArgs& a, dim3 grid, int smem,
+                   cudaStream_t st) {
+  if (smem != FullCfg<C>::kSmem) return cudaErrorInvalidValue;
+  FullMaps maps;
+  if (!make_maps<C>(&maps, w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], a.heads, a.inner))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(temporal_full_kernel<C>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(s / ts, b);
-  temporal_full_kernel<NT><<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(x), ffin, at, ff, static_cast<const bf16*>(cross_bias),
-      static_cast<bf16*>(out), f, s, heads, inner, ts, exact, eps, scale);
+  temporal_full_kernel<C><<<grid, kThreads, smem, st>>>(maps, a);
   return cudaGetLastError();
 }
 
@@ -216,27 +669,34 @@ cudaError_t launch(const void* x, const FFW& ffin, const AttnW& at, const FFW& f
 
 // x, out: (b, f, s, c); LayerNorm weights (c,); FF weights wg (2*inner, c),
 // bg (2*inner,), w2 (c, inner), b2 (c,); wq, wk, wv (heads*64, c); wo
-// (c, heads*64); bo (c,); cross_bias (b, s, c) or null. All bf16, contiguous.
+// (c, heads*64); bo (c,); cross_bias (b, s, c) or null. All bf16, contiguous,
+// 16-byte aligned. The plan of ops/fused_temporal.py:full_plan: ts positions
+// per CTA, grid (grid_x, grid_y) = (s / ts, b), smem bytes of shared memory.
 extern "C" int cak_temporal_full(
     const void* x, const void* lnin_w, const void* lnin_b, const void* ffin_wg,
     const void* ffin_bg, const void* ffin_w2, const void* ffin_b2, const void* ln1_w,
     const void* ln1_b, const void* wq, const void* wk, const void* wv, const void* wo,
     const void* bo, const void* ln3_w, const void* ln3_b, const void* ff_wg, const void* ff_bg,
     const void* ff_w2, const void* ff_b2, const void* cross_bias, void* out, int b, int f,
-    int s, int c, int heads, int inner, int ts, int exact, float eps, float scale,
-    void* stream) {
+    int s, int c, int heads, int inner, int ts, int grid_x, int grid_y, int smem, float eps,
+    float scale, void* stream) {
   auto p = [](const void* v) { return static_cast<const bf16*>(v); };
-  const FFW ffin{p(lnin_w), p(lnin_b), p(ffin_wg), p(ffin_bg), p(ffin_w2), p(ffin_b2)};
-  const AttnW at{p(ln1_w), p(ln1_b), p(wq), p(wk), p(wv), p(wo), p(bo)};
-  const FFW ff{p(ln3_w), p(ln3_b), p(ff_wg), p(ff_bg), p(ff_w2), p(ff_b2)};
+  const FullArgs a{p(x),      static_cast<bf16*>(out), p(cross_bias), p(lnin_w), p(lnin_b),
+                   p(ffin_bg), p(ffin_b2),             p(ln1_w),      p(ln1_b),  p(bo),
+                   p(ln3_w),  p(ln3_b),                p(ff_bg),      p(ff_b2),  f,
+                   s,         heads,                   inner,         ts,        eps,
+                   scale};
+  const void* w[8] = {ffin_wg, ffin_w2, wq, wk, wv, wo, ff_wg, ff_w2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (f * ts > kRows || f > 32 || s % ts || inner % kKI || heads < 1)
+  // rows past the last position's frames up to a multiple of 16 are read as padding
+  if (f * ts + (15 - (f + 15) % 16) > kRowsT || f > 32 || ts < 1 || s % ts || inner % 64 ||
+      heads < 1 || grid_x * ts != s || grid_y != b)
     return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(grid_x, grid_y);
   switch (c) {
-#define CAK_FULL_CASE(C)                                                                     \
-  case C:                                                                                    \
-    return static_cast<int>(launch<C / 16>(x, ffin, at, ff, cross_bias, out, b, f, s, heads, \
-                                           inner, ts, exact, eps, scale, st));
+#define CAK_FULL_CASE(C) \
+  case C:                \
+    return static_cast<int>(launch<C>(w, a, grid, smem, st));
     CAK_FULL_CASE(64)
     CAK_FULL_CASE(128)
     CAK_FULL_CASE(192)

@@ -13,6 +13,11 @@ of the sources, so an edited source rebuilds. ``ptxas`` register and
 shared-memory reports go to ``build/kernels/<name>.log``. A failed build raises
 with the compiler's output; nothing falls back.
 
+The library links against the CUDA runtime only: the kernels that load by TMA
+(K2, K3 full) encode their tensor maps through ``cuTensorMapEncodeTiled``,
+fetched at run time with ``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``), so
+no ``-lcuda`` is needed; no CUTLASS or CuTe headers are used.
+
 Each C entry point takes device pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launches. :class:`Kernel` wraps one
 entry point, raises on a non-zero status and counts successful launches.

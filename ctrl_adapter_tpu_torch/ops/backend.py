@@ -9,6 +9,9 @@ from __future__ import annotations
 
 import torch
 
+# Bytes of shared memory one block may use on an H100 (of the SM's 256 KB).
+SMEM_PER_BLOCK = 232448
+
 
 def is_hopper(x: torch.Tensor) -> bool:
     """True when ``x`` lies on a CUDA device of compute capability >= (9, 0)."""

@@ -8,17 +8,23 @@ and launches the kernel, or raises, for a tensor on a card.
 
 Kernel K2 (``csrc/flash_attention.cu``) takes (B, N, T, H) views whose last
 stride is 1, so callers pass head-split views of their (B, T, N*H) projections
-without transposing them, and read the output the same way.
+without transposing them, and read the output the same way. It loads them with
+TMA: :func:`plan` (tiles, grid, shared memory) and :func:`tma_view_error` (the
+strides and alignment a tensor map needs) are its host-side planning, in plain
+Python so that the CPU tests check them. The launch takes the plan's grid and
+shared memory, and the C side refuses a plan that differs from its ``Cfg``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from ._build import Kernel, ptr, stream_of
-from .backend import is_hopper
+from .backend import SMEM_PER_BLOCK, is_hopper
 
 MIN_SEQ = 1024
 _BLOCK = 512
@@ -26,9 +32,52 @@ _LOGITS_BYTES = 1 << 30  # plain attention: fp32 logits per batch chunk
 
 KERNEL = Kernel("cak_flash_attention", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    *([ctypes.c_int] * 6),
     *([ctypes.c_int64] * 12), ctypes.c_float, ctypes.c_void_p,
 ])
+
+
+BLOCK_Q = 128     # query rows per CTA: two consumer warpgroups of 64
+BLOCK_K = 128     # keys per K/V tile
+
+
+@dataclass(frozen=True)
+class FlashPlan:
+    work: int          # Q tiles over all (b, n) pairs
+    grid: tuple        # persistent CTAs: one per SM, at most one per Q tile
+    stages: int        # K/V ring slots
+    smem_bytes: int    # Q tile, K and V rings, mbarriers, 1 KiB alignment slack
+
+
+def plan(b: int, n: int, t: int, h: int, sms: int) -> FlashPlan:
+    """The launch of K2 for (b, n, t, h) inputs on a card of ``sms`` SMs; raises
+    where the tiling does not fit. ``csrc/flash_attention.cu`` launches this
+    grid and refuses shared memory other than its ``Cfg``'s."""
+    if h not in (64, 128) or t % BLOCK_Q or t < BLOCK_Q:
+        raise ValueError(f"attention_bnth: needs H in (64, 128) and T a multiple of {BLOCK_Q}, "
+                         f"got T={t} H={h}")
+    stages = 3 if h == 64 else 2
+    tile = BLOCK_K * h * 2
+    smem = tile * (1 + 2 * stages) + 8 * (2 + 3 * stages) + 1024
+    assert smem <= SMEM_PER_BLOCK
+    work = (t // BLOCK_Q) * b * n
+    return FlashPlan(work=work, grid=(min(work, sms),), stages=stages, smem_bytes=smem)
+
+
+def tma_view_error(shape, strides, data_ptr: int, itemsize: int = 2) -> Optional[str]:
+    """None when a TMA tensor map can describe the view (element ``strides``),
+    else what it lacks: a unit last stride, a 16-byte aligned base, other
+    strides that are multiples of 16 bytes below 2^40, dims below 2^32."""
+    if strides[-1] != 1:
+        return f"needs a unit last stride, got {tuple(strides)}"
+    if data_ptr % 16:
+        return "needs a 16-byte aligned base address"
+    for st in strides[:-1]:
+        if (st * itemsize) % 16 or not 0 < st * itemsize < 2 ** 40:
+            return f"needs strides of a multiple of 16 bytes, got {tuple(strides)}"
+    if any(d >= 2 ** 32 for d in shape):
+        return f"dims must be below 2^32, got {tuple(shape)}"
+    return None
 
 
 def flash_eligible(tq: int, tk: int, head_dim: int) -> bool:
@@ -58,9 +107,9 @@ def _torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
 def _check(name: str, t: torch.Tensor) -> None:
     if t.dtype != torch.bfloat16:
         raise TypeError(f"attention_bnth: {name} must be bfloat16, got {t.dtype}")
-    if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]) or t.data_ptr() % 16:
-        raise ValueError(f"attention_bnth: {name} needs a unit last stride, other strides "
-                         f"a multiple of 8 and 16-byte alignment, got {t.stride()}")
+    why = tma_view_error(t.shape, t.stride(), t.data_ptr())
+    if why is not None:
+        raise ValueError(f"attention_bnth: {name} {why}")
 
 
 def attention_bnth(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -75,16 +124,15 @@ def attention_bnth(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
         raise ValueError(f"attention_bnth: self-attention shapes differ: "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     b, n, t, h = q.shape
-    if h not in (64, 128) or t % 64:
-        raise ValueError(f"attention_bnth: needs H in (64, 128) and T % 64 == 0, got {q.shape}")
+    p = plan(b, n, t, h, torch.cuda.get_device_properties(q.device).multi_processor_count)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"attention_bnth: {name} on {x.device}, q on {q.device}")
         _check(name, x)
     out = torch.empty((b, t, n, h), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
-    KERNEL(ptr(q), ptr(k), ptr(v), ptr(out), b, n, t, h, *strides, float(h ** -0.5),
-           stream_of(q))
+    KERNEL(ptr(q), ptr(k), ptr(v), ptr(out), b, n, t, h, p.grid[0], p.smem_bytes, *strides,
+           float(h ** -0.5), stream_of(q))
     return out
 
 

@@ -26,13 +26,14 @@ The cross bias is the single-key cross-attention ``to_out(to_v(ctx))`` per
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from ._build import Kernel, ptr, stream_of
-from .backend import is_hopper
+from .backend import SMEM_PER_BLOCK, is_hopper
 from .fused_block import _ln, _torch_ln_ff_residual
 
 KERNEL = Kernel("cak_temporal_attention", [
@@ -40,15 +41,15 @@ KERNEL = Kernel("cak_temporal_attention", [
     ctypes.c_void_p,
 ])
 KERNEL_FULL = Kernel("cak_temporal_full", [
-    *([ctypes.c_void_p] * 22), *([ctypes.c_int] * 8), ctypes.c_float, ctypes.c_float,
+    *([ctypes.c_void_p] * 22), *([ctypes.c_int] * 10), ctypes.c_float, ctypes.c_float,
     ctypes.c_void_p,
 ])
 
 KERNEL_HEAD_DIM = 64
 _MAX_ROWS = 128       # f * ts rows per CTA of the hybrid kernel
-_FULL_ROWS = 64       # f * ts rows per CTA of the full kernel
+_FULL_ROWS = 128      # f * ts rows per CTA of the full kernel (two warpgroups of 64)
 _FULL_WIDTHS = (64, 128, 192, 256, 320)
-_FULL_CHUNK = 32      # the full kernel streams the FF inner width in chunks of 32
+_FULL_CHUNK = 64      # the full kernel streams the FF inner width in steps of 64
 
 # The TPU's VMEM budgets of ``_plan`` (resident weight bytes per pallas_call, and
 # weights + activations). They are a TPU rule, kept so that both packages pick
@@ -187,11 +188,37 @@ def temporal_block(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_w, ln
     return out
 
 
+@dataclass(frozen=True)
+class FullPlan:
+    ts: int            # positions per CTA: f * ts rows
+    grid: tuple        # (s / ts, b)
+    smem_bytes: int
+
+
 def _full_tile(f: int, s: int) -> int:
+    # the attention's 16-row MMA tiles read up to (-f mod 16) rows past the last frame
+    pad = -f % 16
     ts = 1
-    while f * ts * 2 <= _FULL_ROWS and s % (ts * 2) == 0:
+    while f * ts * 2 + pad <= _FULL_ROWS and s % (ts * 2) == 0:
         ts *= 2
     return ts
+
+
+def full_plan(b: int, f: int, s: int, c: int, heads: int, inner: int) -> FullPlan:
+    """The launch of K3 full: the largest power-of-two tile of ts positions
+    with f * ts + (-f mod 16) <= 128 rows, one CTA per tile, and the shared
+    memory of the A tile, the two-slot weight ring, the O, Q, K and V tiles
+    (128-byte rows) and the mbarriers (+ 1 KiB alignment slack).
+    ``csrc/temporal_full.cu`` launches this grid and refuses shared memory other
+    than its ``FullCfg``'s."""
+    if f > 32 or c not in _FULL_WIDTHS or inner % _FULL_CHUNK or heads < 1:
+        raise ValueError(f"temporal_block_full: kernel needs f <= 32, c in {_FULL_WIDTHS}, "
+                         f"head dim 64 and an FF inner width % {_FULL_CHUNK} == 0; got f={f} "
+                         f"c={c} heads={heads} inner={inner}")
+    ts = _full_tile(f, s)
+    smem = 2 * 128 * c + 2 * 128 * c + 4 * 128 * KERNEL_HEAD_DIM * 2 + 32 + 1024
+    assert smem <= SMEM_PER_BLOCK
+    return FullPlan(ts=ts, grid=(s // ts, b), smem_bytes=smem)
 
 
 def temporal_block_full(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_w, ln_b, wq,
@@ -210,10 +237,10 @@ def temporal_block_full(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_
     b, f, s, c = x.shape
     ia = heads * KERNEL_HEAD_DIM
     iff = ffin[4].shape[1]
-    if f > 32 or c not in _FULL_WIDTHS or wq.shape[0] != ia or iff % _FULL_CHUNK:
-        raise ValueError(f"temporal_block_full: kernel needs f <= 32, c in {_FULL_WIDTHS}, "
-                         f"head dim 64 and an FF inner width % {_FULL_CHUNK} == 0; got f={f} "
-                         f"c={c} ia={wq.shape[0]} heads={heads} inner={iff}")
+    if wq.shape[0] != ia:
+        raise ValueError(f"temporal_block_full: kernel needs head dim 64; got ia={wq.shape[0]} "
+                         f"for {heads} heads")
+    plan = full_plan(b, f, s, c, heads, iff)
     ff_shapes = ((c,), (c,), (2 * iff, c), (2 * iff,), (c, iff), (c,))
     expect = {"ln_w": (c,), "ln_b": (c,), "wq": (ia, c), "wk": (ia, c), "wv": (ia, c),
               "wo": (c, ia), "bo": (c,)}
@@ -231,12 +258,13 @@ def temporal_block_full(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_
                              f"expected {expect[name]}")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"temporal_block_full: {name} must be bfloat16, got {t.dtype}")
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"temporal_block_full: {name} must be contiguous on {x.device}")
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"temporal_block_full: {name} must be contiguous and 16-byte "
+                             f"aligned on {x.device}")
     out = torch.empty_like(x)
     KERNEL_FULL(ptr(x), *(ptr(t) for t in ffin), ptr(ln_w), ptr(ln_b), ptr(wq), ptr(wk),
                 ptr(wv), ptr(wo), ptr(bo), *(ptr(t) for t in ff),
                 None if cross_bias is None else ptr(cross_bias), ptr(out),
-                b, f, s, c, heads, iff, _full_tile(f, s), 0, float(eps),
+                b, f, s, c, heads, iff, plan.ts, *plan.grid, plan.smem_bytes, float(eps),
                 float(KERNEL_HEAD_DIM ** -0.5), stream_of(x))
     return out

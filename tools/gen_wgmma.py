@@ -1,0 +1,84 @@
+"""Write ``ctrl_adapter_tpu_torch/csrc/wgmma.cuh``: inline-PTX wrappers of the
+Hopper ``wgmma.mma_async`` shapes the port's kernels use (bf16 in, fp32
+accumulate), one function per shape, every accumulator register spelled out.
+
+    python tools/gen_wgmma.py
+
+SS takes A and B from shared memory through descriptors; RS takes A from
+registers (four 32-bit registers of bf16 pairs, the mma.m16n8k16 A layout per
+warp) and B through a descriptor. ``TB`` is the transpose-B immediate (1 for an
+MN-major B such as attention's V).
+"""
+
+import os
+
+SS_N = (64, 128, 160)
+RS_N = (64, 128, 160)
+OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "ctrl_adapter_tpu_torch", "csrc", "wgmma.cuh")
+
+HEAD = """\
+// Generated by tools/gen_wgmma.py; edit that script, not this file.
+//
+// wgmma.mma_async bf16 x bf16 -> fp32 for one warpgroup (128 threads, m64).
+// Accumulator layout (per warp w of the warpgroup, g = lane / 4, t = lane % 4):
+// d[4j + 0..1] = D[16w + g][8j + 2t .. +1], d[4j + 2..3] = D[16w + g + 8][...].
+// Each call must sit between wgmma_fence() and wgmma_commit(); read the
+// accumulators only after wgmma_wait<>() and fence_regs().
+#pragma once
+
+#include <stdint.h>
+"""
+
+
+def regs(n):
+    return ", ".join(f"%{i}" for i in range(n))
+
+
+def outs(n):
+    return ", ".join(f'"+f"(d[{i}])' for i in range(n))
+
+
+def ss(n):
+    r = n // 2
+    return f"""
+// D (64 x {n}) {{+}}= A (64 x 16, smem) . B (16 x {n}, smem); scale_d 0 overwrites D.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n{n}(float (&d)[{r}], uint64_t da, uint64_t db,
+                                             int scale_d) {{
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 2}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+      "{{{regs(r)}}}, %{r}, %{r + 1}, p, 1, 1, 0, %{r + 3};\\n}}\\n"
+      : {outs(r)}
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}}
+"""
+
+
+def rs(n):
+    r = n // 2
+    return f"""
+// D (64 x {n}) += A (64 x 16, registers) . B (16 x {n}, smem).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n{n}(float (&d)[{r}], const uint32_t (&a)[4],
+                                             uint64_t db) {{
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 5}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+      "{{{regs(r)}}}, {{%{r}, %{r + 1}, %{r + 2}, %{r + 3}}}, %{r + 4}, p, 1, 1, %{r + 6};\\n}}\\n"
+      : {outs(r)}
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}}
+"""
+
+
+def main():
+    text = HEAD + "".join(ss(n) for n in SS_N) + "".join(rs(n) for n in RS_N)
+    with open(OUT, "w") as fh:
+        fh.write(text)
+    print(f"wrote {OUT}")
+
+
+if __name__ == "__main__":
+    main()
