@@ -7,12 +7,19 @@ Phases (any failure raises and the script exits non-zero before its last line):
    limit as nvidia-smi reports them;
 2. build the CUDA kernels from ``ctrl_adapter_tpu_torch/csrc`` (nvcc, sm_90a);
 3. compare each kernel with its plain PyTorch version on the card, in bf16, at
-   the main path's shapes, and time both (CUDA-event medians) beside the one
-   PyTorch call that computes the same function where there is one
-   (``F.group_norm``; ``F.scaled_dot_product_attention``, its default backend
-   named, then its flash and cuDNN backends forced) and the kernel's roofline
-   bound on the H100 (``ops/roofline.py``); these library calls are
-   yardsticks only, no module of the port calls them;
+   the main path's shapes, and time both (CUDA events around runs of 10
+   calls, medians) beside the one PyTorch call that computes the same
+   function where there is one (``F.group_norm``;
+   ``F.scaled_dot_product_attention``, its default backend named, then its
+   flash and cuDNN backends forced) and the kernel's roofline bound on the
+   H100 (``ops/roofline.py``); these library calls are yardsticks only, no
+   module of the port calls them. K1 and K3 hybrid run at every shape the
+   slice gives them (``k1_rows``, ``hybrid_rows``, from the model configs),
+   with the per-step sums of launches x time against launches x bound, and
+   K3 hybrid's two launches timed apart under ``torch.profiler``; both also
+   on device time apart from the host's, with their inputs left in L2
+   (``torch.profiler``) and with L2 flushed before each call (``cold_ms``),
+   K1 beside its yardstick's device time;
 4. run the slice: ``SVDControlNetAdapterPipeline`` at full width (SVD UNet
    320/640/1280/1280, SD-v1.5 ControlNet, the 13-block adapter at A-D + M, the
    temporal VAE) in bf16 with weights drawn from a seeded generator, 14 frames
@@ -57,8 +64,11 @@ def nvidia_smi_line() -> str:
     return out.splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median device time of ``fn()`` in ms, from CUDA events around each call."""
+def cuda_ms(fn, iters: int = 5, reps: int = 10, warmup: int = 2) -> float:
+    """Time per call of ``fn()`` in ms: the median over ``iters`` runs of
+    ``reps`` calls back to back, CUDA events around each run. The host enqueues
+    ahead of the card, so a call shows its device time, or its host time where
+    that is the longer."""
     for _ in range(warmup):
         fn()
     times = []
@@ -66,11 +76,48 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+FLUSH_BYTES = 512 << 20  # ten times the H100's 50 MB L2
+
+
+def cold_ms(fn, flush, iters: int = 20, warmup: int = 2) -> float:
+    """Device time per call of ``fn()`` in ms with a cold L2: the median over
+    ``iters`` single calls, each enqueued behind a write of ``flush`` (a
+    buffer far larger than L2), CUDA events around the call alone. The write
+    keeps the card busy for longer than the host takes to enqueue the call, so
+    the events read the call's device time, not its host time."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_times(fn, flush):
+    """(warm, cold) device ms per call of ``fn()``: the sum of its kernels'
+    device times under ``torch.profiler`` (back-to-back calls, inputs left in
+    L2; None where the profiler records no device time), and ``cold_ms``."""
+    split = kernel_times(fn)
+    return (None if split is None else sum(split.values())), cold_ms(fn, flush)
+
+
+def fmt_ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def compare(name, got, want, atol, rtol, rel_norm=None):
@@ -97,17 +144,172 @@ def compare(name, got, want, atol, rtol, rel_norm=None):
     return max_err
 
 
+def update_check(name, got, want, x, cb, limit=2e-2):
+    """A residual block's update, ``out - x - cross_bias`` in fp32, held to
+    ``||kernel - plain|| <= limit * ||plain||``; its elements sit far below the
+    output's bf16 steps, so no elementwise bound is taken on it."""
+    upd_k, upd_p = (t.float() - x.float() - cb.float()[:, None] for t in (got, want))
+    r = (torch.linalg.vector_norm(upd_k - upd_p) / torch.linalg.vector_norm(upd_p)).item()
+    ok = r <= limit
+    print(f"  {name} update: rel_norm_err {r:.3e} (tolerance ||err|| <= {limit}*||plain||) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{name}: the kernel's update disagrees with its plain version")
+    return r
+
+
+def to_fp32(a):
+    """A kernel's arguments in fp32 (tensors; tuples of them; other values as they are)."""
+    if isinstance(a, tuple):
+        return tuple(map(to_fp32, a))
+    return a.float() if torch.is_tensor(a) else a
+
+
+def fp32_check(name, got, want, ref):
+    """The bf16 kernel no farther from the fp32 run ``ref`` of the plain version
+    than 1.25x the bf16 plain version's distance + 1e-2 (max abs)."""
+    err_k, err_p = ((t.float() - ref).abs().max().item() for t in (got, want))
+    print(f"    vs fp32: kernel {err_k:.3e}, plain {err_p:.3e} (tolerance: kernel within "
+          f"1.25x the plain version's error + 1e-2)")
+    if err_k > 1.25 * err_p + 1e-2:
+        raise RuntimeError(f"{name}: farther from the fp32 reference than its plain version")
+
+
+# ------------------------------------------------------- main-path shapes
+def slice_temporal_blocks(latent: int = SIZE // 8, frames: int = FRAMES, batch: int = 2):
+    """Every temporal transformer block of one UNet call and of one adapter
+    call of the slice, from the model configs: (tower, where, (b, f, s, c, ia,
+    iff)). The UNet's blocks sit in its cross-attention down and up blocks and
+    its mid block, at c = ia = the level's width; the adapter's (bug-compatible)
+    at c = 512 with ia = the block's channels, one per adapted residual slot."""
+    from ctrl_adapter_tpu_torch.models import adapter as ad
+    from ctrl_adapter_tpu_torch.models.unet_svd import SVDUNetConfig
+
+    cfg = SVDUNetConfig()
+    n = len(cfg.block_out_channels)
+    blocks = []
+
+    def unet(level, count, where):
+        c = cfg.block_out_channels[level]
+        shape = (batch, frames, (latent >> level) ** 2, c, cfg.num_attention_heads[level] * 64,
+                 4 * c)
+        blocks.extend([("unet", f"{where} L{level}", shape)] * count)
+
+    for i, kind in enumerate(cfg.down_block_types):
+        if kind.startswith("CrossAttn"):
+            unet(i, cfg.layers_per_block * cfg.transformer_layers_per_block[i], "down")
+    unet(n - 1, cfg.transformer_layers_per_block[-1], "mid")
+    for j, kind in enumerate(cfg.up_block_types):
+        if kind.startswith("CrossAttn"):
+            unet(n - 1 - j, (cfg.layers_per_block + 1) * cfg.transformer_layers_per_block[::-1][j],
+                 "up")
+    inner = ad._INNER_HEADS * 64
+    for c, h in adapter_blocks(latent):
+        blocks.append(("adapter", f"c={c} {h}x{h}", (batch, frames, h * h, inner, c, 4 * inner)))
+    return blocks
+
+
+def adapter_blocks(latent: int = SIZE // 8):
+    """(channels, spatial size) of the slice's 13 adapter blocks: A-D with 3
+    adapters per location, and M, at the ControlNet's residual slots."""
+    from ctrl_adapter_tpu_torch.models import adapter as ad
+    from ctrl_adapter_tpu_torch.models.controlnet import ControlNetConfig
+
+    cfg = ControlNetConfig()
+    n = len(cfg.block_out_channels)
+    sizes = [latent]  # conv_in, then each down block's layers and its downsample
+    for i in range(n):
+        sizes += [latent >> i] * cfg.layers_per_block + ([latent >> (i + 1)] if i < n - 1 else [])
+    locations = ("A", "B", "C", "D", "M")
+    ids = ad.get_down_block_ids(locations, 3)
+    channels = ad.get_down_block_channels(locations, 3)
+    return [(c, sizes[i]) for i, c in zip(ids, channels)] + [
+        (ad.MID_BLOCK_CHANNELS, latent >> (n - 1))]
+
+
+def hybrid_rows():
+    """The K3 hybrid shapes of the slice with their launches per controlled
+    step (UNet + adapter) and per UNet-only step: every temporal block that
+    ``dispatch_mode`` sends to "hybrid", grouped by shape."""
+    from ctrl_adapter_tpu_torch.ops.fused_temporal import dispatch_mode
+
+    rows = {}
+    for tower, where, (b, f, s, c, ia, iff) in slice_temporal_blocks():
+        if dispatch_mode(b, f, s, c, ia, iff, torch.bfloat16) != "hybrid":
+            continue
+        key = (b, f, s, c, ia)
+        row = rows.setdefault(key, {"where": f"UNet {where.split()[-1]}" if tower == "unet"
+                                    else "adapter",
+                                    "controlled": 0, "unet_only": 0})
+        row["controlled"] += 1
+        row["unet_only"] += tower == "unet"
+    return rows
+
+
+def k1_rows():
+    """K1's calls in one adapter call, by (shape, silu): per block the spatial
+    ResNet's two norms (SiLU) on (28, c, h, h), the temporal ResNet's two (SiLU)
+    on (2, c, 14, h, h) and the transformer's input norm (no SiLU) on (28, c, h, h)."""
+    rows = {}
+    for c, h in adapter_blocks():
+        for shape, silu, n in (((2 * FRAMES, c, h, h), False, 1), ((2 * FRAMES, c, h, h), True, 2),
+                               ((2, c, FRAMES, h, h), True, 2)):
+            rows[(shape, silu)] = rows.get((shape, silu), 0) + n
+    return rows
+
+
+def per_step_total(name, rows, key):
+    """Print the sum of launches x kernel ms against launches x bound over
+    ``rows``: host-inclusive (``ms``), then on device time, warm and cold L2."""
+    n = sum(r[key] for r in rows)
+    bound = sum(r[key] * r["bound_ms"] for r in rows)
+    for field, what in (("ms", "host-inclusive"), ("device_ms", "device, warm L2"),
+                        ("cold_ms", "device, cold L2")):
+        if any(r[key] and r[field] is None for r in rows):
+            print(f"  {name} per {key.replace('_', ' ')} step ({what}): not measured")
+            continue
+        ms = sum(r[key] * r[field] for r in rows if r[key])
+        print(f"  {name} per {key.replace('_', ' ')} step ({what}): {n} launches, {ms:.3f} ms "
+              f"of kernel against {bound:.3f} ms of bound ({100 * bound / ms:.1f} %)")
+
+
+def kernel_times(fn, iters: int = 5):
+    """Device ms per call of each CUDA kernel ``fn()`` launches, from
+    ``torch.profiler``; a run in which the profiler recorded no device time
+    (it happens now and then for short runs) is made again, up to three
+    runs, then None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = {}
+        for ev in prof.key_averages():
+            us = ev.self_device_time_total
+            if us > 0:
+                name = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
+                times[name] = times.get(name, 0.0) + us / 1000 / iters
+        if times:
+            return times
+    return None
+
+
 # ------------------------------------------------------------------ kernels
-def report(label, err, ms, pms, cost, library=None):
+def report(label, err, ms, pms, cost, library=None, single_call=True):
     """One checked row: print the kernel's time beside its plain version's, the
     PyTorch library calls' (``library``: name -> ms or None) and its roofline
-    bound; return the row for the JSON line (``library_ms``: the first call)."""
+    bound; return the row for the JSON line (``library_ms``: the first call,
+    None unless it alone computes the same function, ``single_call``)."""
     lib = "".join(f", {name} {'n/a' if t is None else f'{t:.3f} ms'}"
                   for name, t in (library or {}).items())
     print(f"    kernel {ms:.3f} ms, plain {pms:.3f} ms{lib}; bound {cost.bound_ms:.4f} ms "
           f"({cost.bound_by}), kernel at {100 * cost.bound_ms / ms:.1f} % of it")
     return {"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-            "library_ms": next(iter(library.values())) if library else None,
+            "library_ms": next(iter(library.values())) if library and single_call else None,
             "bound_ms": cost.bound_ms, "bound_by": cost.bound_by}
 
 
@@ -145,16 +347,18 @@ def check_kernels(dev, card):
     rand = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
     results = {}
 
-    # K1: the adapter's GroupNorm(+SiLU) shapes; bf16 output, fp32 statistics.
-    # The first row (no SiLU, the adapter's transformer-input norm) is the one
-    # with a single PyTorch call for the same function.
+    # K1: every GroupNorm(+SiLU) shape of one adapter call (k1_rows), and a
+    # check row of near-constant groups; bf16 output, fp32 statistics. The
+    # first row (no SiLU, the transformer-input norm) is the one with a single
+    # PyTorch call for the same function.
     print(f"K1 group_norm_silu (bf16, G=32, eps 1e-6) on {card}")
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     k1 = []
-    cases = [("(28,320,64,64)", (28, 320, 64, 64), False, False),
-             ("(28,320,64,64) silu", (28, 320, 64, 64), True, False),
-             ("(2,320,14,64,64) silu", (2, 320, 14, 64, 64), True, False),
-             ("(28,320,64,64) near-constant groups", (28, 320, 64, 64), False, True)]
-    for label, shape, silu, flat in cases:
+    cases = [(shape, silu, n, False) for (shape, silu), n in k1_rows().items()]
+    cases.append(((28, 320, 64, 64), False, 0, True))
+    for shape, silu, n, flat in cases:
+        label = (f"({','.join(map(str, shape))})" + (" silu" if silu else "")
+                 + (" near-constant groups" if flat else ""))
         x = rand(*shape)
         if flat:  # half the groups: 0.1 + 1e-4 noise, variance far below eps
             x[:, : shape[1] // 2] = 0.1 + 1e-4 * x[:, : shape[1] // 2]
@@ -163,14 +367,31 @@ def check_kernels(dev, card):
         got = gn.group_norm_silu(x, w, b, 32, 1e-6, silu)
         want = gn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu)
         torch.cuda.synchronize()
-        err = compare(f"K1 {label}", got, want, atol=1e-2, rtol=1e-2)
+        err = compare(f"K1 {label} ({n} per adapter call)", got, want, atol=1e-2, rtol=1e-2)
         ms = cuda_ms(lambda: gn.group_norm_silu(x, w, b, 32, 1e-6, silu))
         pms = cuda_ms(lambda: gn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu))
         library = {"F.group_norm": cuda_ms(lambda: F.group_norm(x, 32, w, b, 1e-6))}
         if silu:  # two calls: no single PyTorch call computes GroupNorm + SiLU
             library["F.silu(F.group_norm)"] = cuda_ms(
                 lambda: F.silu(F.group_norm(x, 32, w, b, 1e-6)))
-        k1.append(report(label, err, ms, pms, rl.group_norm(shape, silu), library))
+        row = report(label, err, ms, pms, rl.group_norm(shape, silu), library, not silu)
+        # device time apart from the host's: the kernel against the yardstick
+        # it must not lose to (F.group_norm; with SiLU, F.silu(F.group_norm))
+        kernel_dev = device_times(lambda: gn.group_norm_silu(x, w, b, 32, 1e-6, silu), flush)
+        yard = list(library)[-1]
+        yard_dev = device_times(
+            (lambda: F.silu(F.group_norm(x, 32, w, b, 1e-6))) if silu
+            else (lambda: F.group_norm(x, 32, w, b, 1e-6)), flush)
+        bound = row["bound_ms"]
+        for what, k, y in zip(("warm L2", "cold L2"), kernel_dev, yard_dev):
+            share = "" if k is None else f", kernel at {100 * bound / k:.1f} % of the bound"
+            verdict = ("" if k is None or y is None
+                       else "; no slower: met" if k <= y else "; no slower: NOT met")
+            print(f"    device, {what}: kernel {fmt_ms(k)}, {yard} {fmt_ms(y)}{share}{verdict}")
+        row.update(controlled=n, device_ms=kernel_dev[0], cold_ms=kernel_dev[1],
+                   library_device_ms=yard_dev[0], library_cold_ms=yard_dev[1])
+        k1.append(row)
+    per_step_total("K1", k1, "controlled")
     results["group_norm_silu"] = k1
 
     # K2: self-attention of the UNet and adapter spatial blocks, H = 64, on
@@ -188,19 +409,23 @@ def check_kernels(dev, card):
         # check catches a K/V tile that is skipped or read from the wrong slot
         err = compare(f"K2 ({b_},{n_},{t_},64)", got, want, atol=1e-2, rtol=2e-2, rel_norm=1e-2)
         ms = cuda_ms(lambda: fa.attention_bnth(q, k, v))
-        pms = cuda_ms(lambda: fa._torch_attention(q, k, v), iters=3, warmup=1)
+        pms = cuda_ms(lambda: fa._torch_attention(q, k, v), iters=3, reps=3, warmup=1)
         k2.append(report(f"({b_},{n_},{t_},64)", err, ms, pms,
                          rl.attention(b_, n_, t_, t_, 64), sdpa_times(q, k, v)))
     results["flash_attention"] = k2
 
-    # K3: temporal attention sub-block with cross bias; the path rows (UNet
-    # level 1, the adapter) and two check rows (UNet level 0, c = 1280)
+    # K3 hybrid: the temporal attention sub-block with cross bias at every
+    # shape the dispatch sends it on the slice (hybrid_rows), and two check
+    # rows the wrapper takes but the dispatch sends elsewhere (UNet level 0,
+    # c = 1280)
     print(f"K3 temporal attention block (bf16, f=14, head_dim 64, cross bias) on {card}")
     k3 = []
-    for label, (b_, f_, s_, c_, heads) in (("UNet L0 (2,14,4096,320) 5 heads", (2, 14, 4096, 320, 5)),
-                                           ("UNet L1 (2,14,1024,640) 10 heads", (2, 14, 1024, 640, 10)),
-                                           ("(2,14,64,1280) 20 heads", (2, 14, 64, 1280, 20)),
-                                           ("adapter c=512 ia=320 s=4096", (2, 14, 4096, 512, 5))):
+    cases = [(f"{r['where']} ({b_},{f_},{s_},{c_}) ia={ia}", (b_, f_, s_, c_, ia // 64),
+              r["controlled"], r["unet_only"])
+             for (b_, f_, s_, c_, ia), r in hybrid_rows().items()]
+    cases += [("check L0 (2,14,4096,320) ia=320", (2, 14, 4096, 320, 5), 0, 0),
+              ("check (2,14,64,1280) ia=1280", (2, 14, 64, 1280, 20), 0, 0)]
+    for label, (b_, f_, s_, c_, heads), n_ctrl, n_unet in cases:
         ia = heads * 64
         x = rand(b_, f_, s_, c_).to(bf)
         cb = rand(b_, s_, c_, scale=0.5).to(bf)
@@ -211,10 +436,27 @@ def check_kernels(dev, card):
         got = ft.temporal_block(x, cb, *args)
         want = ft._torch_temporal_block(x, cb, *args)
         torch.cuda.synchronize()
-        err = compare(f"K3 {label}", got, want, atol=3e-2, rtol=2e-2)
+        err = compare(f"K3 {label} ({n_ctrl} per controlled step, {n_unet} per UNet-only step)",
+                      got, want, atol=3e-2, rtol=2e-2)
+        # the residual x dominates the output, so a skipped head could hide under
+        # the atol: the update alone is held to a relative norm
+        update_check(f"K3 {label}", got, want, x, cb)
+        fp32_check(f"K3 {label}", got, want, ft._torch_temporal_block(x.float(), cb.float(),
+                                                                     *to_fp32(args)))
         ms = cuda_ms(lambda: ft.temporal_block(x, cb, *args))
         pms = cuda_ms(lambda: ft._torch_temporal_block(x, cb, *args))
-        k3.append(report(label, err, ms, pms, rl.temporal_block(b_, f_, s_, c_, ia, True)))
+        split = kernel_times(lambda: ft.temporal_block(x, cb, *args))
+        print("    launches: " + ("not measured (no device time from torch.profiler)" if split is None
+                                  else ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())))
+        row = report(label, err, ms, pms, rl.temporal_block(b_, f_, s_, c_, ia, True))
+        warm = None if split is None else sum(split.values())
+        cold = cold_ms(lambda: ft.temporal_block(x, cb, *args), flush)
+        print(f"    device: kernel {fmt_ms(warm)} warm L2, {fmt_ms(cold)} cold L2, at "
+              f"{100 * row['bound_ms'] / cold:.1f} % of the bound (cold)")
+        row.update(controlled=n_ctrl, unet_only=n_unet, split=split, device_ms=warm, cold_ms=cold)
+        k3.append(row)
+    per_step_total("K3 hybrid", k3, "controlled")
+    per_step_total("K3 hybrid", k3, "unet_only")
     results["temporal_block"] = k3
 
     def ff_weights(c_, inner, cout):
@@ -236,15 +478,8 @@ def check_kernels(dev, card):
     # three residual sub-blocks, each rounding the bf16 stream at other points
     # in the two versions; both are also held against an fp32 run of the plain version
     err = compare("K3 full UNet (2,14,4096,320)", got, want, atol=1e-1, rtol=2e-2)
-    f32 = lambda a: tuple(map(f32, a)) if isinstance(a, tuple) else (  # noqa: E731
-        a.float() if torch.is_tensor(a) else a)
-    ref = ft._torch_temporal_block(x.float(), cb.float(), *f32(args))
-    err_k, err_p = ((t.float() - ref).abs().max().item() for t in (got, want))
-    print(f"    vs fp32: kernel {err_k:.3e}, plain {err_p:.3e} (tolerance: kernel within "
-          f"1.25x the plain version's error + 1e-2)")
-    if err_k > 1.25 * err_p + 1e-2:
-        raise RuntimeError("K3 full: farther from the fp32 reference than its plain version")
-    del ref
+    fp32_check("K3 full", got, want, ft._torch_temporal_block(x.float(), cb.float(),
+                                                              *to_fp32(args)))
     ms = cuda_ms(lambda: ft.temporal_block_full(x, cb, *args))
     pms = cuda_ms(lambda: ft._torch_temporal_block(x, cb, *args))
     results["temporal_block_full"] = [report(
@@ -460,15 +695,22 @@ def run_slices(dev, card, kernels):
     print(f"slice: dispatch as JAX: K3 full {want['temporal_block_full']} "
           f"(5 per UNet call), K3 hybrid {want['temporal_block']} (5 per UNet call + 13 per "
           f"adapter call), K4 and K5 none")
-    # steady state: the denoise loop and the decode again, timed apart
-    steady, latents = ms_per_step(pipe, inputs, kw, STEPS)
+    # steady state: the denoise loop three times (the host clock moves by up
+    # to tens of ms between runs; the median is the slice's ms/step), then the
+    # decode
+    runs = []
+    for _ in range(3):
+        ms, latents = ms_per_step(pipe, inputs, kw, STEPS)
+        runs.append(ms)
+    steady = statistics.median(runs)
     t0 = time.perf_counter()
     pipe._decode(latents, 0.18215)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     print(f"slice on {card}: {STEPS} steps, 1x{FRAMES}x{SIZE}x{SIZE}, CFG, skip_conv_in:")
     print(f"  first generate() {t_first:.3f} s (denoise + decode, cold); denoise "
-          f"{steady:.1f} ms/step second run (control window covers {hi - lo} of {STEPS} steps)")
+          f"{steady:.1f} ms/step, median of runs 2-4 ({', '.join(f'{r:.1f}' for r in runs)}; "
+          f"control window covers {hi - lo} of {STEPS} steps)")
     print(f"  decode {t_decode:.3f} s second run (one chunk of {FRAMES} frames)")
     print(f"  peak device memory {peak_gb:.2f} GiB (first generate())")
     reference_check(pipe, dev, "slice")
@@ -551,10 +793,17 @@ def main() -> int:
     path = _build.build()
     print(f"build: {path} in {time.perf_counter() - t0:.1f} s"
           + (" (already built)" if built_before else " (nvcc ran)"))
+    serialized = []
     with open(path[:-3] + ".log") as fh:  # per entry function: name, spills, registers
         for line in fh:
-            if any(key in line for key in ("Compiling entry", "bytes stack frame", "registers")):
+            if any(key in line for key in ("Compiling entry", "bytes stack frame", "registers",
+                                           "warning", "C7520")):
                 print("  ptxas: " + line.strip())
+            if "C7520" in line:  # ptxas serialised a kernel's wgmma instructions
+                serialized.append(line.strip())
+    if serialized:
+        raise RuntimeError(f"ptxas serialised wgmma (C7520): {serialized}")
+    print("  ptxas: no wgmma serialised (no C7520 in the build log)")
 
     results = check_kernels(dev, card)
     kernels = {"group_norm_silu": gn.KERNEL, "flash_attention": fa.KERNEL,

@@ -120,43 +120,3 @@ __device__ __forceinline__ void ldmatrix_b2(uint32_t (&b)[4], const bf16* w, int
                                             int k0, int lane) {
   ldmatrix_x4(b, w + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8);
 }
-
-// Attention over the f <= 32 frames of each of the ts positions of a tile, one
-// (position, query frame) per warp iteration: lane j scores key frame j. Q, K
-// and V rows (r = frame * ts + position, head dim 64, row stride ld) are bf16
-// in shared memory. Rounds as the TPU kernel does: bf16 logits, times the
-// scale in bf16, fp32 softmax, bf16 probabilities. out(r, lane, o0, o1) gets
-// the fp32 outputs of dims lane and lane + 32 of row r.
-template <class Out>
-__device__ __forceinline__ void frame_attention_64(const bf16* q_s, const bf16* k_s,
-                                                   const bf16* v_s, int ld, int f, int ts,
-                                                   float scale, int warps, Out out) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int task = warp; task < f * ts; task += warps) {
-    const int si = task % ts, i = task / ts;
-    const bf16* qr = q_s + (i * ts + si) * ld;
-    float logit = -INFINITY;
-    if (lane < f) {
-      const bf16* kr = k_s + (lane * ts + si) * ld;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < 64; d += 2) {
-        const __nv_bfloat162 qa = *reinterpret_cast<const __nv_bfloat162*>(qr + d);
-        const __nv_bfloat162 ka = *reinterpret_cast<const __nv_bfloat162*>(kr + d);
-        dot += bf2f(qa.x) * bf2f(ka.x) + bf2f(qa.y) * bf2f(ka.y);
-      }
-      logit = round_bf16(round_bf16(dot) * scale);
-    }
-    const float mx = warp_max(logit);
-    const float e = lane < f ? expf(logit - mx) : 0.f;
-    const float p = round_bf16(e / warp_sum(e));
-    float o0 = 0.f, o1 = 0.f;
-    for (int j = 0; j < f; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, p, j);
-      const bf16* vr = v_s + (j * ts + si) * ld;
-      o0 += pj * bf2f(vr[lane]);
-      o1 += pj * bf2f(vr[lane + 32]);
-    }
-    out(i * ts + si, lane, o0, o1);
-  }
-}

@@ -32,7 +32,7 @@
 //     registers across the inner width;
 //   - attn: per head Q, K, V = LN . W^T on wgmma, stored to shared memory
 //     position-major; the frame attention on mma.sync, one warp per position
-//     (frame_attention_mma); O into a swizzled tile; acc += O . Wo_h^T on
+//     (frame_attention.cuh); O into a swizzled tile; acc += O . Wo_h^T on
 //     wgmma.
 //   A part ends by staging its product, rounded to bf16, in the A tile; then
 //   one pass with a warp per row (four rows' loads in flight at once) adds
@@ -45,6 +45,7 @@
 // f * ts + (-f mod 16) <= 128, s % ts == 0. The host plan
 // (ops/fused_temporal.py:full_plan) chooses ts, the grid and the shared memory;
 // cak_temporal_full refuses a plan that does not match FullCfg.
+#include "frame_attention.cuh"
 #include "hopper.cuh"
 #include "ln_ff.cuh"
 
@@ -53,7 +54,6 @@ namespace {
 constexpr int kRowsT = 128;     // tile rows: two consumer warpgroups of 64
 constexpr int kThreads = 384;   // producer warpgroup + two consumer warpgroups
 constexpr int kHD = 64;         // head dim
-constexpr int kAtom = 128;      // bytes of one swizzled row of 64 bf16 columns
 
 template <int C>
 struct FullCfg {
@@ -91,123 +91,6 @@ __device__ __forceinline__ float gelu_fast(float g) {
   float th;
   asm("tanh.approx.f32 %0, %1;\n" : "=f"(th) : "f"(0.7978845608028654f * (g + 0.044715f * g * g * g)));
   return 0.5f * g * (1.f + th);
-}
-
-// Byte offset of 16-byte chunk `chunk` of row `row` in a tile of 128-byte rows
-// (64 bf16 columns) swizzled as TMA's 128-byte mode does: chunks XOR row % 8.
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * kAtom + ((chunk ^ (row % 8)) << 4);
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// The frame attention of one head for the tile's ts positions on mma.sync,
-// warp `warp` of 8 taking positions warp, warp + 8, ...: per position, the f
-// query rows against the f key rows (16-row query tiles, 8-key blocks; keys
-// >= f masked), softmax per query row across the 4 lanes that hold it, then
-// P . V. Q, K and V (sq, sk, sv: shared addresses) are position-major (row
-// p * f + i), 128-byte swizzled rows; rows past the last position must be
-// finite. Rounds as the TPU kernel (and K3 hybrid's common.cuh:frame_attention_64)
-// does: bf16 logits, times the scale in bf16, fp32 softmax, bf16
-// probabilities, fp32 P . V. out(r, d, o0, o1) gets dims d, d + 1 of tile
-// row r = i * ts + p.
-template <class Out>
-__device__ __forceinline__ void frame_attention_mma(uint32_t sq, uint32_t sk, uint32_t sv, int f,
-                                                    int ts, float scale, int warp, Out out) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const int m_tiles = (f + 15) / 16;  // 16-row query tiles (and 16-key P . V steps)
-  for (int p = warp; p < ts; p += 8) {
-    const int base = p * f;
-    for (int mt = 0; mt < m_tiles; ++mt) {
-      float sc[4][4];  // logits: 16 rows x 32 keys
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb) sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, sq + swz(base + 16 * mt + (lane & 15), 2 * kk + (lane >> 4)));
-#pragma unroll
-        for (int nb = 0; nb < 4; nb += 2) {
-          if (8 * nb < f) {
-            uint32_t b[4];
-            ldsm_x4(b, sk + swz(base + 8 * nb + (lane & 7) + (lane >> 4) * 8,
-                                2 * kk + ((lane >> 3) & 1)));
-            mma_16816(sc[nb], a, b[0], b[1]);
-            mma_16816(sc[nb + 1], a, b[2], b[3]);
-          }
-        }
-      }
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = 8 * nb + 2 * t4 + (i & 1);
-          const float l = key < f ? round_bf16(round_bf16(sc[nb][i]) * scale) : -INFINITY;
-          sc[nb][i] = l;
-          mx[i >> 1] = fmaxf(mx[i >> 1], l);
-        }
-      float sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      }
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float e = expf(sc[nb][i] - mx[i >> 1]);
-          sc[nb][i] = e;
-          sum[i >> 1] += e;
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-      }
-      uint32_t pa[2][4];  // bf16 P as the A operand, keys 16*ks ..
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        pa[ks][0] = pack_bf16(sc[2 * ks][0] / sum[0], sc[2 * ks][1] / sum[0]);
-        pa[ks][1] = pack_bf16(sc[2 * ks][2] / sum[1], sc[2 * ks][3] / sum[1]);
-        pa[ks][2] = pack_bf16(sc[2 * ks + 1][0] / sum[0], sc[2 * ks + 1][1] / sum[0]);
-        pa[ks][3] = pack_bf16(sc[2 * ks + 1][2] / sum[1], sc[2 * ks + 1][3] / sum[1]);
-      }
-#pragma unroll
-      for (int db = 0; db < 8; db += 2) {  // output dims 8*db .. 8*db + 15
-        float o[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
-          if (16 * ks < f) {
-            uint32_t b[4];
-            ldsm_x4_trans(b, sv + swz(base + 16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8,
-                                      db + (lane >> 4)));
-            mma_16816(o[0], pa[ks], b[0], b[1]);
-            mma_16816(o[1], pa[ks], b[2], b[3]);
-          }
-        }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = 16 * mt + g + 8 * h;
-          if (i < f) {
-            out(i * ts + p, 8 * db + 2 * t4, o[0][2 * h], o[0][2 * h + 1]);
-            out(i * ts + p, 8 * db + 8 + 2 * t4, o[1][2 * h], o[1][2 * h + 1]);
-          }
-        }
-      }
-    }
-  }
 }
 
 // Eight bf16 pair-wise adds, each rounded once (a bf16 add).
@@ -584,12 +467,14 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
         team_sync();
-        frame_attention_mma(
-            base + K::kQ, base + K::kK, base + K::kV, f, ts, a.scale, warp8,
-            [&](int r, int d, float o0, float o1) {
-              *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(o_g) + swz(r, d / 8) +
-                                           (d % 8) * 2) = pack_bf16(o0, o1);
-            });
+        for (int p = warp8; p < ts; p += 8)  // one warp per position
+          frame_attention_position(
+              base + K::kQ, base + K::kK, base + K::kV, p * f, f, a.scale,
+              [&](int i, int d, float o0, float o1) {
+                *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(o_g) +
+                                             swz(i * ts + p, d / 8) + (d % 8) * 2) =
+                    pack_bf16(o0, o1);
+              });
         fence_async_smem();
         team_sync();
         const uint32_t w = wait_tile();

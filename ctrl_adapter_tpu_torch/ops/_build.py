@@ -150,11 +150,14 @@ class Kernel:
         self.launches += 1
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """A tensor's device address, for a ``ctypes.c_void_p`` argument."""
+    return t.data_ptr()
 
 
-def stream_of(t) -> ctypes.c_void_p:
+def stream_of(t) -> int:
+    """The current CUDA stream of ``t``'s device, for a ``ctypes.c_void_p``
+    argument (PyTorch's raw-stream query: no Stream object per launch)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

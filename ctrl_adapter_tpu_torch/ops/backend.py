@@ -13,8 +13,23 @@ import torch
 SMEM_PER_BLOCK = 232448
 
 
+_HOPPER = {}
+
+
 def is_hopper(x: torch.Tensor) -> bool:
     """True when ``x`` lies on a CUDA device of compute capability >= (9, 0)."""
     if x.device.type != "cuda":
         return False
-    return torch.cuda.get_device_capability(x.device) >= (9, 0)
+    if x.device not in _HOPPER:
+        _HOPPER[x.device] = torch.cuda.get_device_capability(x.device) >= (9, 0)
+    return _HOPPER[x.device]
+
+
+_SMS = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (what the kernel plans fill)."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]

@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from ._build import Kernel, ptr, stream_of
-from .backend import SMEM_PER_BLOCK, is_hopper
+from .backend import SMEM_PER_BLOCK, is_hopper, sm_count
 
 MIN_SEQ = 1024
 _BLOCK = 512
@@ -124,7 +124,7 @@ def attention_bnth(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
         raise ValueError(f"attention_bnth: self-attention shapes differ: "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     b, n, t, h = q.shape
-    p = plan(b, n, t, h, torch.cuda.get_device_properties(q.device).multi_processor_count)
+    p = plan(b, n, t, h, sm_count(q.device))
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"attention_bnth: {name} on {x.device}, q on {q.device}")

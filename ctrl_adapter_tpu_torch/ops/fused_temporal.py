@@ -27,17 +27,18 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from ._build import Kernel, ptr, stream_of
-from .backend import SMEM_PER_BLOCK, is_hopper
+from .backend import SMEM_PER_BLOCK, is_hopper, sm_count
 from .fused_block import _ln, _torch_ln_ff_residual
 
 KERNEL = Kernel("cak_temporal_attention", [
-    *([ctypes.c_void_p] * 11), *([ctypes.c_int] * 6), ctypes.c_float, ctypes.c_float,
+    *([ctypes.c_void_p] * 11), *([ctypes.c_int] * 16), ctypes.c_float, ctypes.c_float,
     ctypes.c_void_p,
 ])
 KERNEL_FULL = Kernel("cak_temporal_full", [
@@ -46,7 +47,7 @@ KERNEL_FULL = Kernel("cak_temporal_full", [
 ])
 
 KERNEL_HEAD_DIM = 64
-_MAX_ROWS = 128       # f * ts rows per CTA of the hybrid kernel
+_HYBRID_ROWS = 128    # tile rows of the hybrid kernel (two consumer warpgroups of 64)
 _FULL_ROWS = 128      # f * ts rows per CTA of the full kernel (two warpgroups of 64)
 _FULL_WIDTHS = (64, 128, 192, 256, 320)
 _FULL_CHUNK = 64      # the full kernel streams the FF inner width in steps of 64
@@ -145,11 +146,64 @@ def dispatch_mode(b: int, f: int, s: int, c: int, ia: int, iff: int,
     return None
 
 
-def _spatial_tile(f: int, s: int) -> int:
+@dataclass(frozen=True)
+class HybridPlan:
+    ts: int             # positions per tile: rows p * fp + i, fp = f rounded up to 16
+    mode: str           # the A tile: "resident", "alias" (Q/K/V on the ring), "streamed"
+    heads_per_cta: int
+    grid: tuple         # QKV + attention kernel: (s / ts, heads / heads_per_cta, b)
+    smem_bytes: int
+    out_n: int          # out-projection column tile
+    out_grid: tuple     # (c / out_n, ceil(b * f * s / 128)): column tiles of a row tile together
+    out_smem_bytes: int
+
+
+HYBRID_MODES = ("resident", "alias", "streamed")
+_RING = 4 * 3 * 64 * 64          # four slots of 64 rows each of Wq, Wk, Wv x 32 channels
+_QKV = 3 * _HYBRID_ROWS * 128     # the Q, K and V tiles of one head (128-byte rows)
+_BLOCK = _HYBRID_ROWS * 128       # a 64-channel column block of the A tile
+_OUT_STAGES = 3
+
+
+def _hybrid_smem(mode: str, c: int) -> int:
+    """``HybridCfg``: the A tile (two column blocks when streamed), the four-slot
+    ring, the Q/K/V tiles (on the ring under "alias"), per-row mean and rstd,
+    128 bytes of mbarriers and 1 KiB of alignment slack."""
+    a_tile = 2 * _BLOCK if mode == "streamed" else _HYBRID_ROWS * c * 2
+    ring = 0 if mode == "alias" else _RING
+    return a_tile + ring + _QKV + 2 * _HYBRID_ROWS * 4 + 128 + 1024
+
+
+@lru_cache(maxsize=None)
+def hybrid_plan(b: int, f: int, s: int, c: int, heads: int, sms: int = 132) -> HybridPlan:
+    """The two launches of K3 hybrid on a card of ``sms`` SMs; raises for what
+    the kernel does not take.
+
+    - tile: the largest power-of-two ts with s % ts == 0 and fp * ts <= 128;
+    - mode: the first of "resident", "alias", "streamed" whose shared memory
+      fits (c <= 512; c <= 704; any c);
+    - heads per CTA: the divisor of ``heads`` with the fewest waves x (heads
+      per CTA + 1), one CTA an SM, the + 1 standing for the tile's LayerNorm;
+    - the out-projection: 128 x out_n tiles (out_n 128 where it divides c,
+      else 64) over a three-slot ring of 128 + out_n rows of 128 bytes.
+    ``csrc/temporal_attention.cu`` refuses any other plan."""
+    if f < 1 or f > 32 or c < 64 or c % 64 or heads < 1:
+        raise ValueError(f"temporal_block: kernel needs f <= 32 and c % 64 == 0; got f={f} "
+                         f"c={c} heads={heads}")
+    fp = -(-f // 16) * 16
     ts = 1
-    while f * ts * 2 <= _MAX_ROWS and s % (ts * 2) == 0:
+    while fp * ts * 2 <= _HYBRID_ROWS and s % (ts * 2) == 0:
         ts *= 2
-    return ts
+    mode = next(m for m in HYBRID_MODES
+                if m == "streamed" or _hybrid_smem(m, c) <= SMEM_PER_BLOCK)
+    tiles = b * (s // ts)
+    hpc = min((d for d in range(1, heads + 1) if heads % d == 0),
+              key=lambda d: (-(-tiles * (heads // d) // sms) * (d + 1), -d))
+    out_n = 128 if c % 128 == 0 else 64
+    return HybridPlan(ts=ts, mode=mode, heads_per_cta=hpc, grid=(s // ts, heads // hpc, b),
+                      smem_bytes=_hybrid_smem(mode, c), out_n=out_n,
+                      out_grid=(c // out_n, -(-(b * f * s) // _HYBRID_ROWS)),
+                      out_smem_bytes=_OUT_STAGES * (_BLOCK + out_n * 128) + 64 + 1024)
 
 
 def temporal_block(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_w, ln_b, wq,
@@ -164,9 +218,10 @@ def temporal_block(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_w, ln
         raise ValueError(f"temporal_block: x must be (b, f, s, c), got {tuple(x.shape)}")
     b, f, s, c = x.shape
     ia = heads * KERNEL_HEAD_DIM
-    if f > 32 or c % 64 or wq.shape[0] != ia:
-        raise ValueError(f"temporal_block: kernel needs f <= 32, c % 64 == 0 and head "
-                         f"dim 64; got f={f} c={c} ia={wq.shape[0]} heads={heads}")
+    if wq.shape[0] != ia:
+        raise ValueError(f"temporal_block: kernel needs head dim 64; got ia={wq.shape[0]} "
+                         f"for {heads} heads")
+    plan = hybrid_plan(b, f, s, c, heads, sm_count(x.device))
     expect = {"ln_w": (c,), "ln_b": (c,), "wq": (ia, c), "wk": (ia, c), "wv": (ia, c),
               "wo": (c, ia), "bo": (c,)}
     tensors = dict(x=x, ln_w=ln_w, ln_b=ln_b, wq=wq, wk=wk, wv=wv, wo=wo, bo=bo)
@@ -177,14 +232,17 @@ def temporal_block(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_w, ln
         if name in expect and tuple(t.shape) != expect[name]:
             raise ValueError(f"temporal_block: {name} shape {tuple(t.shape)}, "
                              f"expected {expect[name]}")
-        if t.dtype != torch.bfloat16 or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"temporal_block: {name} must be contiguous bfloat16 on {x.device}")
+        if (t.dtype != torch.bfloat16 or t.device != x.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"temporal_block: {name} must be contiguous, 16-byte aligned "
+                             f"bfloat16 on {x.device}")
     o = torch.empty((b, f, s, ia), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     KERNEL(ptr(x), ptr(ln_w), ptr(ln_b), ptr(wq), ptr(wk), ptr(wv), ptr(o), ptr(wo), ptr(bo),
            None if cross_bias is None else ptr(cross_bias), ptr(out),
-           b, f, s, c, heads, _spatial_tile(f, s), float(eps),
-           float(KERNEL_HEAD_DIM ** -0.5), stream_of(x))
+           b, f, s, c, heads, plan.ts, HYBRID_MODES.index(plan.mode), plan.heads_per_cta,
+           *plan.grid, plan.smem_bytes, plan.out_n, *plan.out_grid, plan.out_smem_bytes,
+           float(eps), float(KERNEL_HEAD_DIM ** -0.5), stream_of(x))
     return out
 
 

@@ -12,7 +12,10 @@ Tolerances. Kernel against plain version, bf16: ``|err| <= atol + rtol*|plain|``
 with atol covering one bf16 rounding of outputs of order one (2^-8 relative)
 plus fp32 summation-order differences, rtol 2e-2 for two such roundings of
 larger values; K3 and K4 get atol 3e-2 for their residual sums of order
-four. K3 "full" chains three residual sub-blocks, each rounding the bf16
+four. K3 "hybrid"'s update (out - x - cross bias), which the residual hides
+under that atol, is also held to 2e-2 of the plain update's norm, and its
+output to an fp32 run as K3 "full"'s is. K3 "full" chains three residual
+sub-blocks, each rounding the bf16
 stream at other points in the two versions, so it gets atol 1e-1 against the
 plain version and must also be no farther than 1.25x the plain version (+1e-2)
 from an fp32 run of the plain version on the same inputs. K2 is also held
@@ -75,14 +78,23 @@ def _launches(kernel, fn):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,silu,flat", [
-    ((4, 320, 16, 16), True, False),
-    ((2, 64, 3, 5, 7), False, False),
-    ((2, 320, 14, 8, 8), True, False),
-    ((2, 64, 8, 8), True, True),
-], ids=["bf16-vec", "bf16-scalar-S105", "bf16-5d-vec", "bf16-near-constant"])
-def test_gpu_k1_kernel_matches_plain(shape, silu, flat):
+@pytest.mark.parametrize("shape,silu,flat,branch", [
+    ((4, 320, 16, 16), True, False, "cluster"),
+    ((2, 64, 3, 5, 7), False, False, "two_pass"),
+    ((2, 320, 14, 8, 8), True, False, "cluster"),
+    ((2, 64, 8, 8), True, True, "cluster"),
+    ((28, 320, 32, 32), True, False, "one_cta"),
+    ((28, 1280, 8, 8), False, False, "several_groups"),
+    ((2, 320, 14, 64, 64), True, False, "cluster"),
+    ((1, 32, 1, 1024, 1024), True, False, "two_pass"),
+], ids=["bf16-vec", "bf16-scalar-S105", "bf16-5d-vec", "bf16-near-constant", "one-cta",
+        "several-groups", "cluster8-1.1MB-group", "two-pass-2MB-group"])
+def test_gpu_k1_kernel_matches_plain(shape, silu, flat, branch):
+    """Every branch of the plan: one group a CTA, several a CTA, a group over a
+    cluster (8 CTAs at the adapter's (2, 320, 14, 64, 64)), two passes (a
+    spatial size of 105, a 2 MB group); one launch per call."""
     dev = _dev()
+    assert tgn.plan(shape, 32).branch == branch
     g = torch.Generator(device=dev).manual_seed(0)
     x = _rand(g, dev, *shape)
     if flat:  # variance far below eps: the clamp keeps rstd finite
@@ -94,6 +106,8 @@ def test_gpu_k1_kernel_matches_plain(shape, silu, flat):
     got = _launches(tgn.KERNEL, lambda: tgn.group_norm_silu(x, w, b, 32, 1e-6, silu))
     want = tgn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu)
     _check(got, want, atol=1e-2, rtol=1e-2)
+    again = tgn.group_norm_silu(x, w, b, 32, 1e-6, silu)  # fixed-order sums: bitwise equal
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
@@ -118,15 +132,30 @@ def test_gpu_k2_kernel_matches_plain(t, h, layout):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("f,s,c,heads,cross", [
-    (14, 64, 128, 2, False),
-    (14, 48, 512, 5, True),
-    (14, 12, 1280, 20, True),
-    (14, 7, 320, 5, True),
-    (32, 8, 128, 2, True),
-], ids=["ia=c", "adapter-c512-ia320", "c1280-ts4", "odd-s-ts1", "f32"])
-def test_gpu_k3_kernel_matches_plain(f, s, c, heads, cross):
+@pytest.mark.parametrize("f,s,c,heads,cross,mode", [
+    (14, 64, 128, 2, False, "resident"),
+    (14, 48, 512, 5, True, "resident"),
+    (14, 256, 512, 10, True, "resident"),
+    (14, 24, 512, 20, True, "resident"),
+    (14, 256, 640, 10, True, "alias"),
+    (14, 12, 1280, 20, True, "streamed"),
+    (14, 8, 768, 3, False, "streamed"),
+    (14, 256, 768, 12, True, "streamed"),
+    (14, 7, 320, 5, True, "resident"),
+    (32, 8, 128, 2, True, "resident"),
+    (8, 32, 704, 2, True, "alias"),
+], ids=["ia=c", "adapter-c512-ia320", "adapter-c512-ia640", "adapter-c512-ia1280",
+        "unet-l1-c640-alias", "c1280-streamed", "c768-streamed-no-cross", "c768-streamed-heads",
+        "odd-s-ts1", "f32",
+        "f8-c704-alias"])
+def test_gpu_k3_kernel_matches_plain(f, s, c, heads, cross, mode):
+    """Each (c, ia) of the main path (512/320, 512/640, 512/1280, 640/640) at
+    small s and each layout of the plan, with one and several heads a CTA. The output against the plain version
+    elementwise; the block's update (out - x - cross bias), which the residual
+    would hide, to a relative norm of 2e-2; and both against an fp32 run of
+    the plain version."""
     dev = _dev()
+    assert tft.hybrid_plan(2, f, s, c, heads).mode == mode
     g = torch.Generator(device=dev).manual_seed(2)
     ia = heads * 64
     x = _rand(g, dev, 2, f, s, c).to(BF)
@@ -140,6 +169,15 @@ def test_gpu_k3_kernel_matches_plain(f, s, c, heads, cross):
     got = _launches(tft.KERNEL, lambda: tft.temporal_block(x, cb, *args))
     want = tft._torch_temporal_block(x, cb, *args)
     _check(got, want, atol=3e-2, rtol=2e-2)
+    base = x.float() + (0 if cb is None else cb.float()[:, None])
+    upd_k, upd_p = got.float() - base, want.float() - base
+    rel = (torch.linalg.vector_norm(upd_k - upd_p) / torch.linalg.vector_norm(upd_p)).item()
+    assert rel <= 2e-2, f"update relative norm error {rel:.3e}"
+    f32 = lambda a: a.float() if torch.is_tensor(a) else a  # noqa: E731
+    ref = tft._torch_temporal_block(f32(x), f32(cb), *map(f32, args))
+    err_kernel = (got.float() - ref).abs().max().item()
+    err_plain = (want.float() - ref).abs().max().item()
+    assert err_kernel <= 1.25 * err_plain + 1e-2, (err_kernel, err_plain)
 
 
 @pytest.mark.gpu

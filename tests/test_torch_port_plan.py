@@ -7,6 +7,10 @@ shapes: runs on the CPU.
   of a strided view).
 - K3 full (``ops/fused_temporal.py``): :func:`full_plan` (tile of ts
   positions, grid, shared memory).
+- K3 hybrid (``ops/fused_temporal.py``): :func:`hybrid_plan` (tile, A-tile
+  layout, heads per CTA, both grids and shared memories).
+- K1 (``ops/group_norm.py``): :func:`plan` (branch, CTAs per group or groups
+  per CTA, shared memory).
 
 The kernels launch the plans' grids and refuse shared-memory sizes other than
 their own configurations', so a plan that drifts from the C side fails on the
@@ -14,11 +18,14 @@ card instead of launching.
 - ``ops/roofline.py``: FLOPs, bytes and the bound of every kernel row.
 """
 
+from collections import Counter
+
 import pytest
 import torch
 
 from ctrl_adapter_tpu_torch.ops import flash_attention as fa
 from ctrl_adapter_tpu_torch.ops import fused_temporal as ft
+from ctrl_adapter_tpu_torch.ops import group_norm as gn
 from ctrl_adapter_tpu_torch.ops import roofline as rl
 from ctrl_adapter_tpu_torch.ops.backend import SMEM_PER_BLOCK
 
@@ -117,6 +124,152 @@ def test_full_plan_takes_every_full_block_of_the_svd_slice():
     assert seen >= 1
 
 
+# --------------------------------------------------------- K3 hybrid plan
+# Shared memory: resident 256c (the 128-row A tile) + 4 x 12 KiB ring + 48 KiB
+# Q/K/V + 1 KiB mean/rstd + 128 B mbarriers + 1 KiB slack = 256c + 100,480;
+# alias (Q/K/V on the ring) 256c + 51,328; streamed 2 x 16 KiB staging blocks
+# instead of the A tile: 133,248. The out-projection: three slots of a 16 KiB
+# O tile and 128 * out_n bytes of Wo, + 1,088: 99,392 (out_n 128), 74,816 (64);
+# its grid puts the column tiles of a row tile side by side.
+@pytest.mark.parametrize("args,ts,mode,hpc,grid,smem,out_n,out_grid,out_smem", [
+    # UNet level 1: 256 tiles; 10 heads a CTA is 2 waves x 11, 5 would be 4 x 6
+    ((2, 14, 1024, 640, 10), 8, "alias", 10, (128, 1, 2), 256 * 640 + 51328, 128, (5, 224),
+     99392),
+    # the adapter's six shapes (c = 512, ia = the block's channels)
+    ((2, 14, 4096, 512, 5), 8, "resident", 5, (512, 1, 2), 256 * 512 + 100480, 128, (4, 896),
+     99392),
+    ((2, 14, 1024, 512, 5), 8, "resident", 5, (128, 1, 2), 231552, 128, (4, 224), 99392),
+    ((2, 14, 1024, 512, 10), 8, "resident", 10, (128, 1, 2), 231552, 128, (4, 224), 99392),
+    # 64 tiles: 5 heads a CTA fill 128 SMs in one wave (cost 6 against 11 for 10)
+    ((2, 14, 256, 512, 10), 8, "resident", 5, (32, 2, 2), 231552, 128, (4, 56), 99392),
+    ((2, 14, 256, 512, 20), 8, "resident", 10, (32, 2, 2), 231552, 128, (4, 56), 99392),
+    # 16 tiles, 20 heads: 4 a CTA, 80 CTAs in one wave (cost 5)
+    ((2, 14, 64, 512, 20), 8, "resident", 4, (8, 5, 2), 231552, 128, (4, 14), 99392),
+    # check rows: UNet level 0 (c = 320: 64-column out tiles), c = 1280 (streamed)
+    ((2, 14, 4096, 320, 5), 8, "resident", 5, (512, 1, 2), 256 * 320 + 100480, 64, (5, 896),
+     74816),
+    ((2, 14, 64, 1280, 20), 8, "streamed", 4, (8, 5, 2), 133248, 128, (10, 14), 99392),
+    # 32 frames: fp = 32, 4 positions a tile; odd s: one position a tile
+    ((2, 32, 8, 128, 2), 4, "resident", 1, (2, 2, 2), 256 * 128 + 100480, 128, (1, 4), 99392),
+    ((2, 14, 7, 320, 5), 1, "resident", 1, (7, 5, 2), 182400, 64, (5, 2), 74816),
+], ids=["unet-l1", "ad-4096-ia320", "ad-1024-ia320", "ad-1024-ia640", "ad-256-ia640",
+        "ad-256-ia1280", "ad-64-ia1280", "check-l0", "check-c1280", "f32", "odd-s"])
+def test_hybrid_plan_hand_worked(args, ts, mode, hpc, grid, smem, out_n, out_grid, out_smem):
+    p = ft.hybrid_plan(*args)
+    assert (p.ts, p.mode, p.heads_per_cta, p.grid, p.smem_bytes) == (ts, mode, hpc, grid, smem)
+    assert (p.out_n, p.out_grid, p.out_smem_bytes) == (out_n, out_grid, out_smem)
+    assert p.smem_bytes <= SMEM_PER_BLOCK and 2 * p.out_smem_bytes <= 228 * 1024
+
+
+@pytest.mark.parametrize("c,mode", [(64, "resident"), (512, "resident"), (576, "alias"),
+                                    (704, "alias"), (768, "streamed"), (2560, "streamed")])
+def test_hybrid_plan_takes_the_widest_layout_that_fits(c, mode):
+    assert ft.hybrid_plan(2, 14, 64, c, 4).mode == mode
+
+
+@pytest.mark.parametrize("args", [
+    (2, 33, 64, 512, 8),   # more than 32 frames
+    (2, 14, 64, 544, 8),   # c not a multiple of 64
+    (2, 14, 64, 32, 1),    # c below one 64-channel chunk
+    (2, 14, 64, 512, 0),   # no heads
+], ids=["f33", "c544", "c32", "heads0"])
+def test_hybrid_plan_refuses_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError):
+        ft.hybrid_plan(*args)
+
+
+# ---------------------------------------------------------------- K1 plan
+# A one-launch CTA's shared memory: its elements of x (bf16) + 256 bytes of
+# per-group sums, statistics and mbarriers + 16 bytes for each channel it
+# touches (elems / S + 2 at most).
+@pytest.mark.parametrize("shape,branch,cluster,gpc,elems,grid,smem", [
+    # 896 groups of 10 x 4096: one 80 KiB group a CTA, two CTAs an SM
+    ((28, 320, 64, 64), "one_cta", 1, 1, 40960, 896, 81920 + 256 + 16 * 12),
+    # 5 KiB groups: two a CTA (four would leave 224 < 2 x 132 CTAs)
+    ((28, 1280, 8, 8), "several_groups", 1, 2, 5120, 448, 10240 + 256 + 16 * 82),
+    # 64 groups of 1.15 MB: clusters of 8 CTAs of 143 KiB
+    ((2, 320, 14, 64, 64), "cluster", 8, 1, 71680, 512, 143360 + 256 + 16 * 3),
+    # 64 groups of 70 KiB would fill 64 SMs: clusters of 4 fill 256 CTAs
+    ((2, 1280, 14, 8, 8), "cluster", 4, 1, 8960, 256, 17920 + 256 + 16 * 12),
+], ids=["one-cta", "several-groups", "cluster-8", "cluster-fill"])
+def test_group_norm_plan_hand_worked(shape, branch, cluster, gpc, elems, grid, smem):
+    p = gn.plan(shape, 32)
+    assert (p.branch, p.cluster, p.groups_per_cta, p.elems, p.grid, p.smem_bytes, p.vec) == (
+        branch, cluster, gpc, elems, grid, smem, True)
+    assert p.smem_bytes <= SMEM_PER_BLOCK
+
+
+def test_group_norm_plan_two_pass_branch():
+    # a spatial size of 105 (not a multiple of 8): scalar loads, one split of 210
+    p = gn.plan((2, 64, 3, 5, 7), 32)
+    assert (p.branch, p.elems, p.grid, p.smem_bytes, p.vec) == ("two_pass", 210, 1, 0, False)
+    # a 2 MiB group (more than 8 CTAs of 200 KiB): 64 splits of 16,384
+    p = gn.plan((1, 32, 1, 1024, 1024), 32)
+    assert (p.branch, p.elems, p.grid, p.vec) == ("two_pass", 16384, 64, True)
+    # a base address that is not 16-byte aligned: scalar loads
+    p = gn.plan((28, 320, 64, 64), 32, aligned=False)
+    assert (p.branch, p.vec) == ("two_pass", False)
+
+
+def test_group_norm_plan_is_one_launch_on_every_adapter_shape():
+    import chip_smoke
+
+    for (shape, _), n in chip_smoke.k1_rows().items():
+        p = gn.plan(shape, 32)
+        assert p.branch != "two_pass" and p.smem_bytes <= SMEM_PER_BLOCK, (shape, p)
+
+
+# ------------------------------------------------- main-path shape lists
+def _drive_on_meta(monkeypatch):
+    """Run the slice's adapter and UNet once on the meta device (shapes only;
+    the kernels swapped for their plain versions) and record every temporal
+    block's ``dispatch_mode`` call and every GroupNorm kernel call."""
+    import chip_smoke
+    from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+    from ctrl_adapter_tpu_torch.models.unet_svd import UNetSpatioTemporalConditionModel
+
+    dispatch, norms = [], []
+    real = ft.dispatch_mode
+    monkeypatch.setattr(ft, "dispatch_mode", lambda *a: dispatch.append(
+        (a[:5], real(*a))) or dispatch[-1][1])
+    dev, bf = torch.device("meta"), torch.bfloat16
+    with chip_smoke.plain_kernels(), torch.no_grad():
+        monkeypatch.setattr(gn, "group_norm_silu", lambda x, w, b, g, eps, silu: norms.append(
+            (tuple(x.shape), silu)) or gn._torch_group_norm_silu(x, w, b, g, eps, silu))
+        adapter = ControlNetAdapter(cross_attention_dim=1024, num_blocks=1,
+                                    adapter_locations=("A", "B", "C", "D", "M"),
+                                    add_temporal_resnet=True, add_temporal_transformer=True,
+                                    device=dev, dtype=bf)
+        res = [torch.empty(28, c, h, h, device=dev, dtype=bf) for c, h in
+               zip((320,) * 4 + (640,) * 3 + (1280,) * 5, (64,) * 3 + (32,) * 3 + (16,) * 3
+                   + (8,) * 3)]
+        adapter(res, torch.empty(28, 1280, 8, 8, device=dev, dtype=bf), num_frames=14,
+                timestep=torch.ones(2, device=dev),
+                encoder_hidden_states=torch.empty(2, 1, 1024, device=dev, dtype=bf))
+        n_adapter = len(dispatch)
+        unet = UNetSpatioTemporalConditionModel(device=dev, dtype=bf)
+        unet(torch.empty(2, 14, 8, 64, 64, device=dev, dtype=bf), torch.ones(2, device=dev),
+             torch.empty(2, 1, 1024, device=dev, dtype=bf), torch.empty(2, 3, device=dev))
+    return dispatch[:n_adapter], dispatch[n_adapter:], norms
+
+
+def test_chip_smoke_shape_lists_are_the_modules_dispatch(monkeypatch):
+    """The K3 hybrid rows ``chip_smoke.py`` times (with their launches per
+    controlled and per UNet-only step) and its 65 K1 calls per adapter call
+    are what the port's adapter and UNet modules dispatch at full width."""
+    import chip_smoke
+
+    adapter, unet, norms = _drive_on_meta(monkeypatch)
+    hybrid = Counter(a for a, m in adapter + unet if m == "hybrid")
+    hybrid_unet = Counter(a for a, m in unet if m == "hybrid")
+    rows = chip_smoke.hybrid_rows()
+    assert {k: r["controlled"] for k, r in rows.items()} == dict(hybrid)
+    assert {k: r["unet_only"] for k, r in rows.items() if r["unet_only"]} == dict(hybrid_unet)
+    assert sum(hybrid.values()) == 18 and sum(hybrid_unet.values()) == 5
+    assert Counter(m for _, m in unet) == {"full": 5, "hybrid": 5, None: 6}
+    assert dict(Counter(norms)) == chip_smoke.k1_rows() and len(norms) == 65
+
+
 # --------------------------------------------------------------- roofline
 def test_roofline_attention_hand_worked():
     cost = rl.attention(28, 5, 4096, 4096, 64)
@@ -162,6 +315,31 @@ def test_roofline_feed_forwards_hand_worked():
     assert k5.bound_ms == pytest.approx(0.1900, abs=1e-4) and k5.bound_by == "operations"
 
 
+def test_roofline_per_step_sums_hand_worked():
+    """The per-step bounds ``chip_smoke.py`` prints: K3 hybrid 0.79 ms in the
+    adapter (13 calls) + 0.48 ms in the UNet (5 at level 1) per controlled
+    step; K1 1.12 ms over the adapter's 65 norms (3.76 GB read and written)."""
+    import chip_smoke
+
+    rows = chip_smoke.hybrid_rows()
+    # UNet level 1: 2*28672*640*1920 (QKV) + 2*28672*640*640 (out) + 4*2048*196*640
+    l1 = rl.temporal_block(2, 14, 1024, 640, 640, True)
+    assert l1.flops == 2 * 28672 * 640 * 2560 + 4 * 2048 * 196 * 640 == 94_980_014_080
+    unet = sum(r["unet_only"] * rl.temporal_block(*k, True).bound_ms for k, r in rows.items())
+    adapter = sum((r["controlled"] - r["unet_only"]) * rl.temporal_block(*k, True).bound_ms
+                  for k, r in rows.items())
+    assert unet == pytest.approx(5 * 94_980_014_080 / 989e9, rel=1e-9)
+    assert unet == pytest.approx(0.480, abs=1e-3) and adapter == pytest.approx(0.790, abs=1e-3)
+    k1 = chip_smoke.k1_rows()
+    moved = sum(n * rl.group_norm(shape, silu).bytes for (shape, silu), n in k1.items())
+    # per block (c, h): 5 norms of 28*c*h*h elements (3 of (28, c, h, h), 2 of
+    # (2, c, 14, h, h)), each read and written, and their (c,) weight and bias
+    blocks = chip_smoke.adapter_blocks()
+    assert moved == sum(4 * 5 * (28 * c * h * h + c) for c, h in blocks) == 3_761_984_000
+    bound = sum(n * rl.group_norm(shape, silu).bound_ms for (shape, silu), n in k1.items())
+    assert bound == pytest.approx(1.123, abs=1e-3)
+
+
 def test_chip_smoke_row_carries_the_bound_and_the_first_library_call():
     import chip_smoke
 
@@ -171,3 +349,23 @@ def test_chip_smoke_row_carries_the_bound_and_the_first_library_call():
     assert row["library_ms"] == 1.3
     assert row["bound_ms"] == cost.bound_ms and row["bound_by"] == "operations"
     assert chip_smoke.report("x", 0.0, 1.0, 1.0, cost)["library_ms"] is None
+
+
+def test_per_step_total_sums_each_clock_and_names_a_missing_one(capsys):
+    """``per_step_total`` sums launches x ms on the host-inclusive clock and
+    on device time (warm and cold L2); a clock that a launched row lacks is
+    "not measured", and rows with no launches do not count."""
+    import chip_smoke
+
+    rows = [dict(controlled=2, ms=0.5, device_ms=0.4, cold_ms=0.45, bound_ms=0.1),
+            dict(controlled=0, ms=9.0, device_ms=None, cold_ms=9.0, bound_ms=1.0),
+            dict(controlled=1, ms=0.25, device_ms=None, cold_ms=0.2, bound_ms=0.05)]
+    chip_smoke.per_step_total("K", rows, "controlled")
+    out = capsys.readouterr().out.splitlines()
+    assert out == [
+        "  K per controlled step (host-inclusive): 3 launches, 1.250 ms of kernel against "
+        "0.250 ms of bound (20.0 %)",
+        "  K per controlled step (device, warm L2): not measured",
+        "  K per controlled step (device, cold L2): 3 launches, 1.100 ms of kernel against "
+        "0.250 ms of bound (22.7 %)",
+    ]

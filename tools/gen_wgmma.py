@@ -12,7 +12,7 @@ MN-major B such as attention's V).
 
 import os
 
-SS_N = (64, 128, 160)
+SS_N = (64, 128, 160, 192)
 RS_N = (64, 128, 160)
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "ctrl_adapter_tpu_torch", "csrc", "wgmma.cuh")
