@@ -16,10 +16,13 @@ Phases (any failure raises and the script exits non-zero before its last line):
    module of the port calls them. K1 and K3 hybrid run at every shape the
    slice gives them (``k1_rows``, ``hybrid_rows``, from the model configs),
    with the per-step sums of launches x time against launches x bound, and
-   K3 hybrid's two launches timed apart under ``torch.profiler``; both also
-   on device time apart from the host's, with their inputs left in L2
-   (``torch.profiler``) and with L2 flushed before each call (``cold_ms``),
-   K1 beside its yardstick's device time;
+   K3 hybrid's two launches timed apart under ``torch.profiler``; K1, K3
+   hybrid, K3 full, K4 and K5 also on device time apart from the host's,
+   with their inputs left in L2 (``torch.profiler``) and with L2 flushed
+   before each call (``cold_ms``), K1 beside its yardstick's device time, K5
+   beside the time of the (M, 2D) product ``F.linear`` alone; K3 full and K4
+   also with exact (erf) gelu; K3 full, K4 and K5 on inputs that tell the two
+   gelu forms apart (``gelu_form_check``);
 4. run the slice: ``SVDControlNetAdapterPipeline`` at full width (SVD UNet
    320/640/1280/1280, SD-v1.5 ControlNet, the 13-block adapter at A-D + M, the
    temporal VAE) in bf16 with weights drawn from a seeded generator, 14 frames
@@ -30,10 +33,18 @@ Phases (any failure raises and the script exits non-zero before its last line):
    kernel path against an fp32 reference of the same weights;
 5. the same pipeline in the fused-block configuration
    (``CTRL_ADAPTER_FUSED_BLOCK=1``, a switch of the JAX package) for 2 steps:
-   the same checks, and K4 must launch; ms/step beside the default's;
-6. K5, which no model path reaches: the port's ``FeedForward`` under
+   the same checks, and K4 must launch; ms/step beside the default's; K4's
+   launches counted per step give its per-step sums (launches x time against
+   launches x bound);
+6. the exact-gelu switch (``CTRL_ADAPTER_EXACT_GELU=1``, a switch of the JAX
+   package): a UNet level-0 temporal block still runs K3 full, now with erf
+   gelu, and agrees with its plain version, and on weights that tell the
+   forms apart its output follows the switch; a 320-wide spatial transformer
+   block under ``CTRL_ADAPTER_FUSED_BLOCK=1`` launches K4 without the switch
+   and not with it (the JAX rule keeps erf off its kernel);
+7. K5, which no model path reaches: the port's ``FeedForward`` under
    ``CTRL_ADAPTER_FUSED_FF=1`` at the level-0 shape, against its plain run;
-7. print the per-kernel JSON line, the card line, and the result line.
+8. print the per-kernel JSON line, the card line, and the result line.
 
 Imports nothing of JAX.
 """
@@ -120,6 +131,18 @@ def fmt_ms(t) -> str:
     return "not measured" if t is None else f"{t:.4f} ms"
 
 
+def device_line(row, fn, flush) -> None:
+    """Time ``fn()`` on device, warm and cold L2 (``device_times``), print both
+    beside the row's bound and its share of them, and add them to the row."""
+    warm, cold = device_times(fn, flush)
+    bound = row["bound_ms"]
+    shares = ", ".join(f"{what} {100 * bound / t:.1f} %" for what, t in (("warm", warm),
+                                                                         ("cold", cold)) if t)
+    print(f"    device: kernel {fmt_ms(warm)} warm L2, {fmt_ms(cold)} cold L2; bound "
+          f"{bound:.4f} ms, kernel at {shares} of it")
+    row.update(device_ms=warm, cold_ms=cold)
+
+
 def compare(name, got, want, atol, rtol, rel_norm=None):
     """Elementwise ``|err| <= atol + rtol*|plain|``; with ``rel_norm``, also
     ``||err|| <= rel_norm * ||plain||`` (outputs much smaller than atol)."""
@@ -173,6 +196,82 @@ def fp32_check(name, got, want, ref):
           f"1.25x the plain version's error + 1e-2)")
     if err_k > 1.25 * err_p + 1e-2:
         raise RuntimeError(f"{name}: farther from the fp32 reference than its plain version")
+
+
+def gelu_form_check(name, run):
+    """The kernel computed the gelu form it was asked for. ``run(approximate,
+    kernel)`` gives the kernel's output (``kernel`` true) or its plain
+    version's, on inputs where the two forms differ by far more than the
+    kernel's rounding (``gelu_form_ff``). For each form, the kernel's mean |err|
+    against the plain version of that form must be below half its mean |err|
+    against the plain version of the other: a flag that does not reach the
+    kernel fails one of the two."""
+    plain = {a: run(a, False).float() for a in (True, False)}
+    for approximate, form in ((True, "tanh"), (False, "erf")):
+        got = run(approximate, True).float()
+        same = (got - plain[approximate]).abs().mean().item()
+        other = (got - plain[not approximate]).abs().mean().item()
+        ok = same <= 0.5 * other
+        print(f"  {name}, {form} gelu: mean |err| {same:.3e} against plain {form}, {other:.3e} "
+              f"against the other form (tolerance: below half of it) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"{name}: the kernel did not compute {form} gelu")
+
+
+# ----------------------------------------------- the feed-forward kernels' rows
+# (atol, rtol, relative norm or None) of each kernel against its plain version
+FF_TOL = {"temporal_block_full": (1e-1, 2e-2, None), "ln_ff_residual": (3e-2, 2e-2, None),
+          "geglu": (2e-2, 2e-2, 1e-2)}
+K5_SHAPES = ((114688, 320), (28672, 640))  # (rows, c): UNet levels 0 and 1, inner 4c
+
+
+def ff_weights(rand, c, inner, cout):
+    """(ln_w, ln_b, wg, bg, w2, b2) of a GEGLU FF, bf16, nn.Linear layout."""
+    bf = torch.bfloat16
+    return ((1.0 + rand(c, scale=0.1)).to(bf), rand(c, scale=0.1).to(bf),
+            rand(2 * inner, c, scale=c ** -0.5).to(bf), rand(2 * inner, scale=0.1).to(bf),
+            rand(cout, inner, scale=inner ** -0.5).to(bf), rand(cout, scale=0.1).to(bf))
+
+
+def k3_full_inputs(rand):
+    """K3 full's main-path inputs: the UNet level-0 temporal block, (2, 14, 4096,
+    320), 5 heads, cross bias; (x, cross bias, the arguments up to ``approximate``)."""
+    bf = torch.bfloat16
+    x = rand(2, 14, 4096, 320).to(bf)
+    cb = rand(2, 4096, 320, scale=0.5).to(bf)
+    args = ((1.0 + rand(320, scale=0.1)).to(bf), rand(320, scale=0.1).to(bf),
+            *(rand(320, 320, scale=320 ** -0.5).to(bf) for _ in range(4)),
+            rand(320, scale=0.1).to(bf), 5, 1e-5, ff_weights(rand, 320, 1280, 320),
+            ff_weights(rand, 320, 1280, 320))
+    return x, cb, args
+
+
+def k4_inputs(rand):
+    """K4's main-path inputs: the level-0 spatial transformer FF, 28 x 4096 rows
+    of 320, inner 1280; (x, FF weights)."""
+    return rand(114688, 320).to(torch.bfloat16), ff_weights(rand, 320, 1280, 320)
+
+
+def k5_inputs(rand, m, c):
+    """K5's inputs at (m, c) -> 2 x 4c: (x, W, b)."""
+    bf = torch.bfloat16
+    return (rand(m, c).to(bf), rand(8 * c, c, scale=c ** -0.5).to(bf),
+            rand(8 * c, scale=0.1).to(bf))
+
+
+def gelu_form_ff(rand, c, inner, cout):
+    """(ln_w, ln_b, wg, bg, w2, b2), bf16, of a GEGLU FF whose two gelu forms give
+    clearly different outputs: the products add ~1e-2 to a value bias of 1 and
+    a gate bias of -3, where tanh-gelu lies 10 % (4.1e-4) above erf-gelu, and
+    W2 (positive, ~1/inner) averages h over the inner width, so the gap reaches
+    every output whole."""
+    bf = torch.bfloat16
+    dev = rand(1).device
+    bg = torch.cat([torch.ones(inner, device=dev), torch.full((inner,), -3.0, device=dev)])
+    return (torch.ones(c, device=dev, dtype=bf), torch.zeros(c, device=dev, dtype=bf),
+            rand(2 * inner, c, scale=0.01 * c ** -0.5).to(bf), bg.to(bf),
+            ((1.0 + rand(cout, inner, scale=0.1)) / inner).to(bf),
+            torch.zeros(cout, device=dev, dtype=bf))
 
 
 # ------------------------------------------------------- main-path shapes
@@ -296,6 +395,38 @@ def kernel_times(fn, iters: int = 5):
         if times:
             return times
     return None
+
+
+def device_activity(run):
+    """``run()`` once under ``torch.profiler``: (busy, span, per_name) of the
+    CUDA kernels it launched, in µs. busy is the union of their spans, span
+    the time from the first one's start to the last one's end (1 - busy / span
+    is the device's idle share), per_name {kernel name: [µs, calls]}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise RuntimeError("the profiler recorded no device kernels")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    per_name = {}
+    for e in kern:
+        t = per_name.setdefault(e.name, [0.0, 0])
+        t[0] += e.time_range.elapsed_us()
+        t[1] += 1
+    return busy, spans[-1][1] - spans[0][0], per_name
 
 
 # ------------------------------------------------------------------ kernels
@@ -459,60 +590,98 @@ def check_kernels(dev, card):
     per_step_total("K3 hybrid", k3, "unet_only")
     results["temporal_block"] = k3
 
-    def ff_weights(c_, inner, cout):
-        return ((1.0 + rand(c_, scale=0.1)).to(bf), rand(c_, scale=0.1).to(bf),
-                rand(2 * inner, c_, scale=c_ ** -0.5).to(bf), rand(2 * inner, scale=0.1).to(bf),
-                rand(cout, inner, scale=inner ** -0.5).to(bf), rand(cout, scale=0.1).to(bf))
-
-    # K3 "full": the whole UNet level-0 temporal block in one launch.
+    # K3 "full": the whole UNet level-0 temporal block in one launch; then,
+    # on a small input, with erf gelu (what CTRL_ADAPTER_EXACT_GELU=1 asks for),
+    # and both forms told apart
     print(f"K3 full temporal block (bf16, (2,14,4096,320), 5 heads, cross bias) on {card}")
-    x = rand(2, 14, 4096, 320).to(bf)
-    cb = rand(2, 4096, 320, scale=0.5).to(bf)
-    args = ((1.0 + rand(320, scale=0.1)).to(bf), rand(320, scale=0.1).to(bf),
-            *(rand(320, 320, scale=320 ** -0.5).to(bf) for _ in range(4)),
-            rand(320, scale=0.1).to(bf), 5, 1e-5, ff_weights(320, 1280, 320),
-            ff_weights(320, 1280, 320))
+    atol, rtol, _ = FF_TOL["temporal_block_full"]
+    x, cb, args = k3_full_inputs(rand)
+    args += (True,)
     got = ft.temporal_block_full(x, cb, *args)
     want = ft._torch_temporal_block(x, cb, *args)
     torch.cuda.synchronize()
     # three residual sub-blocks, each rounding the bf16 stream at other points
     # in the two versions; both are also held against an fp32 run of the plain version
-    err = compare("K3 full UNet (2,14,4096,320)", got, want, atol=1e-1, rtol=2e-2)
+    err = compare("K3 full UNet (2,14,4096,320)", got, want, atol=atol, rtol=rtol)
     fp32_check("K3 full", got, want, ft._torch_temporal_block(x.float(), cb.float(),
                                                               *to_fp32(args)))
     ms = cuda_ms(lambda: ft.temporal_block_full(x, cb, *args))
     pms = cuda_ms(lambda: ft._torch_temporal_block(x, cb, *args))
-    results["temporal_block_full"] = [report(
-        "UNet L0 (2,14,4096,320) 5 heads", err, ms, pms,
-        rl.temporal_block_full(2, 14, 4096, 320, 320, 1280, True))]
+    row = report("UNet L0 (2,14,4096,320) 5 heads", err, ms, pms,
+                 rl.temporal_block_full(2, 14, 4096, 320, 320, 1280, True))
+    device_line(row, lambda: ft.temporal_block_full(x, cb, *args), flush)
+    erf_args = args[:-1] + (False,)
+    xs, cbs = x[:, :, :256].contiguous(), cb[:, :256].contiguous()
+    got = ft.temporal_block_full(xs, cbs, *erf_args)
+    want = ft._torch_temporal_block(xs, cbs, *erf_args)
+    torch.cuda.synchronize()
+    err_erf = compare("K3 full (2,14,256,320), erf gelu", got, want, atol=atol, rtol=rtol)
+    fp32_check("K3 full, erf gelu", got, want, ft._torch_temporal_block(
+        xs.float(), cbs.float(), *to_fp32(erf_args)))
+    # the forms differ by less than the atol at these inputs: tell them apart
+    # on a residual stream of ~1e-2 through FFs that expose the gap
+    xf, cbf = rand(2, 14, 256, 320, scale=1e-2).to(bf), rand(2, 256, 320, scale=2e-3).to(bf)
+    form = (torch.ones(320, device=dev, dtype=bf), torch.zeros(320, device=dev, dtype=bf),
+            *(rand(320, 320, scale=2e-3).to(bf) for _ in range(4)),
+            rand(320, scale=2e-3).to(bf), 5, 1e-5, gelu_form_ff(rand, 320, 1280, 320),
+            gelu_form_ff(rand, 320, 1280, 320))
+    gelu_form_check("K3 full (2,14,256,320)", lambda a, k: (
+        ft.temporal_block_full if k else ft._torch_temporal_block)(xf, cbf, *form, a))
+    row["max_abs_err"] = max(err, err_erf)
+    results["temporal_block_full"] = [row]
 
-    # K4: the level-0 spatial transformer FF, 28 x 4096 rows.
+    # K4: the level-0 spatial transformer FF, 28 x 4096 rows (launches per step
+    # in the fused-block configuration: phase 5); then with erf gelu on a
+    # 4,160-row slice, and both forms told apart
     print(f"K4 ln_ff_residual (bf16, tanh gelu, residual) on {card}")
-    x = rand(114688, 320).to(bf)
-    w = ff_weights(320, 1280, 320)
+    atol, rtol, _ = FF_TOL["ln_ff_residual"]
+    x, w = k4_inputs(rand)
     got = fb.ln_ff_kernel(x, *w, 1e-5, True, True)
     want = fb._torch_ln_ff_residual(x, *w, 1e-5, True, True)
     torch.cuda.synchronize()
-    err = compare("K4 (114688,320) inner 1280", got, want, atol=3e-2, rtol=2e-2)
+    err = compare("K4 (114688,320) inner 1280", got, want, atol=atol, rtol=rtol)
     ms = cuda_ms(lambda: fb.ln_ff_kernel(x, *w, 1e-5, True, True))
     pms = cuda_ms(lambda: fb._torch_ln_ff_residual(x, *w, 1e-5, True, True))
-    results["ln_ff_residual"] = [report("(114688,320) inner 1280", err, ms, pms,
-                                        rl.ln_ff(114688, 320, 1280, 320, True))]
+    row = report("(114688,320) inner 1280", err, ms, pms, rl.ln_ff(114688, 320, 1280, 320, True))
+    device_line(row, lambda: fb.ln_ff_kernel(x, *w, 1e-5, True, True), flush)
+    xs = x[:4160]
+    got = fb.ln_ff_kernel(xs, *w, 1e-5, False, True)
+    want = fb._torch_ln_ff_residual(xs, *w, 1e-5, False, True)
+    torch.cuda.synchronize()
+    row["max_abs_err"] = max(err, compare("K4 (4160,320) inner 1280, erf gelu", got, want,
+                                          atol=atol, rtol=rtol))
+    xf, form = rand(4160, 320, scale=1e-2).to(bf), gelu_form_ff(rand, 320, 1280, 320)
+    gelu_form_check("K4 (4160,320)", lambda a, k: (
+        fb.ln_ff_kernel if k else fb._torch_ln_ff_residual)(xf, *form, 1e-5, a, True))
+    results["ln_ff_residual"] = [row]
 
-    # K5: GEGLU projection at the level-0 and level-1 widths.
+    # K5: GEGLU projection at the level-0 and level-1 widths. Its outputs at
+    # c = 640 (std ~0.1) sit far below the atol: a norm check as K2's. Then
+    # both gelu forms told apart.
     print(f"K5 geglu (bf16, tanh gelu) on {card}")
+    atol, rtol, rel_norm = FF_TOL["geglu"]
     k5 = []
-    for m_, c_ in ((114688, 320), (28672, 640)):
-        x = rand(m_, c_).to(bf)
-        w = rand(8 * c_, c_, scale=c_ ** -0.5).to(bf)
-        b_ = rand(8 * c_, scale=0.1).to(bf)
+    for m_, c_ in K5_SHAPES:
+        x, w, b_ = k5_inputs(rand, m_, c_)
         got = ff.geglu_kernel(x, w, b_, True)
         want = ff._torch_geglu(x, w, b_, True)
         torch.cuda.synchronize()
-        err = compare(f"K5 ({m_},{c_}) -> 2x{4 * c_}", got, want, atol=2e-2, rtol=2e-2)
+        err = compare(f"K5 ({m_},{c_}) -> 2x{4 * c_}", got, want, atol=atol, rtol=rtol,
+                      rel_norm=rel_norm)
         ms = cuda_ms(lambda: ff.geglu_kernel(x, w, b_, True))
         pms = cuda_ms(lambda: ff._torch_geglu(x, w, b_, True))
-        k5.append(report(f"({m_},{c_}) -> 2x{4 * c_}", err, ms, pms, rl.geglu(m_, c_, 4 * c_)))
+        row = report(f"({m_},{c_}) -> 2x{4 * c_}", err, ms, pms, rl.geglu(m_, c_, 4 * c_))
+        device_line(row, lambda: ff.geglu_kernel(x, w, b_, True), flush)
+        # the (M, 2D) product K5 fuses, alone: it writes twice K5's output, so
+        # it is a reference for the product, not a yardstick of the same function
+        linear = cuda_ms(lambda: F.linear(x, w, b_))
+        print(f"    reference for the product: F.linear(x, w, b) alone {linear:.3f} ms "
+              f"(host-inclusive), writing the (M, 2D) pre-activation")
+        row["linear_ms"] = linear
+        k5.append(row)
+    xf, (_, _, wf, bf_, _, _) = rand(4096, 320).to(bf), gelu_form_ff(rand, 320, 1280, 320)
+    gelu_form_check("K5 (4096,320)", lambda a, k: (
+        ff.geglu_kernel if k else ff._torch_geglu)(xf, wf, bf_, a))
     results["geglu"] = k5
     return results
 
@@ -621,6 +790,36 @@ def drive(pipe, inputs, kw, kernels, steps):
     return video, {name: k.launches for name, k in kernels.items()}, seconds
 
 
+@contextlib.contextmanager
+def launches_per_step(pipe, kernel):
+    """Count ``kernel``'s launches in each denoise step of the runs inside:
+    yields a list that gets, per step, (whether the step ran the ControlNet,
+    the launches in the step). A step starts at the first tower call after
+    the previous step's UNet call and ends with its own."""
+    steps, state = [], {"mark": None, "controlled": False}
+
+    def start(*_):
+        if state["mark"] is None:
+            state.update(mark=kernel.launches, controlled=False)
+
+    def controlnet(*_):
+        start()
+        state["controlled"] = True
+
+    def unet_done(*_):
+        steps.append((state["controlled"], kernel.launches - state["mark"]))
+        state["mark"] = None
+
+    handles = [pipe.controlnet.register_forward_pre_hook(controlnet),
+               pipe.unet.register_forward_pre_hook(start),
+               pipe.unet.register_forward_hook(unet_done)]
+    try:
+        yield steps
+    finally:
+        for h in handles:
+            h.remove()
+
+
 def ms_per_step(pipe, inputs, kw, steps):
     """Host-clock ms per denoise step of a generate() to the latents, and the latents."""
     torch.cuda.synchronize()
@@ -659,7 +858,8 @@ def reference_check(pipe, dev, label):
 
 def run_slices(dev, card, kernels):
     """Phases 4 and 5; returns the launch counts of the default and the
-    fused-block runs."""
+    fused-block runs, and K4's launches per controlled and per UNet-only step
+    of the latter."""
     from ctrl_adapter_tpu_torch.pipelines.common import control_window
 
     bf = torch.bfloat16
@@ -718,8 +918,17 @@ def run_slices(dev, card, kernels):
     # phase 5, the fused-block configuration (K4 on the 320-wide FFs)
     fb_steps = 2
     with env_switch("CTRL_ADAPTER_FUSED_BLOCK"):
-        video, launches_fb, t_fb = drive(pipe, inputs, kw, kernels, fb_steps)
-        print(f"fused-block slice: launches during the run {launches_fb}")
+        with launches_per_step(pipe, kernels["ln_ff_residual"]) as k4_steps:
+            video, launches_fb, t_fb = drive(pipe, inputs, kw, kernels, fb_steps)
+        print(f"fused-block slice: launches during the run {launches_fb}; K4's per step "
+              f"(controlled, launches) {k4_steps}")
+        k4_per_step = {}
+        for controlled, n in k4_steps:
+            k4_per_step.setdefault("controlled" if controlled else "unet_only", set()).add(n)
+        if len(k4_steps) != fb_steps or any(len(v) != 1 for v in k4_per_step.values()):
+            raise RuntimeError(f"K4's launches per step differ between steps of a kind: "
+                               f"{k4_steps}")
+        k4_per_step = {kind: ns.pop() for kind, ns in k4_per_step.items()}
         check_video(video, "fused-block slice")
         missing = [name for name in (*on_path, "ln_ff_residual") if launches_fb[name] == 0]
         if missing:
@@ -738,11 +947,89 @@ def run_slices(dev, card, kernels):
           f"CTRL_ADAPTER_FUSED_BLOCK=1, {default_ms:.1f} ms/step default (same steps, run "
           f"right after)")
     del pipe
-    return launches, launches_fb
+    return launches, launches_fb, k4_per_step
+
+
+def run_exact_gelu(dev, card, full_kernel, k4_kernel):
+    """Phase 6: the JAX package's ``CTRL_ADAPTER_EXACT_GELU=1`` switch. A UNet
+    level-0 temporal block (bf16, c = 320, 5 heads, 14 frames) still takes
+    K3 full, whose FFs now use erf gelu: one launch, against the plain path
+    under the same switch at K3 full's tolerance. A 320-wide spatial
+    transformer block on 4,096 rows under ``CTRL_ADAPTER_FUSED_BLOCK=1``
+    launches K4 once, and not at all with the switch: the JAX rule runs its
+    kernel for tanh-gelu only."""
+    from ctrl_adapter_tpu_torch.nn.attention import (BasicTransformerBlock,
+                                                     TemporalBasicTransformerBlock)
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rand = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
+
+    def init(module, scale=0.05):
+        for p in module.parameters():
+            p.copy_(rand(*p.shape, scale=scale))
+        return module.eval()
+
+    def run_block(block, x, ctx, approximate, kernel):
+        """The block under the switch unless ``approximate``, through its
+        kernels or (not ``kernel``) their plain versions."""
+        with contextlib.ExitStack() as stack:
+            if not approximate:
+                stack.enter_context(env_switch("CTRL_ADAPTER_EXACT_GELU"))
+            if not kernel:
+                stack.enter_context(plain_kernels())
+            return block(x, FRAMES, ctx)
+
+    with torch.no_grad():
+        block = init(TemporalBasicTransformerBlock(320, 320, 5, 64, 1024, device=dev, dtype=bf))
+        x, ctx = rand(2 * FRAMES, 256, 320).to(bf), rand(2 * 256, 1, 1024).to(bf)
+        full_kernel.reset()
+        got = run_block(block, x, ctx, False, True)
+        torch.cuda.synchronize()
+        launches = full_kernel.launches
+        want = run_block(block, x, ctx, False, False)
+        print(f"exact gelu on {card}: temporal block (2,14,256,320) under "
+              f"CTRL_ADAPTER_EXACT_GELU=1: K3 full launches {launches}")
+        if launches != 1:
+            raise RuntimeError("the level-0 temporal block did not take K3 full under the switch")
+        compare("temporal block, erf gelu, K3 full vs plain", got, want, atol=1e-1, rtol=2e-2)
+        # the same block with weights under which the forms differ by far more
+        # than the rounding (gelu_form_ff), on a residual stream of ~1e-2: the
+        # switch must reach K3 full's FFs
+        init(block, 2e-3)
+        for norm in (block.norm_in, block.norm1, block.norm2, block.norm3):
+            norm.weight.fill_(1.0)
+            norm.bias.zero_()
+        for feed_forward in (block.ff_in, block.ff):
+            _, _, wg, bg, w2, b2 = gelu_form_ff(rand, 320, 1280, 320)
+            for p, v in zip((feed_forward.net[0].proj.weight, feed_forward.net[0].proj.bias,
+                             feed_forward.net[2].weight, feed_forward.net[2].bias),
+                            (wg, bg, w2, b2)):
+                p.copy_(v)
+        xf = rand(2 * FRAMES, 256, 320, scale=1e-2).to(bf)
+        gelu_form_check("temporal block (2,14,256,320) with and without the switch",
+                        lambda a, k: run_block(block, xf, ctx, a, k))
+
+        spatial = init(BasicTransformerBlock(320, 5, 64, 1024, device=dev, dtype=bf))
+        xs, ctx = rand(1, 4096, 320).to(bf), rand(1, 77, 1024).to(bf)
+        counts = {}
+        with env_switch("CTRL_ADAPTER_FUSED_BLOCK"):
+            for exact in (False, True):
+                k4_kernel.reset()
+                with env_switch("CTRL_ADAPTER_EXACT_GELU") if exact else contextlib.nullcontext():
+                    out = spatial(xs, ctx)
+                torch.cuda.synchronize()
+                if not torch.isfinite(out.float()).all():
+                    raise RuntimeError("spatial block: non-finite output")
+                counts[exact] = k4_kernel.launches
+    print(f"exact gelu: spatial block (1,4096,320) under CTRL_ADAPTER_FUSED_BLOCK=1: K4 launches "
+          f"{counts[False]} without CTRL_ADAPTER_EXACT_GELU=1, {counts[True]} with it")
+    if counts != {False: 1, True: 0}:
+        raise RuntimeError(f"K4 launches {counts}: want 1 without the exact-gelu switch, 0 with it")
 
 
 def run_feed_forward(dev, card, kernel):
-    """Phase 6: K5 sits on no model path (no model builds ``FeedForward`` on its
+    """Phase 7: K5 sits on no model path (no model builds ``FeedForward`` on its
     own); drive it through the port's ``FeedForward`` at the level-0 shape."""
     from ctrl_adapter_tpu_torch.nn.attention import FeedForward
 
@@ -809,7 +1096,12 @@ def main() -> int:
     kernels = {"group_norm_silu": gn.KERNEL, "flash_attention": fa.KERNEL,
                "temporal_block": ft.KERNEL, "temporal_block_full": ft.KERNEL_FULL,
                "ln_ff_residual": fb.KERNEL, "geglu": ff.KERNEL}
-    launches, launches_fb = run_slices(dev, card, kernels)
+    launches, launches_fb, k4_per_step = run_slices(dev, card, kernels)
+    # K4's per-step sums from the launches the fused-block run counted per step
+    k4 = {**results["ln_ff_residual"][0], "controlled": 0, "unet_only": 0, **k4_per_step}
+    for key in ("controlled", "unet_only"):
+        per_step_total("K4 (fused-block)", [k4], key)
+    run_exact_gelu(dev, card, ft.KERNEL_FULL, fb.KERNEL)
     launches_ff = run_feed_forward(dev, card, ff.KERNEL)
     print("K5 geglu is off every model path: the models' BasicTransformerBlocks run their "
           "FF through K4's op (as the JAX package's do) and no model builds FeedForward on "
@@ -831,10 +1123,12 @@ def main() -> int:
     }
     counts = {"svd default": launches, "svd fused-block": launches_fb,
               "FeedForward, no model path": {"geglu": launches_ff}}
+    # each kernel's first row, without the per-step counts the sums above used
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
          "launches": counts[meta[name][2]][name], "path": meta[name][2],
-         **results[name][0], "max_abs_err": max(r["max_abs_err"] for r in results[name])}
+         **{k: v for k, v in results[name][0].items() if k not in ("controlled", "unet_only")},
+         "max_abs_err": max(r["max_abs_err"] for r in results[name])}
         for name in kernels]}
     print(json.dumps(line))
     print(card)

@@ -1,115 +1,221 @@
-// K5: out = value * gelu(gate), [value; gate] = x . W^T + b, on (M, C) rows;
+// K5: out = value * gelu(gate), [value; gate] = x . W^T + b, on (M, c) rows;
 // only the half-width product (M, D) is written.
 //
 // Replaces: ctrl_adapter_tpu/ops/fused_ff.py, geglu -> _pallas_geglu (Pallas
 //   body _kernel): fp32 accumulation, bias and gelu in fp32, one rounding.
 //
-// What bounds it on the H100: 2*C*2D flops per row against 2*C + 2*D bytes
-// (~C flop per byte, 320-640 on the GEGLU shapes), about at the ~295
-// flop/byte ridge: the tensor cores and the write of the (M, D) output both
-// matter.
+// What bounds it on the H100: 2*c*2D flops per row against 2*c + 2*D bytes
+// (~c flop per byte, 320-640 on the GEGLU shapes), just above the ~295
+// flop/byte ridge: the tensor cores bound it (0.190 ms at (114688, 320 ->
+// 2x1280) and (28672, 640 -> 2x2560)), and writing the (M, D) output takes
+// more than half of that time. K is short (c = 320 or 640: 5 or 10 stages of
+// 64 channels), so the GEGLU epilogue is a large share of a tile.
 //
-// Design: a tiled mma.sync GEMM with a GEGLU epilogue. One CTA of 8 warps
-// computes 128 rows x 64 outputs, i.e. the 64 value rows and the 64 matching
-// gate rows of W, so value and gate of an output sit in the same thread's
-// accumulators and the (M, 2D) pre-activation never exists. x and W stream
-// through a two-slot cp.async ring in chunks of 32 channels. Rows past M are
-// clamped on load and not stored. Shapes: C % 32 == 0, D % 64 == 0.
-#include "ln_ff.cuh"
+// Design (Hopper, warp-specialised, persistent; 384 threads, one CTA per SM
+// walking tiles of 128 rows x 64 outputs, column tiles of a row tile on
+// neighbouring CTAs so that x is read from L2):
+// - warpgroup 0 is the producer: one thread loads, per 64 channels of a tile,
+//   the x chunk (128 x 64) and the matching 64 value rows and 64 gate rows of
+//   W (TMA, 128-byte swizzle; rows and channels past the tensors read as zero)
+//   into a ring of kStages slots (ff_wgmma.cuh: Ring, one reader per slot);
+// - warpgroups 1 and 2 are consumers and take the CTA's tiles in turn. A tile's
+//   product runs on wgmma m64n128k16 for each 64-row half: value and gate are
+//   the two 64-column blocks of one product, so each thread holds both halves
+//   of its outputs (128 fp32 accumulators). The two warpgroups issue their
+//   products in turns (ff_wgmma.cuh: PingPong, a turn per tile), so one's
+//   epilogue runs while the other's products run;
+// - the epilogue adds the bias, computes value * gelu(gate) in fp32 (the SFU's
+//   tanh, or erf under `exact`), rounds once, writes the 128 x 64 tile to this
+//   warpgroup's staging buffer (128-byte swizzled rows) and stores it with one
+//   TMA store (rows past M are not written).
+// Shapes: c % 8 == 0 (TMA strides), D % 64 == 0, any M. The host plan
+// (ops/fused_ff.py:plan) chooses the grid and the shared memory; cak_geglu
+// refuses a plan that does not match.
+#include <type_traits>
+
+#include "ff_wgmma.cuh"
 
 namespace {
 
-constexpr int kBM = 128;          // rows per CTA
-constexpr int kBD = 64;           // outputs per CTA (and as many gate columns)
-constexpr int kBK = 32;           // channels per chunk
-constexpr int kLD = kBK + 8;
-constexpr int kSlot = (kBM + 2 * kBD) * kLD;  // x chunk, then W chunk [value; gate]
+constexpr int kBM = 128;                            // rows of a tile
+constexpr int kBD = 64;                             // outputs of a tile (and as many gates)
+constexpr int kBK = 64;                             // channels per stage
+constexpr int kThreads = 384;
+constexpr int kStages = 5;
+constexpr int kXBytes = kBM * kBK * 2;              // x chunk: 16 KB
+constexpr int kStage = kXBytes + 2 * kBD * kBK * 2;  // + [value; gate] rows of W: 32 KB
+constexpr int kOut = kBM * kBD * 2;                 // a warpgroup's staging buffer: 16 KB
+constexpr int kBar = kStages * kStage + 2 * kOut;
+constexpr int kSmem = kBar + 16 * kStages + 1024;  // + mbarriers and alignment slack
 
-__global__ void __launch_bounds__(lnff::kThreads)
-    geglu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                 const bf16* __restrict__ bias, bf16* __restrict__ out, int64_t M, int c, int d,
-                 int exact) {
-  __shared__ __align__(16) bf16 smem[2 * kSlot];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t = lane & 3;
-  const int64_t m0 = int64_t(blockIdx.x) * kBM;
-  const int d0 = blockIdx.y * kBD;
+struct Args {
+  const bf16* bias;
+  int d, exact, n_col, n_tiles, k_chunks;
+};
 
-  float acc[2][8][4];  // [m-tile][n-tile: 0-3 value, 4-7 gate][fragment]
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) lnff::zero_acc(acc[mt]);
+__global__ void __launch_bounds__(kThreads, 1)
+    geglu_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                 const __grid_constant__ CUtensorMap tm_out, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* gbase = smem_raw + (base - raw);
+  const int wg = warpgroup_index();
+  // this CTA's tiles: blockIdx.x, blockIdx.x + gridDim.x, ...; tile t covers
+  // rows 128 * (t / n_col) and outputs 64 * (t % n_col)
+  const int my_tiles = (a.n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  ffw::Ring ring(base, base + kBar, kStages, kStage);  // a stage per 64 channels of a tile
 
-  lnff::stream_tiles(
-      c / kBK, smem, smem + kSlot,
-      [&](int k, bf16* dst) {
-        const int k0 = k * kBK;
-        for (int i = threadIdx.x; i < (kBM + 2 * kBD) * (kBK / 8); i += lnff::kThreads) {
-          const int r = i / (kBK / 8), cc = (i % (kBK / 8)) * 8;
-          const bf16* src;
-          if (r < kBM) {
-            const int64_t m = m0 + r < M ? m0 + r : M - 1;
-            src = x + m * c;
-          } else {
-            const int n = r - kBM;  // value rows d0.., then gate rows d + d0..
-            src = w + int64_t(n < kBD ? d0 + n : d + d0 + n - kBD) * c;
-          }
-          cp_async16(dst + r * kLD + cc, src + k0 + cc);
+  if (threadIdx.x == 0) {
+    ring.init(1);  // one consumer warpgroup reads a stage
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<40>();  // its tile arithmetic and three maps spill at 24
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < my_tiles; ++i) {
+        const int t = blockIdx.x + i * gridDim.x;
+        const int r0 = (t / a.n_col) * kBM, d0 = (t % a.n_col) * kBD;
+        for (int k = 0; k < a.k_chunks; ++k) {
+          const uint32_t dst = ring.acquire(kStage), full = ring.full_bar();
+          tma_load_2d(dst, &tm_x, full, k * kBK, r0);
+          tma_load_2d(dst + kXBytes, &tm_w, full, k * kBK, d0);                          // value
+          tma_load_2d(dst + kXBytes + kBD * kBK * 2, &tm_w, full, k * kBK, a.d + d0);  // gate
+          ring.advance();
         }
-      },
-      [&](int, const bf16* s) {
-        const bf16* a_s = s;
-        const bf16* w_s = s + kBM * kLD;
-#pragma unroll
-        for (int k0 = 0; k0 < kBK; k0 += 16) {
-          uint32_t a[2][4];
-          ldmatrix_a(a[0], a_s, kLD, wm * 32, k0, lane);
-          ldmatrix_a(a[1], a_s, kLD, wm * 32 + 16, k0, lane);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {  // n-tile pairs: value wn*32 + {0,16}, gate 64 + ...
-            uint32_t b[4];
-            ldmatrix_b2(b, w_s, kLD, (q >> 1) * kBD + wn * 32 + (q & 1) * 16, k0, lane);
-            const int nt = (q >> 1) * 4 + (q & 1) * 2;
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              mma_16816(acc[mt][nt], a[mt], b[0], b[1]);
-              mma_16816(acc[mt][nt + 1], a[mt], b[2], b[3]);
-            }
-          }
-        }
-      });
-
-  const bool gelu_exact = exact != 0;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int64_t m = m0 + wm * 32 + mt * 16 + g + 8 * h;
-      if (m >= M) continue;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = d0 + wn * 32 + i * 8 + 2 * t;
-        float y[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float v = acc[mt][i][2 * h + e] + bf2f(bias[n + e]);
-          const float gt = acc[mt][4 + i][2 * h + e] + bf2f(bias[d + n + e]);
-          y[e] = v * lnff::gelu(gt, gelu_exact);
-        }
-        *reinterpret_cast<uint32_t*>(out + m * d + n) = pack_bf16(y[0], y[1]);
       }
     }
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();  // 2 x 128 x 232 + 128 x 40 registers: the SM's 64 K
+    const int wc = wg - 1;  // takes the CTA's tiles wc, wc + 2, ...
+    const int tid = threadIdx.x & 127, warp = tid / 32, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const bool leader = tid == 0;
+    const uint32_t s_out = base + kStages * kStage + wc * kOut;
+    unsigned char* out_b = gbase + kStages * kStage + wc * kOut;
+    // `ring` at the next stage to wait for, `done` one stage behind it, at the
+    // next to release; both step over the other warpgroup's tiles' stages
+    ffw::Ring done = ring;
+    auto skip_tile = [&](ffw::Ring& r) {
+      for (int k = 0; k < a.k_chunks; ++k) r.advance();
+    };
+    ffw::PingPong<true> turns(wc, my_tiles);  // a turn per tile: its products' issue
+    if (wc == 1) {
+      skip_tile(ring);
+      skip_tile(done);
+    }
+
+    for (int i = wc; i < my_tiles; i += 2) {
+      const int t = blockIdx.x + i * gridDim.x;
+      const int r0 = (t / a.n_col) * kBM, d0 = (t % a.n_col) * kBD;
+      float acc[2][64];  // 64-row halves; columns 0..63 value, 64..127 gate
+
+      turns.begin();
+      for (int k = 0; k < a.k_chunks; ++k) {
+        const uint32_t sx = ring.wait(), sw = sx + kXBytes;
+        ring.advance();
+        if (k > 0) {
+          fence_regs(acc[0]);
+          fence_regs(acc[1]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            wgmma_ss_n128<0>(acc[h], ffw::sw128_desc(sx + h * 64 * ffw::kRowBytes + kk * 32),
+                             ffw::sw128_desc(sw + kk * 32), k > 0 || kk > 0);
+        wgmma_commit();
+        if (k > 0) {  // the previous stage's products are done: release it
+          wgmma_wait<1>();
+          done.release(leader);
+        }
+      }
+      turns.end();
+      wgmma_wait<0>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      done.release(leader);
+      skip_tile(ring);  // the other warpgroup's next tile
+      skip_tile(done);
+
+      // epilogue: the staging buffer is free once its last store has read it
+      if (leader) bulk_wait_read<0>();
+      named_bar_sync(4 + wc, 128);
+      __nv_bfloat162 bv[8], bgt[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        bv[j] = *reinterpret_cast<const __nv_bfloat162*>(a.bias + d0 + 8 * j + 2 * t4);
+        bgt[j] = *reinterpret_cast<const __nv_bfloat162*>(a.bias + a.d + d0 + 8 * j + 2 * t4);
+      }
+      auto epilogue = [&](auto exact) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int r = 64 * h + 16 * warp + g + 8 * h2;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float2 bvf = __bfloat1622float2(bv[j]), bgf = __bfloat1622float2(bgt[j]);
+              const float v0 = acc[h][4 * j + 2 * h2] + bvf.x, v1 = acc[h][4 * j + 2 * h2 + 1] + bvf.y;
+              const float g0 = acc[h][4 * (j + 8) + 2 * h2] + bgf.x;
+              const float g1 = acc[h][4 * (j + 8) + 2 * h2 + 1] + bgf.y;
+              *reinterpret_cast<uint32_t*>(out_b + r * ffw::kRowBytes + ((j ^ (r % 8)) << 4) +
+                                           4 * t4) =
+                  pack_bf16(v0 * ffw::gelu<decltype(exact)::value>(g0),
+                            v1 * ffw::gelu<decltype(exact)::value>(g1));
+            }
+          }
+      };
+      if (a.exact) {
+        epilogue(std::true_type{});
+      } else {
+        epilogue(std::false_type{});
+      }
+      fence_async_smem();
+      named_bar_sync(4 + wc, 128);
+      if (leader) {
+        tma_store_2d(&tm_out, s_out, d0, r0);
+        bulk_commit();
+      }
+    }
+    if (leader) bulk_wait<0>();
+  }
 }
 
 }  // namespace
 
 // x: (M, c); w: (2*d, c) = [value rows; gate rows]; bias: (2*d,); out: (M, d).
-// All bf16, contiguous. exact: erf gelu, else tanh.
+// All bf16, contiguous, 16-byte aligned. exact: erf gelu, else tanh. The plan
+// of ops/fused_ff.py:plan: `grid` persistent CTAs over the ceil(M / 128) *
+// (d / 64) tiles, smem bytes of shared memory.
 extern "C" int cak_geglu(const void* x, const void* w, const void* bias, void* out, int64_t M,
-                         int c, int d, int exact, void* stream) {
-  if (c % kBK || d % kBD || M < 1) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM), d / kBD);
-  geglu_kernel<<<grid, lnff::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
-      static_cast<bf16*>(out), M, c, d, exact);
+                         int c, int d, int exact, int grid, int smem, void* stream) {
+  const int64_t tiles = (M + kBM - 1) / kBM * (d / kBD);
+  if (M < 1 || c < 8 || c % 8 || d < kBD || d % kBD || tiles > (int64_t(1) << 30) || grid < 1 ||
+      grid > tiles || smem != kSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_x, tm_w, tm_out;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const uint64_t x_dims[2] = {uint64_t(c), uint64_t(M)}, x_strides[1] = {uint64_t(c) * 2};
+  const uint32_t x_box[2] = {kBK, kBM};
+  const uint64_t w_dims[2] = {uint64_t(c), uint64_t(2 * d)}, w_strides[1] = {uint64_t(c) * 2};
+  const uint32_t w_box[2] = {kBK, kBD};
+  const uint64_t o_dims[2] = {uint64_t(d), uint64_t(M)}, o_strides[1] = {uint64_t(d) * 2};
+  const uint32_t o_box[2] = {kBD, kBM};
+  if (!encode_bf16_map(&tm_x, x, 2, x_dims, x_strides, x_box, sw) ||
+      !encode_bf16_map(&tm_w, w, 2, w_dims, w_strides, w_box, sw) ||
+      !encode_bf16_map(&tm_out, out, 2, o_dims, o_strides, o_box, sw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e =
+      cudaFuncSetAttribute(geglu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Args a{static_cast<const bf16*>(bias), d, exact, d / kBD, static_cast<int>(tiles),
+               (c + kBK - 1) / kBK};
+  geglu_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(tm_x, tm_w, tm_out, a);
   return static_cast<int>(cudaGetLastError());
 }

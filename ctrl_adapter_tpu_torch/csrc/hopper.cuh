@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the kernels that
-// are warp-specialised: mbarriers, TMA tensor loads, wgmma descriptors and
-// ordering, setmaxnreg, named barriers; and, on the host, tensor-map encoding.
+// are warp-specialised: mbarriers, TMA tensor loads and stores, wgmma
+// descriptors and ordering, setmaxnreg, named barriers; and, on the host,
+// tensor-map encoding.
 //
 // Tensor maps are encoded through cuTensorMapEncodeTiled, a CUDA driver entry
 // point, fetched at run time with cudaGetDriverEntryPoint(ByVersion): the
@@ -85,6 +86,31 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A 2-D box of shared memory at src into the tensor at coordinates c0, c1
+// (rows past the tensor's end are not written), as one bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N bulk groups still read their shared memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // --------------------------------------------------------------------- wgmma

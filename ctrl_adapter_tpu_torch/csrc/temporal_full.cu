@@ -20,13 +20,14 @@
 //   block, in the order the consumers use them, through a two-slot ring of
 //   128*c-byte tiles (TMA, 128-byte swizzle, a full and an empty mbarrier per
 //   slot). The tiles: per 64 inner columns of an FF, two 64-row [value; gate]
-//   tiles of Wg (32 columns each) and one (c x 64) tile of W2; per head, the
-//   64 rows of Wq, Wk, Wv and the 64 columns of Wo.
+//   tiles of Wg (32 columns each) and one (c x 64) tile of W2 (ff_wgmma.cuh:
+//   load_ff_tile); per head, the 64 rows of Wq, Wk, Wv and the 64 columns of Wo.
 // - warpgroups 1 and 2 are consumers, 64 rows each. A part starts from the
 //   LayerNormed residual stream in the A tile (bf16, shared memory, 128-byte
 //   swizzled K-major: the wgmma A operand), then:
-//   - FF: G = LN . Wg^T on wgmma (m64n64k16, both operands in shared memory);
-//     GEGLU in registers (bf16 pair adds and products, the SFU's tanh), its
+//   - FF (ff_wgmma.cuh:ff_products, shared with K4): G = LN . Wg^T on wgmma
+//     (m64n64k16, both operands in shared memory); GEGLU in registers (bf16
+//     pair adds and products; the SFU's tanh, or erf under `exact`), its
 //     result as the register A operand of acc += h . W2^T (wgmma m64nNk16,
 //     N = c split into 1-3 blocks); the 64 x c fp32 accumulator stays in
 //     registers across the inner width;
@@ -45,11 +46,12 @@
 // f * ts + (-f mod 16) <= 128, s % ts == 0. The host plan
 // (ops/fused_temporal.py:full_plan) chooses ts, the grid and the shared memory;
 // cak_temporal_full refuses a plan that does not match FullCfg.
+#include "ff_wgmma.cuh"
 #include "frame_attention.cuh"
-#include "hopper.cuh"
-#include "ln_ff.cuh"
 
 namespace {
+
+using ffw::sw128_desc;
 
 constexpr int kRowsT = 128;     // tile rows: two consumer warpgroups of 64
 constexpr int kThreads = 384;   // producer warpgroup + two consumer warpgroups
@@ -58,8 +60,8 @@ constexpr int kHD = 64;         // head dim
 template <int C>
 struct FullCfg {
   // the out-projections (W2, Wo) in kNO column blocks of kCB <= 160 (wgmma N)
-  static constexpr int kNO = C == 320 ? 2 : (C == 256 ? 2 : (C == 192 ? 3 : 1));
-  static constexpr int kCB = C / kNO;
+  static constexpr int kNO = ffw::OutBlocks<C>::kNO;
+  static constexpr int kCB = ffw::OutBlocks<C>::kCB;
   static constexpr int kTile = 128 * C;  // bytes of every weight tile
   static constexpr int kRing = kRowsT * C * 2;  // the A tile (LN output) at 0
   static constexpr int kO = kRing + 2 * kTile;
@@ -81,17 +83,9 @@ struct FullArgs {
   const bf16 *lnin_w, *lnin_b, *ffin_bg, *ffin_b2;
   const bf16 *ln1_w, *ln1_b, *bo;
   const bf16 *ln3_w, *ln3_b, *ff_bg, *ff_b2;
-  int f, s, heads, inner, ts;
+  int f, s, heads, inner, ts, exact;
   float eps, scale;
 };
-
-// Tanh-approximated GELU (the bf16 rule of the TPU kernel) with the SFU's tanh
-// (tanh.approx.f32, relative error ~2^-11, below the bf16 rounding that follows it).
-__device__ __forceinline__ float gelu_fast(float g) {
-  float th;
-  asm("tanh.approx.f32 %0, %1;\n" : "=f"(th) : "f"(0.7978845608028654f * (g + 0.044715f * g * g * g)));
-  return 0.5f * g * (1.f + th);
-}
 
 // Eight bf16 pair-wise adds, each rounded once (a bf16 add).
 __device__ __forceinline__ uint4 add8(uint4 a, uint4 b) {
@@ -100,33 +94,6 @@ __device__ __forceinline__ uint4 add8(uint4 a, uint4 b) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) pa[i] = __hadd2(pa[i], pb[i]);
   return a;
-}
-
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return wgmma_desc(addr, 16, 1024, 1);
-}
-
-template <int CB>
-__device__ __forceinline__ void wgmma_rs_cb(float (&d)[CB / 2], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  if constexpr (CB == 64) {
-    wgmma_rs_n64<0>(d, a, db);
-  } else if constexpr (CB == 128) {
-    wgmma_rs_n128<0>(d, a, db);
-  } else {
-    wgmma_rs_n160<0>(d, a, db);
-  }
-}
-
-template <int CB>
-__device__ __forceinline__ void wgmma_ss_cb(float (&d)[CB / 2], uint64_t da, uint64_t db) {
-  if constexpr (CB == 64) {
-    wgmma_ss_n64<0>(d, da, db, 1);
-  } else if constexpr (CB == 128) {
-    wgmma_ss_n128<0>(d, da, db, 1);
-  } else {
-    wgmma_ss_n160<0>(d, da, db, 1);
-  }
 }
 
 template <int C>
@@ -142,20 +109,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   bf16* o_g = reinterpret_cast<bf16*>(gbase + K::kO);
   unsigned char* qkv_g = gbase + K::kQ;  // Q, K, V tiles, kRowsT * kAtom bytes each
   const uint32_t bar = base + K::kBar;
-  auto full = [&](int st) { return bar + 8 * st; };
-  auto empty = [&](int st) { return bar + 16 + 8 * st; };
 
   const int wg = warpgroup_index();
   const int f = a.f, ts = a.ts, rows = f * ts;
   const int s0 = blockIdx.x * ts, bi = blockIdx.y;
-  const int n_ff = a.inner / 64;  // 64-inner-column steps of an FF: 3 tiles each
-  const int n_tiles = 2 * 3 * n_ff + 4 * a.heads;
 
+  ffw::Ring ring(sRing, bar, 2, K::kTile);
   if (threadIdx.x == 0) {
-    for (int st = 0; st < 2; ++st) {
-      mbar_init(full(st), 1);
-      mbar_init(empty(st), 2);  // one arrival per consumer warpgroup
-    }
+    ring.init(2);  // both consumer warpgroups read every weight tile
     mbar_fence_init();
   }
   __syncthreads();
@@ -164,39 +125,28 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---------------------------------------------------------- producer
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      for (int t = 0; t < n_tiles; ++t) {
-        const int st = t & 1;
-        if (t >= 2) mbar_wait(empty(st), ((t >> 1) & 1) ^ 1);
-        mbar_expect_tx(full(st), K::kTile);
-        const uint32_t dst = sRing + st * K::kTile;
-        auto load2 = [&](const CUtensorMap* m, uint32_t d, int c0, int c1) {
-          tma_load_2d(d, m, full(st), c0, c1);
-        };
-        auto load3 = [&](const CUtensorMap* m, uint32_t d, int c0, int c1) {
-          tma_load_3d(d, m, full(st), c0, c1, 0);
-        };
-        const int attn0 = 3 * n_ff, ff0 = attn0 + 4 * a.heads;
+      // one loop over the block's tiles: ffin's, then per head Wq, Wk, Wv and
+      // Wo, then ff's (each part's loads inlined once)
+      const int n_ff = 3 * (a.inner / 64), attn0 = n_ff, ff0 = n_ff + 4 * a.heads;
+      for (int t = 0; t < ff0 + n_ff; ++t) {
         if (t < attn0 || t >= ff0) {
-          const int u = t < attn0 ? t : t - ff0;
-          const int step = u / 3, part = u % 3;
-          const CUtensorMap* mg = t < attn0 ? &maps.ffin_wg : &maps.ff_wg;
-          const CUtensorMap* m2 = t < attn0 ? &maps.ffin_w2 : &maps.ff_w2;
-          if (part < 2) {  // [value; gate] rows of 32 inner columns, 64-column blocks
-            for (int cb = 0; cb < C / 64; ++cb)
-              load3(mg, dst + cb * 64 * kAtom, cb * 64, 64 * step + 32 * part);
-          } else {  // W2 columns of the 64 inner columns, kNO blocks of kCB rows
-            for (int o = 0; o < NO; ++o) load2(m2, dst + o * CB * kAtom, 64 * step, o * CB);
-          }
-        } else {
-          const int h = (t - attn0) / 4, part = (t - attn0) % 4;
-          if (part < 3) {
-            const CUtensorMap* m = part == 0 ? &maps.wq : (part == 1 ? &maps.wk : &maps.wv);
-            for (int cb = 0; cb < C / 64; ++cb)
-              load2(m, dst + cb * 64 * kAtom, cb * 64, h * kHD);
-          } else {
-            for (int o = 0; o < NO; ++o) load2(&maps.wo, dst + o * CB * kAtom, h * kHD, o * CB);
-          }
+          const bool in = t < attn0;
+          ffw::load_ff_tile<C>(ring, in ? &maps.ffin_wg : &maps.ff_wg,
+                               in ? &maps.ffin_w2 : &maps.ff_w2, C, in ? t : t - ff0);
+          continue;
         }
+        const int h = (t - attn0) / 4, part = (t - attn0) % 4;
+        const uint32_t dst = ring.acquire(K::kTile);
+        const uint32_t full = ring.full_bar();
+        if (part < 3) {
+          const CUtensorMap* m = part == 0 ? &maps.wq : (part == 1 ? &maps.wk : &maps.wv);
+          for (int cb = 0; cb < C / 64; ++cb)
+            tma_load_2d(dst + cb * 64 * kAtom, m, full, cb * 64, h * kHD);
+        } else {
+          for (int o = 0; o < NO; ++o)
+            tma_load_2d(dst + o * CB * kAtom, &maps.wo, full, h * kHD, o * CB);
+        }
+        ring.advance();
       }
     }
   } else {
@@ -211,16 +161,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       *reinterpret_cast<uint4*>(qkv_g + plane * kRowsT * kAtom + (rows + rem / 8) * kAtom +
                                 (rem % 8) * 16) = make_uint4(0u, 0u, 0u, 0u);
     }
-    int t = 0;  // tiles consumed
-    auto wait_tile = [&]() -> uint32_t {
-      mbar_wait(full(t & 1), (t >> 1) & 1);
-      return sRing + (t & 1) * K::kTile;
-    };
-    auto release_tile = [&]() {
-      const int r = ctid & 127;
-      if (r == 0) mbar_arrive(empty(t & 1));
-      ++t;
-    };
+    const bool leader = (ctid & 127) == 0;
     auto team_sync = [&]() { named_bar_sync(1, 256); };
     auto grow = [&](int r) -> int64_t {
       return (int64_t(bi) * f + r / ts) * a.s + s0 + r % ts;
@@ -374,73 +315,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     };
     // p (64 rows x 64 columns) = A . W^T for a 64-row weight tile in the ring
     auto rows64 = [&](float (&p)[32]) {
-      const uint32_t w = wait_tile();
+      const uint32_t w = ring.wait();
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < C / 16; ++kk) wgmma_ss_n64<0>(p, desc_a(kk), desc_w64(w, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(p);
-      release_tile();
-    };
-
-    // acc = GEGLU(A . Wg^T + bg) . W2^T, the FF's weights streamed through the ring
-    auto ff_products = [&](float (&acc)[NO][CB / 2], const bf16* __restrict__ bg) {
-      zero(acc);
-      for (int step = 0; step < n_ff; ++step) {
-        uint32_t hf[4][4];  // h = value * gelu(gate), 64 rows x 64 inner columns
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          // the bias pairs of this thread's columns, loaded before the MMA wait
-          const int j0 = 64 * step + 32 * half + 2 * t4;
-          __nv_bfloat162 bv[4], bgt[4];
-#pragma unroll
-          for (int jb = 0; jb < 4; ++jb) {
-            bv[jb] = *reinterpret_cast<const __nv_bfloat162*>(bg + j0 + 8 * jb);
-            bgt[jb] = *reinterpret_cast<const __nv_bfloat162*>(bg + a.inner + j0 + 8 * jb);
-          }
-          float gacc[32];  // columns 0..31 value, 32..63 gate
-          rows64(gacc);
-          // value = bf16(bf16(x.Wv) + bv), gate likewise, h = bf16(value *
-          // bf16(gelu(gate))): bf16 pair adds and products round once, as
-          // the TPU kernel's bf16 steps do
-#pragma unroll
-          for (int jb = 0; jb < 4; ++jb)
-#pragma unroll
-            for (int h2 = 0; h2 < 2; ++h2) {
-              const __nv_bfloat162 v2 = __hadd2(
-                  __floats2bfloat162_rn(gacc[4 * jb + 2 * h2], gacc[4 * jb + 2 * h2 + 1]), bv[jb]);
-              const float2 gt = __bfloat1622float2(__hadd2(
-                  __floats2bfloat162_rn(gacc[4 * (jb + 4) + 2 * h2],
-                                        gacc[4 * (jb + 4) + 2 * h2 + 1]),
-                  bgt[jb]));
-              __nv_bfloat162 h = __hmul2(
-                  v2, __floats2bfloat162_rn(gelu_fast(gt.x), gelu_fast(gt.y)));
-              // n-block jb of the 32 columns: k-step jb / 2, register 2 * (jb % 2) + h2
-              hf[2 * half + jb / 2][2 * (jb % 2) + h2] = *reinterpret_cast<uint32_t*>(&h);
-            }
-        }
-        const uint32_t w = wait_tile();
-        fence_acc(acc);
-        fence_regs(hf);
-        wgmma_fence();
-#pragma unroll
-        for (int o = 0; o < NO; ++o)
-#pragma unroll
-          for (int ks = 0; ks < 4; ++ks) wgmma_rs_cb<CB>(acc[o], hf[ks], desc_wcb(w, o, ks));
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_acc(acc);
-        fence_regs(hf);
-        release_tile();
-      }
+      ring.release(leader);
     };
 
     // ffin: cur = x + FF_in(LN_in(x)), then LN1(cur) into the A tile
     row_pass(0, a.x, nullptr, a.lnin_w, a.lnin_b);
     {
       float acc[NO][CB / 2];
-      ff_products(acc, a.ffin_bg);
+      zero(acc);
+      ffw::ff_products<C, true, false>(acc, ring, sA, wc, C, a.inner, a.ffin_bg, a.exact != 0);
       stage(acc);
     }
     row_pass(1, a.x, a.ffin_b2, a.ln1_w, a.ln1_b);
@@ -477,17 +367,18 @@ __global__ void __launch_bounds__(kThreads, 1)
               });
         fence_async_smem();
         team_sync();
-        const uint32_t w = wait_tile();
+        const uint32_t w = ring.wait();
         fence_acc(acc);
         wgmma_fence();
 #pragma unroll
         for (int o = 0; o < NO; ++o)
 #pragma unroll
-          for (int ks = 0; ks < 4; ++ks) wgmma_ss_cb<CB>(acc[o], desc_o(ks), desc_wcb(w, o, ks));
+          for (int ks = 0; ks < 4; ++ks)
+            ffw::wgmma_ss_cb<CB>(acc[o], desc_o(ks), desc_wcb(w, o, ks));
         wgmma_commit();
         wgmma_wait<0>();
         fence_acc(acc);
-        release_tile();
+        ring.release(leader);
       }
       stage(acc);
     }
@@ -496,7 +387,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ff: out = cur + FF(LN3(cur))
     {
       float acc[NO][CB / 2];
-      ff_products(acc, a.ff_bg);
+      zero(acc);
+      ffw::ff_products<C, true, false>(acc, ring, sA, wc, C, a.inner, a.ff_bg, a.exact != 0);
       stage(acc);
     }
     row_pass(1, a.out, a.ff_b2, nullptr, nullptr);
@@ -555,22 +447,23 @@ cudaError_t launch(const void* const* w, const FullArgs& a, dim3 grid, int smem,
 // x, out: (b, f, s, c); LayerNorm weights (c,); FF weights wg (2*inner, c),
 // bg (2*inner,), w2 (c, inner), b2 (c,); wq, wk, wv (heads*64, c); wo
 // (c, heads*64); bo (c,); cross_bias (b, s, c) or null. All bf16, contiguous,
-// 16-byte aligned. The plan of ops/fused_temporal.py:full_plan: ts positions
-// per CTA, grid (grid_x, grid_y) = (s / ts, b), smem bytes of shared memory.
+// 16-byte aligned. exact: erf gelu, else tanh. The plan of
+// ops/fused_temporal.py:full_plan: ts positions per CTA, grid (grid_x, grid_y)
+// = (s / ts, b), smem bytes of shared memory.
 extern "C" int cak_temporal_full(
     const void* x, const void* lnin_w, const void* lnin_b, const void* ffin_wg,
     const void* ffin_bg, const void* ffin_w2, const void* ffin_b2, const void* ln1_w,
     const void* ln1_b, const void* wq, const void* wk, const void* wv, const void* wo,
     const void* bo, const void* ln3_w, const void* ln3_b, const void* ff_wg, const void* ff_bg,
     const void* ff_w2, const void* ff_b2, const void* cross_bias, void* out, int b, int f,
-    int s, int c, int heads, int inner, int ts, int grid_x, int grid_y, int smem, float eps,
-    float scale, void* stream) {
+    int s, int c, int heads, int inner, int ts, int grid_x, int grid_y, int smem, int exact,
+    float eps, float scale, void* stream) {
   auto p = [](const void* v) { return static_cast<const bf16*>(v); };
   const FullArgs a{p(x),      static_cast<bf16*>(out), p(cross_bias), p(lnin_w), p(lnin_b),
                    p(ffin_bg), p(ffin_b2),             p(ln1_w),      p(ln1_b),  p(bo),
                    p(ln3_w),  p(ln3_b),                p(ff_bg),      p(ff_b2),  f,
-                   s,         heads,                   inner,         ts,        eps,
-                   scale};
+                   s,         heads,                   inner,         ts,        exact,
+                   eps,       scale};
   const void* w[8] = {ffin_wg, ffin_w2, wq, wk, wv, wo, ff_wg, ff_w2};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // rows past the last position's frames up to a multiple of 16 are read as padding

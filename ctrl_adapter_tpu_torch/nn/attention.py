@@ -20,11 +20,15 @@ diffusers ones (``to_q``, ``to_out.0``, ``ff.net.0.proj``, ``ff.net.2``).
 
 Each kernel's wrapper owns its checks: it runs the plain version for a tensor
 on the CPU and launches the kernel, or raises, for a tensor on a card.
-- GEGLU uses tanh-gelu under bf16 and exact gelu under fp32.
+
+Every GEGLU picks its gelu form by :func:`gelu_approximate`, the JAX rule:
+tanh-gelu under bf16 unless ``CTRL_ADAPTER_EXACT_GELU=1`` (read per call),
+exact (erf) gelu otherwise.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -35,6 +39,13 @@ from ..ops import flash_attention as fa
 from ..ops import fused_block as fb
 from ..ops import fused_ff
 from ..ops import fused_temporal as ft
+
+
+def gelu_approximate(dtype: torch.dtype) -> bool:
+    """The JAX package's gelu rule (``nn/attention.py`` at ``GEGLU``, ``_ln_ff``
+    and the fused temporal block): the tanh form under bf16, unless
+    ``CTRL_ADAPTER_EXACT_GELU=1`` forces exact gelu everywhere."""
+    return dtype == torch.bfloat16 and os.environ.get("CTRL_ADAPTER_EXACT_GELU") != "1"
 
 
 class LayerNorm(nn.LayerNorm):
@@ -88,8 +99,8 @@ class GEGLU(nn.Module):
         self.proj = nn.Linear(dim_in, 2 * dim_out, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        approx = self.proj.weight.dtype == torch.bfloat16
-        return fused_ff.geglu(x, self.proj.weight, self.proj.bias, approx)
+        return fused_ff.geglu(x, self.proj.weight, self.proj.bias,
+                              gelu_approximate(self.proj.weight.dtype))
 
 
 class FeedForward(nn.Module):
@@ -130,9 +141,8 @@ class BasicTransformerBlock(nn.Module):
         if self.attn2 is not None:
             hidden_states = self.attn2(self.norm2(hidden_states),
                                        encoder_hidden_states) + hidden_states
-        approx = self.norm3.weight.dtype == torch.bfloat16
-        return fb.ln_ff_residual(hidden_states, *_ff_args(self.norm3, self.ff), 1e-5, approx,
-                                 True)
+        return fb.ln_ff_residual(hidden_states, *_ff_args(self.norm3, self.ff), 1e-5,
+                                 gelu_approximate(self.norm3.weight.dtype), True)
 
 
 def _ff_args(norm: LayerNorm, ff: FeedForward):
@@ -168,7 +178,7 @@ class TemporalBasicTransformerBlock(nn.Module):
     def _hybrid(self, hidden_states, num_frames, ctx):
         bf, s, c = hidden_states.shape
         b = bf // num_frames
-        approx = self.norm1.weight.dtype == torch.bfloat16
+        approx = gelu_approximate(self.norm1.weight.dtype)
         x4 = hidden_states.reshape(b, num_frames, s, c)
         cur = fb._torch_ln_ff_residual(x4, *_ff_args(self.norm_in, self.ff_in), 1e-5, approx,
                                        True)
@@ -183,7 +193,8 @@ class TemporalBasicTransformerBlock(nn.Module):
         out = ft.temporal_block_full(
             hidden_states.reshape(b, num_frames, s, c).contiguous(),
             self._cross_bias(ctx, b, s, c), *self._attn_args(), self.heads, 1e-5,
-            _ff_args(self.norm_in, self.ff_in), _ff_args(self.norm3, self.ff))
+            _ff_args(self.norm_in, self.ff_in), _ff_args(self.norm3, self.ff),
+            gelu_approximate(self.norm1.weight.dtype))
         return out.reshape(bf, s, c)
 
     def _cross_bias(self, ctx, b, s, c):
@@ -216,7 +227,7 @@ class TemporalBasicTransformerBlock(nn.Module):
         # (b*f, s, c) -> (b*s, f, c): frames become the attention sequence
         h = hidden_states.reshape(b, num_frames, s, c).permute(0, 2, 1, 3)
         h = h.reshape(b * s, num_frames, c)
-        approx = self.norm1.weight.dtype == torch.bfloat16
+        approx = gelu_approximate(self.norm1.weight.dtype)
         h = fb.ln_ff_residual(h, *_ff_args(self.norm_in, self.ff_in), 1e-5, approx, is_res)
         h = self.attn1(self.norm1(h)) + h
         if self.attn2 is not None:

@@ -9,7 +9,8 @@ module calls. It dispatches on the JAX rule: the kernel runs iff
 ``CTRL_ADAPTER_FUSED_FF=1`` (read per call) and ``_eligible`` takes the shape
 (C = 320 and 640 do at mult-4 FFs, C = 1280 does not); otherwise the plain
 version runs. :func:`geglu_kernel` is the kernel's wrapper: the plain version
-for a CPU tensor, the kernel (``csrc/geglu.cu``) or an error for a card tensor.
+for a CPU tensor, the kernel (``csrc/geglu.cu``, launched with :func:`plan`)
+or an error for a card tensor.
 
 No model of either package reaches K5: their ``BasicTransformerBlock``s run
 the FF through ``ops/fused_block.py`` and no model builds ``FeedForward`` on
@@ -22,16 +23,22 @@ from __future__ import annotations
 
 import ctypes
 import os
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from ._build import Kernel, ptr, stream_of
-from .backend import is_hopper
+from .backend import SMEM_PER_BLOCK, is_hopper, sm_count
 
 KERNEL = Kernel("cak_geglu", [
-    *([ctypes.c_void_p] * 4), ctypes.c_int64, *([ctypes.c_int] * 3), ctypes.c_void_p,
+    *([ctypes.c_void_p] * 4), ctypes.c_int64, *([ctypes.c_int] * 5), ctypes.c_void_p,
 ])
+
+_TILE_ROWS = 128    # kernel: a tile is 128 rows x 64 outputs (and their 64 gates)
+_TILE_OUT = 64
+_CHUNK = 64         # channels per ring stage
+_STAGES = 5
 
 _W_VMEM_BUDGET = 8 * 1024 * 1024  # the TPU's VMEM rule, kept so both packages pick alike
 
@@ -59,28 +66,55 @@ def use_kernel(m: int, c: int, d2: int, dtype: torch.dtype) -> bool:
     return os.environ.get("CTRL_ADAPTER_FUSED_FF") == "1" and _eligible(m, c, d2, dtype.itemsize)
 
 
+@dataclass(frozen=True)
+class Plan:
+    tiles: int         # ceil(m / 128) row tiles x D / 64 column tiles, column tiles adjacent
+    k_chunks: int      # 64-channel ring stages per tile (the last one zero-padded)
+    grid: int          # persistent CTAs, one an SM
+    smem_bytes: int
+
+
+def plan(m: int, c: int, d: int, sms: int = 132) -> Plan:
+    """The launch of K5 on a card of ``sms`` SMs: one persistent CTA per SM
+    (at most one per tile); shared memory for a ring of 5 stages of 32 KiB (a
+    128 x 64 chunk of x, 64 value and 64 gate rows of W), two 16 KiB output
+    staging tiles, 10 mbarriers and 1 KiB of alignment slack.
+    ``csrc/geglu.cu`` refuses any other shared-memory size."""
+    if m < 1 or c < 8 or c % 8 or d < _TILE_OUT or d % _TILE_OUT:
+        raise ValueError(f"geglu_kernel: kernel needs C % 8 == 0 and D % {_TILE_OUT} == 0; "
+                         f"got m={m} C={c} D={d}")
+    tiles = -(-m // _TILE_ROWS) * (d // _TILE_OUT)
+    stage = (_TILE_ROWS + 2 * _TILE_OUT) * _CHUNK * 2
+    smem = _STAGES * stage + 2 * _TILE_ROWS * _TILE_OUT * 2 + 16 * _STAGES + 1024
+    assert smem <= SMEM_PER_BLOCK
+    return Plan(tiles=tiles, k_chunks=-(-c // _CHUNK), grid=min(tiles, sms), smem_bytes=smem)
+
+
 def geglu_kernel(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  approximate: bool) -> torch.Tensor:
     """K5 on a Hopper card, the plain version on the CPU; raises for a card
-    tensor the kernel does not take (bf16 only, C % 32 == 0, D % 64 == 0)."""
+    tensor the kernel does not take (bf16 only, C % 8 == 0, D % 64 == 0)."""
     if x.device.type == "cpu":
         return _torch_geglu(x, w, b, approximate)
     if not is_hopper(x):
         raise RuntimeError(f"geglu_kernel: kernel needs an sm_90 device, got {x.device}")
     c = x.shape[-1]
     d = w.shape[0] // 2
-    if c % 32 or d % 64 or tuple(w.shape) != (2 * d, c) or tuple(b.shape) != (2 * d,):
-        raise ValueError(f"geglu_kernel: kernel needs C % 32 == 0, D % 64 == 0, w (2D, C) and "
-                         f"b (2D,); got x {tuple(x.shape)} w {tuple(w.shape)} b {tuple(b.shape)}")
+    m = x.numel() // c
+    if tuple(w.shape) != (2 * d, c) or tuple(b.shape) != (2 * d,):
+        raise ValueError(f"geglu_kernel: kernel needs w (2D, C) and b (2D,); got x "
+                         f"{tuple(x.shape)} w {tuple(w.shape)} b {tuple(b.shape)}")
+    p = plan(max(m, 1), c, d, sm_count(x.device))
     for name, t in dict(x=x, w=w, b=b).items():
         if t.dtype != torch.bfloat16:
             raise TypeError(f"geglu_kernel: {name} must be bfloat16, got {t.dtype}")
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"geglu_kernel: {name} must be contiguous on {x.device}")
-    m = x.numel() // c
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"geglu_kernel: {name} must be contiguous and 16-byte aligned on "
+                             f"{x.device}")
     out = torch.empty((*x.shape[:-1], d), dtype=x.dtype, device=x.device)
     if m:
-        KERNEL(ptr(x), ptr(w), ptr(b), ptr(out), m, c, d, int(not approximate), stream_of(x))
+        KERNEL(ptr(x), ptr(w), ptr(b), ptr(out), m, c, d, int(not approximate), p.grid,
+               p.smem_bytes, stream_of(x))
     return out
 
 

@@ -42,7 +42,7 @@ KERNEL = Kernel("cak_temporal_attention", [
     ctypes.c_void_p,
 ])
 KERNEL_FULL = Kernel("cak_temporal_full", [
-    *([ctypes.c_void_p] * 22), *([ctypes.c_int] * 10), ctypes.c_float, ctypes.c_float,
+    *([ctypes.c_void_p] * 22), *([ctypes.c_int] * 11), ctypes.c_float, ctypes.c_float,
     ctypes.c_void_p,
 ])
 
@@ -61,11 +61,11 @@ _VMEM_BUDGET = 14 * 1024 * 1024
 
 def _torch_temporal_block(x, cross_bias, ln_w, ln_b, wq, wk, wv, wo, bo, heads: int,
                           eps: float = 1e-5, ffin: Optional[tuple] = None,
-                          ff: Optional[tuple] = None) -> torch.Tensor:
+                          ff: Optional[tuple] = None, approximate: bool = True) -> torch.Tensor:
     """Plain version of K3 (``_xla_temporal_block``): the "attn" part, with the
     "ffin" and "ff" parts before and after it when their weights are given
-    (gelu is tanh under bf16, exact under fp32)."""
-    approximate = x.dtype == torch.bfloat16
+    (their gelu the tanh form if ``approximate``, else erf; the caller picks
+    it by the JAX rule, ``nn/attention.py:gelu_approximate``)."""
     if ffin is not None:
         x = _torch_ln_ff_residual(x, *ffin, eps, approximate, True)
     b, f, s, c = x.shape
@@ -280,14 +280,15 @@ def full_plan(b: int, f: int, s: int, c: int, heads: int, inner: int) -> FullPla
 
 
 def temporal_block_full(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_w, ln_b, wq,
-                        wk, wv, wo, bo, heads: int, eps: float, ffin: tuple,
-                        ff: tuple) -> torch.Tensor:
+                        wk, wv, wo, bo, heads: int, eps: float, ffin: tuple, ff: tuple,
+                        approximate: bool) -> torch.Tensor:
     """The whole block, ``ff(attn(ffin(x)))`` on (b, f, s, c): K3 "full" (one
     launch) on a Hopper card, the plain version on the CPU. ``ffin`` and ``ff``
-    are ``(ln_w, ln_b, wg, bg, w2, b2)``."""
+    are ``(ln_w, ln_b, wg, bg, w2, b2)``; their gelu is the tanh form if
+    ``approximate``, else erf."""
     if x.device.type == "cpu":
         return _torch_temporal_block(x, cross_bias, ln_w, ln_b, wq, wk, wv, wo, bo, heads, eps,
-                                     ffin, ff)
+                                     ffin, ff, approximate)
     if not is_hopper(x):
         raise RuntimeError(f"temporal_block_full: kernel needs an sm_90 device, got {x.device}")
     if x.dim() != 4:
@@ -323,6 +324,6 @@ def temporal_block_full(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_
     KERNEL_FULL(ptr(x), *(ptr(t) for t in ffin), ptr(ln_w), ptr(ln_b), ptr(wq), ptr(wk),
                 ptr(wv), ptr(wo), ptr(bo), *(ptr(t) for t in ff),
                 None if cross_bias is None else ptr(cross_bias), ptr(out),
-                b, f, s, c, heads, iff, plan.ts, *plan.grid, plan.smem_bytes, float(eps),
-                float(KERNEL_HEAD_DIM ** -0.5), stream_of(x))
+                b, f, s, c, heads, iff, plan.ts, *plan.grid, plan.smem_bytes,
+                int(not approximate), float(eps), float(KERNEL_HEAD_DIM ** -0.5), stream_of(x))
     return out

@@ -60,33 +60,9 @@ def towers_ms(pipe, gen, steps: int):
 
 
 def idle_share(gen):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gen(1)
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kern:
-        raise RuntimeError("the profiler recorded no device kernels")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:  # union of the kernel spans
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    span = spans[-1][1] - spans[0][0]
-    by_name = {}
-    for e in kern:
-        t = by_name.setdefault(e.name, [0.0, 0])
-        t[0] += e.time_range.elapsed_us()
-        t[1] += 1
-    return len(kern), busy, span, sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    busy, span, by_name = cs.device_activity(lambda: gen(1))
+    n = sum(calls for _, calls in by_name.values())
+    return n, busy, span, sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
 
 
 def main() -> int:

@@ -12,7 +12,11 @@ inputs and weights:
 - K5: ``geglu`` vs JAX ``geglu(..., use_pallas=True)``, tanh and exact gelu;
 - the dispatch rules (temporal ``dispatch_mode``, the K4 and K5 rules) equal
   to JAX's with its device test patched to "TPU", over the SVD slice's blocks
-  and a grid of thin shapes;
+  and a grid of thin shapes, with and without ``CTRL_ADAPTER_EXACT_GELU=1``;
+- the gelu form each module asks its op for (``GEGLU``,
+  ``BasicTransformerBlock``, the temporal block's "full", "hybrid" and module
+  branches) equal to what the JAX module passes at the same site, with and
+  without ``CTRL_ADAPTER_EXACT_GELU=1``;
 - ``TemporalBasicTransformerBlock`` in bf16 at a thin shape where the rule
   picks "full".
 
@@ -32,10 +36,12 @@ import jax
 import jax.numpy as jnp
 
 import ctrl_adapter_tpu.ops.backend as jbackend
+from ctrl_adapter_tpu.nn import attention as jattn
 from ctrl_adapter_tpu.nn.attention import TemporalBasicTransformerBlock as JTemporalBlock
 from ctrl_adapter_tpu.ops import fused_block as jfb
 from ctrl_adapter_tpu.ops import fused_ff as jff
 from ctrl_adapter_tpu.ops import fused_temporal as jft
+from ctrl_adapter_tpu_torch.nn import attention as tattn
 from ctrl_adapter_tpu_torch.nn.attention import TemporalBasicTransformerBlock
 from ctrl_adapter_tpu_torch.ops import fused_block as tfb
 from ctrl_adapter_tpu_torch.ops import fused_ff as tff
@@ -105,7 +111,7 @@ def test_k3_full_matches_jax_pallas(cross, dtype):
         _t(x, dtype), None if cb is None else _t(cb, dtype), _t(attn["ln1_s"], dtype),
         _t(attn["ln1_b"], dtype), _t(attn["wq"].T, dtype), _t(attn["wk"].T, dtype),
         _t(attn["wv"].T, dtype), _t(attn["wo"].T, dtype), _t(attn["bo"], dtype), nh, 1e-5,
-        _ff_port(ffin, dtype), _ff_port(ff, dtype))
+        _ff_port(ffin, dtype), _ff_port(ff, dtype), dtype == torch.bfloat16)
     assert got.dtype == dtype
     _close(got, want, dtype, 1e-4, "K3 full")
 
@@ -209,27 +215,39 @@ def _jax_kernel_taken(module, pallas_name, out_shape, fn, *shapes):
     return bool(calls)
 
 
+def _set_env(monkeypatch, name, value):
+    if value is None:
+        monkeypatch.delenv(name, raising=False)
+    else:
+        monkeypatch.setenv(name, value)
+
+
 @pytest.mark.parametrize("env", [None, "1"], ids=["default", "fused-block"])
 def test_k4_rule_matches_jax(jax_on_tpu, env):
-    if env is None:
-        jax_on_tpu.delenv("CTRL_ADAPTER_FUSED_BLOCK", raising=False)
-    else:
-        jax_on_tpu.setenv("CTRL_ADAPTER_FUSED_BLOCK", env)
-    taken = set()
-    for m in (2048, 4096, 4104, 28 * 4096, 14 * 4096 + 8):
-        for c in (64, 320, 384, 640, 1280):
-            for jd, td in ((jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)):
-                inner = 4 * c
-                sd = lambda *s: jax.ShapeDtypeStruct(s, jd)  # noqa: E731
-                fn = lambda x, a, b_, wg, bg, w2, b2: jfb.ln_ff_residual(  # noqa: E731
-                    x, a, b_, wg, bg, w2, b2, 1e-5, jd == jnp.bfloat16, True, jd)
-                want = _jax_kernel_taken(
-                    jfb, "_pallas_ln_ff_residual", lambda x2, *a: (x2.shape[0], a[4].shape[1]),
-                    fn, sd(m, c), sd(c), sd(c), sd(c, 2 * inner), sd(2 * inner), sd(inner, c),
-                    sd(c))
-                assert tfb.use_kernel(m, c, inner, td) == want, (m, c, td)
-                taken.add(want)
-    assert taken == ({False} if env is None else {False, True})
+    """K4's rule against JAX's, with the gelu form each package's blocks ask
+    for (``approximate``) under ``CTRL_ADAPTER_EXACT_GELU`` unset and "1": the
+    kernel takes tanh-gelu only, so under the switch neither package runs it."""
+    _set_env(jax_on_tpu, "CTRL_ADAPTER_FUSED_BLOCK", env)
+    for exact in (None, "1"):
+        _set_env(jax_on_tpu, "CTRL_ADAPTER_EXACT_GELU", exact)
+        taken = set()
+        for m in (2048, 4096, 4104, 28 * 4096, 14 * 4096 + 8):
+            for c in (64, 320, 384, 640, 1280):
+                for jd, td in ((jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)):
+                    inner = 4 * c
+                    approx = jd == jnp.bfloat16 and exact != "1"  # the JAX blocks' rule
+                    assert tattn.gelu_approximate(td) == approx
+                    sd = lambda *s: jax.ShapeDtypeStruct(s, jd)  # noqa: E731
+                    fn = lambda x, a, b_, wg, bg, w2, b2: jfb.ln_ff_residual(  # noqa: E731
+                        x, a, b_, wg, bg, w2, b2, 1e-5, approx, True, jd)
+                    want = _jax_kernel_taken(
+                        jfb, "_pallas_ln_ff_residual",
+                        lambda x2, *a: (x2.shape[0], a[4].shape[1]), fn, sd(m, c), sd(c), sd(c),
+                        sd(c, 2 * inner), sd(2 * inner), sd(inner, c), sd(c))
+                    got = tfb.use_kernel(m, c, inner, td, tattn.gelu_approximate(td))
+                    assert got == want, (m, c, td, exact)
+                    taken.add(want)
+        assert taken == ({False} if env is None or exact == "1" else {False, True})
 
 
 @pytest.mark.parametrize("env", [None, "1"], ids=["default", "fused-ff"])
@@ -253,6 +271,102 @@ def test_k5_rule_matches_jax(jax_on_tpu, env):
                     taken[c] = want
     # C = 320 and 640 qualify and C = 1280 does not (under the switch)
     assert taken == {64: env == "1", 320: env == "1", 640: env == "1", 1280: False}
+
+
+# ------------------------------------------- the gelu form at every site
+def _record(calls, out_shape, pick):
+    """A spy that records ``pick(args, kwargs)`` and returns zeros of
+    ``out_shape(*args)`` (JAX, traced abstractly)."""
+    def spy(*args, **kwargs):
+        calls.append(pick(args, kwargs))
+        return jnp.zeros(out_shape(*args), args[0].dtype)
+    return spy
+
+
+def _jax_site(site, monkeypatch, jd):
+    """The gelu forms (``approximate``) the JAX module passes to its ops at
+    ``site``, in call order, from an abstract trace of its apply."""
+    b, f, s, c, nh, hd = 1, 2, 4, 64, 1, 64
+    calls, static = [], ()
+    same = lambda x, *a: x.shape  # noqa: E731
+    ff_out = lambda x, *a: x.shape[:-1] + (a[4].shape[1],)  # noqa: E731
+    if site == "geglu":
+        mod, args = jattn.GEGLU(4 * c, dtype=jd), (jnp.zeros((b, s, c), jd),)
+        monkeypatch.setattr(jff, "geglu", _record(
+            calls, lambda x, k, *a: x.shape[:-1] + (k.shape[1] // 2,),
+            lambda a, kw: kw["approximate"]))
+    elif site == "basic":
+        mod = jattn.BasicTransformerBlock(c, nh, hd, dtype=jd)
+        args = (jnp.zeros((b, s, c), jd),)
+        monkeypatch.setattr(jfb, "ln_ff_residual", _record(calls, ff_out, lambda a, kw: a[8]))
+    else:
+        mode = {"temporal-full": "full", "temporal-hybrid": "hybrid", "temporal-module": None}[site]
+        mod = jattn.TemporalBasicTransformerBlock(c, c, nh, hd, dtype=jd)
+        args, static = (jnp.zeros((b * f, s, c), jd),), (f,)
+        monkeypatch.setattr(jft, "dispatch_mode", lambda *a, **k: mode)
+        monkeypatch.setattr(jft, "temporal_block", _record(
+            calls, same, lambda a, kw: a[3][-1] if "ff" in a[3][0] else "attn"))
+        monkeypatch.setattr(jft, "_xla_temporal_block", _record(
+            calls, same, lambda a, kw: a[3]["approximate"]))
+        monkeypatch.setattr(jfb, "ln_ff_residual", _record(calls, ff_out, lambda a, kw: a[8]))
+    params = jax.eval_shape(lambda k, *a: mod.init(k, *a, *static), jax.random.PRNGKey(0), *args)
+    calls.clear()
+    jax.eval_shape(lambda p, *a: mod.apply(p, *a, *static), params, *args)
+    return [v for v in calls if v != "attn"]
+
+
+def _port_site(site, monkeypatch, td):
+    """The gelu forms the port's module passes to its ops at ``site``, in
+    call order, from a forward on the CPU."""
+    b, f, s, c, nh, hd = 1, 2, 4, 64, 1, 64
+    calls = []
+
+    def spy(module, name, pick):
+        orig = getattr(module, name)
+
+        def wrapped(*a, **kw):
+            calls.append(pick(a))
+            return orig(*a, **kw)
+        monkeypatch.setattr(module, name, wrapped)
+
+    if site == "geglu":
+        mod, args = tattn.GEGLU(c, 4 * c), (torch.zeros(b, s, c),)
+        spy(tff, "geglu", lambda a: a[3])
+    elif site == "basic":
+        mod, args = tattn.BasicTransformerBlock(c, nh, hd), (torch.zeros(b, s, c),)
+        spy(tfb, "ln_ff_residual", lambda a: a[8])
+    else:
+        mode = {"temporal-full": "full", "temporal-hybrid": "hybrid", "temporal-module": None}[site]
+        mod, args = TemporalBasicTransformerBlock(c, c, nh, hd), (torch.zeros(b * f, s, c), f)
+        monkeypatch.setattr(tft, "dispatch_mode", lambda *a, **k: mode)
+        if mode == "full":
+            spy(tft, "temporal_block_full", lambda a: a[13])
+        else:  # the hybrid branch's FFs are plain on (b, f, s, c); the module path's go to K4's op
+            spy(tfb, "_torch_ln_ff_residual" if mode else "ln_ff_residual", lambda a: a[8])
+    mod = mod.to(td)
+    with torch.no_grad():
+        mod(*(a.to(td) if torch.is_tensor(a) else a for a in args))
+    return calls
+
+
+SITES = ["geglu", "basic", "temporal-full", "temporal-hybrid", "temporal-module"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("exact", [None, "1"], ids=["default", "exact-gelu"])
+@pytest.mark.parametrize("site", SITES)
+def test_gelu_form_matches_jax_at_every_site(monkeypatch, site, exact, dtype):
+    """Each port module asks its op for the gelu form the JAX module passes at
+    the same site: tanh under bf16, erf under fp32 or ``CTRL_ADAPTER_EXACT_GELU=1``
+    (read per call). Before the repair the port ignored the switch and gave
+    its ops tanh-gelu under bf16 at every site."""
+    _set_env(monkeypatch, "CTRL_ADAPTER_EXACT_GELU", exact)
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = _jax_site(site, monkeypatch, jd)
+    got = _port_site(site, monkeypatch, dtype)
+    n = {"geglu": 1, "basic": 1, "temporal-full": 1}.get(site, 2)
+    assert len(want) == n and got == want, (got, want)
+    assert want == [dtype == torch.bfloat16 and exact != "1"] * n
 
 
 # ------------------------------------------ the block where "full" is picked

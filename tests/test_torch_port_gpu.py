@@ -22,7 +22,8 @@ from an fp32 run of the plain version on the same inputs. K2 is also held
 to a relative norm, ``||kernel - plain|| <= 1e-2 ||plain||``: its outputs are
 averages over T keys, small beside the elementwise atol, and a K/V tile that
 is skipped or read from the wrong ring slot moves them by far more than 1 %
-of their norm while staying inside the atol. Module
+of their norm while staying inside the atol; so is K5 at c = 640, whose
+outputs (std ~0.1 at these inputs) sit far below its atol. Module
 wiring tests compare a bf16 module on the
 card with the same bf16-rounded weights in fp32 on the CPU, within 5e-2 of the
 output's largest magnitude: a wrong head split or transpose gives errors of
@@ -270,17 +271,7 @@ def _ff(g, dev, c, inner, cout):
             _rand(g, dev, cout, scale=0.1).to(BF))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,f,s,c,heads,cross", [
-    (2, 14, 4096, 320, 5, True),
-    (2, 6, 12, 128, 2, False),
-    (1, 14, 7, 64, 1, True),
-    (2, 32, 8, 192, 3, True),
-    (2, 16, 64, 256, 4, False),
-    (1, 16, 32, 320, 5, True),
-], ids=["unet-l0", "thin-ts4", "odd-s-ts1", "f32-ts2", "f16-c256", "f16-c320"])
-def test_gpu_k3_full_kernel_matches_plain(b, f, s, c, heads, cross):
-    """Widths c = 64..320, 6 to 32 frames, with and without the cross bias."""
+def _k3_full_check(b, f, s, c, heads, cross, approximate):
     dev = _dev()
     g = torch.Generator(device=dev).manual_seed(5)
     ia = heads * 64
@@ -289,7 +280,7 @@ def test_gpu_k3_full_kernel_matches_plain(b, f, s, c, heads, cross):
     args = ((1.0 + _rand(g, dev, c, scale=0.1)).to(BF), _rand(g, dev, c, scale=0.1).to(BF),
             *(_rand(g, dev, ia, c, scale=c ** -0.5).to(BF) for _ in range(3)),
             _rand(g, dev, c, ia, scale=ia ** -0.5).to(BF), _rand(g, dev, c, scale=0.1).to(BF),
-            heads, 1e-5, _ff(g, dev, c, 4 * c, c), _ff(g, dev, c, 4 * c, c))
+            heads, 1e-5, _ff(g, dev, c, 4 * c, c), _ff(g, dev, c, 4 * c, c), approximate)
     got = _launches(tft.KERNEL_FULL, lambda: tft.temporal_block_full(x, cb, *args))
     want = tft._torch_temporal_block(x, cb, *args)
     _check(got, want, atol=1e-1, rtol=2e-2)
@@ -302,19 +293,45 @@ def test_gpu_k3_full_kernel_matches_plain(b, f, s, c, heads, cross):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,f,s,c,heads,cross", [
+    (2, 14, 4096, 320, 5, True),
+    (2, 6, 12, 128, 2, False),
+    (1, 14, 7, 64, 1, True),
+    (2, 32, 8, 192, 3, True),
+    (2, 16, 64, 256, 4, False),
+    (1, 16, 32, 320, 5, True),
+], ids=["unet-l0", "thin-ts4", "odd-s-ts1", "f32-ts2", "f16-c256", "f16-c320"])
+def test_gpu_k3_full_kernel_matches_plain(b, f, s, c, heads, cross):
+    """Widths c = 64..320, 6 to 32 frames, with and without the cross bias."""
+    _k3_full_check(b, f, s, c, heads, cross, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,f,s,c,heads,cross", [
+    (2, 14, 4096, 320, 5, True),
+    (2, 6, 12, 128, 2, False),
+], ids=["unet-l0", "thin-ts4"])
+def test_gpu_k3_full_erf_gelu_matches_plain(b, f, s, c, heads, cross):
+    """K3 full with exact (erf) gelu, what ``CTRL_ADAPTER_EXACT_GELU=1`` asks
+    for, at the same tolerances."""
+    _k3_full_check(b, f, s, c, heads, cross, False)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("m,c,cout,residual", [
     (114688, 320, 320, True),
     (100, 64, 128, False),
     (777, 192, 192, True),
-    (4160, 512, 512, False),
-], ids=["unet-l0", "odd-dim-out", "odd-rows", "c512"])
-def test_gpu_k4_kernel_matches_plain(m, c, cout, residual):
+    (4160, 320, 320, False),
+], ids=["unet-l0", "odd-dim-out", "odd-rows", "c320-no-residual"])
+@pytest.mark.parametrize("approximate", [True, False], ids=["tanh", "erf"])
+def test_gpu_k4_kernel_matches_plain(m, c, cout, residual, approximate):
     dev = _dev()
     g = torch.Generator(device=dev).manual_seed(6)
     x = _rand(g, dev, m, c).to(BF)
     w = _ff(g, dev, c, 4 * c, cout)
-    got = _launches(tfb.KERNEL, lambda: tfb.ln_ff_kernel(x, *w, 1e-5, True, residual))
-    want = tfb._torch_ln_ff_residual(x, *w, 1e-5, True, residual)
+    got = _launches(tfb.KERNEL, lambda: tfb.ln_ff_kernel(x, *w, 1e-5, approximate, residual))
+    want = tfb._torch_ln_ff_residual(x, *w, 1e-5, approximate, residual)
     _check(got, want, atol=3e-2, rtol=2e-2)
 
 
@@ -333,7 +350,36 @@ def test_gpu_k5_kernel_matches_plain(m, c, exact):
     bias = _rand(g, dev, 2 * d, scale=0.1).to(BF)
     got = _launches(tff.KERNEL, lambda: tff.geglu_kernel(x, w, bias, not exact))
     want = tff._torch_geglu(x, w, bias, not exact)
-    _check(got, want, atol=2e-2, rtol=2e-2)
+    _check(got, want, atol=2e-2, rtol=2e-2, rel_norm=1e-2 if c == 640 else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["k3-full", "k4", "k5"])
+def test_gpu_kernels_compute_the_gelu_form_asked_for(kernel):
+    """The two gelu forms differ by less than the tolerances above; on inputs
+    that expose the gap (``chip_smoke.gelu_form_ff``) each kernel's output
+    must follow ``approximate`` (``chip_smoke.gelu_form_check``)."""
+    import chip_smoke
+
+    dev = _dev()
+    g = torch.Generator(device=dev).manual_seed(9)
+    rand = lambda *s, scale=1.0: _rand(g, dev, *s, scale=scale)  # noqa: E731
+    form = chip_smoke.gelu_form_ff(rand, 320, 1280, 320)
+    if kernel == "k3-full":  # (kernel, plain, arguments before and after approximate)
+        fns = tft.temporal_block_full, tft._torch_temporal_block
+        ins = (rand(2, 14, 64, 320, scale=1e-2).to(BF), rand(2, 64, 320, scale=2e-3).to(BF),
+               torch.ones(320, device=dev, dtype=BF), torch.zeros(320, device=dev, dtype=BF),
+               *(rand(320, 320, scale=2e-3).to(BF) for _ in range(4)),
+               rand(320, scale=2e-3).to(BF), 5, 1e-5, form,
+               chip_smoke.gelu_form_ff(rand, 320, 1280, 320))
+        tail = ()
+    elif kernel == "k4":
+        fns = tfb.ln_ff_kernel, tfb._torch_ln_ff_residual
+        ins, tail = (rand(777, 320, scale=1e-2).to(BF), *form, 1e-5), (True,)
+    else:
+        fns = tff.geglu_kernel, tff._torch_geglu
+        ins, tail = (rand(777, 320).to(BF), form[2], form[3]), ()
+    chip_smoke.gelu_form_check(kernel, lambda a, k: fns[0 if k else 1](*ins, a, *tail))
 
 
 @pytest.mark.gpu
@@ -346,6 +392,9 @@ def test_gpu_new_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):  # C = 96 is not a multiple of 64
         tfb.ln_ff_kernel(_rand(g, dev, 8, 96).to(BF), *_ff(g, dev, 96, 384, 96), 1e-5, True,
                          True)
+    with pytest.raises(ValueError):  # C = C_out = 512: above the 64 x 320 accumulator
+        tfb.ln_ff_kernel(_rand(g, dev, 8, 512).to(BF), *_ff(g, dev, 512, 2048, 512), 1e-5,
+                         True, True)
     wk, bk = _rand(g, dev, 256, 64).to(BF), _rand(g, dev, 256).to(BF)
     with pytest.raises(TypeError):
         tff.geglu_kernel(x, wk, bk, True)
@@ -354,20 +403,25 @@ def test_gpu_new_wrappers_refuse_what_the_kernels_do_not_take():
     x4 = _rand(g, dev, 1, 4, 8, 64)
     attn = (w[0], w[1], *(_rand(g, dev, 64, 64).to(BF) for _ in range(4)), w[1], 1, 1e-5)
     with pytest.raises(TypeError):
-        tft.temporal_block_full(x4, None, *attn, w, w)
+        tft.temporal_block_full(x4, None, *attn, w, w, True)
     with pytest.raises(ValueError):  # c = 384 is above the kernel's widths
         x384 = torch.zeros(1, 4, 8, 384, device=dev, dtype=BF)
-        tft.temporal_block_full(x384, None, *attn, w, w)
+        tft.temporal_block_full(x384, None, *attn, w, w, True)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("fused", [False, True], ids=["default", "fused-block"])
-def test_gpu_basic_block_launches_k4_under_fused_block(monkeypatch, fused):
+@pytest.mark.parametrize("fused,exact", [(False, False), (True, False), (True, True)],
+                         ids=["default", "fused-block", "fused-block-exact-gelu"])
+def test_gpu_basic_block_launches_k4_under_fused_block(monkeypatch, fused, exact):
+    """K4 launches under ``CTRL_ADAPTER_FUSED_BLOCK=1`` unless
+    ``CTRL_ADAPTER_EXACT_GELU=1`` asks for erf-gelu, which the JAX rule keeps
+    off its kernel."""
     dev = _dev()
-    if fused:
-        monkeypatch.setenv("CTRL_ADAPTER_FUSED_BLOCK", "1")
-    else:
-        monkeypatch.delenv("CTRL_ADAPTER_FUSED_BLOCK", raising=False)
+    for name, on in (("CTRL_ADAPTER_FUSED_BLOCK", fused), ("CTRL_ADAPTER_EXACT_GELU", exact)):
+        if on:
+            monkeypatch.setenv(name, "1")
+        else:
+            monkeypatch.delenv(name, raising=False)
     with torch.no_grad():
         block = BasicTransformerBlock(320, 5, 64, 64, device=dev, dtype=BF)
         x = torch.randn(1, 4096, 320, device=dev).to(BF)
@@ -375,7 +429,7 @@ def test_gpu_basic_block_launches_k4_under_fused_block(monkeypatch, fused):
         out = block(x, torch.randn(1, 7, 64, device=dev).to(BF))
         torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
-    assert tfb.KERNEL.launches == before + int(fused)
+    assert tfb.KERNEL.launches == before + int(fused and not exact)
 
 
 @pytest.mark.gpu

@@ -98,7 +98,7 @@ def _cpu_dispatch_case(name):
     args = (torch.randn(2, 6, 8, c, generator=g), w(2, 8, c), 1.0 + w(c), w(c), w(c, c),
             w(c, c), w(c, c), w(c, c), w(c), 2, 1e-5)
     if name == "k3-full":
-        args = (*args, ff(), ff())
+        args = (*args, ff(), ff(), False)  # fp32: exact gelu
         return tft.KERNEL_FULL, tft.temporal_block_full, tft._torch_temporal_block, args
     return tft.KERNEL, tft.temporal_block, tft._torch_temporal_block, args
 

@@ -11,19 +11,29 @@ shapes: runs on the CPU.
   layout, heads per CTA, both grids and shared memories).
 - K1 (``ops/group_norm.py``): :func:`plan` (branch, CTAs per group or groups
   per CTA, shared memory).
+- K4 (``ops/fused_block.py``): :func:`plan` (tile rows, grid, ring depth,
+  shared memory); K5 (``ops/fused_ff.py``): :func:`plan` (tiles,
+  stages per tile, persistent grid, shared memory).
 
 The kernels launch the plans' grids and refuse shared-memory sizes other than
 their own configurations', so a plan that drifts from the C side fails on the
 card instead of launching.
 - ``ops/roofline.py``: FLOPs, bytes and the bound of every kernel row.
+- ``chip_smoke.py``'s shape lists, per-step sums, per-step launch counts,
+  the inputs of its gelu-form check and its device busy-time arithmetic.
 """
 
+import glob
+import os
 from collections import Counter
 
 import pytest
 import torch
 
+from ctrl_adapter_tpu_torch.ops import _build
 from ctrl_adapter_tpu_torch.ops import flash_attention as fa
+from ctrl_adapter_tpu_torch.ops import fused_block as fb
+from ctrl_adapter_tpu_torch.ops import fused_ff as ff
 from ctrl_adapter_tpu_torch.ops import fused_temporal as ft
 from ctrl_adapter_tpu_torch.ops import group_norm as gn
 from ctrl_adapter_tpu_torch.ops import roofline as rl
@@ -122,6 +132,83 @@ def test_full_plan_takes_every_full_block_of_the_svd_slice():
                 assert p.smem_bytes <= SMEM_PER_BLOCK
                 seen += 1
     assert seen >= 1
+
+
+# ---------------------------------------------------------------- K4 plan
+# Shared memory: the A tile (256 C bytes), depth slots of 128 * max(C, C_out)
+# bytes (as many as fit 232,448 bytes, at most 4), 88 bytes of mbarriers and
+# 1 KiB of slack.
+@pytest.mark.parametrize("args,grid,slot,depth,smem", [
+    # 896 tiles of 128 rows; 81,920 + 1,112 + 3 slots of 40 KiB (a 4th would
+    # need 246,872 bytes)
+    ((114688, 320, 1280, 320, True), 896, 40960, 3, 83032 + 3 * 40960),
+    # a ragged last tile: 4,160 rows are 32.5 tiles
+    ((4160, 320, 1280, 320, False), 33, 40960, 3, 83032 + 3 * 40960),
+    ((100, 64, 256, 128, False), 1, 16384, 4, 16384 + 1112 + 4 * 16384),
+    ((777, 192, 768, 192, True), 7, 24576, 4, 49152 + 1112 + 4 * 24576),
+    # C_out above C: the W2 tiles size the slots
+    ((4096, 64, 256, 320, False), 32, 40960, 4, 16384 + 1112 + 4 * 40960),
+], ids=["unet-l0", "c320-no-residual", "odd-dim-out", "odd-rows", "wide-out"])
+def test_ln_ff_plan_hand_worked(args, grid, slot, depth, smem):
+    p = fb.plan(*args)
+    assert (p.tile_rows, p.grid, p.slot_bytes, p.depth, p.smem_bytes) == (
+        128, grid, slot, depth, smem)
+    assert p.smem_bytes <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("args", [
+    (4096, 384, 1536, 384, True),   # C above 320
+    (4096, 320, 1280, 512, False),  # C_out above 320: its 64 x C_out accumulator
+    (4096, 512, 2048, 512, True),   # C = C_out = 512, above the accumulator's 320
+    (4096, 96, 384, 96, True),      # C not a multiple of 64
+    (4096, 320, 1248, 320, True),   # inner not a multiple of 64
+    (4096, 320, 1280, 256, True),   # the residual needs C_out == C
+    (0, 320, 1280, 320, True),      # no rows
+], ids=["c384", "cout512", "c512", "c96", "inner1248", "residual-cout", "m0"])
+def test_ln_ff_plan_refuses_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError):
+        fb.plan(*args)
+
+
+# ---------------------------------------------------------------- K5 plan
+# Shared memory: 5 stages of 32 KiB (a 128 x 64 chunk of x, 64 value and 64
+# gate rows of W x 64 channels), two 16 KiB staging tiles, 80 bytes of
+# mbarriers and 1 KiB of slack: 197,712 bytes.
+@pytest.mark.parametrize("args,tiles,k_chunks,grid", [
+    # 896 row tiles x 20 column tiles of 64 outputs, 5 stages of 64 channels
+    ((114688, 320, 1280), 17920, 5, 132),
+    ((28672, 640, 2560), 8960, 10, 132),
+    # one ragged row tile x 6 column tiles; 96 channels: a zero-padded 2nd stage
+    ((77, 96, 384), 6, 2, 6),
+], ids=["l0-c320", "l1-c640", "odd-rows-odd-k"])
+def test_geglu_plan_hand_worked(args, tiles, k_chunks, grid):
+    p = ff.plan(*args, sms=132)
+    assert (p.tiles, p.k_chunks, p.grid, p.smem_bytes) == (tiles, k_chunks, grid, 197712)
+    assert p.smem_bytes <= SMEM_PER_BLOCK
+    assert ff.plan(*args, sms=4).grid == min(tiles, 4)
+
+
+@pytest.mark.parametrize("args", [
+    (256, 100, 256),   # C not a multiple of 8 (TMA row strides)
+    (256, 64, 96),     # D not a multiple of 64
+    (0, 64, 128),      # no rows
+], ids=["c100", "d96", "m0"])
+def test_geglu_plan_refuses_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError):
+        ff.plan(*args)
+
+
+def test_no_source_includes_the_removed_ln_ff_header():
+    """K4 and K3 full share ``csrc/ff_wgmma.cuh``; the older ``ln_ff.cuh`` is
+    gone and no source includes it."""
+    assert not os.path.exists(os.path.join(_build.CSRC_DIR, "ln_ff.cuh"))
+    users = {}
+    for path in glob.glob(os.path.join(_build.CSRC_DIR, "*.cu*")):
+        with open(path) as fh:
+            text = fh.read()
+        assert '#include "ln_ff.cuh"' not in text, path
+        users[os.path.basename(path)] = '#include "ff_wgmma.cuh"' in text
+    assert {k for k, v in users.items() if v} >= {"ln_ff.cu", "temporal_full.cu"}
 
 
 # --------------------------------------------------------- K3 hybrid plan
@@ -369,3 +456,114 @@ def test_per_step_total_sums_each_clock_and_names_a_missing_one(capsys):
         "  K per controlled step (device, cold L2): 3 launches, 1.100 ms of kernel against "
         "0.250 ms of bound (22.7 %)",
     ]
+
+
+def test_launches_per_step_counts_each_step_and_marks_the_controlled_ones():
+    """``chip_smoke.launches_per_step`` (K4's per-step counts in the
+    fused-block run): a step runs from its first tower call to the end of its
+    UNet call, and is controlled where the ControlNet ran in it."""
+    import chip_smoke
+
+    class Kernel:
+        launches = 0
+
+        def __call__(self, *_):
+            self.launches += 1
+
+    class Tower(torch.nn.Module):
+        def __init__(self, kernel, n):
+            super().__init__()
+            self.kernel, self.n = kernel, n
+
+        def forward(self, x):
+            for _ in range(self.n):
+                self.kernel()
+            return x
+
+    kernel = Kernel()
+    pipe = type("Pipe", (), {})()
+    pipe.controlnet, pipe.unet = Tower(kernel, 2), Tower(kernel, 5)
+    with chip_smoke.launches_per_step(pipe, kernel) as steps:
+        for i in range(3):
+            if i < 2:
+                pipe.controlnet(0)
+            pipe.unet(0)
+    pipe.unet(0)  # after the context: not counted
+    assert steps == [(True, 7), (True, 7), (False, 5)]
+
+
+@pytest.mark.parametrize("kernel", ["k3-full", "k4", "k5"])
+def test_gelu_form_inputs_tell_the_forms_apart(kernel):
+    """The chip check that a kernel computed the gelu form asked for
+    (``chip_smoke.gelu_form_check``) holds on its ``gelu_form_ff`` inputs for
+    a stand-in kernel that rounds differently (the plain version in fp32,
+    rounded once), and fails for one that ignores the flag."""
+    import chip_smoke
+
+    g = torch.Generator().manual_seed(0)
+    rand = lambda *s, scale=1.0: torch.randn(*s, generator=g) * scale  # noqa: E731
+    bf = torch.bfloat16
+
+    def f32(a):
+        if isinstance(a, tuple):
+            return tuple(map(f32, a))
+        return a.float() if torch.is_tensor(a) else a
+
+    form = chip_smoke.gelu_form_ff(rand, 64, 256, 64)
+    if kernel == "k3-full":
+        ins = (rand(1, 6, 4, 64, scale=1e-2).to(bf), rand(1, 4, 64, scale=2e-3).to(bf),
+               torch.ones(64, dtype=bf), torch.zeros(64, dtype=bf),
+               *(rand(64, 64, scale=2e-3).to(bf) for _ in range(4)),
+               rand(64, scale=2e-3).to(bf), 1, 1e-5, form,
+               chip_smoke.gelu_form_ff(rand, 64, 256, 64))
+        plain = ft._torch_temporal_block
+    elif kernel == "k4":
+        ins, plain = (rand(40, 64, scale=1e-2).to(bf), *form, 1e-5), fb._torch_ln_ff_residual
+    else:
+        ins, plain = (rand(40, 64).to(bf), form[2], form[3]), ff._torch_geglu
+    tail = (True,) if kernel == "k4" else ()
+
+    def run(approximate, fp32, flag=True):
+        args = f32(ins) if fp32 else ins
+        return plain(*args, approximate if flag else True, *tail).to(bf)
+
+    chip_smoke.gelu_form_check(kernel, lambda a, k: run(a, k))
+    with pytest.raises(RuntimeError, match="did not compute erf gelu"):
+        chip_smoke.gelu_form_check(kernel, lambda a, k: run(a, k, flag=not k))
+
+
+def test_device_activity_takes_the_union_of_kernel_spans(monkeypatch):
+    """``chip_smoke.device_activity`` (the idle share of ``port_step_probe.py``
+    and ``tools/fused_block_steps.py``): overlapping kernels count once, gaps
+    not at all, host events are left out."""
+    import types
+
+    import chip_smoke
+    import torch.profiler
+    from torch.autograd import DeviceType
+
+    def ev(name, start, end, kind=DeviceType.CUDA):
+        span = types.SimpleNamespace(start=start, end=end, elapsed_us=lambda: end - start)
+        return types.SimpleNamespace(name=name, device_type=kind, time_range=span)
+
+    events = [ev("a", 0, 10), ev("b", 5, 12), ev("a", 20, 25), ev("c", 30, 31),
+              ev("host", 0, 100, DeviceType.CPU)]
+
+    class Profile:
+        def __init__(self, **_):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *_):
+            return False
+
+        def events(self):
+            return events
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    busy, span, per_name = chip_smoke.device_activity(lambda: None)
+    assert (busy, span) == (12 + 5 + 1, 31)
+    assert per_name == {"a": [15.0, 2], "b": [7.0, 1], "c": [1.0, 1]}
