@@ -22,15 +22,22 @@ Phases (any failure raises and the script exits non-zero before its last line):
    before each call (``cold_ms``), K1 beside its yardstick's device time, K5
    beside the time of the (M, 2D) product ``F.linear`` alone; K3 full and K4
    also with exact (erf) gelu; K3 full, K4 and K5 on inputs that tell the two
-   gelu forms apart (``gelu_form_check``);
+   gelu forms apart (``gelu_form_check``); K2's forward with the rows'
+   log-sum-exp and K2's backward at the training path's shapes and at H = 128
+   (``check_flash_bwd``: time, bound, SDPA's backward; the forward with and
+   without the log-sum-exp, in turns), and the gradients of K1, K3 hybrid, K3
+   full, K4 and K5 under grad against plain autograd (``check_kernel_grads``);
 4. run the slice: ``SVDControlNetAdapterPipeline`` at full width (SVD UNet
    320/640/1280/1280, SD-v1.5 ControlNet, the 13-block adapter at A-D + M, the
    temporal VAE) in bf16 with weights drawn from a seeded generator, 14 frames
    at 512x512, a few Euler steps with CFG and latent skipping, then decode;
    check the video, that every kernel of the path was launched and that the
    temporal blocks took the JAX dispatch (K3 "full" at UNet level 0, K3
-   "hybrid" at level 1 and in the adapter); then, on a small input, check the
-   kernel path against an fp32 reference of the same weights;
+   "hybrid" at level 1 and in the adapter) and K1 where the JAX rule admits
+   the norm (47 adapter norms per controlled step); time the denoise loop
+   with K1 at every adapter norm (the dispatch before the repair) in turns
+   with the JAX rule; then, on a small input, check the kernel path against
+   an fp32 reference of the same weights;
 5. the same pipeline in the fused-block configuration
    (``CTRL_ADAPTER_FUSED_BLOCK=1``, a switch of the JAX package) for 2 steps:
    the same checks, and K4 must launch; ms/step beside the default's; K4's
@@ -44,7 +51,19 @@ Phases (any failure raises and the script exits non-zero before its last line):
    and not with it (the JAX rule keeps erf off its kernel);
 7. K5, which no model path reaches: the port's ``FeedForward`` under
    ``CTRL_ADAPTER_FUSED_FF=1`` at the level-0 shape, against its plain run;
-8. print the per-kernel JSON line, the card line, and the result line.
+8. the SVD training step (``train/trainer.py``) at the full width of
+   ``configs/svd_train_depth.yaml``: 1 x 14 x 512 x 512, skip_conv_in, bf16
+   towers, fp32 adapter masters, gradient checkpointing, 3 steps on a batch
+   drawn from a seeded generator; checks finite losses and gradient norms, a
+   nonzero gradient on every adapter tensor the forward reads, that every
+   master moved, K2's backward 12 times a step and K1, K2, K3 full and K3
+   hybrid forward in every step, and a checkpoint saved and loaded back
+   exactly; prints ms/step (steps 2-3), peak memory, a fourth step split
+   into forward, backward and optimizer, and, from a fifth under
+   ``torch.profiler``, the device's idle share; then, on
+   2 frames at 128x128, the kernel path's loss and adapter gradient against an
+   fp32 run of the plain path;
+9. print the per-kernel JSON line, the card line, and the result line.
 
 Imports nothing of JAX.
 """
@@ -54,7 +73,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -348,12 +369,18 @@ def hybrid_rows():
 def k1_rows():
     """K1's calls in one adapter call, by (shape, silu): per block the spatial
     ResNet's two norms (SiLU) on (28, c, h, h), the temporal ResNet's two (SiLU)
-    on (2, c, 14, h, h) and the transformer's input norm (no SiLU) on (28, c, h, h)."""
+    on (2, c, 14, h, h) and the transformer's input norm (no SiLU) on (28, c, h, h),
+    where the JAX rule (``group_norm.eligible``) admits them: 47 of the 65. The
+    temporal ResNet's norms at 16x16 to 64x64 exceed its 12 MiB budget and run
+    plain, as in the JAX package."""
+    from ctrl_adapter_tpu_torch.ops.group_norm import eligible
+
     rows = {}
     for c, h in adapter_blocks():
         for shape, silu, n in (((2 * FRAMES, c, h, h), False, 1), ((2 * FRAMES, c, h, h), True, 2),
                                ((2, c, FRAMES, h, h), True, 2)):
-            rows[(shape, silu)] = rows.get((shape, silu), 0) + n
+            if eligible(shape, 32, 2):
+                rows[(shape, silu)] = rows.get((shape, silu), 0) + n
     return rows
 
 
@@ -463,6 +490,138 @@ def sdpa_times(q, k, v):
     return times
 
 
+K2_BWD_SHAPES = ((14, 5, 4096, 64), (14, 10, 1024, 64), (2, 4, 1024, 128))
+
+
+def sdpa_bwd_times(q, k, v, do):
+    """The backward of ``F.scaled_dot_product_attention`` on the kernel's
+    inputs, its flash and cuDNN backends forced one at a time: forward +
+    backward, minus the forward (None where PyTorch refuses the inputs).
+    Yardsticks only."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg))
+                both = cuda_ms(lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do))
+            times[f"SDPA {backend.name} backward"] = both - fwd
+        except RuntimeError:
+            times[f"SDPA {backend.name} backward"] = None
+    return times
+
+
+def check_flash_bwd(dev, card, rand):
+    """K2's forward with its log-sum-exp and K2's backward against their plain
+    versions, in bf16, at the training path's shapes (B = 14 frames, no CFG)
+    and at H = 128; the backward timed beside its bound and SDPA's backward,
+    the forward with and without the log-sum-exp at (28, 5, 4096, 64)."""
+    from ctrl_adapter_tpu_torch.ops import flash_attention as fa
+    from ctrl_adapter_tpu_torch.ops import roofline as rl
+
+    bf = torch.bfloat16
+    print(f"K2 backward (bf16 in and out, fp32 accumulation) on {card}")
+    rows = []
+    for b_, n_, t_, h_ in K2_BWD_SHAPES:
+        label = f"({b_},{n_},{t_},{h_})"
+        q, k, v = (rand(b_, t_, n_ * h_).to(bf).view(b_, t_, n_, h_).transpose(1, 2)
+                   for _ in range(3))
+        do = rand(b_, t_, n_ * h_).to(bf).view(b_, t_, n_, h_).transpose(1, 2)
+        out, lse = fa._forward(q, k, v, True)
+        want_out, want_lse = fa._torch_attention(q, k, v, True)
+        torch.cuda.synchronize()
+        compare(f"K2 forward {label} output", out, want_out, atol=1e-2, rtol=2e-2, rel_norm=1e-2)
+        compare(f"K2 forward {label} log-sum-exp", lse, want_lse, atol=1e-3, rtol=1e-4)
+        got = fa.attention_bnth_bwd(q, k, v, out, do, lse)
+        want = fa._torch_attention_bwd(q, k, v, out, do, lse)
+        torch.cuda.synchronize()
+        # P and dS are rounded to bf16 before their products (as the TPU kernel
+        # does); the plain version keeps them in fp32: ~0.5 % in norm
+        err = max(compare(f"K2 backward {label} d{name}", g, w, atol=5e-2 * w.abs().max().item(),
+                          rtol=5e-2, rel_norm=2e-2)
+                  for name, g, w in zip("qkv", got, want))
+        del got, want
+        ms = cuda_ms(lambda: fa.attention_bnth_bwd(q, k, v, out, do, lse))
+        pms = cuda_ms(lambda: fa._torch_attention_bwd(q, k, v, out, do, lse), iters=3, reps=3,
+                      warmup=1)
+        row = report(label, err, ms, pms, rl.attention_bwd(b_, n_, t_, h_),
+                     sdpa_bwd_times(q, k, v, do))
+        rows.append(row)
+    # the serving path's forward: no log-sum-exp written
+    q, k, v = (rand(28, 4096, 320).to(bf).view(28, 4096, 5, 64).transpose(1, 2)
+               for _ in range(3))
+    times = {False: [], True: []}
+    for with_lse in (False, True, True, False):  # in turns
+        times[with_lse].append(cuda_ms(lambda: fa._forward(q, k, v, with_lse)))
+    print(f"  K2 forward (28,5,4096,64), in turns: without the log-sum-exp "
+          f"{', '.join(f'{t:.4f}' for t in times[False])} ms; with it "
+          f"{', '.join(f'{t:.4f}' for t in times[True])} ms")
+    rows[0].update(fwd_ms=times[False], fwd_lse_ms=times[True])
+    return rows
+
+
+def check_kernel_grads(dev, card, rand):
+    """Under grad, K1, K3 hybrid, K3 full, K4 and K5 run forward once and take
+    their gradient from autograd of the plain version (``mirror_vjp``): at the
+    training path's shapes (batch 1, 14 frames, no CFG), their gradients
+    against those of the plain version run under autograd, in bf16."""
+    from ctrl_adapter_tpu_torch.ops import fused_block as fb
+    from ctrl_adapter_tpu_torch.ops import fused_ff as ff
+    from ctrl_adapter_tpu_torch.ops import fused_temporal as ft
+    from ctrl_adapter_tpu_torch.ops import group_norm as gn
+
+    bf = torch.bfloat16
+    print(f"kernel gradients (bf16, the plain version's VJP on the saved inputs) on {card}")
+    r = lambda *s, scale=1.0: rand(*s, scale=scale).to(bf)  # noqa: E731
+
+    def attn_args(c, ia, heads, s_):
+        return (r(1, 14, s_, c), r(1, s_, c, scale=0.5), 1.0 + r(c, scale=0.1), r(c, scale=0.1),
+                *(r(ia, c, scale=c ** -0.5) for _ in range(3)), r(c, ia, scale=ia ** -0.5),
+                r(c, scale=0.1), heads, 1e-5)
+
+    cases = [
+        ("K1 (14,320,64,64) silu", gn.KERNEL, gn.group_norm_silu, gn._torch_group_norm_silu,
+         (r(14, 320, 64, 64), 1.0 + r(320, scale=0.1), r(320, scale=0.1), 32, 1e-6, True)),
+        ("K3 hybrid UNet L1 (1,14,1024,640)", ft.KERNEL, ft.temporal_block,
+         ft._torch_temporal_block, attn_args(640, 640, 10, 1024)),
+        ("K3 full UNet L0 (1,14,4096,320)", ft.KERNEL_FULL, ft.temporal_block_full,
+         ft._torch_temporal_block, attn_args(320, 320, 5, 4096)
+         + (ff_weights(rand, 320, 1280, 320), ff_weights(rand, 320, 1280, 320), True)),
+        ("K4 (57344,320) inner 1280", fb.KERNEL, fb.ln_ff_kernel, fb._torch_ln_ff_residual,
+         (r(57344, 320), *ff_weights(rand, 320, 1280, 320), 1e-5, True, True)),
+        ("K5 (57344,320) -> 2x1280", ff.KERNEL, ff.geglu_kernel, ff._torch_geglu,
+         (r(57344, 320), r(2560, 320, scale=320 ** -0.5), r(2560, scale=0.1), True)),
+    ]
+
+    def run(fn, args, cotangent=None):
+        leaves = [a.detach().requires_grad_() if torch.is_tensor(a) else
+                  tuple(t.detach().requires_grad_() for t in a) if isinstance(a, tuple) else a
+                  for a in args]
+        out = fn(*leaves)
+        flat = [t for a in leaves for t in (a if isinstance(a, tuple) else (a,))
+                if torch.is_tensor(t)]
+        if cotangent is None:
+            cotangent = rand(*out.shape, scale=0.01).to(out.dtype)
+        return torch.autograd.grad(out, flat, cotangent), cotangent
+
+    for label, kernel, wrapper, plain, args in cases:
+        before = kernel.launches
+        got, cot = run(wrapper, args)
+        torch.cuda.synchronize()
+        if kernel.launches != before + 1:
+            raise RuntimeError(f"{label}: {kernel.launches - before} launches under grad, want 1")
+        want, _ = run(plain, args, cot)
+        # the same plain VJP on the same saved inputs: equal up to the order of
+        # the library's sums
+        for i, (x, y) in enumerate(zip(got, want)):
+            compare(f"{label} grad[{i}]", x, y, atol=1e-2 * y.abs().max().item() + 1e-6,
+                    rtol=1e-2, rel_norm=1e-2)
+
+
 def check_kernels(dev, card):
     import torch.nn.functional as F
 
@@ -544,6 +703,8 @@ def check_kernels(dev, card):
         k2.append(report(f"({b_},{n_},{t_},64)", err, ms, pms,
                          rl.attention(b_, n_, t_, t_, 64), sdpa_times(q, k, v)))
     results["flash_attention"] = k2
+    results["flash_attention_bwd"] = check_flash_bwd(dev, card, rand)
+    check_kernel_grads(dev, card, rand)
 
     # K3 hybrid: the temporal attention sub-block with cross bias at every
     # shape the dispatch sends it on the slice (hybrid_rows), and two check
@@ -752,6 +913,20 @@ def plain_kernels():
 
 
 @contextlib.contextmanager
+def k1_everywhere():
+    """The K1 dispatch before the repair: every norm that asks for K1 takes it,
+    whatever its size (the JAX shape rule switched off)."""
+    from ctrl_adapter_tpu_torch.ops import group_norm as gn
+
+    saved = gn.eligible
+    gn.eligible = lambda *args: True
+    try:
+        yield
+    finally:
+        gn.eligible = saved
+
+
+@contextlib.contextmanager
 def env_switch(name: str):
     """Set an opt-in switch of the JAX package (``name=1``) and restore it."""
     saved = os.environ.get(name)
@@ -913,6 +1088,29 @@ def run_slices(dev, card, kernels):
           f"control window covers {hi - lo} of {STEPS} steps)")
     print(f"  decode {t_decode:.3f} s second run (one chunk of {FRAMES} frames)")
     print(f"  peak device memory {peak_gb:.2f} GiB (first generate())")
+    # K1 where the JAX rule admits the norm: 47 of the adapter's 65 per
+    # controlled step; the 18 temporal-ResNet norms at 16x16..64x64 run plain.
+    # Against the dispatch before the repair (K1 at all 65), in turns.
+    k1_want = sum(k1_rows().values()) * (hi - lo)
+    if launches["group_norm_silu"] != k1_want:
+        raise RuntimeError(f"K1 launched {launches['group_norm_silu']} times, want {k1_want} "
+                           f"(the JAX rule's 47 adapter norms per controlled step)")
+    # The host clock spreads by more than the ~10 ms at stake, so each turn
+    # also reads the device's busy time over one more profiled run.
+    rule_ms = {"JAX rule": [], "K1 at every adapter norm": []}
+    for rule in ("JAX rule", "K1 at every adapter norm", "K1 at every adapter norm",
+                 "JAX rule"):
+        with k1_everywhere() if rule != "JAX rule" else contextlib.nullcontext():
+            before = kernels["group_norm_silu"].launches
+            ms, _ = ms_per_step(pipe, inputs, kw, STEPS)
+            n_k1 = kernels["group_norm_silu"].launches - before
+            busy, _, _ = device_activity(lambda: ms_per_step(pipe, inputs, kw, STEPS))
+        rule_ms[rule].append((ms, busy / 1000 / STEPS))
+        print(f"  K1 dispatch, {rule}: {n_k1} K1 launches, denoise {ms:.1f} ms/step (host), "
+              f"{busy / 1000 / STEPS:.1f} ms/step device busy")
+    print(f"slice on {card}: the K1 repair's cost, {STEPS} steps in turns (host; device busy): "
+          + "; ".join(f"{rule} " + ", ".join(f"{h:.1f}; {d:.1f}" for h, d in ts) + " ms/step"
+                      for rule, ts in rule_ms.items()))
     reference_check(pipe, dev, "slice")
 
     # phase 5, the fused-block configuration (K4 on the 320-wide FFs)
@@ -948,6 +1146,213 @@ def run_slices(dev, card, kernels):
           f"right after)")
     del pipe
     return launches, launches_fb, k4_per_step
+
+
+TRAIN_STEPS = 3
+# the single-key cross-attentions (one CLIP image token) read only to_v and
+# to_out: their norm2, to_q and to_k get no gradient, as in the JAX package
+UNREAD_BY_SINGLE_KEY = (".norm2.", ".attn2.to_q.", ".attn2.to_k.")
+
+
+def train_batch(dev, frames, size, seed):
+    """One video of ``frames`` frames at size x size from a seeded generator:
+    frames in [-1, 1], a depth map (one channel repeated to three) as the
+    ControlNet condition, the CLIP image embedding and the ControlNet text."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    depth = torch.rand(1, frames, size, size, 1, generator=g, device=dev).expand(-1, -1, -1, -1, 3)
+    return {"frames": torch.rand(1, frames, size, size, 3, generator=g, device=dev) * 2 - 1,
+            "controlnet_cond": depth.contiguous(),
+            "image_embeddings": torch.randn(1, 1, 1024, generator=g, device=dev) * 0.1,
+            "controlnet_text_emb": torch.randn(1, 77, 768, generator=g, device=dev) * 0.02}
+
+
+def _loss_and_grads(trainer, batch, draws):
+    """The step's loss and the adapter's gradient, flattened, in fp32."""
+    params = trainer.optimizer.params
+    for p in params:
+        p.grad = None
+    loss = trainer.loss(batch, draws)
+    loss.backward()
+    grads = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).float().flatten()
+                       for p in params])
+    for p in params:
+        p.grad = None
+    return loss.detach().float(), grads
+
+
+def train_reference_check(trainer, dev):
+    """On a small input (one video of 2 frames at 128x128), the bf16 kernel
+    path's loss and adapter gradient and the bf16 plain path's, each against
+    an fp32 run of the plain path with the same weights and draws."""
+    import dataclasses
+
+    from ctrl_adapter_tpu_torch.train.trainer import CtrlAdapterTrainer
+
+    full_cfg = trainer.config
+    cfg = dataclasses.replace(full_cfg, n_sample_frames=2, control_latent_size=16)
+    batch = train_batch(dev, 2, 128, SEED + 7)
+    draws = trainer.draw(torch.Generator(device=dev).manual_seed(SEED + 8), 1, 2, 16, 16)
+    trainer.config = cfg
+    try:
+        got = _loss_and_grads(trainer, batch, draws)
+        with plain_kernels():
+            plain = _loss_and_grads(trainer, batch, draws)
+            ref_trainer = CtrlAdapterTrainer(cfg, *(copy.deepcopy(m).float() for m in (
+                trainer.unet, trainer.controlnet, trainer.adapter, trainer.vae)), device=dev)
+            ref = _loss_and_grads(ref_trainer, batch, draws)
+    finally:
+        trainer.config = full_cfg
+    del ref_trainer
+    for what, i in (("loss", 0), ("adapter gradient", 1)):
+        norm = torch.linalg.vector_norm
+        err_k = (norm(got[i] - ref[i]) / norm(ref[i])).item()
+        err_p = (norm(plain[i] - ref[i]) / norm(ref[i])).item()
+        ok = err_k <= 2 * err_p + 1e-2
+        print(f"training reference (1x2x128x128), {what}: bf16 kernel path vs fp32 {err_k:.3e}, "
+              f"bf16 plain path vs fp32 {err_p:.3e} (relative norm; tolerance: kernel path "
+              f"within 2x the plain path's error + 1e-2) {'ok' if ok else 'FAIL'}")
+        if not (ok and torch.isfinite(got[i]).all()):
+            raise RuntimeError(f"training: the kernel path's {what} is farther from the fp32 "
+                               f"reference than allowed")
+
+
+def run_training(dev, card, kernels):
+    """Phase 8: the SVD training step at the full width of
+    ``configs/svd_train_depth.yaml`` (1 x 14 x 512 x 512, skip_conv_in, bf16
+    towers, fp32 adapter masters, gradient checkpointing) for 3 steps; returns
+    the launch counts of the 3 steps."""
+    from ctrl_adapter_tpu_torch.train import checkpoints
+    from ctrl_adapter_tpu_torch.train.trainer import CtrlAdapterTrainer, TrainConfig
+
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    pipe, n_params = build_pipeline(dev, bf)
+    cfg = TrainConfig(model_name="svd", n_sample_frames=FRAMES, output_fps=14,
+                      control_latent_size=SIZE // 8, skip_conv_in=True,
+                      gradient_checkpointing=True)
+    trainer = CtrlAdapterTrainer(cfg, pipe.unet, pipe.controlnet, pipe.adapter, pipe.vae,
+                                 device=dev)
+    del pipe
+    params, masters = trainer.optimizer.params, trainer.optimizer.masters
+    n_adapter = sum(p.numel() for p in params)
+    torch.cuda.synchronize()
+    print(f"training: built the SVD UNet, ControlNet, adapter and temporal VAE ({n_params / 1e9:.3f}"
+          f" B params, bf16; the adapter's {n_adapter / 1e6:.1f} M with fp32 masters) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    batch = train_batch(dev, FRAMES, SIZE, SEED + 5)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    start = [m.clone() for m in masters]
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.reset()
+    step_ms, per_step = [], []
+    for step in range(TRAIN_STEPS):
+        before = {name: k.launches for name, k in kernels.items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = trainer.train_step(batch, generator=gen)
+        torch.cuda.synchronize()
+        step_ms.append(1000 * (time.perf_counter() - t1))
+        per_step.append({name: k.launches - before[name] for name, k in kernels.items()})
+        loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+        print(f"training step {step + 1}: loss {loss:.6f}, grad_norm {norm:.6e}, "
+              f"{step_ms[-1]:.1f} ms, launches {per_step[-1]}")
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise RuntimeError(f"training step {step + 1}: non-finite loss or grad_norm")
+        if step == 0:  # every adapter parameter the forward reads has a nonzero gradient
+            unread = [n for n, p in zip(trainer.names, params) if p.grad is None]
+            zero = [n for n, p in zip(trainer.names, params)
+                    if p.grad is not None and not p.grad.any()]
+            odd = [n for n in unread if not any(k in n for k in UNREAD_BY_SINGLE_KEY)]
+            print(f"training: {len(params) - len(unread)} of {len(params)} adapter tensors "
+                  f"have a gradient, {len(zero)} of them zero; {len(unread)} unread (the "
+                  f"single-key cross-attentions' norm2, to_q, to_k)")
+            if zero or odd:
+                raise RuntimeError(f"training: zero gradients {zero[:5]}, unread {odd[:5]}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {name: sum(s[name] for s in per_step) for name in kernels}
+    # where a step's time goes: one more step in its three parts, each on the
+    # host clock around a synchronize
+    parts = {}
+    draws = trainer.draw(gen, 1, FRAMES, SIZE // 8, SIZE // 8)
+    for p in params:
+        p.grad = None
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss = trainer.loss(batch, draws)
+    torch.cuda.synchronize()
+    parts["forward (VAE encode, ControlNet, adapter, UNet, loss)"] = time.perf_counter() - t1
+    loss.backward()
+    torch.cuda.synchronize()
+    parts["backward (with the adapter's and the UNet's recompute)"] = (
+        time.perf_counter() - t1 - sum(parts.values()))
+    trainer.optimizer.step([torch.zeros_like(m) if p.grad is None else p.grad.float()
+                            for p, m in zip(params, masters)])
+    torch.cuda.synchronize()
+    parts["optimizer (clip, AdamW, masters to bf16)"] = (
+        time.perf_counter() - t1 - sum(parts.values()))
+    print("training step in parts: " + "; ".join(f"{k} {1000 * v:.1f} ms"
+                                                  for k, v in parts.items()))
+    # one more step under torch.profiler (which slows the host several-fold,
+    # so it is not timed) for the device's busy time and idle share
+    busy, span, per_name = device_activity(lambda: trainer.train_step(batch, generator=gen))
+    moved = sum(not torch.equal(a, b) for a, b in zip(start, masters))
+    print(f"training: {moved} of {len(masters)} master tensors moved in "
+          f"{trainer.optimizer.update_count} updates")
+    if moved != len(masters):
+        raise RuntimeError("training: some masters did not move")
+    del start
+
+    # the path's kernels: K2's backward 12 times a step (the UNet's 6 up-block
+    # and the adapter's 6 spatial attentions at 64x64 and 32x32), K1, K2, K3
+    # full and K3 hybrid forward
+    for s in per_step:
+        if s["flash_attention_bwd"] != 12:
+            raise RuntimeError(f"training: K2 backward launched {s['flash_attention_bwd']} "
+                               f"times in a step, want 12")
+    missing = [n for n in ("group_norm_silu", "flash_attention", "temporal_block",
+                           "temporal_block_full") if not all(s[n] for s in per_step)]
+    if missing:
+        raise RuntimeError(f"training: kernels not launched in every step: {missing}")
+    print(f"training: K2 forward {per_step[0]['flash_attention']} launches a step: the "
+          f"forward's 16 (the UNet's 10 spatial attentions at 64x64 and 32x32, the 4 of its "
+          f"down blocks without the log-sum-exp, as nothing there needs a gradient; the "
+          f"adapter's 6), and the checkpointed recompute of the adapter and the UNet in the "
+          f"backward runs them again; K1 {per_step[0]['group_norm_silu']} (47 adapter norms, "
+          f"forward and recompute)")
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
+    print(f"training on {card}: 1x{FRAMES}x{SIZE}x{SIZE}, skip_conv_in, bf16 towers, fp32 "
+          f"masters, gradient checkpointing: step 1 {step_ms[0]:.1f} ms (cold); "
+          f"{statistics.mean(step_ms[1:]):.1f} ms/step over steps 2-{TRAIN_STEPS} "
+          f"({', '.join(f'{t:.1f}' for t in step_ms[1:])}); peak device memory {peak_gb:.2f} "
+          f"GiB; a step under torch.profiler: device busy {busy / 1000:.1f} ms of a "
+          f"{span / 1000:.1f} ms kernel span, idle share {1 - busy / span:.3%}")
+    for name, (us, calls) in top:
+        print(f"    {us / 1000:9.2f} ms {us / busy:6.1%} x{calls:5d} {name[:100]}")
+
+    # a checkpoint in the reference layout, saved and loaded back exactly
+    t1 = time.perf_counter()
+    ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_ckpt")
+    step = trainer.optimizer.update_count
+    ckpt = checkpoints.save_checkpoint(ckpt_root, step, trainer.adapter_state(),
+                                       trainer.optimizer.state_dict(), {"model_name": "svd"})
+    loaded = checkpoints.load_checkpoint(ckpt, step, map_location=dev)
+    t_ckpt = time.perf_counter() - t1
+    shutil.rmtree(ckpt_root)
+    same = all(torch.equal(loaded["adapter"][n], m) for n, m in zip(trainer.names, masters))
+    saved_state = trainer.optimizer.adamw.state_dict()["state"]
+    loaded_state = loaded["optimizer"]["adamw"]["state"]
+    same = same and all(torch.equal(saved_state[i][k].to(dev), loaded_state[i][k].to(dev))
+                        for i in saved_state for k in ("exp_avg", "exp_avg_sq", "step"))
+    print(f"training: checkpoint-{step} (adapter_{step}/, optimizer/, "
+          f"config.json) saved and loaded in {t_ckpt:.1f} s: masters and AdamW state "
+          f"{'equal' if same else 'DIFFER'}")
+    if not same:
+        raise RuntimeError("training: the checkpoint did not restore the masters and AdamW state")
+    del loaded
+    train_reference_check(trainer, dev)
+    return launches
 
 
 def run_exact_gelu(dev, card, full_kernel, k4_kernel):
@@ -1095,7 +1500,8 @@ def main() -> int:
     results = check_kernels(dev, card)
     kernels = {"group_norm_silu": gn.KERNEL, "flash_attention": fa.KERNEL,
                "temporal_block": ft.KERNEL, "temporal_block_full": ft.KERNEL_FULL,
-               "ln_ff_residual": fb.KERNEL, "geglu": ff.KERNEL}
+               "ln_ff_residual": fb.KERNEL, "geglu": ff.KERNEL,
+               "flash_attention_bwd": fa.KERNEL_BWD}
     launches, launches_fb, k4_per_step = run_slices(dev, card, kernels)
     # K4's per-step sums from the launches the fused-block run counted per step
     k4 = {**results["ln_ff_residual"][0], "controlled": 0, "unet_only": 0, **k4_per_step}
@@ -1106,6 +1512,7 @@ def main() -> int:
     print("K5 geglu is off every model path: the models' BasicTransformerBlocks run their "
           "FF through K4's op (as the JAX package's do) and no model builds FeedForward on "
           "its own; its launches below are those of the FeedForward run")
+    launches_train = run_training(dev, card, kernels)
 
     meta = {  # name: (source, replaces, the run its launches come from)
         "group_norm_silu": ("ctrl_adapter_tpu_torch/csrc/group_norm.cu",
@@ -1120,9 +1527,14 @@ def main() -> int:
                            "ctrl_adapter_tpu/ops/fused_block.py:142", "svd fused-block"),
         "geglu": ("ctrl_adapter_tpu_torch/csrc/geglu.cu", "ctrl_adapter_tpu/ops/fused_ff.py:70",
                   "FeedForward, no model path"),
+        "flash_attention_bwd": ("ctrl_adapter_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "ctrl_adapter_tpu/ops/flash_attention.py:97 (the custom VJP's "
+                                "_flash_attention_bwd_dkv, _flash_attention_bwd_dq)",
+                                "svd training"),
     }
     counts = {"svd default": launches, "svd fused-block": launches_fb,
-              "FeedForward, no model path": {"geglu": launches_ff}}
+              "FeedForward, no model path": {"geglu": launches_ff},
+              "svd training": launches_train}
     # each kernel's first row, without the per-step counts the sums above used
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],

@@ -13,12 +13,13 @@ torch's:
 - ``scale``                            -> ``weight``
 
 The bridge is strict: every port parameter is filled and every JAX leaf is used
-exactly once, or it raises.
+exactly once, or it raises. ``dtype`` overrides the module's dtypes, e.g.
+float32 for a trainer's master weights (``CtrlAdapterTrainer.load_masters``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,9 +51,11 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return out
 
 
-def state_dict_from_jax(module: torch.nn.Module, params: Mapping) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(module: torch.nn.Module, params: Mapping,
+                        dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """Map a flax param tree (with or without the ``{"params": ...}`` wrapper)
-    onto ``module`` and return its state dict, in the module's dtypes."""
+    onto ``module`` and return its state dict, in the module's dtypes or in
+    ``dtype``."""
     if set(params.keys()) == {"params"}:
         params = params["params"]
     flat = _flatten(params)
@@ -70,7 +73,7 @@ def state_dict_from_jax(module: torch.nn.Module, params: Mapping) -> Dict[str, t
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: JAX {'/'.join(path)} has shape {arr.shape}, "
                              f"port expects {tuple(p.shape)}")
-        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(p.dtype)
+        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(dtype or p.dtype)
         used.add(path)
     unused = sorted("/".join(k) for k in set(flat) - used)
     if unused:

@@ -29,7 +29,10 @@
 //   turns issuing (named barriers 1 and 2, ping-pong), so one warpgroup's
 //   softmax runs beside the other's MMAs;
 // - the output is normalised in registers and stored to the (B, T, N, H)
-//   buffer through its (B, N, T, H) strides.
+//   buffer through its (B, N, T, H) strides; where an LSE buffer is given
+//   (training), each row's log-sum-exp of the scaled logits, (m + log2 l) ln 2,
+//   goes to it in fp32 for the backward (csrc/flash_attention_bwd.cu); with a
+//   null pointer nothing more is written.
 // Shapes: T % 128 == 0, H in {64, 128}; the views need 16-byte aligned bases
 // and byte strides that are multiples of 16 (TMA), which ops/flash_attention.py
 // checks. The host plan (ops/flash_attention.py:plan) chooses the grid and the
@@ -75,9 +78,9 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, int N,
-                     int T, int n_work, int64_t osb, int64_t osn, int64_t ost,
-                     float scale_log2) {
+                     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int N, int T, int n_work, int64_t osb,
+                     int64_t osn, int64_t ost, float scale_log2) {
   using C = Cfg<HD>;
   constexpr int S = C::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -298,6 +301,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         const float inv = 1.f / l;
         const int row = q0 + wc * 64 + warp * 16 + g8 + 8 * h;
+        if (lse != nullptr && t4 == 0)
+          lse[(int64_t(b) * N + n) * T + row] = (m_run[h] + __log2f(l)) * 0.6931471805599453f;
 #pragma unroll
         for (int d = 0; d < HD / 8; ++d) {
           *reinterpret_cast<uint32_t*>(ob + int64_t(row) * ost + d * 8 + 2 * t4) =
@@ -321,8 +326,9 @@ bool make_map(CUtensorMap* map, const void* p, int B, int N, int T, int H, int64
 // Launches the plan's grid of persistent CTAs (1 .. n_work) with its shared
 // memory, which must be Cfg<HD>'s.
 template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int N, int T,
-                   int grid, int smem, const int64_t* st, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int N, int T, int grid, int smem, const int64_t* st, float scale,
+                   cudaStream_t stream) {
   const int n_work = (T / kBM) * B * N;  // Q tiles over all (b, n) pairs
   if (smem != Cfg<HD>::kSmem || grid < 1 || grid > n_work) return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
@@ -335,17 +341,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   if (e != cudaSuccess) return e;
   const float scale_log2 = scale * 1.4426950408889634f;
   flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(o), N, T, n_work, st[9], st[10], st[11], scale_log2);
+      mq, mk, mv, static_cast<bf16*>(o), lse, N, T, n_work, st[9], st[10], st[11], scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, o: (B, N, T, H) bf16 views with unit last stride; strides (in
-// elements) of the b, n and t axes for q, k, v, o in that order. grid and smem:
+// elements) of the b, n and t axes for q, k, v, o in that order. lse: null, or
+// a contiguous (B, N, T) fp32 buffer for the rows' log-sum-exp. grid and smem:
 // the plan of ops/flash_attention.py:plan.
 extern "C" int cak_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                   int B, int N, int T, int H, int grid, int smem,
+                                   void* lse, int B, int N, int T, int H, int grid, int smem,
                                    int64_t qsb, int64_t qsn,
                                    int64_t qst, int64_t ksb, int64_t ksn, int64_t kst,
                                    int64_t vsb, int64_t vsn, int64_t vst, int64_t osb,
@@ -355,9 +362,9 @@ extern "C" int cak_flash_attention(const void* q, const void* k, const void* v, 
   if (T % kBM) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (H == 64) {
-    e = launch<64>(q, k, v, o, B, N, T, grid, smem, st, scale, s);
+    e = launch<64>(q, k, v, o, static_cast<float*>(lse), B, N, T, grid, smem, st, scale, s);
   } else if (H == 128) {
-    e = launch<128>(q, k, v, o, B, N, T, grid, smem, st, scale, s);
+    e = launch<128>(q, k, v, o, static_cast<float*>(lse), B, N, T, grid, smem, st, scale, s);
   } else {
     e = cudaErrorInvalidValue;
   }

@@ -4,8 +4,8 @@ Counterpart of ``ctrl_adapter_tpu/models/adapter.py``. Bug-compatible with the
 reference: the transformers run at ``inner_dim = 8 * attention_head_dim`` (512)
 while their attention inner dim is ``in_channels`` (320/640/1280), so the
 temporal kernel K3 runs with ia != c here. Unadapted residual slots are zeros.
-Every GroupNorm of the adapter uses kernel K1 (``kernel=True``, the port's
-``use_pallas="prefer"``).
+Every GroupNorm of the adapter asks for kernel K1 (``kernel="prefer"``, the JAX
+``use_pallas="prefer"``) and gets it where the JAX shape rule holds.
 """
 
 from __future__ import annotations
@@ -70,18 +70,18 @@ class AdapterSpatioTemporal(nn.Module):
             self.resnet_time_proj = Timesteps(channels, True, 0.0)
             self.resnet_time_embedding = TimestepEmbedding(channels, channels, **kw)
         if add_spatial_transformer or add_temporal_transformer:
-            self.norm = GroupNorm(32, channels, 1e-6, kernel=True, **kw)
+            self.norm = GroupNorm(32, channels, 1e-6, kernel="prefer", **kw)
             self.proj_in = nn.Linear(channels, inner, **kw)
             self.proj_out = nn.Linear(inner, channels, **kw)
             if add_temporal_transformer:
                 self.transformer_time_embedding = TimestepEmbedding(channels, inner, **kw)
         if add_spatial_resnet:
             self.spatial_resnets = nn.ModuleList([ResnetBlock2D(
-                channels, channels, channels, eps=1e-6, use_in_shortcut=True, gn_kernel=True,
-                **kw) for _ in layers])
+                channels, channels, channels, eps=1e-6, use_in_shortcut=True,
+                gn_kernel="prefer", **kw) for _ in layers])
         if add_temporal_resnet:
             self.temporal_resnets = nn.ModuleList([TemporalResnetBlock(
-                channels, channels, channels, eps=1e-6, gn_kernel=True, **kw) for _ in layers])
+                channels, channels, channels, eps=1e-6, gn_kernel="prefer", **kw) for _ in layers])
         if add_spatial_resnet and add_temporal_resnet:
             self.resnets_time_mixer = nn.ModuleList([AlphaBlender(**kw) for _ in layers])
         if add_spatial_transformer:

@@ -118,14 +118,18 @@ class ControlNetModel(nn.Module):
 
     def forward(self, sample: torch.Tensor, timestep, encoder_hidden_states: torch.Tensor,
                 controlnet_cond: torch.Tensor, conditioning_scale: float = 1.0,
-                skip_conv_in: bool = False,
-                guess_mode: bool = False) -> Tuple[List[torch.Tensor], torch.Tensor]:
+                skip_conv_in: bool = False, guess_mode: bool = False,
+                skip_time_emb: bool = False) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """sample (n, 4, h, w); controlnet_cond (n, 3, 8h, 8w); encoder_hidden_states
-        (n, 77, 768). Returns the 12 down residuals and the mid residual."""
+        (n, 77, 768). Returns the 12 down residuals and the mid residual.
+        ``skip_time_emb`` zeroes the time embedding (an experimental flag of the
+        reference)."""
         dtype = self.dtype
         n = sample.shape[0]
         timesteps = torch.as_tensor(timestep, device=sample.device).reshape(-1).expand(n)
         emb = self.time_embedding(self.time_proj(timesteps).to(dtype))
+        if skip_time_emb:
+            emb = torch.zeros_like(emb)
         if skip_conv_in:
             # latents skipping: the conv_in path is zeroed, only the condition counts
             ch0 = self.conv_in.out_channels

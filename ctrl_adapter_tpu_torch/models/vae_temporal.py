@@ -8,7 +8,7 @@ post_quant_conv in this VAE.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -107,12 +107,18 @@ class AutoencoderKLTemporalDecoder(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.quant_conv.weight.dtype
 
+    def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, logvar) of the latent distribution of x (n, 3, H, W) in [-1, 1],
+        logvar clipped to [-30, 20]; not yet scaled."""
+        mean, logvar = self.quant_conv(self.encoder(x.to(self.dtype))).chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
     def encode(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Latent mean (or a sample, given noise), not yet scaled; x in [-1, 1]."""
-        mean, logvar = self.quant_conv(self.encoder(x.to(self.dtype))).chunk(2, dim=1)
+        mean, logvar = self.encode_moments(x)
         if noise is None:
             return mean
-        return mean + torch.exp(0.5 * logvar.clamp(-30.0, 20.0)) * noise
+        return mean + torch.exp(0.5 * logvar) * noise
 
     def decode(self, z: torch.Tensor, num_frames: int = 1) -> torch.Tensor:
         """z (b*f, 4, h, w) unscaled latents -> (b*f, 3, 8h, 8w)."""

@@ -1,8 +1,10 @@
 """ResNet blocks, up/down sampling and AlphaBlender, NCHW / NCFHW.
 
-Counterpart of ``ctrl_adapter_tpu/nn/resnet.py``. ``GroupNorm(kernel=True)``
-plays the role of ``use_pallas="prefer"``: it routes through kernel K1
-(``ops/group_norm.py``); norms without the flag use the plain version.
+Counterpart of ``ctrl_adapter_tpu/nn/resnet.py``. ``GroupNorm``'s ``kernel``
+flag is the JAX ``use_pallas``: None (the default) sends the norm to kernel K1
+(``ops/group_norm.py``) under ``CTRL_ADAPTER_FUSED_GN=1``, "prefer" (the
+adapter's norms) always, False never; in each case only where the JAX shape
+rule ``group_norm.eligible`` holds. Every other norm runs the plain version.
 """
 
 from __future__ import annotations
@@ -19,10 +21,11 @@ from ..ops.resize import nearest_resize
 
 class GroupNorm(nn.Module):
     """GroupNorm over dim 1 (contiguous groups, fp32 statistics) with an
-    optionally fused SiLU; keys ``weight``/``bias``."""
+    optionally fused SiLU; keys ``weight``/``bias``. ``kernel``: None, "prefer"
+    or False, as ``group_norm.use_kernel`` reads it."""
 
-    def __init__(self, num_groups: int, num_channels: int, eps: float, kernel: bool = False,
-                 device=None, dtype=None):
+    def __init__(self, num_groups: int, num_channels: int, eps: float,
+                 kernel: Optional[object] = None, device=None, dtype=None):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
@@ -31,9 +34,9 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels, device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
-        if self.kernel:
+        if gn.use_kernel(self.kernel, x.shape, self.num_groups, x.element_size()):
             return gn.group_norm_silu(x.contiguous(), self.weight, self.bias, self.num_groups,
-                                   self.eps, silu)
+                                      self.eps, silu)
         return gn._torch_group_norm_silu(x, self.weight, self.bias, self.num_groups, self.eps, silu)
 
 
@@ -70,7 +73,7 @@ class ResnetBlock2D(nn.Module):
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  temb_channels: Optional[int] = 512, groups: int = 32, eps: float = 1e-6,
                  output_scale_factor: float = 1.0, use_in_shortcut: Optional[bool] = None,
-                 gn_kernel: bool = False, device=None, dtype=None):
+                 gn_kernel: Optional[object] = None, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         out_channels = out_channels or in_channels
@@ -102,7 +105,7 @@ class TemporalResnetBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  temb_channels: Optional[int] = 512, eps: float = 1e-6,
-                 gn_kernel: bool = False, device=None, dtype=None):
+                 gn_kernel: Optional[object] = None, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         out_channels = out_channels or in_channels

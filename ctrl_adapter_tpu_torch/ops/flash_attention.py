@@ -13,6 +13,13 @@ TMA: :func:`plan` (tiles, grid, shared memory) and :func:`tma_view_error` (the
 strides and alignment a tensor map needs) are its host-side planning, in plain
 Python so that the CPU tests check them. The launch takes the plan's grid and
 shared memory, and the C side refuses a plan that differs from its ``Cfg``.
+
+Under grad, :func:`attention_bnth` goes through :class:`FlashAttention`, the
+port of the Pallas kernel's custom VJP: the forward also writes each row's
+log-sum-exp (fp32), and the backward is kernel K2 bwd
+(``csrc/flash_attention_bwd.cu``, planned by :func:`bwd_plan`) on a card and
+:func:`_torch_attention_bwd` on the CPU. Without grad the forward writes no
+log-sum-exp and saves nothing.
 """
 
 from __future__ import annotations
@@ -31,9 +38,12 @@ _BLOCK = 512
 _LOGITS_BYTES = 1 << 30  # plain attention: fp32 logits per batch chunk
 
 KERNEL = Kernel("cak_flash_attention", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    *([ctypes.c_int] * 6),
+    *([ctypes.c_void_p] * 5), *([ctypes.c_int] * 6),
     *([ctypes.c_int64] * 12), ctypes.c_float, ctypes.c_void_p,
+])
+KERNEL_BWD = Kernel("cak_flash_attention_bwd", [
+    *([ctypes.c_void_p] * 10), *([ctypes.c_int] * 6), ctypes.POINTER(ctypes.c_int64),
+    ctypes.c_float, ctypes.c_void_p,
 ])
 
 
@@ -64,6 +74,34 @@ def plan(b: int, n: int, t: int, h: int, sms: int) -> FlashPlan:
     return FlashPlan(work=work, grid=(min(work, sms),), stages=stages, smem_bytes=smem)
 
 
+BWD_ROWS = 128      # backward: keys (dK/dV kernel) or queries (dQ kernel) per CTA
+_BWD_KV_TILE = 64   # backward: keys per streamed tile of the dQ kernel
+
+
+@dataclass(frozen=True)
+class FlashBwdPlan:
+    grid: tuple        # (T / 128, B * N), the dK/dV and the dQ kernel alike
+    q_tile: int        # queries per streamed tile of the dK/dV kernel
+    smem_dkv: int      # K, V; two stages of Q, dO (rows padded to H + 8) and of L, D
+    smem_dq: int       # Q, dO; two stages of K, V tiles
+
+
+def bwd_plan(b: int, n: int, t: int, h: int) -> FlashBwdPlan:
+    """The launches of K2's backward for (b, n, t, h) inputs; raises where the
+    tiling does not fit. ``csrc/flash_attention_bwd.cu`` refuses shared memory
+    other than its ``BwdCfg``'s."""
+    if h not in (64, 128) or t % BWD_ROWS or t < BWD_ROWS or b * n > 65535:
+        raise ValueError(f"attention_bnth backward: needs H in (64, 128), T a multiple of "
+                         f"{BWD_ROWS} and B*N <= 65535, got B*N={b * n} T={t} H={h}")
+    ld = h + 8
+    q_tile = 64 if h == 64 else 32
+    smem_dkv = (2 * BWD_ROWS + 4 * q_tile) * ld * 2 + 4 * q_tile * 4
+    smem_dq = (2 * BWD_ROWS + 4 * _BWD_KV_TILE) * ld * 2
+    assert max(smem_dkv, smem_dq) <= SMEM_PER_BLOCK
+    return FlashBwdPlan(grid=(t // BWD_ROWS, b * n), q_tile=q_tile, smem_dkv=smem_dkv,
+                        smem_dq=smem_dq)
+
+
 def tma_view_error(shape, strides, data_ptr: int, itemsize: int = 2) -> Optional[str]:
     """None when a TMA tensor map can describe the view (element ``strides``),
     else what it lacks: a unit last stride, a 16-byte aligned base, other
@@ -85,23 +123,59 @@ def flash_eligible(tq: int, tk: int, head_dim: int) -> bool:
     return tq == tk and tq >= MIN_SEQ and tq % _BLOCK == 0 and head_dim in (64, 128)
 
 
-def _torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     with_lse: bool = False):
     """softmax(q k^T / sqrt(H)) v over (B, N, T, H) with fp32 logits and softmax,
     probabilities cast to v's dtype (the math of ``jax.nn.dot_product_attention``).
-    The batch*head axis runs in chunks that keep the fp32 logits near 1 GiB."""
+    The batch*head axis runs in chunks that keep the fp32 logits near 1 GiB.
+    With ``with_lse``, also each row's log-sum-exp of the scaled logits,
+    (B, N, T) fp32: returns (out, lse)."""
     b, n, t, h = q.shape
     s = k.shape[2]
     qf = q.reshape(b * n, t, h)
     kf = k.reshape(b * n, s, h)
     vf = v.reshape(b * n, s, h)
     out = torch.empty((b * n, t, h), dtype=v.dtype, device=v.device)
+    lse = torch.empty((b * n, t), dtype=torch.float32, device=v.device) if with_lse else None
     step = max(1, _LOGITS_BYTES // (t * s * 4))
     scale = h ** -0.5
     for i in range(0, b * n, step):
-        logits = torch.matmul(qf[i:i + step].float(), kf[i:i + step].float().transpose(1, 2))
-        probs = torch.softmax(logits * scale, dim=-1).to(v.dtype)
+        logits = torch.matmul(qf[i:i + step].float(),
+                              kf[i:i + step].float().transpose(1, 2)) * scale
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
         out[i:i + step] = torch.matmul(probs, vf[i:i + step])
-    return out.reshape(b, n, t, h)
+        if with_lse:
+            lse[i:i + step] = torch.logsumexp(logits, dim=-1)
+    out = out.reshape(b, n, t, h)
+    return (out, lse.reshape(b, n, t)) if with_lse else out
+
+
+def _torch_attention_bwd(q, k, v, o, do, lse):
+    """dQ, dK, dV of :func:`_torch_attention` from its output ``o``, its
+    log-sum-exp ``lse`` and the output gradient ``do``, over (B, N, T, H), in
+    fp32 and returned in q's dtype: with s = H^-1/2, P = exp(s Q K^T - L),
+    D = rowsum(dO o O), dV = P^T dO, dS = P o (dO V^T - D), dQ = s dS K,
+    dK = s dS^T Q. The batch*head axis runs in chunks that keep the three fp32
+    (T, S) temporaries near 1 GiB."""
+    b, n, t, h = q.shape
+    s = k.shape[2]
+    flat = lambda x, rows: x.reshape(b * n, rows, h)  # noqa: E731
+    qf, kf, vf, of, dof = flat(q, t), flat(k, s), flat(v, s), flat(o, t), flat(do, t)
+    lf = lse.reshape(b * n, t)
+    grads = [torch.empty((b * n, rows, h), dtype=q.dtype, device=q.device)
+             for rows in (t, s, s)]
+    step = max(1, _LOGITS_BYTES // (3 * t * s * 4))
+    scale = h ** -0.5
+    for i in range(0, b * n, step):
+        sl = slice(i, i + step)
+        qc, kc, vc, oc, doc = (x[sl].float() for x in (qf, kf, vf, of, dof))
+        p = torch.exp(torch.matmul(qc, kc.transpose(1, 2)) * scale - lf[sl, :, None].float())
+        dp = torch.matmul(doc, vc.transpose(1, 2))
+        ds = p * (dp - (doc * oc).sum(-1, keepdim=True))
+        grads[0][sl] = torch.matmul(ds, kc) * scale
+        grads[1][sl] = torch.matmul(ds.transpose(1, 2), qc) * scale
+        grads[2][sl] = torch.matmul(p.transpose(1, 2), doc)
+    return tuple(g.reshape(b, n, -1, h) for g in grads)
 
 
 def _check(name: str, t: torch.Tensor) -> None:
@@ -114,10 +188,34 @@ def _check(name: str, t: torch.Tensor) -> None:
 
 def attention_bnth(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Self-attention over (B, N, T, H) views. Kernel K2 on a Hopper card, the
-    plain version on the CPU. Returns a (B, N, T, H) view of a (B, T, N, H)
-    contiguous tensor."""
+    plain version on the CPU; under grad through :class:`FlashAttention`.
+    Returns a (B, N, T, H) view of a (B, T, N, H) contiguous tensor."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v)
+    return _forward(q, k, v, False)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with K2's custom VJP: the forward saves Q, K, V, the output
+    and its row log-sum-exp; the backward is K2 bwd on a card and
+    :func:`_torch_attention_bwd` on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = _forward(q, k, v, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors  # read once: checkpointing allows one unpack
+        return attention_bnth_bwd(q, k, v, o, do, lse)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool):
+    """K2 (the plain version on the CPU); with ``with_lse``, (out, lse)."""
     if q.device.type == "cpu":
-        return _torch_attention(q, k, v)
+        return _torch_attention(q, k, v, with_lse)
     if not is_hopper(q):
         raise RuntimeError(f"attention_bnth: kernel needs an sm_90 device, got {q.device}")
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
@@ -129,11 +227,51 @@ def attention_bnth(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
         if x.device != q.device:
             raise ValueError(f"attention_bnth: {name} on {x.device}, q on {q.device}")
         _check(name, x)
-    out = torch.empty((b, t, n, h), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = _bthn_empty(q)
+    lse = (torch.empty((b, n, t), dtype=torch.float32, device=q.device) if with_lse
+           else None)
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
-    KERNEL(ptr(q), ptr(k), ptr(v), ptr(out), b, n, t, h, p.grid[0], p.smem_bytes, *strides,
-           float(h ** -0.5), stream_of(q))
-    return out
+    KERNEL(ptr(q), ptr(k), ptr(v), ptr(out), None if lse is None else ptr(lse), b, n, t, h,
+           p.grid[0], p.smem_bytes, *strides, float(h ** -0.5), stream_of(q))
+    return (out, lse) if with_lse else out
+
+
+def _bthn_empty(q: torch.Tensor) -> torch.Tensor:
+    """An uninitialised (B, N, T, H) view of a (B, T, N, H) contiguous tensor."""
+    b, n, t, h = q.shape
+    return torch.empty((b, t, n, h), dtype=q.dtype, device=q.device).transpose(1, 2)
+
+
+def attention_bnth_bwd(q, k, v, o, do, lse):
+    """dQ, dK, dV of :func:`attention_bnth` from its output ``o``, log-sum-exp
+    ``lse`` and the output gradient ``do``: kernel K2 bwd on a Hopper card (one
+    call, three launches: D, dK/dV, dQ), the plain version on the CPU. The
+    gradients are (B, N, T, H) views of (B, T, N, H) contiguous tensors."""
+    if q.device.type == "cpu":
+        return _torch_attention_bwd(q, k, v, o, do, lse)
+    if not is_hopper(q):
+        raise RuntimeError(f"attention_bnth_bwd: kernel needs an sm_90 device, got {q.device}")
+    b, n, t, h = q.shape
+    p = bwd_plan(b, n, t, h)
+    if tma_view_error(do.shape, do.stride(), do.data_ptr()) is not None:
+        do = do.contiguous()
+    for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if x.shape != q.shape or x.device != q.device:
+            raise ValueError(f"attention_bnth_bwd: {name} is {tuple(x.shape)} on {x.device}, "
+                             f"q {tuple(q.shape)} on {q.device}")
+        _check(name, x)
+    if (lse.shape != (b, n, t) or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.device != q.device):
+        raise ValueError("attention_bnth_bwd: lse must be a contiguous (B, N, T) float32 "
+                         f"tensor on {q.device}, got {tuple(lse.shape)} {lse.dtype}")
+    dq, dk, dv = _bthn_empty(q), _bthn_empty(q), _bthn_empty(q)
+    dvec = torch.empty((b, n, t), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 24)(*(st for x in (q, k, v, o, do, dq, dk, dv)
+                                      for st in x.stride()[:3]))
+    KERNEL_BWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(dvec), ptr(dq), ptr(dk),
+               ptr(dv), b, n, t, h, p.smem_dkv, p.smem_dq, strides, float(h ** -0.5),
+               stream_of(q))
+    return dq, dk, dv
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import mirror_vjp
 from ._build import Kernel, ptr, stream_of
 from .backend import SMEM_PER_BLOCK, is_hopper
 
@@ -119,10 +120,16 @@ def plan(m: int, c: int, inner: int, cout: int, residual: bool) -> Plan:
 
 def ln_ff_kernel(x: torch.Tensor, ln_w, ln_b, wg, bg, w2, b2, eps: float, approximate: bool,
                  residual: bool) -> torch.Tensor:
-    """K4 on a Hopper card, the plain version on the CPU; raises for a card
-    tensor the kernel does not take."""
+    """K4 on a Hopper card, its gradient the plain version's (``mirror_vjp``);
+    the plain version on the CPU; raises for a card tensor the kernel does not
+    take."""
     if x.device.type == "cpu":
         return _torch_ln_ff_residual(x, ln_w, ln_b, wg, bg, w2, b2, eps, approximate, residual)
+    return mirror_vjp.apply(_ln_ff_launch, _torch_ln_ff_residual, x, ln_w, ln_b, wg, bg, w2,
+                            b2, eps, approximate, residual)
+
+
+def _ln_ff_launch(x, ln_w, ln_b, wg, bg, w2, b2, eps, approximate, residual):
     if not is_hopper(x):
         raise RuntimeError(f"ln_ff_kernel: kernel needs an sm_90 device, got {x.device}")
     c = x.shape[-1]

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from . import mirror_vjp
 from ._build import Kernel, ptr, stream_of
 from .backend import SMEM_PER_BLOCK, is_hopper, sm_count
 
@@ -92,10 +93,15 @@ def plan(m: int, c: int, d: int, sms: int = 132) -> Plan:
 
 def geglu_kernel(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  approximate: bool) -> torch.Tensor:
-    """K5 on a Hopper card, the plain version on the CPU; raises for a card
-    tensor the kernel does not take (bf16 only, C % 8 == 0, D % 64 == 0)."""
+    """K5 on a Hopper card, its gradient the plain version's (``mirror_vjp``);
+    the plain version on the CPU; raises for a card tensor the kernel does not
+    take (bf16 only, C % 8 == 0, D % 64 == 0)."""
     if x.device.type == "cpu":
         return _torch_geglu(x, w, b, approximate)
+    return mirror_vjp.apply(_geglu_launch, _torch_geglu, x, w, b, approximate)
+
+
+def _geglu_launch(x, w, b, approximate):
     if not is_hopper(x):
         raise RuntimeError(f"geglu_kernel: kernel needs an sm_90 device, got {x.device}")
     c = x.shape[-1]

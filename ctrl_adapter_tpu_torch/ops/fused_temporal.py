@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import mirror_vjp
 from ._build import Kernel, ptr, stream_of
 from .backend import SMEM_PER_BLOCK, is_hopper, sm_count
 from .fused_block import _ln, _torch_ln_ff_residual
@@ -209,9 +210,15 @@ def hybrid_plan(b: int, f: int, s: int, c: int, heads: int, sms: int = 132) -> H
 def temporal_block(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_w, ln_b, wq,
                    wk, wv, wo, bo, heads: int, eps: float = 1e-5) -> torch.Tensor:
     """``x + to_out(attn_over_frames(LN1(x))) (+ cross_bias[:, None])`` on
-    (b, f, s, c): K3 "hybrid" on a Hopper card, the plain version on the CPU."""
+    (b, f, s, c): K3 "hybrid" on a Hopper card, its gradient the plain
+    version's (``mirror_vjp``); the plain version on the CPU."""
     if x.device.type == "cpu":
         return _torch_temporal_block(x, cross_bias, ln_w, ln_b, wq, wk, wv, wo, bo, heads, eps)
+    return mirror_vjp.apply(_hybrid_kernel, _torch_temporal_block, x, cross_bias, ln_w, ln_b,
+                            wq, wk, wv, wo, bo, heads, eps)
+
+
+def _hybrid_kernel(x, cross_bias, ln_w, ln_b, wq, wk, wv, wo, bo, heads, eps):
     if not is_hopper(x):
         raise RuntimeError(f"temporal_block: kernel needs an sm_90 device, got {x.device}")
     if x.dim() != 4:
@@ -283,12 +290,19 @@ def temporal_block_full(x: torch.Tensor, cross_bias: Optional[torch.Tensor], ln_
                         wk, wv, wo, bo, heads: int, eps: float, ffin: tuple, ff: tuple,
                         approximate: bool) -> torch.Tensor:
     """The whole block, ``ff(attn(ffin(x)))`` on (b, f, s, c): K3 "full" (one
-    launch) on a Hopper card, the plain version on the CPU. ``ffin`` and ``ff``
-    are ``(ln_w, ln_b, wg, bg, w2, b2)``; their gelu is the tanh form if
+    launch) on a Hopper card, its gradient the plain version's
+    (``mirror_vjp``); the plain version on the CPU. ``ffin`` and ``ff`` are
+    ``(ln_w, ln_b, wg, bg, w2, b2)``; their gelu is the tanh form if
     ``approximate``, else erf."""
     if x.device.type == "cpu":
         return _torch_temporal_block(x, cross_bias, ln_w, ln_b, wq, wk, wv, wo, bo, heads, eps,
                                      ffin, ff, approximate)
+    return mirror_vjp.apply(_full_kernel, _torch_temporal_block, x, cross_bias, ln_w, ln_b, wq,
+                            wk, wv, wo, bo, heads, eps, ffin, ff, approximate)
+
+
+def _full_kernel(x, cross_bias, ln_w, ln_b, wq, wk, wv, wo, bo, heads, eps, ffin, ff,
+                 approximate):
     if not is_hopper(x):
         raise RuntimeError(f"temporal_block_full: kernel needs an sm_90 device, got {x.device}")
     if x.dim() != 4:

@@ -13,20 +13,23 @@ second toolchain at run time.
 :func:`group_norm_silu` launches the kernel for a bf16 tensor on a Hopper card
 (the only dtype the main path gives it, as on the TPU), raises for any other
 tensor on a card, and runs :func:`_torch_group_norm_silu` only for a tensor on
-the CPU. The plain
-version has the math of ``_xla_group_norm_silu``: fp32 channel sums, group
-variance E[x^2] - E[x]^2 clamped at 0.
+the CPU. Under grad its gradient is the plain version's (``mirror_vjp``, the
+port of the JAX custom VJP). The plain version has the math of
+``_xla_group_norm_silu``: fp32 channel sums, group variance E[x^2] - E[x]^2
+clamped at 0.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from dataclasses import dataclass
 from functools import lru_cache
 from math import prod
 
 import torch
 
+from . import mirror_vjp
 from ._build import Kernel, ptr, stream_of
 from .backend import is_hopper, sm_count
 
@@ -34,6 +37,11 @@ KERNEL = Kernel("cak_group_norm_silu", [
     *([ctypes.c_void_p] * 5), *([ctypes.c_int64] * 3), *([ctypes.c_int] * 4),
     *([ctypes.c_int64] * 3), ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ])
+
+# The TPU's VMEM rules of ``_eligible`` and ``_pick_chunk``, kept so that both
+# packages send the same norms to their kernels.
+_VMEM_BLOCK_BUDGET = 12 * 1024 * 1024  # bytes, against 4 * S * C * itemsize
+_CHUNK_F32_BYTES = 1024 * 1024
 
 _TARGET_BLOCKS = 2048   # enough CTAs to fill 132 SMs several times over
 _MIN_CHUNK = 8192       # elements per CTA and split, so each split does real work
@@ -58,6 +66,35 @@ def _torch_group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Te
     if silu:
         y = y * torch.sigmoid(y)
     return y.reshape(x.shape).to(x.dtype)
+
+
+def _pick_chunk(s: int, c: int) -> int:
+    """Largest power-of-two divisor of s whose fp32 (chunk, c) block fits 1 MiB."""
+    chunk = 1
+    while chunk < s and s % (chunk * 2) == 0 and (chunk * 2) * c * 4 <= _CHUNK_F32_BYTES:
+        chunk *= 2
+    return chunk
+
+
+def eligible(shape, num_groups: int, itemsize: int) -> bool:
+    """The JAX shape rule (``ops/group_norm.py:_eligible``) for an (N, C,
+    *spatial) tensor, without its device test: C divisible by the groups, at
+    least 8 positions, and 4 * S * C * itemsize within 12 MiB."""
+    if len(shape) < 2:
+        return False
+    c, s = shape[1], prod(shape[2:])
+    return (c % num_groups == 0 and s >= 8 and s % _pick_chunk(s, c) == 0
+            and 4 * s * c * itemsize <= _VMEM_BLOCK_BUDGET)
+
+
+def use_kernel(flag, shape, num_groups: int, itemsize: int) -> bool:
+    """Whether a norm goes to :func:`group_norm_silu` (K1 on a card): JAX's
+    ``use_pallas`` rule. ``flag`` None follows ``CTRL_ADAPTER_FUSED_GN=1``
+    (read per call); "prefer" takes the kernel; False never. The shape must
+    pass :func:`eligible` in every case."""
+    if flag is False or (flag is None and os.environ.get("CTRL_ADAPTER_FUSED_GN") != "1"):
+        return False
+    return eligible(shape, num_groups, itemsize)
 
 
 def _split(groups: int, span: int, vec_width: int):
@@ -143,9 +180,15 @@ def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     silu: bool = False) -> torch.Tensor:
     """GroupNorm of ``x`` (N, C, *spatial) with per-sample statistics over C/G
     contiguous channels and all spatial positions, then the affine step and an
-    optional SiLU. Kernel K1 on a Hopper card, the plain version on the CPU."""
+    optional SiLU. Kernel K1 on a Hopper card, its gradient the plain
+    version's (``mirror_vjp``); the plain version on the CPU."""
     if x.device.type == "cpu":
         return _torch_group_norm_silu(x, weight, bias, num_groups, eps, silu)
+    return mirror_vjp.apply(_group_norm_kernel, _torch_group_norm_silu, x, weight, bias,
+                            num_groups, eps, silu)
+
+
+def _group_norm_kernel(x, weight, bias, num_groups, eps, silu):
     if not is_hopper(x):
         raise RuntimeError(f"group_norm_silu: kernel needs an sm_90 device, got {x.device}")
     if x.dtype != torch.bfloat16:

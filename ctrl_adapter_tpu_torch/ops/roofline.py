@@ -59,6 +59,13 @@ def attention(b: int, n: int, t: int, s: int, h: int) -> Cost:
     return Cost(flops=4 * b * n * t * s * h, bytes=BF16 * b * n * h * (2 * t + 2 * s))
 
 
+def attention_bwd(b: int, n: int, t: int, h: int) -> Cost:
+    """K2's backward over (b, n) pairs of T x T self-attention, head dim H: the
+    five products S, dP, dV, dQ, dK (2 T^2 H flop each) against Q, K, V, O, dO
+    read and dQ, dK, dV written (bf16) and the forward's fp32 log-sum-exp read."""
+    return Cost(flops=10 * b * n * t * t * h, bytes=BF16 * 8 * b * n * t * h + 4 * b * n * t)
+
+
 def _temporal_attention_flops(rows: int, b: int, s: int, f: int, c: int, ia: int) -> int:
     # QKV and out projections, and frame attention (f x f per position and head)
     return 2 * rows * c * 3 * ia + 2 * rows * ia * c + 4 * b * s * f * f * ia

@@ -24,6 +24,20 @@ def karras_sigmas(num_intervals: int, sigma_min: float = 0.002, sigma_max: float
     return ((max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** rho).astype(np.float32)
 
 
+def sample_training_sigmas_timesteps(uniform: torch.Tensor, sigmas_table: torch.Tensor,
+                                     num_inference_steps: int = 25):
+    """The SVD training sampler aligned with the inference discretisation
+    (``ctrl_adapter_tpu/schedulers/euler_discrete.py:172-184``): from (batch,)
+    uniform [0, 1) draws and the descending Karras table of N sigmas, idx =
+    floor(uniform * N), u = idx / (N - 1) * (1 - 1/steps) + 0.001 and the
+    table's sigma at idx; the ControlNet timestep is round(u * 1000). Returns
+    (u, sigma), float32."""
+    n = sigmas_table.shape[0]
+    idx = (uniform.float() * n).to(torch.int64)
+    u = idx.float() / (n - 1) * (1.0 - 1.0 / num_inference_steps) + 0.001
+    return u, sigmas_table.to(uniform.device)[idx]
+
+
 @dataclass(frozen=True)
 class EulerDiscreteConfig:
     num_train_timesteps: int = 1000

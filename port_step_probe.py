@@ -10,7 +10,9 @@ from a seed; 14 frames at 512x512, CFG, latent skipping) and prints:
 2. ms per step with the control towers on every step and on none, and the
    temporal-VAE decode seconds (host clock around a synchronize), in the order
    plain norms, K1 on every GroupNorm, K1 on every GroupNorm, plain norms (the
-   slice runs K1 only on the adapter's norms, as the TPU did), REPS runs each;
+   slice runs K1 only on the adapter's norms that the JAX size rule admits, as
+   the TPU did; "every GroupNorm" switches that rule off,
+   ``chip_smoke.k1_everywhere``), REPS runs each;
 3. how far the latents of the all-K1 run lie from the plain-norm run;
 4. for one profiled controlled step (``torch.profiler``): the device idle share
    between the first and last kernel, and the 25 kernels that take the most time.
@@ -21,6 +23,7 @@ capability >= 9.0; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import sys
 import time
@@ -116,23 +119,27 @@ def main() -> int:
         print(f"   {name}: median {statistics.median(vals):.1f} {fmt(vals)}")
 
     norms = [m for tower in (pipe.unet, pipe.controlnet, pipe.vae) for m in tower.modules()
-             if isinstance(m, GroupNorm) and not m.kernel]
+             if isinstance(m, GroupNorm) and m.kernel is None]
+
+    def k1_all(on: bool):
+        """K1 on every GroupNorm (the JAX size rule off), or the slice's dispatch."""
+        for m in norms:
+            m.kernel = "prefer" if on else None
+        return cs.k1_everywhere() if on else contextlib.nullcontext()
+
     print(f"2. step and decode times on {card}; {len(norms)} plain GroupNorms outside "
           f"the adapter; {REPS} runs each:")
     for label in ("plain", "k1-all", "k1-all", "plain"):
-        for m in norms:
-            m.kernel = label == "k1-all"
-        gen(1)  # warm the path once
-        ctrl, unet, dec = ms_per_step(4, 1.0), ms_per_step(4, 0.0), decode_s()
+        with k1_all(label == "k1-all"):
+            gen(1)  # warm the path once
+            ctrl, unet, dec = ms_per_step(4, 1.0), ms_per_step(4, 0.0), decode_s()
         print(f"   {label}: controlled step {fmt(ctrl)} ms; UNet-only step {fmt(unet)} ms; "
               f"decode {fmt(dec, '%.3f')} s")
 
-    for m in norms:
-        m.kernel = True
-    a = gen(2).float()
-    for m in norms:
-        m.kernel = False
-    b = gen(2).float()
+    with k1_all(True):
+        a = gen(2).float()
+    with k1_all(False):
+        b = gen(2).float()
     print(f"3. all-K1 vs plain-norm latents, 2 controlled steps: max|diff|/max|plain| = "
           f"{((a - b).abs().max() / b.abs().max()).item():.3e}")
 

@@ -133,6 +133,80 @@ def test_gpu_k2_kernel_matches_plain(t, h, layout):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,n,t,h", [(2, 3, 1024, 64), (1, 2, 4096, 64), (2, 2, 1024, 128)])
+def test_gpu_k2_backward_matches_plain(b, n, t, h):
+    """K2's forward with its log-sum-exp and its backward (one call, one count)
+    through ``FlashAttention`` on head-split views, against the plain backward
+    on the kernel's own output and lse. P and dS are rounded to bf16 before
+    their products in the kernel, not in the plain version: ~0.3 % in norm."""
+    dev = _dev()
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = (_rand(g, dev, b, t, n * h).to(BF).view(b, t, n, h).transpose(1, 2)
+                   for _ in range(4))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    fwd, bwd = tfa.KERNEL.launches, tfa.KERNEL_BWD.launches
+    out = tfa.attention_bnth(*leaves)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (tfa.KERNEL.launches - fwd, tfa.KERNEL_BWD.launches - bwd) == (1, 1)
+    o, lse = tfa._forward(q, k, v, True)
+    plain_out, plain_lse = tfa._torch_attention(q, k, v, True)
+    _check(lse, plain_lse, atol=1e-3, rtol=1e-4)
+    assert torch.equal(out.detach(), o)
+    want = tfa._torch_attention_bwd(q, k, v, o, do, lse)
+    for x, y in zip(got, want):
+        _check(x, y, atol=5e-2 * y.abs().max().item(), rtol=5e-2, rel_norm=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["k1", "k3", "k3-full", "k4", "k5"])
+def test_gpu_kernel_gradients_are_the_plain_versions(name):
+    """Under grad each kernel runs forward (one launch) and its backward is
+    autograd of the plain version on the saved inputs (``mirror_vjp``): the
+    gradients equal those of the plain version run under autograd, to the
+    kernels' forward tolerance (the two backward passes see the same inputs)."""
+    dev = _dev()
+    g = torch.Generator(device=dev).manual_seed(6)
+    r = lambda *s, scale=1.0: _rand(g, dev, *s, scale=scale).to(BF)  # noqa: E731
+    if name == "k1":
+        kernel, wrapper, plain = tgn.KERNEL, tgn.group_norm_silu, tgn._torch_group_norm_silu
+        args = (r(2, 320, 14, 8, 8), 1.0 + r(320, scale=0.1), r(320, scale=0.1), 32, 1e-6, True)
+    elif name in ("k3", "k3-full"):
+        c, ia = 128, 128
+        args = (r(2, 14, 16, c), r(2, 16, c, scale=0.5), 1.0 + r(c, scale=0.1),
+                r(c, scale=0.1), *(r(ia, c, scale=c ** -0.5) for _ in range(3)),
+                r(c, ia, scale=ia ** -0.5), r(c, scale=0.1), 2, 1e-5)
+        if name == "k3":
+            kernel, wrapper, plain = tft.KERNEL, tft.temporal_block, tft._torch_temporal_block
+        else:
+            args += (_ff(g, dev, c, 4 * c, c), _ff(g, dev, c, 4 * c, c), True)
+            kernel = tft.KERNEL_FULL
+            wrapper, plain = tft.temporal_block_full, tft._torch_temporal_block
+    elif name == "k4":
+        kernel, wrapper, plain = tfb.KERNEL, tfb.ln_ff_kernel, tfb._torch_ln_ff_residual
+        args = (r(4096, 320), *_ff(g, dev, 320, 1280, 320), 1e-5, True, True)
+    else:
+        kernel, wrapper, plain = tff.KERNEL, tff.geglu_kernel, tff._torch_geglu
+        args = (r(4096, 320), r(2560, 320, scale=320 ** -0.5), r(2560, scale=0.1), True)
+
+    def run(fn):
+        leaves = [a.detach().requires_grad_() if torch.is_tensor(a) else
+                  tuple(t.detach().requires_grad_() for t in a) if isinstance(a, tuple) else a
+                  for a in args]
+        out = fn(*leaves)
+        flat = [t for a in leaves for t in (a if isinstance(a, tuple) else (a,))
+                if torch.is_tensor(t)]
+        grads = torch.autograd.grad(out, flat, torch.ones_like(out) * 0.01)
+        return out, grads
+
+    out, got = _launches(kernel, lambda: run(wrapper))
+    want_out, want = run(plain)
+    _check(out, want_out, atol=1e-1, rtol=2e-2)
+    for x, y in zip(got, want):
+        _check(x, y, atol=5e-2 * y.abs().max().item() + 1e-3, rtol=5e-2, rel_norm=5e-2)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("f,s,c,heads,cross,mode", [
     (14, 64, 128, 2, False, "resident"),
     (14, 48, 512, 5, True, "resident"),
@@ -246,7 +320,7 @@ def test_gpu_modules_dispatch_to_the_kernels():
     rand = lambda *shape: torch.randn(*shape, generator=g).to(BF).float()  # noqa: E731
     b, f, s = 2, 14, 16
     cases = [
-        (GroupNorm(32, 320, 1e-6, kernel=True), tgn.KERNEL, (rand(2, 320, 14, 8, 8),),
+        (GroupNorm(32, 320, 1e-6, kernel="prefer"), tgn.KERNEL, (rand(2, 320, 14, 8, 8),),
          dict(silu=True)),
         (Attention(128, 2, 64), tfa.KERNEL, (rand(2, 1024, 128),), {}),
         (TemporalBasicTransformerBlock(128, 128, 2, 64, 96), tft.KERNEL_FULL,

@@ -64,6 +64,27 @@ def test_flash_plan_refuses_what_the_tiling_does_not_fit(t, h):
         fa.plan(2, 3, t, h, sms=132)
 
 
+@pytest.mark.parametrize("b,n,t,h,grid,q_tile,smem_dkv,smem_dq", [
+    # rows padded to H + 8: dK/dV holds K, V (128 rows each) and two stages of
+    # Q, dO (64 rows at H = 64, 32 at H = 128) and of L, D (fp32); dQ holds Q,
+    # dO (128 rows) and two stages of K, V (64 rows)
+    (14, 5, 4096, 64, (32, 70), 64, 512 * 72 * 2 + 4 * 64 * 4, 512 * 72 * 2),
+    (14, 10, 1024, 64, (8, 140), 64, 512 * 72 * 2 + 4 * 64 * 4, 512 * 72 * 2),
+    (2, 4, 1024, 128, (8, 8), 32, 384 * 136 * 2 + 4 * 32 * 4, 512 * 136 * 2),
+])
+def test_flash_bwd_plan_hand_worked(b, n, t, h, grid, q_tile, smem_dkv, smem_dq):
+    p = fa.bwd_plan(b, n, t, h)
+    assert (p.grid, p.q_tile, p.smem_dkv, p.smem_dq) == (grid, q_tile, smem_dkv, smem_dq)
+    assert max(p.smem_dkv, p.smem_dq) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("b,n,t,h", [(1, 1, 1024, 80), (1, 1, 1000, 64), (1, 1, 64, 64),
+                                     (65536, 1, 128, 64)])
+def test_flash_bwd_plan_refuses_what_the_tiling_does_not_fit(b, n, t, h):
+    with pytest.raises(ValueError):
+        fa.bwd_plan(b, n, t, h)
+
+
 def test_flash_tma_checks_hand_worked():
     # (B, N, T, H) = (28, 5, 4096, 64) head-split view of (B, T, N*H): T's
     # stride 320 elements = 640 bytes, N's 64 = 128 bytes
@@ -342,7 +363,7 @@ def _drive_on_meta(monkeypatch):
 
 def test_chip_smoke_shape_lists_are_the_modules_dispatch(monkeypatch):
     """The K3 hybrid rows ``chip_smoke.py`` times (with their launches per
-    controlled and per UNet-only step) and its 65 K1 calls per adapter call
+    controlled and per UNet-only step) and its 47 K1 calls per adapter call
     are what the port's adapter and UNet modules dispatch at full width."""
     import chip_smoke
 
@@ -354,7 +375,7 @@ def test_chip_smoke_shape_lists_are_the_modules_dispatch(monkeypatch):
     assert {k: r["unet_only"] for k, r in rows.items() if r["unet_only"]} == dict(hybrid_unet)
     assert sum(hybrid.values()) == 18 and sum(hybrid_unet.values()) == 5
     assert Counter(m for _, m in unet) == {"full": 5, "hybrid": 5, None: 6}
-    assert dict(Counter(norms)) == chip_smoke.k1_rows() and len(norms) == 65
+    assert dict(Counter(norms)) == chip_smoke.k1_rows() and len(norms) == 47
 
 
 # --------------------------------------------------------------- roofline
@@ -365,6 +386,18 @@ def test_roofline_attention_hand_worked():
     assert cost.bound_by == "operations"
     assert cost.bound_ms == pytest.approx(601_295_421_440 / 989e9, rel=1e-12)
     assert rl.attention(28, 10, 1024, 1024, 64).bound_ms == pytest.approx(0.0760, abs=1e-4)
+
+
+def test_roofline_attention_backward_hand_worked():
+    """Five T x T x H products per (b, n) pair against Q, K, V, O, dO, dQ, dK,
+    dV (bf16) and the fp32 log-sum-exp: 0.760 ms and 0.095 ms on the H100's
+    989 TFLOP/s at the training path's shapes."""
+    big = rl.attention_bwd(14, 5, 4096, 64)
+    assert big.flops == 10 * 70 * 4096 * 4096 * 64 == 751_619_276_800
+    assert big.bytes == 2 * 8 * 70 * 4096 * 64 + 4 * 70 * 4096 == 294_748_160
+    assert big.bound_by == "operations" and big.bound_ms == pytest.approx(0.760, abs=1e-3)
+    small = rl.attention_bwd(14, 10, 1024, 64)
+    assert small.flops == 93_952_409_600 and small.bound_ms == pytest.approx(0.095, abs=1e-3)
 
 
 def test_roofline_group_norm_counts_each_byte_once():
@@ -405,7 +438,8 @@ def test_roofline_feed_forwards_hand_worked():
 def test_roofline_per_step_sums_hand_worked():
     """The per-step bounds ``chip_smoke.py`` prints: K3 hybrid 0.79 ms in the
     adapter (13 calls) + 0.48 ms in the UNet (5 at level 1) per controlled
-    step; K1 1.12 ms over the adapter's 65 norms (3.76 GB read and written)."""
+    step; K1 0.70 ms over the 47 adapter norms the JAX rule sends to it (2.33 GB
+    read and written)."""
     import chip_smoke
 
     rows = chip_smoke.hybrid_rows()
@@ -419,12 +453,14 @@ def test_roofline_per_step_sums_hand_worked():
     assert unet == pytest.approx(0.480, abs=1e-3) and adapter == pytest.approx(0.790, abs=1e-3)
     k1 = chip_smoke.k1_rows()
     moved = sum(n * rl.group_norm(shape, silu).bytes for (shape, silu), n in k1.items())
-    # per block (c, h): 5 norms of 28*c*h*h elements (3 of (28, c, h, h), 2 of
-    # (2, c, 14, h, h)), each read and written, and their (c,) weight and bias
+    # per block (c, h): 3 norms of (28, c, h, h), and the 2 of (2, c, 14, h, h)
+    # at 8x8 only (4 * 14 * 64 * 1280 * 2 bytes is within the 12 MiB rule, the
+    # larger ones are not); each read and written, and their (c,) weight and bias
     blocks = chip_smoke.adapter_blocks()
-    assert moved == sum(4 * 5 * (28 * c * h * h + c) for c, h in blocks) == 3_761_984_000
+    assert moved == sum(4 * (3 + 2 * (h == 8)) * (28 * c * h * h + c)
+                        for c, h in blocks) == 2_330_631_680
     bound = sum(n * rl.group_norm(shape, silu).bound_ms for (shape, silu), n in k1.items())
-    assert bound == pytest.approx(1.123, abs=1e-3)
+    assert bound == pytest.approx(0.696, abs=1e-3)
 
 
 def test_chip_smoke_row_carries_the_bound_and_the_first_library_call():

@@ -1,5 +1,6 @@
-"""Time the port's feed-forward kernels (K3 full, K4, K5) of a package tree on
-one Hopper card, at the SVD slice's shapes, on three clocks:
+"""Time the port's feed-forward kernels (K3 full, K4, K5) and K2's serving
+forward (no log-sum-exp) of a package tree on one Hopper card, at the SVD
+slice's shapes, on three clocks:
 
 - host-inclusive: CUDA events around 10 back-to-back calls, median of 5
   (``chip_smoke.py:cuda_ms``);
@@ -8,14 +9,15 @@ one Hopper card, at the SVD slice's shapes, on three clocks:
 - device, cold L2: one call at a time behind a 512 MB write that flushes L2
   (``chip_smoke.py:cold_ms``).
 
-    python tools/ff_kernel_times.py [--root DIR] [--tag NAME] [--only "K3 full" K4 K5]
+    python tools/ff_kernel_times.py [--root DIR] [--tag NAME] [--only "K3 full" K4 K5 K2]
 
 ``--root`` is the directory holding the ``ctrl_adapter_tpu_torch`` package to
 time (default: this repository), e.g. an unpacked ``git archive`` of another
 commit: its kernels are built from its own ``csrc/`` into its own
 ``build/kernels/``, so two trees can be timed in one run on one card, in
 turns. The inputs and tolerances are ``chip_smoke.py``'s (``k3_full_inputs``,
-``k4_inputs``, ``k5_inputs``, ``FF_TOL``): each row is checked against its
+``k4_inputs``, ``k5_inputs``, ``FF_TOL``; K2 at (28, 5, 4096, 64) on head-split
+views, as phase 3 times it): each row is checked against its
 plain version first and printed as one JSON line with the tree's tag, the
 card's name and power limit, and the bound from the timed tree's
 ``ops/roofline.py``. Imports nothing of JAX.
@@ -47,7 +49,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=_REPO)
     ap.add_argument("--tag", default=None)
-    ap.add_argument("--only", nargs="+", choices=("K3 full", "K4", "K5"),
+    ap.add_argument("--only", nargs="+", choices=("K3 full", "K4", "K5", "K2"),
                     help="time these kernels only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -56,6 +58,7 @@ def main() -> int:
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     from ctrl_adapter_tpu_torch.ops import _build
+    from ctrl_adapter_tpu_torch.ops import flash_attention as fa
     from ctrl_adapter_tpu_torch.ops import fused_block as fb
     from ctrl_adapter_tpu_torch.ops import fused_ff as ff
     from ctrl_adapter_tpu_torch.ops import fused_temporal as ft
@@ -95,6 +98,11 @@ def main() -> int:
                      lambda x5=x5, w5=w5, b5=b5: ff.geglu_kernel(x5, w5, b5, True),
                      lambda x5=x5, w5=w5, b5=b5: ff._torch_geglu(x5, w5, b5, True),
                      smoke.FF_TOL["geglu"], rl.geglu(m, c, 4 * c)))
+    q, k, v = (rand(28, 4096, 320).to(torch.bfloat16).view(28, 4096, 5, 64).transpose(1, 2)
+               for _ in range(3))
+    rows.append(("K2", "(28,5,4096,64)", lambda: fa.attention_bnth(q, k, v),
+                 lambda: fa._torch_attention(q, k, v), (1e-2, 2e-2, 1e-2),
+                 rl.attention(28, 5, 4096, 4096, 64)))
     if args.only:
         rows = [r for r in rows if r[0] in args.only]
 
