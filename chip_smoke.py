@@ -24,8 +24,10 @@ Phases (any failure raises and the script exits non-zero before its last line):
    also with exact (erf) gelu; K3 full, K4 and K5 on inputs that tell the two
    gelu forms apart (``gelu_form_check``); K2's forward with the rows'
    log-sum-exp and K2's backward at the training path's shapes and at H = 128
-   (``check_flash_bwd``: time, bound, SDPA's backward; the forward with and
-   without the log-sum-exp, in turns), and the gradients of K1, K3 hybrid, K3
+   (``check_flash_bwd``: dK and dV equal to the bit over two calls and dQ's
+   run-to-run difference; time, device time warm and cold, each of its three
+   launches, bound, SDPA's backward, the per-training-step sums; the forward
+   with and without the log-sum-exp, in turns), and the gradients of K1, K3 hybrid, K3
    full, K4 and K5 under grad against plain autograd (``check_kernel_grads``);
 4. run the slice: ``SVDControlNetAdapterPipeline`` at full width (SVD UNet
    320/640/1280/1280, SD-v1.5 ControlNet, the 13-block adapter at A-D + M, the
@@ -491,6 +493,10 @@ def sdpa_times(q, k, v):
 
 
 K2_BWD_SHAPES = ((14, 5, 4096, 64), (14, 10, 1024, 64), (2, 4, 1024, 128))
+# K2 backward's calls per training step at each shape: the UNet's 6 up-block
+# spatial attentions at 64x64 (T = 4096, 5 heads) and the adapter's 6 at 32x32
+# (T = 1024, 10 heads); H = 128 is a check row off the path
+K2_BWD_PER_STEP = (6, 6, 0)
 
 
 def sdpa_bwd_times(q, k, v, do):
@@ -515,10 +521,13 @@ def sdpa_bwd_times(q, k, v, do):
     return times
 
 
-def check_flash_bwd(dev, card, rand):
+def check_flash_bwd(dev, card, rand, flush):
     """K2's forward with its log-sum-exp and K2's backward against their plain
     versions, in bf16, at the training path's shapes (B = 14 frames, no CFG)
-    and at H = 128; the backward timed beside its bound and SDPA's backward,
+    and at H = 128; two backward calls on the same inputs (dK and dV equal to
+    the bit, dQ's run-to-run difference printed); the backward timed beside
+    its bound and SDPA's backward, on device time (warm and cold L2) and per
+    launch of its three (``kernel_times``), with the per-training-step sums;
     the forward with and without the log-sum-exp at (28, 5, 4096, 64)."""
     from ctrl_adapter_tpu_torch.ops import flash_attention as fa
     from ctrl_adapter_tpu_torch.ops import roofline as rl
@@ -526,7 +535,7 @@ def check_flash_bwd(dev, card, rand):
     bf = torch.bfloat16
     print(f"K2 backward (bf16 in and out, fp32 accumulation) on {card}")
     rows = []
-    for b_, n_, t_, h_ in K2_BWD_SHAPES:
+    for (b_, n_, t_, h_), per_step in zip(K2_BWD_SHAPES, K2_BWD_PER_STEP):
         label = f"({b_},{n_},{t_},{h_})"
         q, k, v = (rand(b_, t_, n_ * h_).to(bf).view(b_, t_, n_, h_).transpose(1, 2)
                    for _ in range(3))
@@ -544,13 +553,32 @@ def check_flash_bwd(dev, card, rand):
         err = max(compare(f"K2 backward {label} d{name}", g, w, atol=5e-2 * w.abs().max().item(),
                           rtol=5e-2, rel_norm=2e-2)
                   for name, g, w in zip("qkv", got, want))
-        del got, want
-        ms = cuda_ms(lambda: fa.attention_bnth_bwd(q, k, v, out, do, lse))
+        # dK and dV: each CTA owns its keys; dQ: fp32 sums added across key
+        # blocks in an order that changes from run to run
+        again = fa.attention_bnth_bwd(q, k, v, out, do, lse)
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(got[1:], again[1:])]
+        ddq = (got[0].float() - again[0].float()).abs().max().item()
+        print(f"  K2 backward {label}, two calls: dK {'equal' if same[0] else 'DIFFER'}, "
+              f"dV {'equal' if same[1] else 'DIFFER'} to the bit; run-to-run max |dQ1 - dQ2| "
+              f"{ddq:.3e}")
+        if not all(same):
+            raise RuntimeError(f"K2 backward {label}: dK or dV differs between two calls")
+        del got, want, again
+        bwd = lambda: fa.attention_bnth_bwd(q, k, v, out, do, lse)  # noqa: E731
+        ms = cuda_ms(bwd)
         pms = cuda_ms(lambda: fa._torch_attention_bwd(q, k, v, out, do, lse), iters=3, reps=3,
                       warmup=1)
         row = report(label, err, ms, pms, rl.attention_bwd(b_, n_, t_, h_),
                      sdpa_bwd_times(q, k, v, do))
+        split = kernel_times(bwd)
+        print("    the launches of one call (device, warm L2): " + (
+            "not measured" if split is None else
+            "; ".join(f"{name} {t:.4f} ms" for name, t in split.items())))
+        device_line(row, bwd, flush)
+        row.update(training=per_step, dq_run_to_run=ddq)
         rows.append(row)
+    per_step_total("K2 backward", rows, "training")
     # the serving path's forward: no log-sum-exp written
     q, k, v = (rand(28, 4096, 320).to(bf).view(28, 4096, 5, 64).transpose(1, 2)
                for _ in range(3))
@@ -703,7 +731,7 @@ def check_kernels(dev, card):
         k2.append(report(f"({b_},{n_},{t_},64)", err, ms, pms,
                          rl.attention(b_, n_, t_, t_, 64), sdpa_times(q, k, v)))
     results["flash_attention"] = k2
-    results["flash_attention_bwd"] = check_flash_bwd(dev, card, rand)
+    results["flash_attention_bwd"] = check_flash_bwd(dev, card, rand, flush)
     check_kernel_grads(dev, card, rand)
 
     # K3 hybrid: the temporal attention sub-block with cross bias at every
@@ -1330,6 +1358,9 @@ def run_training(dev, card, kernels):
           f"{span / 1000:.1f} ms kernel span, idle share {1 - busy / span:.3%}")
     for name, (us, calls) in top:
         print(f"    {us / 1000:9.2f} ms {us / busy:6.1%} x{calls:5d} {name[:100]}")
+    k2_bwd = [v for name, v in per_name.items() if "flash_bwd" in name]
+    print(f"training: K2 backward in the profiled step: {sum(us for us, _ in k2_bwd) / 1000:.2f} "
+          f"ms of device time over {sum(n for _, n in k2_bwd)} launches (3 a call)")
 
     # a checkpoint in the reference layout, saved and loaded back exactly
     t1 = time.perf_counter()
@@ -1539,7 +1570,8 @@ def main() -> int:
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
          "launches": counts[meta[name][2]][name], "path": meta[name][2],
-         **{k: v for k, v in results[name][0].items() if k not in ("controlled", "unet_only")},
+         **{k: v for k, v in results[name][0].items()
+            if k not in ("controlled", "unet_only", "training")},
          "max_abs_err": max(r["max_abs_err"] for r in results[name])}
         for name in kernels]}
     print(json.dumps(line))

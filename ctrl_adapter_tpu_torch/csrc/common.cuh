@@ -1,6 +1,6 @@
 // Shared device helpers for the hand-written Hopper kernels: bf16 conversion,
-// warp reductions, cp.async staging and the mma.sync.m16n8k16 bf16 tensor-core
-// instruction (fp32 accumulate).
+// warp reductions and the mma.sync.m16n8k16 bf16 tensor-core instruction (fp32
+// accumulate).
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4), as the kernels
 // use it:
@@ -52,20 +52,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // c += a * b for one m16n8k16 tile, bf16 inputs, fp32 accumulators.
 __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0,
                                           uint32_t b1) {
@@ -96,27 +82,4 @@ __device__ __forceinline__ void load_b_frag_nk(uint32_t& b0, uint32_t& b1, const
   const bf16* p = w + (n0 + g) * ld + k0 + 2 * t;
   b0 = ld32(p);
   b1 = ld32(p + 8);
-}
-
-// ldmatrix.x4: four 8x8 bf16 matrices from shared memory; lane l gives the
-// address of row l % 8 of matrix l / 8 (16-byte aligned rows).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* row) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// The A fragment of rows [r0, r0+16) x cols [k0, k0+16) of a row-major tile
-// (the same registers as load_a_frag, in one instruction).
-__device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4], const bf16* tile, int ld, int r0,
-                                           int k0, int lane) {
-  ldmatrix_x4(a, tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + k0 + (lane >> 4) * 8);
-}
-
-// B fragments of two n-tiles, rows [n0, n0+16) of W (B[k][n] = W[n][k]) over
-// k in [k0, k0+16): b[0], b[1] for n-tile n0 and b[2], b[3] for n0 + 8.
-__device__ __forceinline__ void ldmatrix_b2(uint32_t (&b)[4], const bf16* w, int ld, int n0,
-                                            int k0, int lane) {
-  ldmatrix_x4(b, w + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8);
 }

@@ -14,59 +14,77 @@
 // dQ, dK, dV: ~T/2 flop per byte at H = 64, far above the ~295 flop/byte ridge
 // (0.760 ms at (14, 5, 4096, 64) on the tensor cores' 989 TFLOP/s).
 //
-// Design: simple and right first, as the TPU splits it: no atomics, two
-// kernels that each recompute P (S and dP are computed twice, 7 products
-// instead of 5), and a pre-pass for D.
-// - dot pre-pass: D = rowsum(dO o O), fp32, H/8 threads a row, 16-byte loads;
-// - dK/dV kernel: a CTA holds 128 keys of one (b, n) pair (K, V in shared
-//   memory; 8 warps of 16 keys each) and streams the Q, dO, L, D tiles of all
-//   T queries through a two-stage cp.async ring. Per tile, each warp computes
-//   S^T = K_w Q^T and dP^T = V_w dO^T on mma.sync m16n8k16 (fp32), P^T from L,
-//   dS^T, then dV_w += P^T dO and dK_w += dS^T Q with P^T and dS^T packed to
-//   bf16 straight from the accumulators as the A operand; each warp owns its
-//   16 rows of dK and dV, so nothing is reduced across warps;
-// - dQ kernel: a CTA holds 128 queries (Q, dO in shared memory; L and D of a
-//   warp's rows in registers) and streams the K, V tiles the same way:
-//   S = Q_w K^T, dP = dO_w V^T, dS, dQ_w += dS K.
-// Shared memory rows are padded to H + 8 elements, so ldmatrix reads of 8
-// rows hit 8 different bank groups. Making it fast (wgmma, TMA rings, one pass
-// with dQ in fp32 atomics or a split-K reduction) is later work.
-// Shapes: T % 128 == 0, H in {64, 128}; every view (B, N, T, H) with unit last
-// stride, 16-byte aligned rows and strides that are multiples of 8 elements,
-// which ops/flash_attention.py checks. L and D are contiguous (B, N, T) fp32.
-// The host plan (ops/flash_attention.py:bwd_plan) gives the shared memory;
-// cak_flash_attention_bwd refuses a plan that does not match BwdCfg.
+// Design: one pass over the keys that does the five products once each
+// (FlashAttention-3's backward), warp-specialised on wgmma and TMA. Three
+// launches on the stream:
+// 1. pre-pass: D = rowsum(dO o O) in fp32 (H/8 threads a row, 16-byte loads),
+//    and the fp32 dQ scratch (B, N, T, H) zeroed;
+// 2. main kernel, grid (T / 128 key blocks, B * N), key blocks fastest so the
+//    CTAs of one (b, n) pair run together and its dQ scratch stays in L2.
+//    A CTA holds 128 keys (K and V loaded once by TMA, 128-byte swizzle) and
+//    streams all T queries in tiles of QT (128 at H = 64, 64 at H = 128);
+//    384 threads:
+//    - warpgroup 0, the producer, gives up registers; one thread loads each
+//      Q and dO tile by TMA (4-D maps over the strided views) and its L and D
+//      by 1-D bulk copies into a two-slot ring (full / empty mbarriers);
+//    - warpgroups 1 and 2, the consumers, own 64 keys each. Per tile:
+//      S^T = K Q^T and dP^T = V dO^T (SS wgmma, K-major), P^T = exp2(s log2e
+//      S^T - L log2e) and dS^T = P^T o (dP^T - D) in fp32 registers, packed
+//      to bf16 straight from the accumulators as the A operand of dV += P^T dO
+//      and dK += dS^T Q (RS wgmma, dO and Q MN-major). dS^T also goes to
+//      shared memory (bf16, swizzled, two buffers); after a named barrier
+//      between the consumers, dQ_partial = dS K over all 128 keys (SS wgmma,
+//      A = dS^T read MN-major with the transpose-A immediate, B = K
+//      MN-major): each consumer takes 64 queries at H = 64, 64 columns of H
+//      at H = 128. The partial (fp32, 64 x 64) is staged in shared memory
+//      and added into the scratch by TMA's reduce-add, issued by one thread
+//      and left to run while the next tile is computed;
+//    - dK (x s) and dV leave as bf16 through their (B, N, T, H) strides; each
+//      CTA owns its keys, so they need no atomics and are the same bit for
+//      bit from run to run. dQ's fp32 sums arrive in an order that changes
+//      from run to run;
+// 3. convert: dQ = s * scratch, rounded to bf16, into the (B, N, T, H) view.
+// Shapes: T % 128 == 0, H in {64, 128}; Q, K, V, dO need 16-byte aligned
+// bases and byte strides that are multiples of 16 (TMA), O and the outputs
+// 16-byte aligned rows, which ops/flash_attention.py checks. L and D are
+// contiguous (B, N, T) fp32. The host plan (ops/flash_attention.py:bwd_plan)
+// gives the query tile and the shared memory; cak_flash_attention_bwd
+// refuses a plan that does not match BwdCfg.
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kRows = 128;     // keys (dK/dV) or queries (dQ) a CTA holds: 8 warps x 16
-
-struct View {
-  int64_t sb, sn, st;  // element strides of the b, n and t axes (h: 1)
-};
-
-struct Args {
-  const bf16 *q, *k, *v, *o, *dout;
-  const float* lse;
-  float* dvec;
-  bf16 *dq, *dk, *dv;
-  View vq, vk, vv, vo, vdo, vdq, vdk, vdv;
-  int N, T;
-  float scale;
-};
+constexpr int kKeys = 128;      // keys per CTA: two consumer warpgroups of 64
+constexpr int kThreads = 384;   // producer warpgroup + two consumer warpgroups
+constexpr int kRowBytes = 128;  // one swizzle atom: 64 bf16 or 32 fp32 columns
+constexpr int kPrepThreads = 256;
 
 template <int HD>
 struct BwdCfg {
-  static constexpr int kLd = HD + 8;                  // padded shared row (elements)
-  static constexpr int kQTile = HD == 64 ? 64 : 32;   // queries per dK/dV stream tile
-  static constexpr int kKvTile = 64;                  // keys per dQ stream tile
-  // dK/dV: K, V (kRows each), two stages of Q and dO tiles, two of L and D
-  static constexpr int kSmemDkv = (2 * kRows + 4 * kQTile) * kLd * 2 + 4 * kQTile * 4;
-  // dQ: Q, dO (kRows each), two stages of K and V tiles
-  static constexpr int kSmemDq = (2 * kRows + 4 * kKvTile) * kLd * 2;
+  static constexpr int kQT = HD == 64 ? 128 : 64;  // queries per streamed tile
+  static constexpr int kCols = HD / 64;            // 64-column blocks of a row
+  static constexpr int kKV = kKeys * HD * 2;       // bytes of K (or V)
+  static constexpr int kQTile = kQT * HD * 2;      // bytes of a Q (or dO) tile
+  static constexpr int kDSBuf = kKeys * kQT * 2;   // bytes of dS^T (bf16)
+  static constexpr int kStg = 64 * 64 * 4;         // a consumer's fp32 dQ partial
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKV;
+  static constexpr int kQ = kV + kKV;              // [slot][col block][kQT rows][128 B]
+  static constexpr int kDO = kQ + 2 * kQTile;
+  static constexpr int kDS = kDO + 2 * kQTile;     // [buffer][query block][128 keys][128 B]
+  static constexpr int kSt = kDS + 2 * kDSBuf;     // [consumer][32-col half][64 rows][128 B]
+  static constexpr int kL = kSt + 2 * kStg;        // [slot][kQT] fp32
+  static constexpr int kD = kL + 2 * kQT * 4;      // [slot][kQT] fp32
+  static constexpr int kBar = kD + 2 * kQT * 4;    // kv_full, full[2], empty[2]
+  static constexpr int kSmem = kBar + 8 * 5 + 1024;  // + alignment slack
+};
+
+struct View {
+  int64_t sb, sn, st;  // element strides of the b, n and t axes (h: 1)
 };
 
 template <class E>
@@ -74,276 +92,381 @@ __device__ __forceinline__ E* row_ptr(E* p, const View& w, int b, int n, int t) 
   return p + b * w.sb + n * w.sn + int64_t(t) * w.st;
 }
 
-// ldmatrix.x4.trans: B fragments of two n-tiles for B[k][n] = Y[k][n] with Y
-// row-major (k rows, leading dim ld): rows [k0, k0+16), columns [n0, n0+16);
-// b[0], b[1] for n-tile n0 and b[2], b[3] for n0 + 8.
-__device__ __forceinline__ void ldmatrix_b2_trans(uint32_t (&b)[4], const bf16* y, int ld,
-                                                  int k0, int n0, int lane) {
-  const bf16* row = y + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8;
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(s));
+// 2^x on the SFU (ex2.approx, flush to zero), as the forward's softmax.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// rows [t0, t0 + R) of a (B, N, T, H) view into a padded shared tile (cp.async).
-template <int HD, int R>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* p, const View& w, int b, int n,
-                                          int t0) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks a row
-  const bf16* src = row_ptr(p, w, b, n, t0);
-#pragma unroll 4
-  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    cp_async16(dst + r * (HD + 8) + c * 8, src + int64_t(r) * w.st + c * 8);
-  }
+// Descriptor of a K-major operand whose rows are 128-byte swizzled atoms
+// (8-row groups 1024 bytes apart, 64-column blocks `rows` rows apart), k-step
+// kk of 16 columns.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows, int kk) {
+  const uint32_t addr = tile + (kk / 4) * rows * kRowBytes + (kk % 4) * 32;
+  return wgmma_desc(addr, 16, 1024, 1);
 }
 
-// R contiguous fp32 values into shared memory (R % 4 == 0, 16-byte aligned).
-template <int R>
-__device__ __forceinline__ void load_vec(float* dst, const float* src) {
-  for (int i = threadIdx.x; i < R / 4; i += kThreads) cp_async16(dst + 4 * i, src + 4 * i);
+// Descriptor of an MN-major operand (rows along K, 64-element blocks along
+// M or N `rows` rows apart), k-step kk of 16 rows.
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows, int kk) {
+  return wgmma_desc(tile + kk * 16 * kRowBytes, rows * kRowBytes, 1024, 1);
 }
 
-// acc (16 rows x 8*NT columns, fp32 fragments) of a warp: rows r0 + g (+ 8),
-// column pairs 8*nt + 2*t4, times `mul`, as bf16 at (b, n, r0 + row, col).
-template <int NT>
-__device__ __forceinline__ void store_rows(bf16* p, const View& w, int b, int n, int r0,
-                                           const float (&acc)[NT][4], float mul, int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    bf16* dst = row_ptr(p, w, b, n, r0 + g + 8 * h);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      *reinterpret_cast<uint32_t*>(dst + 8 * nt + 2 * t4) =
-          pack_bf16(acc[nt][2 * h] * mul, acc[nt][2 * h + 1] * mul);
-  }
-}
-
-// c (16 x 16*NB) += A (16 x 16*KS, rows r0 of a row-major shared tile `a`) times
-// B[k][n] = W[n][k] (rows of a row-major shared tile `w`), k over 16*KS.
-template <int KS, int NB>
-__device__ __forceinline__ void mma_a_wt(float (&c)[2 * NB][4], const bf16* a, const bf16* w,
-                                         int ld, int r0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    uint32_t af[4];
-    ldmatrix_a(af, a, ld, r0, 16 * kk, lane);
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      uint32_t bfr[4];
-      ldmatrix_b2(bfr, w, ld, 16 * nb, 16 * kk, lane);
-      mma_16816(c[2 * nb], af, bfr[0], bfr[1]);
-      mma_16816(c[2 * nb + 1], af, bfr[2], bfr[3]);
-    }
-  }
-}
-
-// c (16 x 16*NB) += X (16 x 16*KS, fp32 fragments packed to bf16 as the A
-// operand) times Y (16*KS rows of a row-major shared tile `y`, columns 16*NB).
-template <int KS, int NB>
-__device__ __forceinline__ void mma_x_y(float (&c)[2 * NB][4], const float (&x)[2 * KS][4],
-                                        const bf16* y, int ld, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const uint32_t af[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      uint32_t bfr[4];
-      ldmatrix_b2_trans(bfr, y, ld, 16 * kk, 16 * nb, lane);
-      mma_16816(c[2 * nb], af, bfr[0], bfr[1]);
-      mma_16816(c[2 * nb + 1], af, bfr[2], bfr[3]);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&c)[NT][4]) {
-#pragma unroll
-  for (int i = 0; i < NT; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
-}
-
-// D = rowsum(dO o O) for every (b, n, t) row: H/8 threads a row.
+// Pre-pass: D = rowsum(dO o O) of every (b, n, t) row, H/8 threads a row, and
+// that row of the fp32 dQ scratch zeroed.
 template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dot_kernel(Args a, int rows) {
+__global__ void __launch_bounds__(kPrepThreads)
+    flash_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout, View vo,
+                          View vdo, float* __restrict__ dvec, float* __restrict__ dq_acc, int N,
+                          int T, int rows) {
   constexpr int kTpr = HD / 8;
-  const int gid = blockIdx.x * kThreads + threadIdx.x;
+  const int gid = blockIdx.x * kPrepThreads + threadIdx.x;
   const int row = gid / kTpr, part = gid % kTpr;
   float acc = 0.f;
   if (row < rows) {
-    const int t = row % a.T, bn = row / a.T;
-    const uint4 ov = *reinterpret_cast<const uint4*>(row_ptr(a.o, a.vo, bn / a.N, bn % a.N, t)
-                                                     + part * 8);
-    const uint4 dv = *reinterpret_cast<const uint4*>(
-        row_ptr(a.dout, a.vdo, bn / a.N, bn % a.N, t) + part * 8);
+    const int t = row % T, bn = row / T;
+    const uint4 ov = *reinterpret_cast<const uint4*>(row_ptr(o, vo, bn / N, bn % N, t) + part * 8);
+    const uint4 dv = *reinterpret_cast<const uint4*>(row_ptr(dout, vdo, bn / N, bn % N, t) +
+                                                     part * 8);
     const bf16* po = reinterpret_cast<const bf16*>(&ov);
     const bf16* pd = reinterpret_cast<const bf16*>(&dv);
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc = fmaf(bf2f(po[i]), bf2f(pd[i]), acc);
+    float4* z = reinterpret_cast<float4*>(dq_acc + int64_t(row) * HD + part * 8);
+    z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 #pragma unroll
   for (int off = kTpr / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (row < rows && part == 0) a.dvec[row] = acc;
+  if (row < rows && part == 0) dvec[row] = acc;
 }
 
-// dK, dV of 128 keys of one (b, n) pair: grid (T / 128, B * N).
+// Convert: dQ = scale * scratch as bf16 into the (B, N, T, H) view, 8 values a
+// thread.
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv_kernel(Args a) {
-  using C = BwdCfg<HD>;
-  constexpr int LD = C::kLd, QT = C::kQTile;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kRows * LD;
-  bf16* sQ = sV + kRows * LD;        // [2][QT][LD]
-  bf16* sdO = sQ + 2 * QT * LD;      // [2][QT][LD]
-  float* sL = reinterpret_cast<float*>(sdO + 2 * QT * LD);  // [2][QT], L * log2(e)
-  float* sD = sL + 2 * QT;                                   // [2][QT]
+__global__ void __launch_bounds__(kPrepThreads)
+    flash_bwd_dq_convert_kernel(const float* __restrict__ dq_acc, bf16* __restrict__ dq, View vdq,
+                                int N, int T, int rows, float scale) {
+  constexpr int kTpr = HD / 8;
+  const int gid = blockIdx.x * kPrepThreads + threadIdx.x;
+  const int row = gid / kTpr, part = gid % kTpr;
+  if (row >= rows) return;
+  const int t = row % T, bn = row / T;
+  const float4* src = reinterpret_cast<const float4*>(dq_acc + int64_t(row) * HD + part * 8);
+  const float4 a = src[0], c = src[1];
+  const uint4 out =
+      make_uint4(pack_bf16(a.x * scale, a.y * scale), pack_bf16(a.z * scale, a.w * scale),
+                 pack_bf16(c.x * scale, c.y * scale), pack_bf16(c.z * scale, c.w * scale));
+  *reinterpret_cast<uint4*>(row_ptr(dq, vdq, bn / N, bn % N, t) + part * 8) = out;
+}
 
-  const int bn = blockIdx.y, b = bn / a.N, n = bn % a.N, key0 = blockIdx.x * kRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t4 = lane & 3;
-  const int kw = 16 * warp;  // this warp's key rows in the tile
-  const float* lse = a.lse + int64_t(bn) * a.T;
-  const float* dvec = a.dvec + int64_t(bn) * a.T;
-  const float scale_log2 = a.scale * kLog2e;
+struct MainArgs {
+  const float* lse;
+  const float* dvec;
+  bf16 *dk, *dv;
+  View vdk, vdv;
+  int N, T;
+  float scale, scale_log2;
+};
+
+// dK, dV of 128 keys of one (b, n) pair, and their share of dQ: grid
+// (T / 128, B * N).
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_dq, const MainArgs a) {
+  using C = BwdCfg<HD>;
+  constexpr int QT = C::kQT;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* gbase = smem_raw + (base - raw);  // the same, as a generic pointer
+  const uint32_t sK = base + C::kK, sV = base + C::kV, sQ = base + C::kQ, sdO = base + C::kDO;
+  const uint32_t kv_full = base + C::kBar;
+  auto full = [&](int s) { return kv_full + 8 + 8 * s; };
+  auto empty = [&](int s) { return kv_full + 24 + 8 * s; };
+
+  const int bn = blockIdx.y, b = bn / a.N, n = bn % a.N, key0 = blockIdx.x * kKeys;
   const int nq = a.T / QT;
+  const int wg = warpgroup_index();
 
-  auto load_stage = [&](int st, int j) {
-    load_rows<HD, QT>(sQ + st * QT * LD, a.q, a.vq, b, n, j * QT);
-    load_rows<HD, QT>(sdO + st * QT * LD, a.dout, a.vdo, b, n, j * QT);
-    load_vec<QT>(sL + st * QT, lse + j * QT);
-    load_vec<QT>(sD + st * QT, dvec + j * QT);
-  };
-  load_rows<HD, kRows>(sK, a.k, a.vk, b, n, key0);
-  load_rows<HD, kRows>(sV, a.v, a.vv, b, n, key0);
-  load_stage(0, 0);
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  float dk[HD / 8][4], dv[HD / 8][4];
-  zero(dk);
-  zero(dv);
-  for (int j = 0; j < nq; ++j) {
-    const int st = j & 1;
-    if (j + 1 < nq) load_stage(st ^ 1, j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* q = sQ + st * QT * LD;
-    const bf16* d_o = sdO + st * QT * LD;
-    const float* l2 = sL + st * QT;
-    const float* dd = sD + st * QT;
-
-    float p[QT / 8][4], ds[QT / 8][4];  // P^T, then dP^T -> dS^T: 16 keys x QT queries
-    zero(p);
-    zero(ds);
-    mma_a_wt<HD / 16, QT / 16>(p, sK, q, LD, kw, lane);
-    mma_a_wt<HD / 16, QT / 16>(ds, sV, d_o, LD, kw, lane);
-#pragma unroll
-    for (int nt = 0; nt < QT / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * nt + 2 * t4 + (e & 1);
-        const float pe = exp2f(fmaf(p[nt][e], scale_log2, -l2[col] * kLog2e));
-        p[nt][e] = pe;
-        ds[nt][e] = pe * (ds[nt][e] - dd[col]);
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * C::kKV);
+      for (int cb = 0; cb < C::kCols; ++cb) {
+        tma_load_4d(sK + cb * kKeys * kRowBytes, &tm_k, kv_full, cb * 64, key0, n, b);
+        tma_load_4d(sV + cb * kKeys * kRowBytes, &tm_v, kv_full, cb * 64, key0, n, b);
+      }
+      const float* lse = a.lse + int64_t(bn) * a.T;
+      const float* dvec = a.dvec + int64_t(bn) * a.T;
+      for (int i = 0; i < nq; ++i) {
+        const int s = i & 1;
+        if (i >= 2) mbar_wait(empty(s), ((i >> 1) - 1) & 1);
+        mbar_expect_tx(full(s), 2 * C::kQTile + 2 * QT * 4);
+        for (int cb = 0; cb < C::kCols; ++cb) {
+          tma_load_4d(sQ + s * C::kQTile + cb * QT * kRowBytes, &tm_q, full(s), cb * 64, i * QT,
+                      n, b);
+          tma_load_4d(sdO + s * C::kQTile + cb * QT * kRowBytes, &tm_do, full(s), cb * 64,
+                      i * QT, n, b);
+        }
+        bulk_load(base + C::kL + s * QT * 4, lse + i * QT, QT * 4, full(s));
+        bulk_load(base + C::kD + s * QT * 4, dvec + i * QT, QT * 4, full(s));
       }
     }
-    mma_x_y<QT / 16, HD / 16>(dv, p, d_o, LD, lane);
-    mma_x_y<QT / 16, HD / 16>(dk, ds, q, LD, lane);
-    __syncthreads();  // this stage is reloaded at j + 2's prefetch (iteration j + 1)
-  }
-  store_rows<HD / 8>(a.dk, a.vdk, b, n, key0 + kw, dk, a.scale, lane);
-  store_rows<HD / 8>(a.dv, a.vdv, b, n, key0 + kw, dv, 1.f, lane);
-}
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<240>();
+    const int wc = wg - 1;  // keys key0 + 64*wc .. +64
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g8 = lane >> 2, t4 = lane & 3;
+    const uint32_t sKw = sK + wc * 64 * kRowBytes, sVw = sV + wc * 64 * kRowBytes;
+    // dQ_partial = dS K: at H = 64 this consumer's 64 queries of the tile
+    // (query block wc of dS^T) over all H; at H = 128 all 64 queries over
+    // columns 64*wc .. +64 of H (column block wc of K)
+    const int qb = HD == 64 ? wc : 0, hb = HD == 64 ? 0 : wc;
+    const uint32_t sStg = base + C::kSt + wc * C::kStg;
+    unsigned char* stg = gbase + C::kSt + wc * C::kStg;
 
-// dQ of 128 queries of one (b, n) pair: grid (T / 128, B * N).
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(Args a) {
-  using C = BwdCfg<HD>;
-  constexpr int LD = C::kLd, KT = C::kKvTile;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + kRows * LD;
-  bf16* sK = sdO + kRows * LD;  // [2][KT][LD]
-  bf16* sV = sK + 2 * KT * LD;  // [2][KT][LD]
-
-  const int bn = blockIdx.y, b = bn / a.N, n = bn % a.N, q0 = blockIdx.x * kRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2;
-  const int qw = 16 * warp;
-  const float scale_log2 = a.scale * kLog2e;
-  float l2[2], dd[2];  // L * log2(e) and D of rows g and g + 8
+    float dk[HD / 2], dv[HD / 2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int64_t row = int64_t(bn) * a.T + q0 + qw + g + 8 * h;
-    l2[h] = a.lse[row] * kLog2e;
-    dd[h] = a.dvec[row];
-  }
-  const int nk = a.T / KT;
+    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+    uint32_t p_frag[QT / 16][4], ds_frag[QT / 16][4];
 
-  auto load_stage = [&](int st, int j) {
-    load_rows<HD, KT>(sK + st * KT * LD, a.k, a.vk, b, n, j * KT);
-    load_rows<HD, KT>(sV + st * KT * LD, a.v, a.vv, b, n, j * KT);
-  };
-  load_rows<HD, kRows>(sQ, a.q, a.vq, b, n, q0);
-  load_rows<HD, kRows>(sdO, a.dout, a.vdo, b, n, q0);
-  load_stage(0, 0);
-  cp_async_commit();
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < nq; ++i) {
+      const int s = i & 1;
+      const uint32_t sQs = sQ + s * C::kQTile, sdOs = sdO + s * C::kQTile;
+      mbar_wait(full(s), (i >> 1) & 1);
 
-  float dq[HD / 8][4];
-  zero(dq);
-  for (int j = 0; j < nk; ++j) {
-    const int st = j & 1;
-    if (j + 1 < nk) load_stage(st ^ 1, j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* k = sK + st * KT * LD;
-    const bf16* v = sV + st * KT * LD;
-
-    float p[KT / 8][4], ds[KT / 8][4];  // P, then dP -> dS: 16 queries x KT keys
-    zero(p);
-    zero(ds);
-    mma_a_wt<HD / 16, KT / 16>(p, sQ, k, LD, qw, lane);
-    mma_a_wt<HD / 16, KT / 16>(ds, sdO, v, LD, qw, lane);
+      // S^T = K_w Q^T, dP^T = V_w dO^T. The accumulators live in one tile
+      // only (the first k-step overwrites them), so that their registers are
+      // free again while dK, dV and dQ's products run.
+      float st[QT / 2], dpt[QT / 2];  // -> P^T and dS^T: 64 keys x QT queries
+      wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt) {
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        if constexpr (QT == 128) {
+          wgmma_ss_n128<0>(st, kmajor_desc(sKw, kKeys, kk), kmajor_desc(sQs, QT, kk), kk > 0);
+        } else {
+          wgmma_ss_n64<0>(st, kmajor_desc(sKw, kKeys, kk), kmajor_desc(sQs, QT, kk), kk > 0);
+        }
+      }
+      wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const float pe = exp2f(fmaf(p[nt][e], scale_log2, -l2[h]));
-        ds[nt][e] = pe * (ds[nt][e] - dd[h]);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        if constexpr (QT == 128) {
+          wgmma_ss_n128<0>(dpt, kmajor_desc(sVw, kKeys, kk), kmajor_desc(sdOs, QT, kk), kk > 0);
+        } else {
+          wgmma_ss_n64<0>(dpt, kmajor_desc(sVw, kKeys, kk), kmajor_desc(sdOs, QT, kk), kk > 0);
+        }
+      }
+      wgmma_commit();
+
+      // P^T from L (columns are queries: 8j + 2t4 and + 1 of this thread)
+      const float* sl = reinterpret_cast<const float*>(gbase + C::kL + s * QT * 4);
+      const float* sd = reinterpret_cast<const float*>(gbase + C::kD + s * QT * 4);
+      wgmma_wait<1>();
+      fence_regs(st);
+#pragma unroll
+      for (int j = 0; j < QT / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * t4);
+        const float l0 = l.x * kLog2e, l1 = l.y * kLog2e;
+        st[4 * j + 0] = fast_exp2(fmaf(st[4 * j + 0], a.scale_log2, -l0));
+        st[4 * j + 1] = fast_exp2(fmaf(st[4 * j + 1], a.scale_log2, -l1));
+        st[4 * j + 2] = fast_exp2(fmaf(st[4 * j + 2], a.scale_log2, -l0));
+        st[4 * j + 3] = fast_exp2(fmaf(st[4 * j + 3], a.scale_log2, -l1));
+      }
+      wgmma_wait<0>();
+      fence_regs(dpt);
+#pragma unroll
+      for (int j = 0; j < QT / 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(sd + 8 * j + 2 * t4);
+        dpt[4 * j + 0] = st[4 * j + 0] * (dpt[4 * j + 0] - d.x);
+        dpt[4 * j + 1] = st[4 * j + 1] * (dpt[4 * j + 1] - d.y);
+        dpt[4 * j + 2] = st[4 * j + 2] * (dpt[4 * j + 2] - d.x);
+        dpt[4 * j + 3] = st[4 * j + 3] * (dpt[4 * j + 3] - d.y);
+      }
+      // the accumulator layout of two n8 tiles is the A layout of one k16 step
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p_frag[kk][e] = pack_bf16(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
+          ds_frag[kk][e] = pack_bf16(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
+        }
+      }
+
+      // dS^T (bf16) into buffer i & 1: row = key, 128-byte swizzled query
+      // blocks; register e of k-step kk holds key row g8 + 8 (e & 1) of this
+      // warp's 16 and queries 16 kk + 8 (e >> 1) + 2 t4, + 1
+      unsigned char* dsb = gbase + C::kDS + (i & 1) * C::kDSBuf;
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 64 * wc + 16 * warp + g8 + 8 * (e & 1);
+          const int chunk = (2 * kk + (e >> 1)) % 8;
+          *reinterpret_cast<uint32_t*>(dsb + (kk / 4) * kKeys * kRowBytes + r * kRowBytes +
+                                       ((chunk ^ g8) << 4) + 4 * t4) = ds_frag[kk][e];
+        }
+      }
+      fence_async_smem();
+
+      // dV += P^T dO, dK += dS^T Q (dO and Q MN-major)
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(p_frag);
+      fence_regs(ds_frag);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) {
+        if constexpr (HD == 64) {
+          wgmma_rs_n64<1>(dv, p_frag[kk], mnmajor_desc(sdOs, QT, kk));
+        } else {
+          wgmma_rs_n128<1>(dv, p_frag[kk], mnmajor_desc(sdOs, QT, kk));
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) {
+        if constexpr (HD == 64) {
+          wgmma_rs_n64<1>(dk, ds_frag[kk], mnmajor_desc(sQs, QT, kk));
+        } else {
+          wgmma_rs_n128<1>(dk, ds_frag[kk], mnmajor_desc(sQs, QT, kk));
+        }
+      }
+      wgmma_commit();
+
+      // dQ_partial = dS K over the 128 keys, once both consumers wrote dS^T
+      named_bar_sync(1, 256);
+      const uint32_t sDS = base + C::kDS + (i & 1) * C::kDSBuf + qb * kKeys * kRowBytes;
+      float dq[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wgmma_ss_n64<1, 1>(dq, mnmajor_desc(sDS, kKeys, kk),
+                           mnmajor_desc(sK + hb * kKeys * kRowBytes, kKeys, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(dk);
+      fence_regs(dv);
+      mbar_arrive(empty(s));  // Q and dO of this slot read for the last time
+      wgmma_wait<0>();
+      fence_regs(dq);
+
+      // stage the partial (fp32, two 32-column halves, 128-byte swizzle) once
+      // the last reduce-add has read the buffer, then add it into the scratch
+      if (tid == 0) bulk_wait_read<0>();
+      named_bar_sync(2 + wc, 128);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + g8 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int chunk = 2 * (j % 4) + (t4 >> 1);
+          *reinterpret_cast<float2*>(stg + (j / 4) * 64 * kRowBytes + r * kRowBytes +
+                                     ((chunk ^ g8) << 4) + 8 * (t4 & 1)) =
+              make_float2(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]);
+        }
+      }
+      fence_async_smem();
+      named_bar_sync(2 + wc, 128);
+      if (tid == 0) {
+        const int row0 = bn * a.T + i * QT + 64 * qb;
+        tma_reduce_add_2d(&tm_dq, sStg, 64 * hb, row0);
+        tma_reduce_add_2d(&tm_dq, sStg + 64 * kRowBytes, 64 * hb + 32, row0);
+        bulk_commit();
       }
     }
-    mma_x_y<KT / 16, HD / 16>(dq, ds, k, LD, lane);
-    __syncthreads();
+    if (tid == 0) bulk_wait<0>();
+
+    bf16* dkb = a.dk + b * a.vdk.sb + n * a.vdk.sn;
+    bf16* dvb = a.dv + b * a.vdv.sb + n * a.vdv.sn;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = key0 + 64 * wc + 16 * warp + g8 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkb + int64_t(row) * a.vdk.st + 8 * j + 2 * t4) =
+            pack_bf16(dk[4 * j + 2 * h] * a.scale, dk[4 * j + 2 * h + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvb + int64_t(row) * a.vdv.st + 8 * j + 2 * t4) =
+            pack_bf16(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+      }
+    }
   }
-  store_rows<HD / 8>(a.dq, a.vdq, b, n, q0 + qw, dq, a.scale, lane);
 }
 
+// The (B, N, T, H) view at `p` (element strides v) as a 4-D map (H, T, N, B)
+// of 64-column x `rows`-row boxes, 128-byte swizzle.
+bool make_map(CUtensorMap* map, const void* p, int B, int N, int T, int H, const View& v,
+              int rows) {
+  const uint64_t dims[4] = {uint64_t(H), uint64_t(T), uint64_t(N), uint64_t(B)};
+  const uint64_t strides[3] = {uint64_t(v.st) * 2, uint64_t(v.sn) * 2, uint64_t(v.sb) * 2};
+  const uint32_t box[4] = {64, uint32_t(rows), 1, 1};
+  return encode_bf16_map(map, p, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// views: q, k, v, o, dout, dq, dk, dv.
 template <int HD>
-cudaError_t launch(const Args& a, int B, int smem_dkv, int smem_dq, cudaStream_t stream) {
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
+                   const float* lse, float* dvec, float* dq_acc, bf16* dq, bf16* dk, bf16* dv,
+                   const View* views, int B, int N, int T, int q_tile, int smem, float scale,
+                   cudaStream_t stream) {
   using C = BwdCfg<HD>;
-  if (smem_dkv != C::kSmemDkv || smem_dq != C::kSmemDq) return cudaErrorInvalidValue;
-  const int rows = B * a.N * a.T;
-  const int dot_threads = rows * (HD / 8);
-  flash_bwd_dot_kernel<HD><<<(dot_threads + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      a, rows);
+  if (q_tile != C::kQT || smem != C::kSmem) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  const int rows = B * N * T;
+  const uint64_t acc_dims[2] = {uint64_t(HD), uint64_t(rows)};
+  const uint64_t acc_strides[1] = {uint64_t(HD) * 4};
+  const uint32_t acc_box[2] = {32, 64};
+  if (!make_map(&mq, q, B, N, T, HD, views[0], C::kQT) ||
+      !make_map(&mk, k, B, N, T, HD, views[1], kKeys) ||
+      !make_map(&mv, v, B, N, T, HD, views[2], kKeys) ||
+      !make_map(&mdo, dout, B, N, T, HD, views[4], C::kQT) ||
+      !encode_f32_map(&mdq, dq_acc, 2, acc_dims, acc_strides, acc_box,
+                      CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+
+  const int prep_blocks = (rows * (HD / 8) + kPrepThreads - 1) / kPrepThreads;
+  flash_bwd_prep_kernel<HD><<<prep_blocks, kPrepThreads, 0, stream>>>(o, dout, views[3], views[4],
+                                                                      dvec, dq_acc, N, T, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const dim3 grid(a.T / kRows, B * a.N);
-  e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<HD>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv);
+  e = cudaFuncSetAttribute(flash_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<HD><<<grid, kThreads, smem_dkv, stream>>>(a);
+  MainArgs m;
+  m.lse = lse;
+  m.dvec = dvec;
+  m.dk = dk;
+  m.dv = dv;
+  m.vdk = views[6];
+  m.vdv = views[7];
+  m.N = N;
+  m.T = T;
+  m.scale = scale;
+  m.scale_log2 = scale * kLog2e;
+  flash_bwd_kernel<HD><<<dim3(T / kKeys, B * N), kThreads, smem, stream>>>(mq, mk, mv, mdo, mdq,
+                                                                           m);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem_dq);
-  if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<HD><<<grid, kThreads, smem_dq, stream>>>(a);
+  flash_bwd_dq_convert_kernel<HD><<<prep_blocks, kPrepThreads, 0, stream>>>(dq_acc, dq, views[5],
+                                                                           N, T, rows, scale);
   return cudaGetLastError();
 }
 
@@ -351,39 +474,28 @@ cudaError_t launch(const Args& a, int B, int smem_dkv, int smem_dq, cudaStream_t
 
 // q, k, v, o, dout, dq, dk, dv: (B, N, T, H) bf16 views with unit last stride;
 // st: their b, n, t element strides in that order (24 values); lse: the
-// forward's (B, N, T) fp32 row log-sum-exp; dvec: (B, N, T) fp32 scratch for D.
-// smem_dkv, smem_dq: the plan of ops/flash_attention.py:bwd_plan. Three
-// launches (D, dK/dV, dQ) on `stream`.
+// forward's (B, N, T) fp32 row log-sum-exp; dvec: (B, N, T) fp32 scratch for
+// D; dq_acc: contiguous (B, N, T, H) fp32 scratch for dQ's sums. q_tile,
+// smem: the plan of ops/flash_attention.py:bwd_plan. Three launches (D and
+// the zeroed scratch; dK, dV and dQ's sums; dQ) on `stream`.
 extern "C" int cak_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
-                                       void* dvec, void* dq, void* dk, void* dv, int B, int N,
-                                       int T, int H, int smem_dkv, int smem_dq,
+                                       void* dvec, void* dq_acc, void* dq, void* dk, void* dv,
+                                       int B, int N, int T, int H, int q_tile, int smem,
                                        const int64_t* st, float scale, void* stream) {
-  if (T % kRows || T < kRows || B * N > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.o = static_cast<const bf16*>(o);
-  a.dout = static_cast<const bf16*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.dvec = static_cast<float*>(dvec);
-  a.dq = static_cast<bf16*>(dq);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
-  View* views[8] = {&a.vq, &a.vk, &a.vv, &a.vo, &a.vdo, &a.vdq, &a.vdk, &a.vdv};
-  for (int i = 0; i < 8; ++i) *views[i] = View{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
-  a.N = N;
-  a.T = T;
-  a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (H == 64) {
-    e = launch<64>(a, B, smem_dkv, smem_dq, s);
-  } else if (H == 128) {
-    e = launch<128>(a, B, smem_dkv, smem_dq, s);
-  } else {
-    e = cudaErrorInvalidValue;
-  }
+  if (T % kKeys || T < kKeys || B * N > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  View views[8];
+  for (int i = 0; i < 8; ++i) views[i] = View{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+  auto run = [&](auto hd) {
+    return launch<decltype(hd)::value>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<float*>(dvec), static_cast<float*>(dq_acc),
+        static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), views, B, N, T,
+        q_tile, smem, scale, static_cast<cudaStream_t>(stream));
+  };
+  cudaError_t e = cudaErrorInvalidValue;
+  if (H == 64) e = run(std::integral_constant<int, 64>{});
+  if (H == 128) e = run(std::integral_constant<int, 128>{});
   return static_cast<int>(e);
 }

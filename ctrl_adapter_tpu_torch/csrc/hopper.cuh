@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the kernels that
-// are warp-specialised: mbarriers, TMA tensor loads and stores, wgmma
+// are warp-specialised: mbarriers, TMA tensor loads, stores and reduce-adds,
+// 1-D bulk copies, wgmma
 // descriptors and ordering, setmaxnreg, named barriers; and, on the host,
 // tensor-map encoding.
 //
@@ -88,6 +89,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` contiguous bytes at src into shared memory at dst (TMA's 1-D form;
+// 16-byte aligned, a multiple of 16); completion is counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // A 2-D box of shared memory at src into the tensor at coordinates c0, c1
 // (rows past the tensor's end are not written), as one bulk group.
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
@@ -95,6 +106,18 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t sr
                    reinterpret_cast<uint64_t>(map)),
                "r"(src), "r"(c0), "r"(c1)
                : "memory");
+}
+
+// A 2-D box of shared memory at src added element by element into the tensor
+// at coordinates c0, c1 (the element type is the map's; the adds are atomic
+// in L2), as one bulk group.
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, uint32_t src, int c0,
+                                                  int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group [%0, {%2, %3}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 __device__ __forceinline__ void bulk_commit() {
@@ -203,12 +226,19 @@ static inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first; strides in bytes of dims
-// 1..rank-1), tile `box`, no element striding. Returns false if the driver
-// refuses it.
-static inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                                   const uint64_t* dims, const uint64_t* strides,
-                                   const uint32_t* box, CUtensorMapSwizzle swizzle) {
+// A tensor map of `rank` dims (innermost first; strides in bytes of dims
+// 1..rank-1) of `type`, tile `box`, no element striding. Returns false if the
+// driver refuses it.
+//
+// The encode is a driver call and needs a current context on the calling
+// thread. A thread that has made no CUDA runtime call yet has none: autograd's
+// worker thread, say, when every tensor of the backward came from PyTorch's
+// caching allocator. The encode then fails with CUDA_ERROR_INVALID_CONTEXT;
+// the primary context of the device that holds `base` is made current
+// (cudaSetDevice) and the encode is made again.
+static inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                              int rank, const uint64_t* dims, const uint64_t* strides,
+                              const uint32_t* box, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   cuuint64_t d[5], s[4];
@@ -219,7 +249,31 @@ static inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, s, b, e,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  auto encode = [&]() {
+    return fn(map, type, rank, const_cast<void*>(base), d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode();
+  if (r == CUDA_ERROR_INVALID_CONTEXT) {
+    cudaPointerAttributes attr;
+    if (cudaPointerGetAttributes(&attr, base) != cudaSuccess ||
+        cudaSetDevice(attr.device) != cudaSuccess)
+      return false;
+    r = encode();
+  }
+  return r == CUDA_SUCCESS;
+}
+
+static inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                                   const uint64_t* dims, const uint64_t* strides,
+                                   const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                    swizzle);
+}
+
+static inline bool encode_f32_map(CUtensorMap* map, const void* base, int rank,
+                                  const uint64_t* dims, const uint64_t* strides,
+                                  const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims, strides, box,
+                    swizzle);
 }

@@ -42,7 +42,7 @@ KERNEL = Kernel("cak_flash_attention", [
     *([ctypes.c_int64] * 12), ctypes.c_float, ctypes.c_void_p,
 ])
 KERNEL_BWD = Kernel("cak_flash_attention_bwd", [
-    *([ctypes.c_void_p] * 10), *([ctypes.c_int] * 6), ctypes.POINTER(ctypes.c_int64),
+    *([ctypes.c_void_p] * 11), *([ctypes.c_int] * 6), ctypes.POINTER(ctypes.c_int64),
     ctypes.c_float, ctypes.c_void_p,
 ])
 
@@ -74,32 +74,39 @@ def plan(b: int, n: int, t: int, h: int, sms: int) -> FlashPlan:
     return FlashPlan(work=work, grid=(min(work, sms),), stages=stages, smem_bytes=smem)
 
 
-BWD_ROWS = 128      # backward: keys (dK/dV kernel) or queries (dQ kernel) per CTA
-_BWD_KV_TILE = 64   # backward: keys per streamed tile of the dQ kernel
+BWD_KEYS = 128     # backward: keys per CTA, two consumer warpgroups of 64
 
 
 @dataclass(frozen=True)
 class FlashBwdPlan:
-    grid: tuple        # (T / 128, B * N), the dK/dV and the dQ kernel alike
-    q_tile: int        # queries per streamed tile of the dK/dV kernel
-    smem_dkv: int      # K, V; two stages of Q, dO (rows padded to H + 8) and of L, D
-    smem_dq: int       # Q, dO; two stages of K, V tiles
+    grid: tuple        # (T / 128 key blocks, B * N): key blocks the fastest axis
+    q_tile: int        # queries per streamed Q / dO tile: 128 at H = 64, 64 at H = 128
+    smem_bytes: int    # K, V; two slots of Q, dO, L, D; two dS^T buffers; the two
+    #                    consumers' fp32 dQ partials; 5 mbarriers; 1 KiB alignment slack
+    scratch: tuple     # the fp32 dQ scratch, (B, N, T, H) contiguous
 
 
 def bwd_plan(b: int, n: int, t: int, h: int) -> FlashBwdPlan:
     """The launches of K2's backward for (b, n, t, h) inputs; raises where the
-    tiling does not fit. ``csrc/flash_attention_bwd.cu`` refuses shared memory
-    other than its ``BwdCfg``'s."""
-    if h not in (64, 128) or t % BWD_ROWS or t < BWD_ROWS or b * n > 65535:
+    tiling does not fit. ``csrc/flash_attention_bwd.cu`` refuses a query tile
+    or shared memory other than its ``BwdCfg``'s, and adds dQ's sums into the
+    scratch through a 2-D TMA map of (B * N * T) rows of H fp32 values."""
+    if h not in (64, 128) or t % BWD_KEYS or t < BWD_KEYS or b * n > 65535:
         raise ValueError(f"attention_bnth backward: needs H in (64, 128), T a multiple of "
-                         f"{BWD_ROWS} and B*N <= 65535, got B*N={b * n} T={t} H={h}")
-    ld = h + 8
-    q_tile = 64 if h == 64 else 32
-    smem_dkv = (2 * BWD_ROWS + 4 * q_tile) * ld * 2 + 4 * q_tile * 4
-    smem_dq = (2 * BWD_ROWS + 4 * _BWD_KV_TILE) * ld * 2
-    assert max(smem_dkv, smem_dq) <= SMEM_PER_BLOCK
-    return FlashBwdPlan(grid=(t // BWD_ROWS, b * n), q_tile=q_tile, smem_dkv=smem_dkv,
-                        smem_dq=smem_dq)
+                         f"{BWD_KEYS} and B*N <= 65535, got B*N={b * n} T={t} H={h}")
+    why = tma_view_error((b * n * t, h), (h, 1), 0, itemsize=4)
+    if why is not None:
+        raise ValueError(f"attention_bnth backward: the fp32 dQ scratch {why}")
+    q_tile = 128 if h == 64 else 64
+    kv = 2 * BWD_KEYS * h * 2
+    q_do = 2 * 2 * q_tile * h * 2
+    ds = 2 * BWD_KEYS * q_tile * 2
+    dq_partials = 2 * 64 * 64 * 4
+    l_d = 2 * 2 * q_tile * 4
+    smem = kv + q_do + ds + dq_partials + l_d + 8 * 5 + 1024
+    assert smem <= SMEM_PER_BLOCK
+    return FlashBwdPlan(grid=(t // BWD_KEYS, b * n), q_tile=q_tile, smem_bytes=smem,
+                        scratch=(b, n, t, h))
 
 
 def tma_view_error(shape, strides, data_ptr: int, itemsize: int = 2) -> Optional[str]:
@@ -245,8 +252,10 @@ def _bthn_empty(q: torch.Tensor) -> torch.Tensor:
 def attention_bnth_bwd(q, k, v, o, do, lse):
     """dQ, dK, dV of :func:`attention_bnth` from its output ``o``, log-sum-exp
     ``lse`` and the output gradient ``do``: kernel K2 bwd on a Hopper card (one
-    call, three launches: D, dK/dV, dQ), the plain version on the CPU. The
-    gradients are (B, N, T, H) views of (B, T, N, H) contiguous tensors."""
+    call, three launches: D and the zeroed fp32 dQ scratch; dK, dV and dQ's
+    sums; dQ), the plain version on the CPU. The gradients are (B, N, T, H)
+    views of (B, T, N, H) contiguous tensors. dK and dV are the same bit for
+    bit from call to call; dQ's fp32 sums arrive in an order that is not."""
     if q.device.type == "cpu":
         return _torch_attention_bwd(q, k, v, o, do, lse)
     if not is_hopper(q):
@@ -261,16 +270,18 @@ def attention_bnth_bwd(q, k, v, o, do, lse):
                              f"q {tuple(q.shape)} on {q.device}")
         _check(name, x)
     if (lse.shape != (b, n, t) or lse.dtype != torch.float32 or not lse.is_contiguous()
-            or lse.device != q.device):
-        raise ValueError("attention_bnth_bwd: lse must be a contiguous (B, N, T) float32 "
-                         f"tensor on {q.device}, got {tuple(lse.shape)} {lse.dtype}")
+            or lse.device != q.device or lse.data_ptr() % 16):
+        raise ValueError("attention_bnth_bwd: lse must be a contiguous, 16-byte aligned "
+                         f"(B, N, T) float32 tensor on {q.device}, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
     dq, dk, dv = _bthn_empty(q), _bthn_empty(q), _bthn_empty(q)
     dvec = torch.empty((b, n, t), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty(p.scratch, dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 24)(*(st for x in (q, k, v, o, do, dq, dk, dv)
                                       for st in x.stride()[:3]))
-    KERNEL_BWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(dvec), ptr(dq), ptr(dk),
-               ptr(dv), b, n, t, h, p.smem_dkv, p.smem_dq, strides, float(h ** -0.5),
-               stream_of(q))
+    KERNEL_BWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(dvec), ptr(dq_acc),
+               ptr(dq), ptr(dk), ptr(dv), b, n, t, h, p.q_tile, p.smem_bytes, strides,
+               float(h ** -0.5), stream_of(q))
     return dq, dk, dv
 
 

@@ -31,6 +31,7 @@ the order of the output itself.
 """
 
 import copy
+import threading
 
 import pytest
 import torch
@@ -133,12 +134,15 @@ def test_gpu_k2_kernel_matches_plain(t, h, layout):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,n,t,h", [(2, 3, 1024, 64), (1, 2, 4096, 64), (2, 2, 1024, 128)])
+@pytest.mark.parametrize("b,n,t,h", [(2, 3, 1024, 64), (1, 2, 4096, 64), (2, 2, 1024, 128),
+                                     (2, 3, 128, 64), (1, 2, 128, 128), (3, 7, 2048, 64)])
 def test_gpu_k2_backward_matches_plain(b, n, t, h):
     """K2's forward with its log-sum-exp and its backward (one call, one count)
     through ``FlashAttention`` on head-split views, against the plain backward
     on the kernel's own output and lse. P and dS are rounded to bf16 before
-    their products in the kernel, not in the plain version: ~0.3 % in norm."""
+    their products in the kernel, not in the plain version: ~0.3 % in norm.
+    T = 128 is one key block and one query tile; (3, 7, 2048, 64) launches 336
+    CTAs, two waves of 132 SMs and a part of a third."""
     dev = _dev()
     g = torch.Generator(device=dev).manual_seed(5)
     q, k, v, do = (_rand(g, dev, b, t, n * h).to(BF).view(b, t, n, h).transpose(1, 2)
@@ -156,6 +160,84 @@ def test_gpu_k2_backward_matches_plain(b, n, t, h):
     want = tfa._torch_attention_bwd(q, k, v, o, do, lse)
     for x, y in zip(got, want):
         _check(x, y, atol=5e-2 * y.abs().max().item(), rtol=5e-2, rel_norm=2e-2)
+
+
+def _k2_bwd_inputs(dev, b, n, t, h, seed):
+    """Head-split views q, k, v, do of (B, T, N*H) tensors, K2's output and lse."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (_rand(g, dev, b, t, n * h).to(BF).view(b, t, n, h).transpose(1, 2)
+                   for _ in range(4))
+    o, lse = tfa._forward(q, k, v, True)
+    return q, k, v, o, do, lse
+
+
+@pytest.mark.gpu
+def test_gpu_k2_backward_takes_a_do_that_tma_cannot_map():
+    """A dO whose strides are not multiples of 16 bytes (a slice of a wider
+    tensor) is made contiguous before the launch, and gives the plain
+    version's gradients."""
+    dev = _dev()
+    b, n, t, h = 2, 3, 1024, 64
+    q, k, v, o, _, lse = _k2_bwd_inputs(dev, b, n, t, h, 7)
+    g = torch.Generator(device=dev).manual_seed(8)
+    do = _rand(g, dev, b, t, n, h + 4).to(BF)[..., :h].transpose(1, 2)
+    assert tfa.tma_view_error(do.shape, do.stride(), do.data_ptr()) is not None
+    got = _launches(tfa.KERNEL_BWD, lambda: tfa.attention_bnth_bwd(q, k, v, o, do, lse))
+    want = tfa._torch_attention_bwd(q, k, v, o, do, lse)
+    for x, y in zip(got, want):
+        _check(x, y, atol=5e-2 * y.abs().max().item(), rtol=5e-2, rel_norm=2e-2)
+
+
+@pytest.mark.gpu
+def test_gpu_k2_launches_from_a_thread_without_a_current_context():
+    """Autograd runs a backward on a worker thread of its own. Where every
+    tensor the backward allocates comes from PyTorch's caching allocator, that
+    thread has made no CUDA runtime call, so no context is current on it when
+    a kernel encodes its TMA maps (a driver call). K2's forward and backward
+    from a new thread, once the same calls on this one have filled the cache,
+    give this thread's results."""
+    dev = _dev()
+    q, k, v, o, do, lse = _k2_bwd_inputs(dev, 2, 3, 1024, 64, 10)
+    want_o, want_lse = tfa._forward(q, k, v, True)
+    want = tfa.attention_bnth_bwd(q, k, v, o, do, lse)
+    # once more, outputs dropped: their blocks wait in the cache for the thread
+    tfa._forward(q, k, v, True)
+    tfa.attention_bnth_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    got = {}
+
+    def run():
+        try:
+            got["fwd"] = tfa._forward(q, k, v, True)
+            got["bwd"] = tfa.attention_bnth_bwd(q, k, v, o, do, lse)
+        except RuntimeError as err:
+            got["error"] = err
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in got, got.get("error")
+    torch.cuda.synchronize()
+    assert torch.equal(got["fwd"][0], want_o) and torch.equal(got["fwd"][1], want_lse)
+    assert torch.equal(got["bwd"][1], want[1]) and torch.equal(got["bwd"][2], want[2])
+    _check(got["bwd"][0], want[0], atol=5e-2 * want[0].abs().max().item(), rtol=5e-2,
+           rel_norm=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [64, 128])
+def test_gpu_k2_backward_dk_dv_are_reproducible(h):
+    """Two calls on the same inputs: dK and dV equal to the bit (each CTA owns
+    its keys), dQ (fp32 sums added across key blocks in no fixed order)
+    within the plain-version tolerance of each other."""
+    dev = _dev()
+    q, k, v, o, do, lse = _k2_bwd_inputs(dev, 2, 3, 2048, h, 9)
+    first = tfa.attention_bnth_bwd(q, k, v, o, do, lse)
+    second = tfa.attention_bnth_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    _check(second[0], first[0], atol=5e-2 * first[0].abs().max().item(), rtol=5e-2,
+           rel_norm=2e-2)
 
 
 @pytest.mark.gpu

@@ -3,8 +3,9 @@ that ``chip_smoke.py`` prints, against hand-worked cases. Plain Python on
 shapes: runs on the CPU.
 
 - K2 (``ops/flash_attention.py``): :func:`plan` (128-row Q tiles, the K/V ring,
-  grid, shared memory) and :func:`tma_view_error` (what a TMA tensor map needs
-  of a strided view).
+  grid, shared memory), :func:`bwd_plan` (the backward's grid, query tile,
+  shared memory and fp32 dQ scratch) and :func:`tma_view_error` (what a TMA
+  tensor map needs of a strided view, bf16 or fp32).
 - K3 full (``ops/fused_temporal.py``): :func:`full_plan` (tile of ts
   positions, grid, shared memory).
 - K3 hybrid (``ops/fused_temporal.py``): :func:`hybrid_plan` (tile, A-tile
@@ -64,18 +65,25 @@ def test_flash_plan_refuses_what_the_tiling_does_not_fit(t, h):
         fa.plan(2, 3, t, h, sms=132)
 
 
-@pytest.mark.parametrize("b,n,t,h,grid,q_tile,smem_dkv,smem_dq", [
-    # rows padded to H + 8: dK/dV holds K, V (128 rows each) and two stages of
-    # Q, dO (64 rows at H = 64, 32 at H = 128) and of L, D (fp32); dQ holds Q,
-    # dO (128 rows) and two stages of K, V (64 rows)
-    (14, 5, 4096, 64, (32, 70), 64, 512 * 72 * 2 + 4 * 64 * 4, 512 * 72 * 2),
-    (14, 10, 1024, 64, (8, 140), 64, 512 * 72 * 2 + 4 * 64 * 4, 512 * 72 * 2),
-    (2, 4, 1024, 128, (8, 8), 32, 384 * 136 * 2 + 4 * 32 * 4, 512 * 136 * 2),
-])
-def test_flash_bwd_plan_hand_worked(b, n, t, h, grid, q_tile, smem_dkv, smem_dq):
+# one pass: a CTA holds 128 keys (K, V) and streams Q, dO tiles of q_tile
+# queries with their L, D (fp32) through two slots; dS^T (bf16, 128 keys x
+# q_tile) in two buffers; each consumer's 64 x 64 fp32 dQ partial; 5 mbarriers
+# and 1 KiB of alignment slack. Grid: key blocks fastest.
+_BWD_SMEM_H64 = 2 * 16384 + 4 * 16384 + 2 * 32768 + 2 * 16384 + 4 * 128 * 4 + 40 + 1024
+_BWD_SMEM_H128 = 2 * 32768 + 4 * 16384 + 2 * 16384 + 2 * 16384 + 4 * 64 * 4 + 40 + 1024
+
+
+@pytest.mark.parametrize("b,n,t,h,grid,q_tile,smem,scratch", [
+    (14, 5, 4096, 64, (32, 70), 128, _BWD_SMEM_H64, (14, 5, 4096, 64)),
+    (14, 10, 1024, 64, (8, 140), 128, _BWD_SMEM_H64, (14, 10, 1024, 64)),
+    (2, 4, 1024, 128, (8, 8), 64, _BWD_SMEM_H128, (2, 4, 1024, 128)),
+    (65535, 1, 128, 64, (1, 65535), 128, _BWD_SMEM_H64, (65535, 1, 128, 64)),
+], ids=["unet-up-t4096", "adapter-t1024", "h128", "largest-bn"])
+def test_flash_bwd_plan_hand_worked(b, n, t, h, grid, q_tile, smem, scratch):
     p = fa.bwd_plan(b, n, t, h)
-    assert (p.grid, p.q_tile, p.smem_dkv, p.smem_dq) == (grid, q_tile, smem_dkv, smem_dq)
-    assert max(p.smem_dkv, p.smem_dq) <= SMEM_PER_BLOCK
+    assert (p.grid, p.q_tile, p.smem_bytes, p.scratch) == (grid, q_tile, smem, scratch)
+    assert (_BWD_SMEM_H64, _BWD_SMEM_H128) == (199720, 198696)
+    assert p.smem_bytes <= SMEM_PER_BLOCK == 232448
 
 
 @pytest.mark.parametrize("b,n,t,h", [(1, 1, 1024, 80), (1, 1, 1000, 64), (1, 1, 64, 64),
@@ -83,6 +91,19 @@ def test_flash_bwd_plan_hand_worked(b, n, t, h, grid, q_tile, smem_dkv, smem_dq)
 def test_flash_bwd_plan_refuses_what_the_tiling_does_not_fit(b, n, t, h):
     with pytest.raises(ValueError):
         fa.bwd_plan(b, n, t, h)
+
+
+def test_flash_bwd_scratch_tma_check_counts_fp32_bytes():
+    """The dQ scratch is fp32: its TMA map needs strides of a multiple of 16
+    bytes at itemsize 4, and fewer than 2^32 rows of (B * N * T)."""
+    assert fa.tma_view_error((14 * 5 * 4096, 64), (64, 1), 0, itemsize=4) is None
+    # 4 values a row: 16 bytes in fp32, 8 in bf16
+    assert fa.tma_view_error((1024, 4), (4, 1), 0, itemsize=4) is None
+    assert "multiple of 16" in fa.tma_view_error((1024, 4), (4, 1), 0, itemsize=2)
+    assert "multiple of 16" in fa.tma_view_error((1024, 2), (2, 1), 0, itemsize=4)
+    assert "2^32" in fa.tma_view_error((2 ** 32, 64), (64, 1), 0, itemsize=4)
+    with pytest.raises(ValueError, match="scratch"):
+        fa.bwd_plan(32768, 1, 2 ** 17, 64)
 
 
 def test_flash_tma_checks_hand_worked():

@@ -1,6 +1,6 @@
-"""Time the port's feed-forward kernels (K3 full, K4, K5) and K2's serving
-forward (no log-sum-exp) of a package tree on one Hopper card, at the SVD
-slice's shapes, on three clocks:
+"""Time the port's feed-forward kernels (K3 full, K4, K5), K2's serving
+forward (no log-sum-exp) and K2's backward of a package tree on one Hopper
+card, at the SVD slice's shapes, on three clocks:
 
 - host-inclusive: CUDA events around 10 back-to-back calls, median of 5
   (``chip_smoke.py:cuda_ms``);
@@ -9,7 +9,7 @@ slice's shapes, on three clocks:
 - device, cold L2: one call at a time behind a 512 MB write that flushes L2
   (``chip_smoke.py:cold_ms``).
 
-    python tools/ff_kernel_times.py [--root DIR] [--tag NAME] [--only "K3 full" K4 K5 K2]
+    python tools/ff_kernel_times.py [--root DIR] [--tag NAME] [--only "K3 full" K4 K5 K2 "K2 bwd"]
 
 ``--root`` is the directory holding the ``ctrl_adapter_tpu_torch`` package to
 time (default: this repository), e.g. an unpacked ``git archive`` of another
@@ -17,7 +17,9 @@ commit: its kernels are built from its own ``csrc/`` into its own
 ``build/kernels/``, so two trees can be timed in one run on one card, in
 turns. The inputs and tolerances are ``chip_smoke.py``'s (``k3_full_inputs``,
 ``k4_inputs``, ``k5_inputs``, ``FF_TOL``; K2 at (28, 5, 4096, 64) on head-split
-views, as phase 3 times it): each row is checked against its
+views, as phase 3 times it; K2's backward at the training step's two shapes,
+``K2_BWD_SHAPES``, from the timed tree's own forward output and log-sum-exp,
+each gradient held as phase 3 holds it): each row is checked against its
 plain version first and printed as one JSON line with the tree's tag, the
 card's name and power limit, and the bound from the timed tree's
 ``ops/roofline.py``. Imports nothing of JAX.
@@ -49,7 +51,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=_REPO)
     ap.add_argument("--tag", default=None)
-    ap.add_argument("--only", nargs="+", choices=("K3 full", "K4", "K5", "K2"),
+    ap.add_argument("--only", nargs="+", choices=("K3 full", "K4", "K5", "K2", "K2 bwd"),
                     help="time these kernels only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -103,14 +105,26 @@ def main() -> int:
     rows.append(("K2", "(28,5,4096,64)", lambda: fa.attention_bnth(q, k, v),
                  lambda: fa._torch_attention(q, k, v), (1e-2, 2e-2, 1e-2),
                  rl.attention(28, 5, 4096, 4096, 64)))
+    for b_, n_, t_, h_ in smoke.K2_BWD_SHAPES[:2]:
+        qb, kb, vb, dob = (rand(b_, t_, n_ * h_).to(torch.bfloat16).view(b_, t_, n_, h_)
+                           .transpose(1, 2) for _ in range(4))
+        ob, lb = fa._forward(qb, kb, vb, True)
+        # atol None: 5e-2 of the plain gradient's largest magnitude, as phase 3
+        rows.append(("K2 bwd", f"({b_},{n_},{t_},{h_})",
+                     lambda a=(qb, kb, vb, ob, dob, lb): fa.attention_bnth_bwd(*a),
+                     lambda a=(qb, kb, vb, ob, dob, lb): fa._torch_attention_bwd(*a),
+                     (None, 5e-2, 2e-2), rl.attention_bwd(b_, n_, t_, h_)))
     if args.only:
         rows = [r for r in rows if r[0] in args.only]
 
     for name, shape, kernel, plain, (atol, rtol, rel), cost in rows:
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        err = smoke.compare(f"{tag}: {name} {shape}", got, want, atol, rtol, rel)
-        del got, want
+        pairs = zip("qkv", got, want) if isinstance(got, tuple) else [("", got, want)]
+        err = max(smoke.compare(f"{tag}: {name} {shape}" + (f" d{g}" if g else ""), x, y,
+                                5e-2 * y.abs().max().item() if atol is None else atol, rtol, rel)
+                  for g, x, y in pairs)
+        del got, want, pairs
         host = smoke.cuda_ms(kernel)
         warm, cold = smoke.device_times(kernel, flush)
         print(json.dumps({"tree": tag, "kernel": name, "shape": shape, "host_ms": host,

@@ -7,7 +7,8 @@ accumulate), one function per shape, every accumulator register spelled out.
 SS takes A and B from shared memory through descriptors; RS takes A from
 registers (four 32-bit registers of bf16 pairs, the mma.m16n8k16 A layout per
 warp) and B through a descriptor. ``TB`` is the transpose-B immediate (1 for an
-MN-major B such as attention's V).
+MN-major B such as attention's V); SS also takes ``TA``, the transpose-A
+immediate (1 for an MN-major A, such as the backward's dS^T read as dS).
 """
 
 import os
@@ -43,15 +44,15 @@ def ss(n):
     r = n // 2
     return f"""
 // D (64 x {n}) {{+}}= A (64 x 16, smem) . B (16 x {n}, smem); scale_d 0 overwrites D.
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n{n}(float (&d)[{r}], uint64_t da, uint64_t db,
                                              int scale_d) {{
   asm volatile(
       "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 2}, 0;\\n"
       "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
-      "{{{regs(r)}}}, %{r}, %{r + 1}, p, 1, 1, 0, %{r + 3};\\n}}\\n"
+      "{{{regs(r)}}}, %{r}, %{r + 1}, p, 1, 1, %{r + 4}, %{r + 3};\\n}}\\n"
       : {outs(r)}
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }}
 """
 
