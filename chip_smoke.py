@@ -1,4 +1,4 @@
-"""Chip smoke test of the PyTorch port: the SVD control path on one Hopper card.
+"""Chip smoke test of the PyTorch port: the SVD and I2VGen-XL control paths on one Hopper card.
 
     python3 chip_smoke.py
 
@@ -65,7 +65,28 @@ Phases (any failure raises and the script exits non-zero before its last line):
    ``torch.profiler``, the device's idle share; then, on
    2 frames at 128x128, the kernel path's loss and adapter gradient against an
    fp32 run of the plain path;
-9. print the per-kernel JSON line, the card line, and the result line.
+9. the I2VGen-XL control path (``I2VGenXLControlNetAdapterPipeline``) at the
+   full width of the JAX bench's ``i2vgenxl_depth`` and ``i2vgenxl_multi``
+   (I2VGen-XL UNet 320/640/1280/1280, SD-v1.5 ControlNets, the 13-block
+   adapter, the 2D VAE), bf16, 16 frames at 512x512, CFG 9.0 (its shapes
+   get their phase 3 rows right after the SVD ones, before phase 8's long
+   profiled run, after which ``torch.profiler`` was seen to drop events: K1
+   at the adapter's norms at b*f = 32, K2 at (32, 5, 4096, 64) and
+   (32, 10, 1024, 64), K3 hybrid at the adapter's f = 16 blocks and at 4 key
+   frames; ``check_i2vgenxl_kernels``): the depth configuration (one ControlNet, 4 DDIM steps, 3 in the control
+   window, the decode in chunks of 2) and the multi-condition one (7
+   ControlNets loaded, 2 active, a simple-weights router, 2 steps): the
+   video, each kernel's launches per controlled and per UNet-only step
+   against the JAX dispatch (``i2v_launches``), that only the active experts
+   ran and the masked ones have router weight 0; ms per controlled and per
+   UNet-only step with the device's busy time and idle share, ms per tower
+   call, decode seconds, peak memory; and on a small input, for both
+   configurations, the first controlled step's adapter outputs, UNet output
+   and CFG-combined noise prediction from the kernel path against an fp32
+   run of the plain path (max and norm errors), with faulty kernels (K1 without its SiLU, K2 without a
+   head, K3 hybrid returning its input) as controls that must fail;
+10. print the per-kernel JSON line (with each kernel's launches on the
+   I2VGen-XL runs), the card line, and the result line.
 
 Imports nothing of JAX.
 """
@@ -368,21 +389,75 @@ def hybrid_rows():
     return rows
 
 
-def k1_rows():
+def k1_rows(frames: int = FRAMES):
     """K1's calls in one adapter call, by (shape, silu): per block the spatial
-    ResNet's two norms (SiLU) on (28, c, h, h), the temporal ResNet's two (SiLU)
-    on (2, c, 14, h, h) and the transformer's input norm (no SiLU) on (28, c, h, h),
-    where the JAX rule (``group_norm.eligible``) admits them: 47 of the 65. The
-    temporal ResNet's norms at 16x16 to 64x64 exceed its 12 MiB budget and run
-    plain, as in the JAX package."""
+    ResNet's two norms (SiLU) on (2f, c, h, h), the temporal ResNet's two (SiLU)
+    on (2, c, f, h, h) and the transformer's input norm (no SiLU) on (2f, c, h, h),
+    where the JAX rule (``group_norm.eligible``) admits them: 47 of the 65 at
+    f = 14 (SVD) and at f = 16 (I2VGen-XL). The temporal ResNet's norms at
+    16x16 to 64x64 exceed its 12 MiB budget and run plain, as in the JAX
+    package."""
     from ctrl_adapter_tpu_torch.ops.group_norm import eligible
 
     rows = {}
     for c, h in adapter_blocks():
-        for shape, silu, n in (((2 * FRAMES, c, h, h), False, 1), ((2 * FRAMES, c, h, h), True, 2),
-                               ((2, c, FRAMES, h, h), True, 2)):
+        for shape, silu, n in (((2 * frames, c, h, h), False, 1), ((2 * frames, c, h, h), True, 2),
+                               ((2, c, frames, h, h), True, 2)):
             if eligible(shape, 32, 2):
                 rows[(shape, silu)] = rows.get((shape, silu), 0) + n
+    return rows
+
+
+I2V_FRAMES = 16
+
+
+def i2v_hybrid_rows(frames: int = I2V_FRAMES):
+    """The K3 hybrid shapes of the I2VGen-XL path with their launches per
+    controlled and per UNet-only step: the adapter's 13 temporal blocks
+    (b = 2 after CFG, c = 512, ia = the block's channels), each of which
+    ``dispatch_mode`` sends to "hybrid"; the I2VGen-XL UNet has no
+    ``TemporalBasicTransformerBlock``."""
+    from ctrl_adapter_tpu_torch.models import adapter as ad
+    from ctrl_adapter_tpu_torch.ops.fused_temporal import dispatch_mode
+
+    inner = ad._INNER_HEADS * 64
+    rows = {}
+    for c, h in adapter_blocks():
+        key = (2, frames, h * h, inner, c)
+        if dispatch_mode(*key, 4 * inner, torch.bfloat16) == "hybrid":
+            rows.setdefault(key, {"where": "I2VGen-XL adapter", "controlled": 0,
+                                  "unet_only": 0})["controlled"] += 1
+    return rows
+
+
+def i2v_flash_rows(latent: int = SIZE // 8, frames: int = I2V_FRAMES):
+    """The K2 shapes (B, N, T, H) of the I2VGen-XL path with their launches
+    per controlled and per UNet-only step: the flash-eligible spatial
+    self-attentions of the UNet's cross-attention down and up blocks (heads =
+    channels // 64) and of the adapter's spatial transformers (heads = the
+    block's channels // 64), at B = 2 x frames after CFG."""
+    from ctrl_adapter_tpu_torch.models.unet_i2vgen import I2VGenXLUNetConfig
+    from ctrl_adapter_tpu_torch.ops.flash_attention import flash_eligible
+
+    cfg = I2VGenXLUNetConfig()
+    hd, n = cfg.attention_head_dim, len(cfg.block_out_channels)
+    rows = {}
+
+    def add(channels, size, count, unet):
+        t = size * size
+        if flash_eligible(t, t, hd):
+            row = rows.setdefault((2 * frames, channels // hd, t, hd),
+                                  {"controlled": 0, "unet_only": 0})
+            row["controlled"] += count
+            row["unet_only"] += count if unet else 0
+
+    for i in range(n - 1):  # CrossAttnDownBlock3D at levels 0 .. n-2
+        add(cfg.block_out_channels[i], latent >> i, cfg.layers_per_block, True)
+    rev = cfg.block_out_channels[::-1]
+    for j in range(1, n):  # CrossAttnUpBlock3D after the first up block
+        add(rev[j], latent >> (n - 1 - j), cfg.layers_per_block + 1, True)
+    for c, h in adapter_blocks(latent):
+        add(c, h, 1, False)
     return rows
 
 
@@ -403,26 +478,37 @@ def per_step_total(name, rows, key):
 
 def kernel_times(fn, iters: int = 5):
     """Device ms per call of each CUDA kernel ``fn()`` launches, from
-    ``torch.profiler``; a run in which the profiler recorded no device time
-    (it happens now and then for short runs) is made again, up to three
-    runs, then None."""
+    ``torch.profiler``. One profiled call gives each kernel's launches per
+    call; a run of ``iters`` calls counts only if the profiler recorded
+    exactly ``iters`` times as many launches of every kernel, and each
+    kernel's time per call is then its total over ``iters``. The profiler was
+    seen to record no device time for a short run, and late in a long one to
+    keep the events of only some of the calls: such a run is made again, up
+    to three times, then None."""
     from torch.profiler import ProfilerActivity, profile
+
+    def profiled(n):
+        """{kernel name: [µs, launches]} of ``n`` calls."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            if ev.self_device_time_total > 0:
+                name = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
+                t = out.setdefault(name, [0.0, 0])
+                t[0] += ev.self_device_time_total
+                t[1] += ev.count
+        return out
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        times = {}
-        for ev in prof.key_averages():
-            us = ev.self_device_time_total
-            if us > 0:
-                name = ev.key.replace("(anonymous namespace)::", "").split("(")[0]
-                times[name] = times.get(name, 0.0) + us / 1000 / iters
-        if times:
-            return times
+        once, run = profiled(1), profiled(iters)
+        if once and run.keys() == once.keys() and all(
+                run[name][1] == iters * once[name][1] for name in run):
+            return {name: us / 1000 / iters for name, (us, _) in run.items()}
     return None
 
 
@@ -650,14 +736,163 @@ def check_kernel_grads(dev, card, rand):
                     rtol=1e-2, rel_norm=1e-2)
 
 
+def k1_row(rand, flush, shape, silu, n, flat=False):
+    """K1 against its plain version at ``shape`` (bf16, G = 32, eps 1e-6; with
+    ``flat`` half the groups near-constant), timed beside its bound, its plain
+    version and the PyTorch call(s) for the same function, on host and device
+    time; ``n`` launches per controlled step."""
+    import torch.nn.functional as F
+
+    from ctrl_adapter_tpu_torch.ops import group_norm as gn
+    from ctrl_adapter_tpu_torch.ops import roofline as rl
+
+    label = (f"({','.join(map(str, shape))})" + (" silu" if silu else "")
+             + (" near-constant groups" if flat else ""))
+    x = rand(*shape)
+    if flat:  # half the groups: 0.1 + 1e-4 noise, variance far below eps
+        x[:, : shape[1] // 2] = 0.1 + 1e-4 * x[:, : shape[1] // 2]
+    x = x.to(torch.bfloat16)
+    w = (1.0 + rand(shape[1], scale=0.1)).to(torch.bfloat16)
+    b = rand(shape[1], scale=0.1).to(torch.bfloat16)
+    got = gn.group_norm_silu(x, w, b, 32, 1e-6, silu)
+    want = gn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu)
+    torch.cuda.synchronize()
+    err = compare(f"K1 {label} ({n} per adapter call)", got, want, atol=1e-2, rtol=1e-2)
+    ms = cuda_ms(lambda: gn.group_norm_silu(x, w, b, 32, 1e-6, silu))
+    pms = cuda_ms(lambda: gn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu))
+    library = {"F.group_norm": cuda_ms(lambda: F.group_norm(x, 32, w, b, 1e-6))}
+    if silu:  # two calls: no single PyTorch call computes GroupNorm + SiLU
+        library["F.silu(F.group_norm)"] = cuda_ms(
+            lambda: F.silu(F.group_norm(x, 32, w, b, 1e-6)))
+    row = report(label, err, ms, pms, rl.group_norm(shape, silu), library, not silu)
+    # device time apart from the host's: the kernel against the yardstick
+    # it must not lose to (F.group_norm; with SiLU, F.silu(F.group_norm))
+    kernel_dev = device_times(lambda: gn.group_norm_silu(x, w, b, 32, 1e-6, silu), flush)
+    yard = list(library)[-1]
+    yard_dev = device_times(
+        (lambda: F.silu(F.group_norm(x, 32, w, b, 1e-6))) if silu
+        else (lambda: F.group_norm(x, 32, w, b, 1e-6)), flush)
+    bound = row["bound_ms"]
+    for what, k, y in zip(("warm L2", "cold L2"), kernel_dev, yard_dev):
+        share = "" if k is None else f", kernel at {100 * bound / k:.1f} % of the bound"
+        verdict = ("" if k is None or y is None
+                   else "; no slower: met" if k <= y else "; no slower: NOT met")
+        print(f"    device, {what}: kernel {fmt_ms(k)}, {yard} {fmt_ms(y)}{share}{verdict}")
+    row.update(controlled=n, device_ms=kernel_dev[0], cold_ms=kernel_dev[1],
+               library_device_ms=yard_dev[0], library_cold_ms=yard_dev[1])
+    return row
+
+
+def k2_row(rand, shape, flush=None):
+    """K2 against its plain version at (B, N, T, 64) on head-split views of
+    (B, T, N*H) projections, as the Attention module passes them, timed beside
+    its bound, its plain version and SDPA; with ``flush``, also on device
+    time, warm and with L2 cold."""
+    from ctrl_adapter_tpu_torch.ops import flash_attention as fa
+    from ctrl_adapter_tpu_torch.ops import roofline as rl
+
+    b_, n_, t_, h_ = shape
+    q, k, v = (rand(b_, t_, n_ * h_).to(torch.bfloat16).view(b_, t_, n_, h_).transpose(1, 2)
+               for _ in range(3))
+    got = fa.attention_bnth(q, k, v)
+    # the plain version runs the batch in chunks of ~1 GiB of fp32 logits
+    want = fa._torch_attention(q, k, v)
+    torch.cuda.synchronize()
+    # the outputs average T keys (std ~0.03 here), far below atol: the norm
+    # check catches a K/V tile that is skipped or read from the wrong slot
+    label = f"({b_},{n_},{t_},{h_})"
+    err = compare(f"K2 {label}", got, want, atol=1e-2, rtol=2e-2, rel_norm=1e-2)
+    ms = cuda_ms(lambda: fa.attention_bnth(q, k, v))
+    pms = cuda_ms(lambda: fa._torch_attention(q, k, v), iters=3, reps=3, warmup=1)
+    row = report(label, err, ms, pms, rl.attention(b_, n_, t_, t_, h_), sdpa_times(q, k, v))
+    if flush is not None:
+        device_line(row, lambda: fa.attention_bnth(q, k, v), flush)
+    return row
+
+
+def hybrid_row(rand, flush, label, dims, n_ctrl, n_unet):
+    """K3 hybrid against its plain version at dims = (b, f, s, c, heads), with a
+    cross bias (the output, the block's update and both against an fp32 run),
+    timed beside its bound and its plain version, its two launches apart on
+    device time, warm and with L2 cold; ``n_ctrl`` and ``n_unet`` launches per
+    controlled and per UNet-only step."""
+    from ctrl_adapter_tpu_torch.ops import fused_temporal as ft
+    from ctrl_adapter_tpu_torch.ops import roofline as rl
+
+    bf = torch.bfloat16
+    b_, f_, s_, c_, heads = dims
+    ia = heads * 64
+    x = rand(b_, f_, s_, c_).to(bf)
+    cb = rand(b_, s_, c_, scale=0.5).to(bf)
+    args = ((1.0 + rand(c_, scale=0.1)).to(bf), rand(c_, scale=0.1).to(bf),
+            rand(ia, c_, scale=c_ ** -0.5).to(bf), rand(ia, c_, scale=c_ ** -0.5).to(bf),
+            rand(ia, c_, scale=c_ ** -0.5).to(bf), rand(c_, ia, scale=ia ** -0.5).to(bf),
+            rand(c_, scale=0.1).to(bf), heads, 1e-5)
+    got = ft.temporal_block(x, cb, *args)
+    want = ft._torch_temporal_block(x, cb, *args)
+    torch.cuda.synchronize()
+    err = compare(f"K3 {label} ({n_ctrl} per controlled step, {n_unet} per UNet-only step)",
+                  got, want, atol=3e-2, rtol=2e-2)
+    # the residual x dominates the output, so a skipped head could hide under
+    # the atol: the update alone is held to a relative norm
+    update_check(f"K3 {label}", got, want, x, cb)
+    fp32_check(f"K3 {label}", got, want, ft._torch_temporal_block(x.float(), cb.float(),
+                                                                 *to_fp32(args)))
+    ms = cuda_ms(lambda: ft.temporal_block(x, cb, *args))
+    pms = cuda_ms(lambda: ft._torch_temporal_block(x, cb, *args))
+    split = kernel_times(lambda: ft.temporal_block(x, cb, *args))
+    print("    launches: " + ("not measured (no device time from torch.profiler)" if split is None
+                              else ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())))
+    row = report(label, err, ms, pms, rl.temporal_block(b_, f_, s_, c_, ia, True))
+    warm = None if split is None else sum(split.values())
+    cold = cold_ms(lambda: ft.temporal_block(x, cb, *args), flush)
+    print(f"    device: kernel {fmt_ms(warm)} warm L2, {fmt_ms(cold)} cold L2, at "
+          f"{100 * row['bound_ms'] / cold:.1f} % of the bound (cold)")
+    row.update(controlled=n_ctrl, unet_only=n_unet, split=split, device_ms=warm, cold_ms=cold)
+    return row
+
+
+def check_i2vgenxl_kernels(dev, card):
+    """Phase 3 at the I2VGen-XL path's shapes (16 frames, b*f = 32): K1 at the
+    adapter's norms the JAX rule admits, K2 at the UNet's and the adapter's
+    flash-eligible self-attentions, K3 hybrid at the adapter's 13 temporal
+    blocks (f = 16: the tiles hold no padded frame row), and at 4 key frames
+    of a sparse-frame run; per-step sums of each. Returns the rows by kernel."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rand = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    print(f"I2VGen-XL shapes: K1 group_norm_silu (bf16, G=32, eps 1e-6) on {card}")
+    k1 = [k1_row(rand, flush, shape, silu, n)
+          for (shape, silu), n in k1_rows(I2V_FRAMES).items()]
+    per_step_total("K1 (I2VGen-XL)", k1, "controlled")
+    print(f"I2VGen-XL shapes: K2 flash attention (bf16, fp32 softmax) on {card}")
+    k2 = []
+    for shape, r in i2v_flash_rows().items():
+        row = k2_row(rand, shape, flush)
+        row.update(controlled=r["controlled"], unet_only=r["unet_only"])
+        print(f"    {r['controlled']} per controlled step, {r['unet_only']} per UNet-only step")
+        k2.append(row)
+    per_step_total("K2 (I2VGen-XL)", k2, "controlled")
+    per_step_total("K2 (I2VGen-XL)", k2, "unet_only")
+    print(f"I2VGen-XL shapes: K3 temporal attention block (bf16, head_dim 64, cross bias) "
+          f"on {card}")
+    k3 = [hybrid_row(rand, flush, f"{r['where']} ({b_},{f_},{s_},{c_}) ia={ia}",
+                     (b_, f_, s_, c_, ia // 64), r["controlled"], 0)
+          for (b_, f_, s_, c_, ia), r in i2v_hybrid_rows().items()]
+    per_step_total("K3 hybrid (I2VGen-XL)", k3, "controlled")
+    # sparse frames: the adapter runs at the key frames' count
+    k3 += [hybrid_row(rand, flush, f"sparse f=4 ({b_},4,{s_},{c_}) ia={ia}",
+                      (b_, 4, s_, c_, ia // 64), 0, 0)
+           for (b_, _, s_, c_, ia) in list(i2v_hybrid_rows(4))[:3]]
+    return {"group_norm_silu": k1, "flash_attention": k2, "temporal_block": k3}
+
+
 def check_kernels(dev, card):
     import torch.nn.functional as F
 
-    from ctrl_adapter_tpu_torch.ops import flash_attention as fa
     from ctrl_adapter_tpu_torch.ops import fused_block as fb
     from ctrl_adapter_tpu_torch.ops import fused_ff as ff
     from ctrl_adapter_tpu_torch.ops import fused_temporal as ft
-    from ctrl_adapter_tpu_torch.ops import group_norm as gn
     from ctrl_adapter_tpu_torch.ops import roofline as rl
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -671,65 +906,16 @@ def check_kernels(dev, card):
     # PyTorch call for the same function.
     print(f"K1 group_norm_silu (bf16, G=32, eps 1e-6) on {card}")
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    k1 = []
     cases = [(shape, silu, n, False) for (shape, silu), n in k1_rows().items()]
     cases.append(((28, 320, 64, 64), False, 0, True))
-    for shape, silu, n, flat in cases:
-        label = (f"({','.join(map(str, shape))})" + (" silu" if silu else "")
-                 + (" near-constant groups" if flat else ""))
-        x = rand(*shape)
-        if flat:  # half the groups: 0.1 + 1e-4 noise, variance far below eps
-            x[:, : shape[1] // 2] = 0.1 + 1e-4 * x[:, : shape[1] // 2]
-        x = x.to(bf)
-        w, b = (1.0 + rand(shape[1], scale=0.1)).to(bf), rand(shape[1], scale=0.1).to(bf)
-        got = gn.group_norm_silu(x, w, b, 32, 1e-6, silu)
-        want = gn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu)
-        torch.cuda.synchronize()
-        err = compare(f"K1 {label} ({n} per adapter call)", got, want, atol=1e-2, rtol=1e-2)
-        ms = cuda_ms(lambda: gn.group_norm_silu(x, w, b, 32, 1e-6, silu))
-        pms = cuda_ms(lambda: gn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu))
-        library = {"F.group_norm": cuda_ms(lambda: F.group_norm(x, 32, w, b, 1e-6))}
-        if silu:  # two calls: no single PyTorch call computes GroupNorm + SiLU
-            library["F.silu(F.group_norm)"] = cuda_ms(
-                lambda: F.silu(F.group_norm(x, 32, w, b, 1e-6)))
-        row = report(label, err, ms, pms, rl.group_norm(shape, silu), library, not silu)
-        # device time apart from the host's: the kernel against the yardstick
-        # it must not lose to (F.group_norm; with SiLU, F.silu(F.group_norm))
-        kernel_dev = device_times(lambda: gn.group_norm_silu(x, w, b, 32, 1e-6, silu), flush)
-        yard = list(library)[-1]
-        yard_dev = device_times(
-            (lambda: F.silu(F.group_norm(x, 32, w, b, 1e-6))) if silu
-            else (lambda: F.group_norm(x, 32, w, b, 1e-6)), flush)
-        bound = row["bound_ms"]
-        for what, k, y in zip(("warm L2", "cold L2"), kernel_dev, yard_dev):
-            share = "" if k is None else f", kernel at {100 * bound / k:.1f} % of the bound"
-            verdict = ("" if k is None or y is None
-                       else "; no slower: met" if k <= y else "; no slower: NOT met")
-            print(f"    device, {what}: kernel {fmt_ms(k)}, {yard} {fmt_ms(y)}{share}{verdict}")
-        row.update(controlled=n, device_ms=kernel_dev[0], cold_ms=kernel_dev[1],
-                   library_device_ms=yard_dev[0], library_cold_ms=yard_dev[1])
-        k1.append(row)
+    k1 = [k1_row(rand, flush, *case) for case in cases]
     per_step_total("K1", k1, "controlled")
     results["group_norm_silu"] = k1
 
     # K2: self-attention of the UNet and adapter spatial blocks, H = 64, on
     # head-split views of (B, T, N*H) projections as the Attention module passes.
     print(f"K2 flash attention (bf16, fp32 softmax) on {card}")
-    k2 = []
-    for b_, n_, t_ in ((28, 5, 4096), (28, 10, 1024)):
-        q, k, v = (rand(b_, t_, n_ * 64).to(bf).view(b_, t_, n_, 64).transpose(1, 2)
-                   for _ in range(3))
-        got = fa.attention_bnth(q, k, v)
-        # the plain version runs the batch in chunks of ~1 GiB of fp32 logits
-        want = fa._torch_attention(q, k, v)
-        torch.cuda.synchronize()
-        # the outputs average T keys (std ~0.03 here), far below atol: the norm
-        # check catches a K/V tile that is skipped or read from the wrong slot
-        err = compare(f"K2 ({b_},{n_},{t_},64)", got, want, atol=1e-2, rtol=2e-2, rel_norm=1e-2)
-        ms = cuda_ms(lambda: fa.attention_bnth(q, k, v))
-        pms = cuda_ms(lambda: fa._torch_attention(q, k, v), iters=3, reps=3, warmup=1)
-        k2.append(report(f"({b_},{n_},{t_},64)", err, ms, pms,
-                         rl.attention(b_, n_, t_, t_, 64), sdpa_times(q, k, v)))
+    k2 = [k2_row(rand, (b_, n_, t_, 64)) for b_, n_, t_ in ((28, 5, 4096), (28, 10, 1024))]
     results["flash_attention"] = k2
     results["flash_attention_bwd"] = check_flash_bwd(dev, card, rand, flush)
     check_kernel_grads(dev, card, rand)
@@ -739,42 +925,12 @@ def check_kernels(dev, card):
     # rows the wrapper takes but the dispatch sends elsewhere (UNet level 0,
     # c = 1280)
     print(f"K3 temporal attention block (bf16, f=14, head_dim 64, cross bias) on {card}")
-    k3 = []
     cases = [(f"{r['where']} ({b_},{f_},{s_},{c_}) ia={ia}", (b_, f_, s_, c_, ia // 64),
               r["controlled"], r["unet_only"])
              for (b_, f_, s_, c_, ia), r in hybrid_rows().items()]
     cases += [("check L0 (2,14,4096,320) ia=320", (2, 14, 4096, 320, 5), 0, 0),
               ("check (2,14,64,1280) ia=1280", (2, 14, 64, 1280, 20), 0, 0)]
-    for label, (b_, f_, s_, c_, heads), n_ctrl, n_unet in cases:
-        ia = heads * 64
-        x = rand(b_, f_, s_, c_).to(bf)
-        cb = rand(b_, s_, c_, scale=0.5).to(bf)
-        args = ((1.0 + rand(c_, scale=0.1)).to(bf), rand(c_, scale=0.1).to(bf),
-                rand(ia, c_, scale=c_ ** -0.5).to(bf), rand(ia, c_, scale=c_ ** -0.5).to(bf),
-                rand(ia, c_, scale=c_ ** -0.5).to(bf), rand(c_, ia, scale=ia ** -0.5).to(bf),
-                rand(c_, scale=0.1).to(bf), heads, 1e-5)
-        got = ft.temporal_block(x, cb, *args)
-        want = ft._torch_temporal_block(x, cb, *args)
-        torch.cuda.synchronize()
-        err = compare(f"K3 {label} ({n_ctrl} per controlled step, {n_unet} per UNet-only step)",
-                      got, want, atol=3e-2, rtol=2e-2)
-        # the residual x dominates the output, so a skipped head could hide under
-        # the atol: the update alone is held to a relative norm
-        update_check(f"K3 {label}", got, want, x, cb)
-        fp32_check(f"K3 {label}", got, want, ft._torch_temporal_block(x.float(), cb.float(),
-                                                                     *to_fp32(args)))
-        ms = cuda_ms(lambda: ft.temporal_block(x, cb, *args))
-        pms = cuda_ms(lambda: ft._torch_temporal_block(x, cb, *args))
-        split = kernel_times(lambda: ft.temporal_block(x, cb, *args))
-        print("    launches: " + ("not measured (no device time from torch.profiler)" if split is None
-                                  else ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())))
-        row = report(label, err, ms, pms, rl.temporal_block(b_, f_, s_, c_, ia, True))
-        warm = None if split is None else sum(split.values())
-        cold = cold_ms(lambda: ft.temporal_block(x, cb, *args), flush)
-        print(f"    device: kernel {fmt_ms(warm)} warm L2, {fmt_ms(cold)} cold L2, at "
-              f"{100 * row['bound_ms'] / cold:.1f} % of the bound (cold)")
-        row.update(controlled=n_ctrl, unet_only=n_unet, split=split, device_ms=warm, cold_ms=cold)
-        k3.append(row)
+    k3 = [hybrid_row(rand, flush, *case) for case in cases]
     per_step_total("K3 hybrid", k3, "controlled")
     per_step_total("K3 hybrid", k3, "unet_only")
     results["temporal_block"] = k3
@@ -915,6 +1071,17 @@ def slice_inputs(dev, dtype, frames, size, seed):
 
 
 @contextlib.contextmanager
+def swapped(module, name, make):
+    """``module.name`` replaced by ``make(module.name)`` inside the block."""
+    wrapper = getattr(module, name)
+    setattr(module, name, make(wrapper))
+    try:
+        yield
+    finally:
+        setattr(module, name, wrapper)
+
+
+@contextlib.contextmanager
 def plain_kernels():
     """Swap each kernel wrapper in its ops module for its plain version (the
     modules call the wrappers through those modules), for the reference runs."""
@@ -930,28 +1097,18 @@ def plain_kernels():
              (ft, "temporal_block_full", ft._torch_temporal_block),
              (fb, "ln_ff_kernel", fb._torch_ln_ff_residual),
              (ff, "geglu_kernel", ff._torch_geglu)]
-    saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
-    for module, name, plain in swaps:
-        setattr(module, name, plain)
-    try:
+    with contextlib.ExitStack() as stack:
+        for module, name, plain in swaps:
+            stack.enter_context(swapped(module, name, lambda _, plain=plain: plain))
         yield
-    finally:
-        for module, name, wrapper in saved:
-            setattr(module, name, wrapper)
 
 
-@contextlib.contextmanager
 def k1_everywhere():
     """The K1 dispatch before the repair: every norm that asks for K1 takes it,
     whatever its size (the JAX shape rule switched off)."""
     from ctrl_adapter_tpu_torch.ops import group_norm as gn
 
-    saved = gn.eligible
-    gn.eligible = lambda *args: True
-    try:
-        yield
-    finally:
-        gn.eligible = saved
+    return swapped(gn, "eligible", lambda _: lambda *args: True)
 
 
 @contextlib.contextmanager
@@ -968,8 +1125,8 @@ def env_switch(name: str):
             os.environ[name] = saved
 
 
-def check_video(video, label):
-    if tuple(video.shape) != (1, FRAMES, SIZE, SIZE, 3):
+def check_video(video, label, frames=FRAMES):
+    if tuple(video.shape) != (1, frames, SIZE, SIZE, 3):
         raise RuntimeError(f"{label}: video shape {tuple(video.shape)}")
     vf = video.float()
     if not torch.isfinite(vf).all():
@@ -994,23 +1151,25 @@ def drive(pipe, inputs, kw, kernels, steps):
 
 
 @contextlib.contextmanager
-def launches_per_step(pipe, kernel):
-    """Count ``kernel``'s launches in each denoise step of the runs inside:
-    yields a list that gets, per step, (whether the step ran the ControlNet,
-    the launches in the step). A step starts at the first tower call after
-    the previous step's UNet call and ends with its own."""
+def launches_per_step(pipe, kernels):
+    """Count the launches of each of ``kernels`` (name: counter) in each
+    denoise step of the runs inside: yields a list that gets, per step,
+    (whether the step ran the ControlNet, {name: launches in the step}). A
+    step starts at the first tower call after the previous step's UNet call
+    and ends with its own."""
     steps, state = [], {"mark": None, "controlled": False}
 
     def start(*_):
         if state["mark"] is None:
-            state.update(mark=kernel.launches, controlled=False)
+            state.update(mark={n: k.launches for n, k in kernels.items()}, controlled=False)
 
     def controlnet(*_):
         start()
         state["controlled"] = True
 
     def unet_done(*_):
-        steps.append((state["controlled"], kernel.launches - state["mark"]))
+        steps.append((state["controlled"],
+                      {n: k.launches - state["mark"][n] for n, k in kernels.items()}))
         state["mark"] = None
 
     handles = [pipe.controlnet.register_forward_pre_hook(controlnet),
@@ -1032,20 +1191,23 @@ def ms_per_step(pipe, inputs, kw, steps):
     return 1000 * (time.perf_counter() - t0) / steps, latents
 
 
-def reference_check(pipe, dev, label):
-    """On a small input, the bf16 kernel path and the bf16 plain path, each
-    against the same weights in fp32 through the plain path."""
-    bf = torch.bfloat16
-    small = slice_inputs(dev, bf, 4, 256, SEED + 2)
-    skw = dict(height=256, width=256, num_frames=4, num_inference_steps=2, skip_conv_in=True,
-               control_latent_size=32, device=dev, output_type="latent")
+def fp32_copy(pipe):
+    """A copy of ``pipe`` whose towers are float32 copies of its own."""
+    ref = copy.copy(pipe)
+    for name in ("unet", "controlnet", "adapter", "vae", "router"):
+        if getattr(pipe, name, None) is not None:
+            setattr(ref, name, copy.deepcopy(getattr(pipe, name)).float())
+    return ref
+
+
+def reference_check(pipe, label, small, skw):
+    """On a small input (``small``, ``skw``: 4 frames at 256x256, 2 steps, the
+    latents), the bf16 kernel path and the bf16 plain path, each against an
+    fp32 run of the plain path with the same weights."""
     got = pipe.generate(**small, **skw)
     with plain_kernels():
         plain = pipe.generate(**small, **skw)
-        ref_pipe = type(pipe)(*(copy.deepcopy(m).float() for m in
-                                (pipe.unet, pipe.controlnet, pipe.adapter, pipe.vae)))
-        ref = ref_pipe.generate(**small, **skw)
-    del ref_pipe
+        ref = fp32_copy(pipe).generate(**small, **skw)
     torch.cuda.synchronize()
     scale = ref.abs().max()
     err_k = ((got - ref).abs().max() / scale).item()
@@ -1139,13 +1301,17 @@ def run_slices(dev, card, kernels):
     print(f"slice on {card}: the K1 repair's cost, {STEPS} steps in turns (host; device busy): "
           + "; ".join(f"{rule} " + ", ".join(f"{h:.1f}; {d:.1f}" for h, d in ts) + " ms/step"
                       for rule, ts in rule_ms.items()))
-    reference_check(pipe, dev, "slice")
+    small = slice_inputs(dev, bf, 4, 256, SEED + 2)
+    skw = dict(height=256, width=256, num_frames=4, num_inference_steps=2, skip_conv_in=True,
+               control_latent_size=32, device=dev, output_type="latent")
+    reference_check(pipe, "slice", small, skw)
 
     # phase 5, the fused-block configuration (K4 on the 320-wide FFs)
     fb_steps = 2
     with env_switch("CTRL_ADAPTER_FUSED_BLOCK"):
-        with launches_per_step(pipe, kernels["ln_ff_residual"]) as k4_steps:
+        with launches_per_step(pipe, {"ln_ff_residual": kernels["ln_ff_residual"]}) as steps:
             video, launches_fb, t_fb = drive(pipe, inputs, kw, kernels, fb_steps)
+        k4_steps = [(controlled, n["ln_ff_residual"]) for controlled, n in steps]
         print(f"fused-block slice: launches during the run {launches_fb}; K4's per step "
               f"(controlled, launches) {k4_steps}")
         k4_per_step = {}
@@ -1166,7 +1332,7 @@ def run_slices(dev, card, kernels):
             raise RuntimeError(f"K4 launched {launches_fb['ln_ff_residual']} times, want "
                                f"{5 * fb_steps + 2 * (hi - lo)} (the JAX rule's 320-wide FFs)")
         fused_ms, _ = ms_per_step(pipe, inputs, kw, fb_steps)
-        reference_check(pipe, dev, "fused-block slice")
+        reference_check(pipe, "fused-block slice", small, skw)
     default_ms, _ = ms_per_step(pipe, inputs, kw, fb_steps)
     print(f"fused-block slice on {card}: {fb_steps} steps (control window covers {hi - lo}), "
           f"first generate() {t_fb:.3f} s; denoise {fused_ms:.1f} ms/step with "
@@ -1386,6 +1552,360 @@ def run_training(dev, card, kernels):
     return launches
 
 
+I2V_STEPS = 4        # DDIM steps of the depth run: 3 inside the control window (end 0.8)
+I2V_MULTI_STEPS = 2  # of the multi-condition run (end 1.0: both controlled)
+I2V_EXPERTS, I2V_ACTIVE = 7, 2
+
+
+def build_i2vgenxl(dev, dtype, num_experts):
+    """The I2VGen-XL towers at the full width of the JAX bench's
+    ``i2vgenxl_depth`` / ``i2vgenxl_multi`` (``bench.py:349-424``): the UNet
+    (320/640/1280/1280, cross 1024), ``num_experts`` SD-v1.5 ControlNets, the
+    13-block adapter (A-D + M, one block each, temporal ResNet and
+    transformer), the 2D VAE, in ``dtype``, and a simple-weights router
+    (float32), all with weights drawn on the card from a seeded generator:
+    scale 0.02 for the towers, 1 for the router's gates (their init)."""
+    from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+    from ctrl_adapter_tpu_torch.models.controlnet import ControlNetModel
+    from ctrl_adapter_tpu_torch.models.router import ControlNetRouter
+    from ctrl_adapter_tpu_torch.models.unet_i2vgen import I2VGenXLUNet
+    from ctrl_adapter_tpu_torch.models.vae import AutoencoderKL
+
+    kw = dict(device=dev, dtype=dtype)
+    unet = I2VGenXLUNet(**kw)
+    nets = [ControlNetModel(**kw) for _ in range(num_experts)]
+    adapter = ControlNetAdapter(cross_attention_dim=1024, num_blocks=1,
+                                adapter_locations=("A", "B", "C", "D", "M"),
+                                add_temporal_resnet=True, add_temporal_transformer=True, **kw)
+    vae = AutoencoderKL(**kw)
+    router = ControlNetRouter(num_experts, "simple_weights", device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    n_params = 0
+    with torch.no_grad():
+        for module, scale in ((unet, 0.02), *((n, 0.02) for n in nets), (adapter, 0.02),
+                              (vae, 0.02), (router, 1.0)):
+            module.eval()
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) * scale)
+                n_params += p.numel()
+    return unet, nets, adapter, vae, router, n_params
+
+
+def i2v_inputs(dev, dtype, experts, frames, size, seed):
+    """Prompt (2, 77, 1024), ControlNet prompt (2, 77, 768), CLIP image
+    embedding (1, 1, 1024), first-frame latent, ``experts`` condition videos
+    in [0, 1] and the initial latents, from a seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, scale: (torch.randn(*s, generator=g, device=dev) * scale).to(dtype)  # noqa: E731
+    lat = size // 8
+    return dict(prompt_embeds=r(2, 77, 1024, scale=0.02),
+                controlnet_prompt_embeds=r(2, 77, 768, scale=0.02),
+                image_embeddings=r(1, 1, 1024, scale=0.1),
+                first_frame_latent=r(1, lat, lat, 4, scale=0.1),
+                control_images=torch.rand(experts, frames, size, size, 3, generator=g,
+                                          device=dev).to(dtype),
+                latents=torch.randn(1, frames, lat, lat, 4, generator=g, device=dev))
+
+
+def i2v_launches(controlled: int, unet_only: int):
+    """Each kernel's launches in a run of the I2VGen-XL path at full width with
+    ``controlled`` and ``unet_only`` steps, from the model configs and the
+    JAX dispatch (``k1_rows``, ``i2v_flash_rows``, ``i2v_hybrid_rows``): one
+    adapter call per controlled step whatever the number of experts."""
+    k2 = i2v_flash_rows().values()
+    return dict(group_norm_silu=sum(k1_rows(I2V_FRAMES).values()) * controlled,
+                flash_attention=sum(r["controlled"] for r in k2) * controlled
+                + sum(r["unet_only"] for r in k2) * unet_only,
+                temporal_block=sum(r["controlled"] for r in i2v_hybrid_rows().values())
+                * controlled, temporal_block_full=0, ln_ff_residual=0, geglu=0,
+                flash_attention_bwd=0)
+
+
+def tower_ms(modules, run):
+    """ms of each call of each module (name: module) during ``run()``, from
+    CUDA events recorded by forward hooks."""
+    events, handles = {}, []
+    for name, module in modules.items():
+        def pre(*_, name=name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.setdefault(name, []).append([ev, None])
+
+        def post(*_, name=name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events[name][-1][1] = ev
+
+        handles += [module.register_forward_pre_hook(pre), module.register_forward_hook(post)]
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    return {name: [a.elapsed_time(b) for a, b in evs] for name, evs in events.items()}
+
+
+def check_i2v_steps(label, steps, want_steps):
+    """Each step's launches against ``i2v_launches`` of one step of its kind."""
+    if len(steps) != want_steps:
+        raise RuntimeError(f"{label}: {len(steps)} steps seen, want {want_steps}")
+    for controlled, counts in steps:
+        want = i2v_launches(1, 0) if controlled else i2v_launches(0, 1)
+        if counts != want:
+            raise RuntimeError(f"{label}: launches in a {'controlled' if controlled else 'UNet-only'}"
+                               f" step {counts}, want (JAX dispatch) {want}")
+    kinds = sorted({c for c, _ in steps}, reverse=True)
+    print(f"{label}: launches per step as the JAX dispatch gives them: "
+          + "; ".join(f"{'controlled' if c else 'UNet-only'} step "
+                      f"{ {k: v for k, v in i2v_launches(int(c), int(not c)).items() if v} }"
+                      for c in kinds))
+
+
+def faulty_kernels():
+    """Faults of the I2VGen-XL path's kernels that its reference check must
+    see, each a wrapper around the kernel's own (label: context manager): K1
+    that drops its SiLU, K2 that leaves head 0 out, K3 hybrid that returns
+    its input."""
+    from ctrl_adapter_tpu_torch.ops import flash_attention as fa
+    from ctrl_adapter_tpu_torch.ops import fused_temporal as ft
+    from ctrl_adapter_tpu_torch.ops import group_norm as gn
+
+    def no_silu(k1):
+        return lambda x, w, b, groups, eps, silu: k1(x, w, b, groups, eps, False)
+
+    def no_head_0(k2):
+        def run(q, k, v):
+            out = k2(q, k, v).clone()
+            out[:, 0] = 0
+            return out
+        return run
+
+    return {"K1 without its SiLU": swapped(gn, "group_norm_silu", no_silu),
+            "K2 without head 0": swapped(fa, "attention_bnth", no_head_0),
+            "K3 hybrid returning its input":
+                swapped(ft, "temporal_block", lambda k3: lambda x, *_: x.clone())}
+
+
+def i2v_step_outputs(pipe, kwargs):
+    """``pipe.generate(**kwargs)`` with forward hooks that keep the first
+    controlled step's adapter outputs (its down residuals, then the mid), the
+    UNet's output (both CFG halves) and the CFG-combined noise prediction
+    (with ``kwargs["guidance_scale"]``), as float32. The combination alone
+    would hide a fault: a change common to both halves passes it once, while
+    their independent rounding errors pass ~12 times (8 and 9 in quadrature
+    at guidance 9)."""
+    from ctrl_adapter_tpu_torch.pipelines.common import classifier_free_guidance
+
+    kept = {}
+
+    def adapter(_module, _args, out):
+        if "adapter" not in kept:
+            down, mid = out
+            kept["adapter"] = [d.float() for d in down] + ([] if mid is None else [mid.float()])
+
+    def unet(_module, _args, out):
+        if "adapter" in kept and "unet" not in kept:
+            kept["unet"] = out.float()
+            kept["noise"] = classifier_free_guidance(kept["unet"], kwargs["guidance_scale"])
+
+    handles = [pipe.adapter.register_forward_hook(adapter),
+               pipe.unet.register_forward_hook(unet)]
+    try:
+        pipe.generate(**kwargs)
+    finally:
+        for h in handles:
+            h.remove()
+    return kept["adapter"] + [kept["unet"], kept["noise"]]
+
+
+def i2v_reference_check(pipe, label, kwargs):
+    """The first controlled step of ``pipe.generate(**kwargs)`` on a small
+    input: its adapter outputs, UNet output and CFG-combined noise prediction
+    from the bf16 kernel path and from the bf16 plain path, each against an
+    fp32 run of the plain path with the same weights. Per tensor, two errors:
+    the max abs difference over the fp32 tensor's max abs, and the norm of
+    the difference over the fp32 tensor's norm (which sees a fault spread
+    over many values that rounding's largest error hides); the kernel path's
+    must be within 2x the plain path's, each. Then each fault of
+    ``faulty_kernels`` must fail that rule."""
+    got = i2v_step_outputs(pipe, kwargs)
+    with plain_kernels():
+        plain = i2v_step_outputs(pipe, kwargs)
+        ref = i2v_step_outputs(fp32_copy(pipe), kwargs)
+    torch.cuda.synchronize()
+    names = [f"adapter output {i}" for i in range(len(ref) - 2)] + ["UNet output", "noise"]
+    metrics = {"max": lambda d, r: d.abs().max() / r.abs().max(),
+               "norm": lambda d, r: torch.linalg.vector_norm(d) / torch.linalg.vector_norm(r)}
+
+    def errors(outs):
+        """{metric: [error per tensor]}."""
+        return {m: [fn(o - r, r).item() for o, r in zip(outs, ref)] for m, fn in metrics.items()}
+
+    err_p = errors(plain)
+
+    def worst(outs):
+        """The largest ratio of an error to 2x the plain path's, with its
+        metric and tensor."""
+        return max((e / max(2 * p, 1e-12), f"{m}, {n}") for m, errs in errors(outs).items()
+                   for e, p, n in zip(errs, err_p[m], names))
+
+    err_k, (ratio, _) = errors(got), worst(got)
+    print(f"{label} reference ({kwargs['num_frames']} frames at {kwargs['height']}x"
+          f"{kwargs['width']}, the first controlled step's {len(ref) - 2} adapter outputs, UNet "
+          f"output and CFG-combined noise prediction, errors relative to the fp32 tensor's):")
+    for m in metrics:
+        print(f"  {m}: bf16 kernel path {min(err_k[m]):.3e}..{max(err_k[m]):.3e}, bf16 plain "
+              f"path {min(err_p[m]):.3e}..{max(err_p[m]):.3e}; UNet {err_k[m][-2]:.3e} against "
+              f"{err_p[m][-2]:.3e}, noise {err_k[m][-1]:.3e} against {err_p[m][-1]:.3e}")
+    print(f"  largest kernel error / (2 x plain) {ratio:.3f} (tolerance 1)")
+    if not (all(torch.isfinite(o).all() for o in got) and ratio <= 1.0):
+        raise RuntimeError(f"{label}: kernel path is farther from the fp32 reference than allowed")
+    for fault, swap in faulty_kernels().items():
+        with swap:
+            bad, where = worst(i2v_step_outputs(pipe, kwargs))
+        print(f"  control, {fault}: largest error / (2 x plain) {bad:.3f} ({where}), "
+              f"{'fails' if bad > 1.0 else 'PASSES'} the check")
+        if bad <= 1.0:
+            raise RuntimeError(f"{label}: the reference check passes a kernel path with {fault}")
+
+
+def run_i2vgenxl(dev, card, kernels):
+    """Phase 9: the I2VGen-XL control path at full width: the depth
+    configuration (one ControlNet, I2V_STEPS DDIM steps, control window end
+    0.8, then the decode in chunks of 2) and the multi-condition one
+    (I2V_EXPERTS loaded, I2V_ACTIVE active by ``inference_expert_masks``, a
+    simple-weights router, end 1.0); returns the launch counts of both runs."""
+    from ctrl_adapter_tpu_torch.models.multicontrolnet import MultiControlNetModel
+    from ctrl_adapter_tpu_torch.pipelines.common import control_window
+    from ctrl_adapter_tpu_torch.pipelines.i2vgenxl import I2VGenXLControlNetAdapterPipeline
+
+    bf = torch.bfloat16
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    unet, nets, adapter, vae, router, n_params = build_i2vgenxl(dev, bf, I2V_EXPERTS)
+    torch.cuda.synchronize()
+    print(f"i2vgenxl: built the I2VGen-XL UNet, {I2V_EXPERTS} ControlNets, the adapter and the "
+          f"2D VAE, {n_params / 1e9:.3f} B params bf16 (UNet "
+          f"{sum(p.numel() for p in unet.parameters()) / 1e9:.3f} B), in "
+          f"{time.perf_counter() - t0:.1f} s")
+    depth = I2VGenXLControlNetAdapterPipeline(unet, nets[0], adapter, vae)
+    inputs = i2v_inputs(dev, bf, 1, I2V_FRAMES, SIZE, SEED + 11)
+    kw = dict(height=SIZE, width=SIZE, num_frames=I2V_FRAMES, guidance_scale=9.0,
+              control_guidance_end=0.8, control_latent_size=SIZE // 8)
+
+    # the depth configuration: the main path run, launches counted per step
+    torch.cuda.reset_peak_memory_stats()
+    with launches_per_step(depth, kernels) as steps:
+        video, launches, t_first = drive(depth, inputs, kw, kernels, I2V_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"i2vgenxl depth: launches during the run {launches}")
+    check_video(video, "i2vgenxl depth", I2V_FRAMES)
+    lo, hi = control_window(I2V_STEPS, 0.0, 0.8)
+    want = i2v_launches(hi - lo, I2V_STEPS - (hi - lo))
+    if launches != want:
+        raise RuntimeError(f"i2vgenxl depth: launches {launches}, want (JAX dispatch) {want}")
+    check_i2v_steps("i2vgenxl depth", steps, I2V_STEPS)
+
+    def steps_ms(end, n=I2V_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        latents = depth.generate(**inputs, **{**kw, "control_guidance_end": end},
+                                 num_inference_steps=n, output_type="latent")
+        torch.cuda.synchronize()
+        return 1000 * (time.perf_counter() - t1) / n, latents
+
+    per_kind = {"controlled": [], "UNet-only": []}
+    for kind in ("controlled", "UNet-only", "UNet-only", "controlled"):  # in turns
+        per_kind[kind].append(steps_ms(1.0 if kind == "controlled" else 0.0)[0])
+    activity = {kind: device_activity(lambda end=end: steps_ms(end, 2))
+                for kind, end in (("controlled", 1.0), ("UNet-only", 0.0))}
+    towers = tower_ms({"ControlNet": depth.controlnet, "adapter": adapter, "UNet": unet},
+                      lambda: steps_ms(1.0, 2))
+    _, latents = steps_ms(0.8)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    depth._decode(latents, 0.18215, 2)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t1
+    print(f"i2vgenxl depth on {card}: 1x{I2V_FRAMES}x{SIZE}x{SIZE}, CFG 9.0, DDIM "
+          f"{I2V_STEPS} steps ({hi - lo} in the control window):")
+    print(f"  first generate() {t_first:.3f} s (denoise + decode, cold); peak device memory "
+          f"{peak_gb:.2f} GiB")
+    for kind, ms in per_kind.items():
+        busy, span, per_name = activity[kind]
+        print(f"  {kind} step: {', '.join(f'{t:.1f}' for t in ms)} ms (host clock, "
+              f"{I2V_STEPS}-step runs in turns); profiled 2-step run: device busy "
+              f"{busy / 2000:.1f} ms/step of a {span / 2000:.1f} ms/step kernel span, idle "
+              f"share {1 - busy / span:.3%}; its top kernels:")
+        for name, (us, calls) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]:
+            print(f"    {us / 2000:8.2f} ms/step {us / busy:6.1%} x{calls // 2:5d}/step {name[:90]}")
+    print("  tower calls in a controlled step (CUDA events, median of 2): " + "; ".join(
+        f"{name} {statistics.median(ts):.1f} ms" for name, ts in towers.items()))
+    print(f"  decode {t_decode:.3f} s (second run; {I2V_FRAMES} frames in chunks of 2)")
+    # 256x256 puts the UNet's level-0 attention at T = 1024, so K2 runs too
+    small = dict(height=256, width=256, num_frames=4, num_inference_steps=2,
+                 guidance_scale=9.0, control_latent_size=32, output_type="latent")
+    i2v_reference_check(depth, "i2vgenxl depth", dict(
+        i2v_inputs(dev, bf, 1, 4, 256, SEED + 12), **small, control_guidance_end=0.8))
+    del depth, video, latents
+
+    # the multi-condition configuration: only the active experts run, and
+    # the router gives the masked ones weight 0
+    multi = I2VGenXLControlNetAdapterPipeline(unet, MultiControlNetModel(nets), adapter, vae,
+                                              router=router)
+    masks = [True] * I2V_ACTIVE + [False] * (I2V_EXPERTS - I2V_ACTIVE)
+    minputs = i2v_inputs(dev, bf, I2V_EXPERTS, I2V_FRAMES, SIZE, SEED + 13)
+    mkw = dict(kw, control_guidance_end=1.0, inference_expert_masks=masks)
+    calls = [0] * I2V_EXPERTS
+    hooks = [net.register_forward_hook(lambda *_, e=e: calls.__setitem__(e, calls[e] + 1))
+             for e, net in enumerate(nets)]
+    for k in kernels.values():
+        k.reset()
+    with launches_per_step(multi, kernels) as msteps:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        video, trace_down, trace_mid = multi.generate(
+            **minputs, **mkw, num_inference_steps=I2V_MULTI_STEPS, return_router_weights=True)
+        torch.cuda.synchronize()
+        t_multi = time.perf_counter() - t1
+    launches_multi = {name: k.launches for name, k in kernels.items()}
+    for h in hooks:
+        h.remove()
+    print(f"i2vgenxl multi: launches during the run {launches_multi}; ControlNet calls per "
+          f"expert {calls}")
+    check_video(video, "i2vgenxl multi", I2V_FRAMES)
+    if calls != [I2V_MULTI_STEPS] * I2V_ACTIVE + [0] * (I2V_EXPERTS - I2V_ACTIVE):
+        raise RuntimeError(f"i2vgenxl multi: ControlNet calls per expert {calls}: only the "
+                           f"{I2V_ACTIVE} active experts may run, once a step")
+    if launches_multi != i2v_launches(I2V_MULTI_STEPS, 0):
+        raise RuntimeError(f"i2vgenxl multi: launches {launches_multi}, want "
+                           f"{i2v_launches(I2V_MULTI_STEPS, 0)}")
+    check_i2v_steps("i2vgenxl multi", msteps, I2V_MULTI_STEPS)
+    off = range(I2V_ACTIVE, I2V_EXPERTS)
+    masked = [row[e] for step in trace_down for row in step for e in off]
+    masked += [step[e] for step in trace_mid for e in off]
+    active_sum = [sum(row) for step in trace_down for row in step]
+    print(f"i2vgenxl multi: router weights of the masked experts: max {max(masked)} over "
+          f"{len(masked)}; each down row sums to {min(active_sum):.6f}..{max(active_sum):.6f}")
+    if any(w != 0.0 for w in masked) or len(trace_down) != I2V_MULTI_STEPS:
+        raise RuntimeError("i2vgenxl multi: a masked expert has a nonzero router weight")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    multi.generate(**minputs, **mkw, num_inference_steps=I2V_MULTI_STEPS, output_type="latent")
+    torch.cuda.synchronize()
+    multi_ms = 1000 * (time.perf_counter() - t1) / I2V_MULTI_STEPS
+    print(f"i2vgenxl multi on {card}: {I2V_ACTIVE} of {I2V_EXPERTS} experts, "
+          f"{I2V_MULTI_STEPS} steps, first generate() {t_multi:.3f} s (denoise + decode, "
+          f"cold); controlled step {multi_ms:.1f} ms (host clock, second run)")
+    i2v_reference_check(multi, "i2vgenxl multi", dict(
+        i2v_inputs(dev, bf, I2V_EXPERTS, 4, 256, SEED + 12), **small, control_guidance_end=1.0,
+        inference_expert_masks=masks))
+    del multi, unet, nets, adapter, vae, router
+    torch.cuda.empty_cache()
+    return launches, launches_multi
+
+
 def run_exact_gelu(dev, card, full_kernel, k4_kernel):
     """Phase 6: the JAX package's ``CTRL_ADAPTER_EXACT_GELU=1`` switch. A UNet
     level-0 temporal block (bf16, c = 320, 5 heads, 14 frames) still takes
@@ -1508,6 +2028,10 @@ def main() -> int:
     card = nvidia_smi_line()
     print(f"card: {card} (capability {cap[0]}.{cap[1]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda})")
+    t_start = time.perf_counter()
+
+    def phase_done(label):
+        print(f"[{label} done at {time.perf_counter() - t_start:.1f} s]")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1528,12 +2052,18 @@ def main() -> int:
         raise RuntimeError(f"ptxas serialised wgmma (C7520): {serialized}")
     print("  ptxas: no wgmma serialised (no C7520 in the build log)")
 
+    phase_done("build")
     results = check_kernels(dev, card)
+    phase_done("phase 3 at the SVD shapes")
+    for name, rows in check_i2vgenxl_kernels(dev, card).items():
+        results[name] += rows
+    phase_done("phase 3 at the I2VGen-XL shapes")
     kernels = {"group_norm_silu": gn.KERNEL, "flash_attention": fa.KERNEL,
                "temporal_block": ft.KERNEL, "temporal_block_full": ft.KERNEL_FULL,
                "ln_ff_residual": fb.KERNEL, "geglu": ff.KERNEL,
                "flash_attention_bwd": fa.KERNEL_BWD}
     launches, launches_fb, k4_per_step = run_slices(dev, card, kernels)
+    phase_done("phases 4-5, the SVD slice")
     # K4's per-step sums from the launches the fused-block run counted per step
     k4 = {**results["ln_ff_residual"][0], "controlled": 0, "unet_only": 0, **k4_per_step}
     for key in ("controlled", "unet_only"):
@@ -1543,7 +2073,11 @@ def main() -> int:
     print("K5 geglu is off every model path: the models' BasicTransformerBlocks run their "
           "FF through K4's op (as the JAX package's do) and no model builds FeedForward on "
           "its own; its launches below are those of the FeedForward run")
+    phase_done("phases 6-7")
     launches_train = run_training(dev, card, kernels)
+    phase_done("phase 8, SVD training")
+    launches_i2v, launches_i2v_multi = run_i2vgenxl(dev, card, kernels)
+    phase_done("phase 9, I2VGen-XL")
 
     meta = {  # name: (source, replaces, the run its launches come from)
         "group_norm_silu": ("ctrl_adapter_tpu_torch/csrc/group_norm.cu",
@@ -1572,7 +2106,9 @@ def main() -> int:
          "launches": counts[meta[name][2]][name], "path": meta[name][2],
          **{k: v for k, v in results[name][0].items()
             if k not in ("controlled", "unet_only", "training")},
-         "max_abs_err": max(r["max_abs_err"] for r in results[name])}
+         "max_abs_err": max(r["max_abs_err"] for r in results[name]),
+         "launches_i2vgenxl": launches_i2v[name],
+         "launches_i2vgenxl_multi": launches_i2v_multi[name]}
         for name in kernels]}
     print(json.dumps(line))
     print(card)

@@ -16,7 +16,8 @@ import torch
 import torch.nn as nn
 
 from ..nn.attention import BasicTransformerBlock, TemporalBasicTransformerBlock
-from ..nn.embeddings import TimestepEmbedding, Timesteps, get_timestep_embedding
+from ..nn.embeddings import (TimestepEmbedding, Timesteps, get_timestep_embedding,
+                             timestep_tensor)
 from ..nn.resnet import AlphaBlender, GroupNorm, ResnetBlock2D, TemporalResnetBlock
 from ..nn.unet_st_blocks import from_5d, to_5d
 
@@ -106,7 +107,7 @@ class AdapterSpatioTemporal(nn.Module):
         dtype = hidden_states.dtype
         device = hidden_states.device
         if timestep is not None:
-            timestep = torch.as_tensor(timestep, device=device).reshape(-1).float()
+            timestep = timestep_tensor(timestep, device).reshape(-1).float()
             if timestep.shape[0] != bf:
                 timestep = timestep.repeat_interleave(bf // timestep.shape[0])
         indicator = torch.zeros((b, num_frames), dtype=torch.float32, device=device)

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..nn.embeddings import TimestepEmbedding, Timesteps
+from ..nn.embeddings import TimestepEmbedding, Timesteps, timestep_tensor
 from ..nn.unet_blocks import CrossAttnDownBlock2D, DownBlock2D, UNetMidBlock2DCrossAttn
 
 
@@ -126,7 +126,7 @@ class ControlNetModel(nn.Module):
         reference)."""
         dtype = self.dtype
         n = sample.shape[0]
-        timesteps = torch.as_tensor(timestep, device=sample.device).reshape(-1).expand(n)
+        timesteps = timestep_tensor(timestep, sample.device).reshape(-1).expand(n)
         emb = self.time_embedding(self.time_proj(timesteps).to(dtype))
         if skip_time_emb:
             emb = torch.zeros_like(emb)

@@ -16,7 +16,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from ..nn.embeddings import TimestepEmbedding, Timesteps
+from ..nn.embeddings import TimestepEmbedding, Timesteps, timestep_tensor
 from ..nn.resnet import GroupNorm
 from ..nn.unet_st_blocks import (CrossAttnDownBlockSpatioTemporal,
                                  CrossAttnUpBlockSpatioTemporal, DownBlockSpatioTemporal,
@@ -112,7 +112,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         dtype = self.dtype
         b, num_frames, c, height, width = sample.shape
         device = sample.device
-        timesteps = torch.as_tensor(timestep, device=device).reshape(-1).expand(b)
+        timesteps = timestep_tensor(timestep, device).reshape(-1).expand(b)
         emb = self.time_embedding(self.time_proj(timesteps).to(dtype))
         time_embeds = self.add_time_proj(added_time_ids.reshape(-1)).reshape(b, -1)
         emb = emb + self.add_embedding(time_embeds.to(emb.dtype))

@@ -10,6 +10,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+def timestep_tensor(value, device=None) -> torch.Tensor:
+    """``value`` (a number, an array or a tensor) as a tensor on ``device``. A
+    Python number is filled in on the device: ``torch.as_tensor`` would copy
+    it from the host, and that copy waits until the stream has drained."""
+    if isinstance(value, (int, float)):
+        return torch.full((), value, device=device)
+    return torch.as_tensor(value, device=device)
+
+
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
                            flip_sin_to_cos: bool = False, downscale_freq_shift: float = 1.0,
                            scale: float = 1.0, max_period: int = 10000) -> torch.Tensor:

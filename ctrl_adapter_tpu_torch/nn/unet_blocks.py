@@ -1,5 +1,5 @@
 """2D UNet blocks (NCHW) used by the SD-v1.5 ControlNet: Transformer2DModel and
-the down / mid blocks. Counterpart of ``ctrl_adapter_tpu/nn/unet_blocks.py``;
+the down / mid blocks (Transformer2DModel also in the I2VGen-XL 3D blocks). Counterpart of ``ctrl_adapter_tpu/nn/unet_blocks.py``;
 the up blocks come with the SDXL slice."""
 
 from __future__ import annotations
@@ -18,12 +18,12 @@ class Transformer2DModel(nn.Module):
     proj_out (+residual)."""
 
     def __init__(self, num_attention_heads: int, attention_head_dim: int, in_channels: int,
-                 num_layers: int = 1, cross_attention_dim: Optional[int] = None, device=None,
-                 dtype=None):
+                 num_layers: int = 1, cross_attention_dim: Optional[int] = None,
+                 norm_num_groups: int = 32, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         inner = num_attention_heads * attention_head_dim
-        self.norm = GroupNorm(32, in_channels, 1e-6, **kw)
+        self.norm = GroupNorm(norm_num_groups, in_channels, 1e-6, **kw)
         self.proj_in = nn.Conv2d(in_channels, inner, 1, **kw)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, num_attention_heads, attention_head_dim,

@@ -1,8 +1,11 @@
-"""Control-window helpers (counterpart of ``ctrl_adapter_tpu/pipelines/common.py``)."""
+"""Control-window helpers and classifier-free guidance (counterpart of
+``ctrl_adapter_tpu/pipelines/common.py``)."""
 
 from __future__ import annotations
 
 from typing import List, Tuple
+
+import torch
 
 
 def controlnet_keep_schedule(num_steps: int, control_guidance_start: float,
@@ -30,3 +33,9 @@ def normalize_control_latent_size(s) -> Tuple[int, int]:
     """``control_latent_size`` as (h, w): an int pools to (s, s); a tuple is the
     native latent size."""
     return (s, s) if isinstance(s, int) else tuple(s)
+
+
+def classifier_free_guidance(noise_pred: torch.Tensor, guidance_scale) -> torch.Tensor:
+    """Split a CFG-doubled batch [uncond; cond] and combine."""
+    uncond, cond = noise_pred.chunk(2)
+    return uncond + guidance_scale * (cond - uncond)

@@ -35,33 +35,6 @@ import chip_smoke as cs
 REPS = 3  # timed runs per measurement
 
 
-def towers_ms(pipe, gen, steps: int):
-    """ms of each call of each tower during ``gen(steps)``, from CUDA events."""
-    events = {}
-    handles = []
-    for name in ("controlnet", "adapter", "unet"):
-        module = getattr(pipe, name)
-
-        def pre(_m, _a, name=name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.setdefault(name, []).append([ev, None])
-
-        def post(_m, _a, _o, name=name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events[name][-1][1] = ev
-
-        handles += [module.register_forward_pre_hook(pre), module.register_forward_hook(post)]
-    try:
-        gen(steps)
-        torch.cuda.synchronize()
-    finally:
-        for h in handles:
-            h.remove()
-    return {name: [s.elapsed_time(e) for s, e in pairs] for name, pairs in events.items()}
-
-
 def idle_share(gen):
     busy, span, by_name = cs.device_activity(lambda: gen(1))
     n = sum(calls for _, calls in by_name.values())
@@ -112,7 +85,8 @@ def main() -> int:
     gen(2)  # warm-up: kernel build, cuDNN and cuBLAS choices
     fmt = lambda vals, f="%.1f": "[" + ", ".join(f % v for v in vals) + "]"  # noqa: E731
 
-    per = towers_ms(pipe, gen, 4)
+    per = cs.tower_ms({n: getattr(pipe, n) for n in ("controlnet", "adapter", "unet")},
+                      lambda: gen(4))
     print(f"1. tower ms per call, 4 controlled steps, 1x{cs.FRAMES}x{cs.SIZE}^2, bf16, "
           f"on {card}:")
     for name, vals in per.items():

@@ -182,9 +182,28 @@ def test_dispatch_mode_matches_jax_on_the_svd_slice(jax_on_tpu, block):
     assert tft.dispatch_mode(b, f, s, c, ia, iff, torch.float32) is None
 
 
+# the I2VGen-XL adapter's 13 temporal blocks (c = 512 bug-compatible, ia = the
+# block's channels, iff = 2048; b = 2 after CFG) at its 16 frames and at the 2
+# to 4 key frames of a sparse-frame run
+def _i2vgenxl_adapter_blocks():
+    import chip_smoke
+
+    return [(f"{c}@{h}x{h}", h * h, c) for c, h in chip_smoke.adapter_blocks()]
+
+
+@pytest.mark.parametrize("f", [16, 4, 2], ids=["f16", "sparse-f4", "sparse-f2"])
+@pytest.mark.parametrize("block", _i2vgenxl_adapter_blocks(),
+                         ids=[f"block{i}-{blk[0]}" for i, blk in
+                              enumerate(_i2vgenxl_adapter_blocks())])
+def test_dispatch_mode_is_hybrid_on_the_i2vgenxl_adapter(jax_on_tpu, block, f):
+    _, s, ia = block
+    assert jft.dispatch_mode(2, f, s, 512, ia, 2048, jnp.bfloat16) == "hybrid"
+    assert tft.dispatch_mode(2, f, s, 512, ia, 2048, torch.bfloat16) == "hybrid"
+
+
 def test_dispatch_mode_matches_jax_on_thin_shapes(jax_on_tpu):
     seen = set()
-    for f in (1, 4, 14, 32, 33):
+    for f in (1, 4, 14, 16, 32, 33):
         for s in (7, 8, 16, 64, 256):
             for c in (64, 128, 320, 384, 448, 512):
                 for ia in (64, c):

@@ -12,6 +12,8 @@ per call, with ``group_norm.eligible``.
   ``jax.ShapeDtypeStruct`` of the same (NHWC) shape with the same flag, its
   device test patched to "TPU" and its kernel replaced by a spy. The adapter's
   norms carry "prefer" and all others None, as the JAX modules pass them.
+- The same at every norm of the I2VGen-XL path (adapter, I2VGen-XL UNet,
+  ControlNet, 2D VAE) at b*f = 32.
 - Each flag value under the switch, at shapes the rule takes and refuses.
 """
 
@@ -136,6 +138,62 @@ def test_k1_choice_matches_jax_at_every_norm_of_the_slice(jax_on_tpu, env):
     else:  # the switch adds the towers' norms the rule admits; the VAE's
         # 512x512 to 64x64 maps all exceed its 12 MiB budget
         assert per_tower["unet"] and per_tower["controlnet"] and not per_tower["vae"]
+    assert not all(taken for *_, taken in seen)
+
+
+@pytest.mark.parametrize("env", [None, "1"], ids=["default", "fused-gn"])
+def test_k1_choice_matches_jax_at_every_norm_of_the_i2vgenxl_path(jax_on_tpu, env):
+    """The I2VGen-XL path at full width, b*f = 32 (16 frames, CFG): the adapter,
+    the I2VGen-XL UNet (its TemporalConvLayers and TransformerTemporalModels
+    norm 5-D (b, c, f, h, w) tensors), the ControlNet and the 2D VAE (the
+    first-frame encode and a 2-frame decode chunk)."""
+    import chip_smoke
+    from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+    from ctrl_adapter_tpu_torch.models.controlnet import ControlNetModel
+    from ctrl_adapter_tpu_torch.models.unet_i2vgen import I2VGenXLUNet
+    from ctrl_adapter_tpu_torch.models.vae import AutoencoderKL
+
+    _set_env(jax_on_tpu, env)
+    seen, state, kernel = _record_norms(jax_on_tpu)
+    f = chip_smoke.I2V_FRAMES
+    e = lambda *s: torch.empty(*s, device=META, dtype=BF)  # noqa: E731
+    with chip_smoke.plain_kernels(), torch.no_grad():
+        jax_on_tpu.setattr(gn, "group_norm_silu", kernel)
+        state["tower"] = "adapter"
+        adapter = ControlNetAdapter(cross_attention_dim=1024, num_blocks=1,
+                                    adapter_locations=("A", "B", "C", "D", "M"),
+                                    add_temporal_resnet=True, add_temporal_transformer=True,
+                                    device=META, dtype=BF)
+        res = [e(2 * f, c, h, h) for c, h in chip_smoke.adapter_blocks()[:-1]]
+        adapter(res, e(2 * f, 1280, 8, 8), num_frames=f, timestep=981.0,
+                encoder_hidden_states=e(2, 1, 1024))
+        state["tower"] = "unet"
+        I2VGenXLUNet(device=META, dtype=BF)(
+            e(2, f, 4, 64, 64), 981.0, torch.full((2,), 16.0, device=META),
+            e(2, f, 4, 64, 64), e(2, 1, 1024), e(2, 77, 1024))
+        state["tower"] = "controlnet"
+        ControlNetModel(device=META, dtype=BF)(e(2 * f, 4, 64, 64), 981.0,
+                                               e(2 * f, 77, 768), e(2 * f, 3, 512, 512))
+        state["tower"] = "vae"
+        vae = AutoencoderKL(device=META, dtype=BF)
+        vae.encode_moments(e(1, 3, 512, 512))
+        vae.decode(e(2, 4, 64, 64))
+
+    assert {(tower, flag) for tower, flag, _, _ in seen} == {
+        ("adapter", "prefer"), ("unet", None), ("controlnet", None), ("vae", None)}
+    assert any(len(shape) == 5 for tower, _, shape, _ in seen if tower == "unet")
+    verdicts = {}
+    for tower, flag, shape, taken in seen:
+        key = (flag, shape)
+        if key not in verdicts:
+            verdicts[key] = _jax_takes(flag, shape)
+        assert taken == verdicts[key], (tower, flag, shape, taken)
+    per_tower = Counter(tower for tower, _, _, taken in seen if taken)
+    assert per_tower["adapter"] == sum(chip_smoke.k1_rows(f).values()) == 47
+    if env is None:
+        assert set(per_tower) == {"adapter"}
+    else:  # the towers' norms the rule admits; the VAE's maps at 64x64 and up exceed it
+        assert per_tower["unet"] and per_tower["controlnet"]
     assert not all(taken for *_, taken in seen)
 
 

@@ -313,6 +313,26 @@ def test_gpu_k3_kernel_matches_plain(f, s, c, heads, cross, mode):
     the plain version."""
     dev = _dev()
     assert tft.hybrid_plan(2, f, s, c, heads).mode == mode
+    _k3_hybrid_check(dev, f, s, c, heads, cross)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,s,heads", [
+    (16, 4096, 5), (16, 1024, 5), (16, 1024, 10), (16, 256, 10), (16, 256, 20), (16, 64, 20),
+    (4, 4096, 5), (4, 1024, 10), (2, 256, 20),
+], ids=["f16-A-4096", "f16-B-1024-ia320", "f16-B-1024-ia640", "f16-C-256-ia640",
+        "f16-C-256-ia1280", "f16-D-64", "sparse-f4-4096", "sparse-f4-1024", "sparse-f2-256"])
+def test_gpu_k3_at_the_i2vgenxl_adapter_shapes(f, s, heads):
+    """The I2VGen-XL adapter's temporal blocks (b = 2 after CFG, c = 512, ia =
+    the block's channels) at its 16 frames, where the 16-row frame tiles hold
+    no padded row, and at the key-frame counts of a sparse-frame run; the
+    checks of ``test_gpu_k3_kernel_matches_plain``."""
+    dev = _dev()
+    assert tft.dispatch_mode(2, f, s, 512, heads * 64, 2048, BF) == "hybrid"
+    _k3_hybrid_check(dev, f, s, 512, heads, True)
+
+
+def _k3_hybrid_check(dev, f, s, c, heads, cross):
     g = torch.Generator(device=dev).manual_seed(2)
     ia = heads * 64
     x = _rand(g, dev, 2, f, s, c).to(BF)
@@ -367,6 +387,110 @@ def test_gpu_wrappers_refuse_what_the_kernels_do_not_take():
     b = torch.zeros(128, device=dev, dtype=BF)
     with pytest.raises(ValueError):  # 4 heads of 32: the kernel takes head_dim 64
         tft.temporal_block(x, None, b, b, wt, wt, wt, wt, b, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,t", [(32, 5, 4096), (32, 10, 1024)])
+def test_gpu_k2_at_the_i2vgenxl_shapes(b, n, t):
+    """The I2VGen-XL path's spatial self-attentions: 2 x 16 frames after CFG,
+    at 64x64 (5 heads) and 32x32 (10 heads), as head-split views."""
+    dev = _dev()
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (_rand(g, dev, b, t, n * 64).to(BF).view(b, t, n, 64).transpose(1, 2)
+               for _ in range(3))
+    got = _launches(tfa.KERNEL, lambda: tfa.attention_bnth(q, k, v))
+    _check(got, tfa._torch_attention(q, k, v), atol=1e-2, rtol=2e-2, rel_norm=1e-2)
+
+
+def _thin_i2vgenxl(dev, experts=1, router_type=None):
+    """Thin I2VGen-XL towers in bf16 (head dim 64, so at 4 frames of 256x256
+    the UNet's level-0 attention is flash-eligible at T = 1024), weights at
+    scale 0.05 from a seeded generator, and the generate() arguments of a
+    2-step run to the latents with ``experts`` ControlNets."""
+    from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+    from ctrl_adapter_tpu_torch.models.controlnet import ControlNetConfig, ControlNetModel
+    from ctrl_adapter_tpu_torch.models.multicontrolnet import MultiControlNetModel
+    from ctrl_adapter_tpu_torch.models.router import ControlNetRouter
+    from ctrl_adapter_tpu_torch.models.unet_i2vgen import I2VGenXLUNet, I2VGenXLUNetConfig
+    from ctrl_adapter_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from ctrl_adapter_tpu_torch.pipelines.i2vgenxl import I2VGenXLControlNetAdapterPipeline
+
+    kw = dict(device=dev, dtype=BF)
+    nets = [ControlNetModel(ControlNetConfig(block_out_channels=(64, 64, 128, 128),
+                                             num_attention_heads=(2, 2, 2, 2),
+                                             cross_attention_dim=32,
+                                             conditioning_embedding_out_channels=(16, 16, 32, 32)),
+                            **kw) for _ in range(experts)]
+    router = (None if router_type is None else
+              ControlNetRouter(experts, router_type, embedding_dim=256 + 64, device=dev))
+    towers = [I2VGenXLUNet(I2VGenXLUNetConfig(block_out_channels=(64, 64, 128, 128),
+                                              cross_attention_dim=64), **kw),
+              nets[0] if experts == 1 else MultiControlNetModel(nets),
+              ControlNetAdapter(num_blocks=1, cross_attention_dim=64,
+                                adapter_locations=("A", "B", "C", "D", "M"),
+                                add_temporal_resnet=True, add_temporal_transformer=True,
+                                custom_down_block_channels=(64,) * 7 + (128,) * 5,
+                                custom_mid_block_channels=128, **kw),
+              AutoencoderKL(VAEConfig(block_out_channels=(32, 32, 32, 32)), **kw)]
+    g = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        for module in towers[:1] + nets + towers[2:]:
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.05)
+    pipe = I2VGenXLControlNetAdapterPipeline(*towers, router=router)
+    r = lambda *shape: (torch.randn(*shape, generator=g, device=dev) * 0.1).to(BF)  # noqa: E731
+    images = torch.rand(experts, 4, 256, 256, 3, generator=g, device=dev).to(BF)
+    inputs = dict(prompt_embeds=r(2, 7, 64), controlnet_prompt_embeds=r(2, 7, 32),
+                  image_embeddings=r(1, 1, 64), first_frame_latent=r(1, 32, 32, 4),
+                  control_images=images[0] if experts == 1 else images,
+                  latents=torch.randn(1, 4, 32, 32, 4, generator=g, device=dev),
+                  height=256, width=256, num_frames=4, num_inference_steps=2,
+                  guidance_scale=9.0, control_guidance_end=1.0, control_latent_size=32,
+                  output_type="latent")
+    return pipe, inputs
+
+
+@pytest.mark.gpu
+def test_gpu_i2vgenxl_thin_denoise_matches_the_plain_path():
+    """Two I2VGen-XL denoise steps of thin towers in bf16: the kernel path
+    launches K1, K2 and K3 hybrid, and its first controlled step (the
+    adapter's outputs and the CFG-combined noise prediction) is no farther
+    from an fp32 run of the plain path than 2x the bf16 plain path, tensor by
+    tensor, while a K1 without its SiLU, a K2 without a head and a K3 hybrid
+    returning its input each are: ``chip_smoke.py``'s check at full width."""
+    import chip_smoke
+
+    pipe, inputs = _thin_i2vgenxl(_dev())
+    kernels = (tgn.KERNEL, tfa.KERNEL, tft.KERNEL)
+    before = [k.launches for k in kernels]
+    pipe.generate(**inputs)
+    torch.cuda.synchronize()
+    assert all(k.launches > n for k, n in zip(kernels, before)), [k.launches for k in kernels]
+    chip_smoke.i2v_reference_check(pipe, "thin i2vgenxl", inputs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("router_type", ["timestep_embedding_weights", "simple_weights"])
+def test_gpu_i2vgenxl_denoise_loop_does_not_wait_for_the_card(router_type):
+    """The denoise loop of a two-expert I2VGen-XL run with a router makes no
+    call that waits for the card (``torch.cuda.set_sync_debug_mode("error")``
+    raises on a device-to-host copy, a blocking host-to-device copy, a
+    stream synchronisation): a conditional router builds its input from the
+    timestep and the CLIP embedding on the card, each step."""
+    pipe, inputs = _thin_i2vgenxl(_dev(), experts=2, router_type=router_type)
+    pipe.generate(**inputs)  # builds the kernels and warms the allocator
+    sample = pipe._sample
+
+    def guarded(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return sample(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    pipe._sample = guarded
+    latents = pipe.generate(**inputs)
+    assert torch.isfinite(latents).all()
 
 
 @pytest.mark.gpu

@@ -399,6 +399,53 @@ def test_chip_smoke_shape_lists_are_the_modules_dispatch(monkeypatch):
     assert dict(Counter(norms)) == chip_smoke.k1_rows() and len(norms) == 47
 
 
+def test_chip_smoke_i2vgenxl_shape_lists_are_the_modules_dispatch(monkeypatch):
+    """The I2VGen-XL rows ``chip_smoke.py`` times and the launches per step it
+    expects (K3 hybrid, K2 and K1, per controlled and per UNet-only step) are
+    what the port's adapter (16 frames) and I2VGen-XL UNet dispatch at full
+    width, run once on the meta device."""
+    import chip_smoke
+    from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+    from ctrl_adapter_tpu_torch.models.unet_i2vgen import I2VGenXLUNet
+
+    f = chip_smoke.I2V_FRAMES
+    dispatch, norms, flash = [], [], []
+    real = ft.dispatch_mode
+    monkeypatch.setattr(ft, "dispatch_mode", lambda *a: dispatch.append(
+        (a[:5], real(*a))) or dispatch[-1][1])
+    dev, bf = torch.device("meta"), torch.bfloat16
+    e = lambda *shape: torch.empty(*shape, device=dev, dtype=bf)  # noqa: E731
+    marks = {}
+    with chip_smoke.plain_kernels(), torch.no_grad():
+        monkeypatch.setattr(gn, "group_norm_silu", lambda x, w, b, g, eps, silu: norms.append(
+            (tuple(x.shape), silu)) or gn._torch_group_norm_silu(x, w, b, g, eps, silu))
+        monkeypatch.setattr(fa, "attention_bnth", lambda q, k, v: flash.append(
+            tuple(q.shape)) or fa._torch_attention(q, k, v))
+        adapter = ControlNetAdapter(cross_attention_dim=1024, num_blocks=1,
+                                    adapter_locations=("A", "B", "C", "D", "M"),
+                                    add_temporal_resnet=True, add_temporal_transformer=True,
+                                    device=dev, dtype=bf)
+        adapter([e(2 * f, c, h, h) for c, h in chip_smoke.adapter_blocks()[:-1]],
+                e(2 * f, 1280, 8, 8), num_frames=f, timestep=981.0,
+                encoder_hidden_states=e(2, 1, 1024))
+        marks["adapter"] = (len(dispatch), len(flash))
+        I2VGenXLUNet(device=dev, dtype=bf)(
+            e(2, f, 4, 64, 64), 981.0, torch.full((2,), 16.0, device=dev), e(2, f, 4, 64, 64),
+            e(2, 1, 1024), e(2, 77, 1024))
+    n_dispatch, n_flash = marks["adapter"]
+    assert not dispatch[n_dispatch:]  # the UNet has no TemporalBasicTransformerBlock
+    hybrid = Counter(a for a, m in dispatch if m == "hybrid")
+    assert len(dispatch) == sum(hybrid.values()) == 13
+    assert {k: r["controlled"] for k, r in chip_smoke.i2v_hybrid_rows().items()} == dict(hybrid)
+    rows = chip_smoke.i2v_flash_rows()
+    assert {k: r["controlled"] for k, r in rows.items()} == dict(Counter(flash))
+    assert {k: r["unet_only"] for k, r in rows.items() if r["unet_only"]} == dict(
+        Counter(flash[n_flash:]))
+    assert len(flash) == 16 and len(flash[n_flash:]) == 10
+    # K1: only the adapter's norms ("prefer"), the ones the JAX rule admits
+    assert dict(Counter(norms)) == chip_smoke.k1_rows(f) and len(norms) == 47
+
+
 # --------------------------------------------------------------- roofline
 def test_roofline_attention_hand_worked():
     cost = rl.attention(28, 5, 4096, 4096, 64)
@@ -517,8 +564,9 @@ def test_per_step_total_sums_each_clock_and_names_a_missing_one(capsys):
 
 def test_launches_per_step_counts_each_step_and_marks_the_controlled_ones():
     """``chip_smoke.launches_per_step`` (K4's per-step counts in the
-    fused-block run): a step runs from its first tower call to the end of its
-    UNet call, and is controlled where the ControlNet ran in it."""
+    fused-block run, every kernel's in the I2VGen-XL runs): a step runs from
+    its first tower call to the end of its UNet call, and is controlled where
+    the ControlNet ran in it; each named counter is counted apart."""
     import chip_smoke
 
     class Kernel:
@@ -537,16 +585,17 @@ def test_launches_per_step_counts_each_step_and_marks_the_controlled_ones():
                 self.kernel()
             return x
 
-    kernel = Kernel()
+    kernel, idle = Kernel(), Kernel()
     pipe = type("Pipe", (), {})()
     pipe.controlnet, pipe.unet = Tower(kernel, 2), Tower(kernel, 5)
-    with chip_smoke.launches_per_step(pipe, kernel) as steps:
+    with chip_smoke.launches_per_step(pipe, {"k": kernel, "idle": idle}) as steps:
         for i in range(3):
             if i < 2:
                 pipe.controlnet(0)
             pipe.unet(0)
     pipe.unet(0)  # after the context: not counted
-    assert steps == [(True, 7), (True, 7), (False, 5)]
+    assert steps == [(True, {"k": 7, "idle": 0}), (True, {"k": 7, "idle": 0}),
+                     (False, {"k": 5, "idle": 0})]
 
 
 @pytest.mark.parametrize("kernel", ["k3-full", "k4", "k5"])
