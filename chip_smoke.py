@@ -1,4 +1,4 @@
-"""Chip smoke test of the PyTorch port: the SVD and I2VGen-XL control paths on one Hopper card.
+"""Chip smoke test of the PyTorch port: the SVD, I2VGen-XL and SDXL control paths on one Hopper card.
 
     python3 chip_smoke.py
 
@@ -85,8 +85,29 @@ Phases (any failure raises and the script exits non-zero before its last line):
    and CFG-combined noise prediction from the kernel path against an fp32
    run of the plain path (max and norm errors), with faulty kernels (K1 without its SiLU, K2 without a
    head, K3 hybrid returning its input) as controls that must fail;
-10. print the per-kernel JSON line (with each kernel's launches on the
-   I2VGen-XL runs), the card line, and the result line.
+10. the SDXL control path (``SDXLControlNetAdapterPipeline``) at the full
+   width of the JAX bench's ``sdxl_depth`` (SDXL UNet 320/640/1280 with 1/2/10
+   transformer layers and cross 2048, the SD-v1.5 ControlNet at a 64x64
+   latent and a 512x512 control image, the adapter at A-C with the x2
+   upsample, the SDXL VAE), bf16, batch 1 at 1024x1024, CFG 7.5, 4 Euler
+   steps with the control window ending at 0.6 (2 controlled, 2 UNet-only),
+   then the decode (its shapes get their phase 3 rows after the I2VGen-XL
+   ones: K1 at the adapter's admitted norms at N = 2, K2 at (2, 5, 16384, 64)
+   and the other UNet and adapter shapes; ``check_sdxl_kernels``): the
+   image, each kernel's launches per controlled and per UNet-only step
+   against the JAX dispatch (``sdxl_launches``); ms per controlled and per
+   UNet-only step with the device's busy time and idle share, ms per tower
+   call, decode seconds, peak memory; and at 512x512 the first controlled
+   step's adapter outputs, UNet output and rescaled-CFG noise prediction
+   against an fp32 run of the plain path, with K1 without its SiLU and K2
+   without a head as controls that must fail;
+11. print the per-kernel JSON line (with each kernel's launches on the
+   I2VGen-XL and SDXL runs), the card line, and the result line.
+
+Device busy times and idle shares come from ``device_activity``, which
+refuses a trace that holds fewer events of a port kernel than the kernel's
+counter saw launched (the profiler was seen to drop events late in a long
+run): it traces again, up to three times, then prints "not measured".
 
 Imports nothing of JAX.
 """
@@ -461,6 +482,84 @@ def i2v_flash_rows(latent: int = SIZE // 8, frames: int = I2V_FRAMES):
     return rows
 
 
+SDXL_SIZE = 1024   # bench_sdxl's resolution: 128x128 latents
+SDXL_CONTROL = 64  # the SD-v1.5 ControlNet's latent size (a 512x512 control image)
+SDXL_STEPS = 4     # Euler steps of the run: 2 inside the control window (end 0.6)
+
+
+def sdxl_adapter_blocks(control: int = SDXL_CONTROL):
+    """(channels, input size) of the SDXL adapter's 9 blocks: A-C with 3
+    adapters per location, at the ControlNet's residual slots; each block
+    upsamples x2 in its spatial ResNet."""
+    return adapter_blocks(control)[:9]
+
+
+def sdxl_k1_rows(control: int = SDXL_CONTROL):
+    """K1's calls in one SDXL adapter call (batch 2, the CFG pair), by (shape,
+    silu): per block the spatial ResNet's norm1 (SiLU) at the input size, its
+    norm2 (SiLU) and the transformer's input norm (no SiLU) after the x2
+    upsample, where the JAX rule admits them: 17 of the 27 (at 128x128 and at
+    64x64 with 640 channels they exceed its 12 MiB budget)."""
+    from ctrl_adapter_tpu_torch.ops.group_norm import eligible
+
+    rows = {}
+    for c, h in sdxl_adapter_blocks(control):
+        for shape, silu in (((2, c, h, h), True), ((2, c, 2 * h, 2 * h), True),
+                            ((2, c, 2 * h, 2 * h), False)):
+            if eligible(shape, 32, 2):
+                rows[(shape, silu)] = rows.get((shape, silu), 0) + 1
+    return rows
+
+
+def sdxl_flash_rows(latent: int = SDXL_SIZE // 8, control: int = SDXL_CONTROL):
+    """The K2 shapes (B, N, T, H) of the SDXL path, B = 2 after CFG, with their
+    launches per controlled and per UNet-only step: the self-attentions of the
+    SDXL UNet's transformer layers (its cross-attention down, mid and up
+    blocks; heads from ``SDXL_CONFIG``) and of the adapter's spatial
+    transformers after the x2 upsample (heads = the block's channels // 64),
+    where the JAX rule admits them."""
+    from ctrl_adapter_tpu_torch.models.unet_2d import SDXL_CONFIG as cfg
+    from ctrl_adapter_tpu_torch.ops.flash_attention import flash_eligible
+
+    n = len(cfg.block_out_channels)
+    rows = {}
+
+    def add(channels, heads, size, count, unet):
+        t, hd = size * size, channels // heads
+        if flash_eligible(t, t, hd):
+            row = rows.setdefault((2, heads, t, hd), {"controlled": 0, "unet_only": 0})
+            row["controlled"] += count
+            row["unet_only"] += count if unet else 0
+
+    def level(i, count):
+        add(cfg.block_out_channels[i], cfg.num_attention_heads[i], latent >> i,
+            count * cfg.transformer_layers_per_block[i], True)
+
+    for i, kind in enumerate(cfg.down_block_types):
+        if kind.startswith("CrossAttn"):
+            level(i, cfg.layers_per_block)
+    level(n - 1, 1)  # the mid block
+    for j, kind in enumerate(cfg.up_block_types):
+        if kind.startswith("CrossAttn"):
+            level(n - 1 - j, cfg.layers_per_block + 1)
+    for c, h in sdxl_adapter_blocks(control):
+        add(c, c // 64, 2 * h, 1, False)
+    return rows
+
+
+def sdxl_launches(controlled: int, unet_only: int):
+    """Each kernel's launches in a run of the SDXL path at full width with
+    ``controlled`` and ``unet_only`` steps, from the model configs and the JAX
+    dispatch (``sdxl_k1_rows``, ``sdxl_flash_rows``): the UNet's and the
+    ControlNet's norms stay plain, as in the JAX package by default."""
+    k2 = sdxl_flash_rows().values()
+    return dict(group_norm_silu=sum(sdxl_k1_rows().values()) * controlled,
+                flash_attention=sum(r["controlled"] for r in k2) * controlled
+                + sum(r["unet_only"] for r in k2) * unet_only,
+                temporal_block=0, temporal_block_full=0, ln_ff_residual=0, geglu=0,
+                flash_attention_bwd=0)
+
+
 def per_step_total(name, rows, key):
     """Print the sum of launches x kernel ms against launches x bound over
     ``rows``: host-inclusive (``ms``), then on device time, warm and cold L2."""
@@ -512,21 +611,76 @@ def kernel_times(fn, iters: int = 5):
     return None
 
 
-def device_activity(run):
-    """``run()`` once under ``torch.profiler``: (busy, span, per_name) of the
-    CUDA kernels it launched, in µs. busy is the union of their spans, span
-    the time from the first one's start to the last one's end (1 - busy / span
-    is the device's idle share), per_name {kernel name: [µs, calls]}."""
+# The device function that each kernel's wrapper launches exactly once per
+# counted launch (K1: its one-launch kernel or its two-pass apply; K2 bwd: its
+# main pass; K3 hybrid: its QKV + attention kernel)
+TRACE_NAMES = {"group_norm_silu": ("gn_fused_kernel", "gn_apply_kernel"),
+               "flash_attention": ("flash_fwd_kernel",),
+               "flash_attention_bwd": ("flash_bwd_kernel",),
+               "temporal_block": ("hybrid_qkv_attn_kernel",),
+               "temporal_block_full": ("temporal_full_kernel",),
+               "ln_ff_residual": ("ln_ff_kernel",), "geglu": ("geglu_kernel",)}
+
+
+def kernel_counters():
+    """The launch counter of each kernel (name: ``Kernel``)."""
+    from ctrl_adapter_tpu_torch.ops import flash_attention as fa
+    from ctrl_adapter_tpu_torch.ops import fused_block as fb
+    from ctrl_adapter_tpu_torch.ops import fused_ff as ff
+    from ctrl_adapter_tpu_torch.ops import fused_temporal as ft
+    from ctrl_adapter_tpu_torch.ops import group_norm as gn
+
+    return {"group_norm_silu": gn.KERNEL, "flash_attention": fa.KERNEL,
+            "temporal_block": ft.KERNEL, "temporal_block_full": ft.KERNEL_FULL,
+            "ln_ff_residual": fb.KERNEL, "geglu": ff.KERNEL,
+            "flash_attention_bwd": fa.KERNEL_BWD}
+
+
+def traced_launches(names, kernels):
+    """{kernel: events of its traced device function among ``names``}, for
+    each of ``kernels``."""
+    import re
+
+    out = {}
+    for kernel in kernels:
+        pattern = re.compile(r"\b(" + "|".join(TRACE_NAMES[kernel]) + r")\b")
+        out[kernel] = sum(1 for name in names if pattern.search(name))
+    return out
+
+
+def device_activity(run, attempts: int = 3):
+    """``run()`` under ``torch.profiler``: (busy, span, per_name) of the CUDA
+    kernels it launched, in µs. busy is the union of their spans, span the
+    time from the first one's start to the last one's end (1 - busy / span is
+    the device's idle share), per_name {kernel name: [µs, calls]}.
+
+    The profiler was seen to drop events late in a long run. A trace counts
+    only if it holds an event of each port kernel's traced function for every
+    launch its counter saw during the run; else ``run()`` is made again, up
+    to ``attempts`` times in all, and then the result is None ("not
+    measured"). A partial trace is never scaled up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
+    counters = kernel_counters()
+    for attempt in range(attempts):
         torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kern:
-        raise RuntimeError("the profiler recorded no device kernels")
+        before = {name: k.launches for name, k in counters.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        launched = {name: k.launches - before[name] for name, k in counters.items()}
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        traced = traced_launches([e.name for e in kern], counters)
+        short = {name: (traced[name], n) for name, n in launched.items() if traced[name] < n}
+        if kern and not short:
+            break
+        print(f"  device_activity: trace {attempt + 1} of {attempts} is partial ("
+              + (", ".join(f"{name} {t} events of {n} launches" for name, (t, n) in short.items())
+                 if short else "no device kernels") + ")")
+    else:
+        print("  device_activity: not measured (every trace was partial)")
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, (cur_s, cur_e) = 0.0, spans[0]
     for s, e in spans[1:]:
@@ -542,6 +696,22 @@ def device_activity(run):
         t[0] += e.time_range.elapsed_us()
         t[1] += 1
     return busy, spans[-1][1] - spans[0][0], per_name
+
+
+def print_activity(prefix, activity, per: int = 1, unit: str = "step", top: int = 8):
+    """Print ``device_activity``'s busy time and kernel span per ``unit`` (over
+    ``per`` of them), the idle share and the ``top`` kernels, or that they were
+    not measured."""
+    if activity is None:
+        print(f"{prefix}device busy time and idle share not measured (torch.profiler "
+              f"dropped events in every trace)")
+        return
+    busy, span, per_name = activity
+    print(f"{prefix}device busy {busy / 1000 / per:.1f} ms/{unit} of a {span / 1000 / per:.1f} "
+          f"ms/{unit} kernel span, idle share {1 - busy / span:.3%}; its top kernels:")
+    for name, (us, calls) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"    {us / 1000 / per:8.2f} ms/{unit} {us / busy:6.1%} x{calls // per:5d}/{unit} "
+              f"{name[:90]}")
 
 
 # ------------------------------------------------------------------ kernels
@@ -885,6 +1055,29 @@ def check_i2vgenxl_kernels(dev, card):
                       (b_, 4, s_, c_, ia // 64), 0, 0)
            for (b_, _, s_, c_, ia) in list(i2v_hybrid_rows(4))[:3]]
     return {"group_norm_silu": k1, "flash_attention": k2, "temporal_block": k3}
+
+
+def check_sdxl_kernels(dev, card):
+    """Phase 3 at the SDXL path's shapes (batch 2, the CFG pair): K1 at the
+    adapter's norms the JAX rule admits, K2 at the SDXL UNet's self-attentions
+    (T = 4096 and 1024) and the adapter's after its x2 upsample (T = 16384 in
+    the A blocks); per-step sums of each. Returns the rows by kernel."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    rand = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    print(f"SDXL shapes: K1 group_norm_silu (bf16, G=32, eps 1e-6) on {card}")
+    k1 = [k1_row(rand, flush, shape, silu, n) for (shape, silu), n in sdxl_k1_rows().items()]
+    per_step_total("K1 (SDXL)", k1, "controlled")
+    print(f"SDXL shapes: K2 flash attention (bf16, fp32 softmax) on {card}")
+    k2 = []
+    for shape, r in sdxl_flash_rows().items():
+        row = k2_row(rand, shape, flush)
+        row.update(controlled=r["controlled"], unet_only=r["unet_only"])
+        print(f"    {r['controlled']} per controlled step, {r['unet_only']} per UNet-only step")
+        k2.append(row)
+    per_step_total("K2 (SDXL)", k2, "controlled")
+    per_step_total("K2 (SDXL)", k2, "unet_only")
+    return {"group_norm_silu": k1, "flash_attention": k2}
 
 
 def check_kernels(dev, card):
@@ -1294,12 +1487,13 @@ def run_slices(dev, card, kernels):
             before = kernels["group_norm_silu"].launches
             ms, _ = ms_per_step(pipe, inputs, kw, STEPS)
             n_k1 = kernels["group_norm_silu"].launches - before
-            busy, _, _ = device_activity(lambda: ms_per_step(pipe, inputs, kw, STEPS))
-        rule_ms[rule].append((ms, busy / 1000 / STEPS))
+            activity = device_activity(lambda: ms_per_step(pipe, inputs, kw, STEPS))
+        busy = None if activity is None else activity[0] / 1000 / STEPS
+        rule_ms[rule].append((ms, busy))
         print(f"  K1 dispatch, {rule}: {n_k1} K1 launches, denoise {ms:.1f} ms/step (host), "
-              f"{busy / 1000 / STEPS:.1f} ms/step device busy")
+              f"{fmt_ms(busy)}/step device busy")
     print(f"slice on {card}: the K1 repair's cost, {STEPS} steps in turns (host; device busy): "
-          + "; ".join(f"{rule} " + ", ".join(f"{h:.1f}; {d:.1f}" for h, d in ts) + " ms/step"
+          + "; ".join(f"{rule} " + ", ".join(f"{h:.1f}; {fmt_ms(d)}" for h, d in ts) + "/step"
                       for rule, ts in rule_ms.items()))
     small = slice_inputs(dev, bf, 4, 256, SEED + 2)
     skw = dict(height=256, width=256, num_frames=4, num_inference_steps=2, skip_conv_in=True,
@@ -1490,7 +1684,7 @@ def run_training(dev, card, kernels):
                                                   for k, v in parts.items()))
     # one more step under torch.profiler (which slows the host several-fold,
     # so it is not timed) for the device's busy time and idle share
-    busy, span, per_name = device_activity(lambda: trainer.train_step(batch, generator=gen))
+    activity = device_activity(lambda: trainer.train_step(batch, generator=gen))
     moved = sum(not torch.equal(a, b) for a, b in zip(start, masters))
     print(f"training: {moved} of {len(masters)} master tensors moved in "
           f"{trainer.optimizer.update_count} updates")
@@ -1515,18 +1709,17 @@ def run_training(dev, card, kernels):
           f"adapter's 6), and the checkpointed recompute of the adapter and the UNet in the "
           f"backward runs them again; K1 {per_step[0]['group_norm_silu']} (47 adapter norms, "
           f"forward and recompute)")
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
     print(f"training on {card}: 1x{FRAMES}x{SIZE}x{SIZE}, skip_conv_in, bf16 towers, fp32 "
           f"masters, gradient checkpointing: step 1 {step_ms[0]:.1f} ms (cold); "
           f"{statistics.mean(step_ms[1:]):.1f} ms/step over steps 2-{TRAIN_STEPS} "
           f"({', '.join(f'{t:.1f}' for t in step_ms[1:])}); peak device memory {peak_gb:.2f} "
-          f"GiB; a step under torch.profiler: device busy {busy / 1000:.1f} ms of a "
-          f"{span / 1000:.1f} ms kernel span, idle share {1 - busy / span:.3%}")
-    for name, (us, calls) in top:
-        print(f"    {us / 1000:9.2f} ms {us / busy:6.1%} x{calls:5d} {name[:100]}")
-    k2_bwd = [v for name, v in per_name.items() if "flash_bwd" in name]
-    print(f"training: K2 backward in the profiled step: {sum(us for us, _ in k2_bwd) / 1000:.2f} "
-          f"ms of device time over {sum(n for _, n in k2_bwd)} launches (3 a call)")
+          f"GiB")
+    print_activity("  a step under torch.profiler: ", activity)
+    if activity is not None:
+        k2_bwd = [v for name, v in activity[2].items() if "flash_bwd" in name]
+        print(f"training: K2 backward in the profiled step: "
+              f"{sum(us for us, _ in k2_bwd) / 1000:.2f} ms of device time over "
+              f"{sum(n for _, n in k2_bwd)} launches (3 a call)")
 
     # a checkpoint in the reference layout, saved and loaded back exactly
     t1 = time.perf_counter()
@@ -1646,25 +1839,27 @@ def tower_ms(modules, run):
     return {name: [a.elapsed_time(b) for a, b in evs] for name, evs in events.items()}
 
 
-def check_i2v_steps(label, steps, want_steps):
-    """Each step's launches against ``i2v_launches`` of one step of its kind."""
+def check_steps(label, steps, want_steps, launches=None):
+    """Each step's launches against ``launches`` (``i2v_launches`` by default)
+    of one step of its kind."""
+    launches = launches or i2v_launches
     if len(steps) != want_steps:
         raise RuntimeError(f"{label}: {len(steps)} steps seen, want {want_steps}")
     for controlled, counts in steps:
-        want = i2v_launches(1, 0) if controlled else i2v_launches(0, 1)
+        want = launches(1, 0) if controlled else launches(0, 1)
         if counts != want:
             raise RuntimeError(f"{label}: launches in a {'controlled' if controlled else 'UNet-only'}"
                                f" step {counts}, want (JAX dispatch) {want}")
     kinds = sorted({c for c, _ in steps}, reverse=True)
     print(f"{label}: launches per step as the JAX dispatch gives them: "
           + "; ".join(f"{'controlled' if c else 'UNet-only'} step "
-                      f"{ {k: v for k, v in i2v_launches(int(c), int(not c)).items() if v} }"
+                      f"{ {k: v for k, v in launches(int(c), int(not c)).items() if v} }"
                       for c in kinds))
 
 
 def faulty_kernels():
-    """Faults of the I2VGen-XL path's kernels that its reference check must
-    see, each a wrapper around the kernel's own (label: context manager): K1
+    """Faults of the video and SDXL paths' kernels that their reference checks
+    must see, each a wrapper around the kernel's own (label: context manager): K1
     that drops its SiLU, K2 that leaves head 0 out, K3 hybrid that returns
     its input."""
     from ctrl_adapter_tpu_torch.ops import flash_attention as fa
@@ -1687,16 +1882,19 @@ def faulty_kernels():
                 swapped(ft, "temporal_block", lambda k3: lambda x, *_: x.clone())}
 
 
-def i2v_step_outputs(pipe, kwargs):
+def step_outputs(pipe, kwargs, combine=None):
     """``pipe.generate(**kwargs)`` with forward hooks that keep the first
     controlled step's adapter outputs (its down residuals, then the mid), the
     UNet's output (both CFG halves) and the CFG-combined noise prediction
-    (with ``kwargs["guidance_scale"]``), as float32. The combination alone
-    would hide a fault: a change common to both halves passes it once, while
-    their independent rounding errors pass ~12 times (8 and 9 in quadrature
-    at guidance 9)."""
+    (``combine`` of the UNet's output; by default CFG with
+    ``kwargs["guidance_scale"]``), as float32. The combination alone would
+    hide a fault: a change common to both halves passes it once, while their
+    independent rounding errors pass ~12 times (8 and 9 in quadrature at
+    guidance 9)."""
     from ctrl_adapter_tpu_torch.pipelines.common import classifier_free_guidance
 
+    if combine is None:
+        combine = lambda out: classifier_free_guidance(out, kwargs["guidance_scale"])  # noqa: E731
     kept = {}
 
     def adapter(_module, _args, out):
@@ -1707,7 +1905,7 @@ def i2v_step_outputs(pipe, kwargs):
     def unet(_module, _args, out):
         if "adapter" in kept and "unet" not in kept:
             kept["unet"] = out.float()
-            kept["noise"] = classifier_free_guidance(kept["unet"], kwargs["guidance_scale"])
+            kept["noise"] = combine(kept["unet"])
 
     handles = [pipe.adapter.register_forward_hook(adapter),
                pipe.unet.register_forward_hook(unet)]
@@ -1719,20 +1917,22 @@ def i2v_step_outputs(pipe, kwargs):
     return kept["adapter"] + [kept["unet"], kept["noise"]]
 
 
-def i2v_reference_check(pipe, label, kwargs):
+def step_reference_check(pipe, label, kwargs, combine=None, faults=None):
     """The first controlled step of ``pipe.generate(**kwargs)`` on a small
     input: its adapter outputs, UNet output and CFG-combined noise prediction
-    from the bf16 kernel path and from the bf16 plain path, each against an
-    fp32 run of the plain path with the same weights. Per tensor, two errors:
+    (``combine``, as ``step_outputs``) from the bf16 kernel path and from the
+    bf16 plain path, each against an fp32 run of the plain path with the same
+    weights. Per tensor, two errors:
     the max abs difference over the fp32 tensor's max abs, and the norm of
     the difference over the fp32 tensor's norm (which sees a fault spread
     over many values that rounding's largest error hides); the kernel path's
     must be within 2x the plain path's, each. Then each fault of
-    ``faulty_kernels`` must fail that rule."""
-    got = i2v_step_outputs(pipe, kwargs)
+    ``faulty_kernels`` (those named in ``faults``, all by default: the faults
+    of kernels the path runs) must fail that rule."""
+    got = step_outputs(pipe, kwargs, combine)
     with plain_kernels():
-        plain = i2v_step_outputs(pipe, kwargs)
-        ref = i2v_step_outputs(fp32_copy(pipe), kwargs)
+        plain = step_outputs(pipe, kwargs, combine)
+        ref = step_outputs(fp32_copy(pipe), kwargs, combine)
     torch.cuda.synchronize()
     names = [f"adapter output {i}" for i in range(len(ref) - 2)] + ["UNet output", "noise"]
     metrics = {"max": lambda d, r: d.abs().max() / r.abs().max(),
@@ -1751,7 +1951,7 @@ def i2v_reference_check(pipe, label, kwargs):
                    for e, p, n in zip(errs, err_p[m], names))
 
     err_k, (ratio, _) = errors(got), worst(got)
-    print(f"{label} reference ({kwargs['num_frames']} frames at {kwargs['height']}x"
+    print(f"{label} reference ({kwargs.get('num_frames', 1)} frames at {kwargs['height']}x"
           f"{kwargs['width']}, the first controlled step's {len(ref) - 2} adapter outputs, UNet "
           f"output and CFG-combined noise prediction, errors relative to the fp32 tensor's):")
     for m in metrics:
@@ -1762,8 +1962,10 @@ def i2v_reference_check(pipe, label, kwargs):
     if not (all(torch.isfinite(o).all() for o in got) and ratio <= 1.0):
         raise RuntimeError(f"{label}: kernel path is farther from the fp32 reference than allowed")
     for fault, swap in faulty_kernels().items():
+        if faults is not None and fault not in faults:
+            continue
         with swap:
-            bad, where = worst(i2v_step_outputs(pipe, kwargs))
+            bad, where = worst(step_outputs(pipe, kwargs, combine))
         print(f"  control, {fault}: largest error / (2 x plain) {bad:.3f} ({where}), "
               f"{'fails' if bad > 1.0 else 'PASSES'} the check")
         if bad <= 1.0:
@@ -1805,7 +2007,7 @@ def run_i2vgenxl(dev, card, kernels):
     want = i2v_launches(hi - lo, I2V_STEPS - (hi - lo))
     if launches != want:
         raise RuntimeError(f"i2vgenxl depth: launches {launches}, want (JAX dispatch) {want}")
-    check_i2v_steps("i2vgenxl depth", steps, I2V_STEPS)
+    check_steps("i2vgenxl depth", steps, I2V_STEPS)
 
     def steps_ms(end, n=I2V_STEPS):
         torch.cuda.synchronize()
@@ -1833,20 +2035,16 @@ def run_i2vgenxl(dev, card, kernels):
     print(f"  first generate() {t_first:.3f} s (denoise + decode, cold); peak device memory "
           f"{peak_gb:.2f} GiB")
     for kind, ms in per_kind.items():
-        busy, span, per_name = activity[kind]
         print(f"  {kind} step: {', '.join(f'{t:.1f}' for t in ms)} ms (host clock, "
-              f"{I2V_STEPS}-step runs in turns); profiled 2-step run: device busy "
-              f"{busy / 2000:.1f} ms/step of a {span / 2000:.1f} ms/step kernel span, idle "
-              f"share {1 - busy / span:.3%}; its top kernels:")
-        for name, (us, calls) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]:
-            print(f"    {us / 2000:8.2f} ms/step {us / busy:6.1%} x{calls // 2:5d}/step {name[:90]}")
+              f"{I2V_STEPS}-step runs in turns)")
+        print_activity("    profiled 2-step run: ", activity[kind], 2)
     print("  tower calls in a controlled step (CUDA events, median of 2): " + "; ".join(
         f"{name} {statistics.median(ts):.1f} ms" for name, ts in towers.items()))
     print(f"  decode {t_decode:.3f} s (second run; {I2V_FRAMES} frames in chunks of 2)")
     # 256x256 puts the UNet's level-0 attention at T = 1024, so K2 runs too
     small = dict(height=256, width=256, num_frames=4, num_inference_steps=2,
                  guidance_scale=9.0, control_latent_size=32, output_type="latent")
-    i2v_reference_check(depth, "i2vgenxl depth", dict(
+    step_reference_check(depth, "i2vgenxl depth", dict(
         i2v_inputs(dev, bf, 1, 4, 256, SEED + 12), **small, control_guidance_end=0.8))
     del depth, video, latents
 
@@ -1881,7 +2079,7 @@ def run_i2vgenxl(dev, card, kernels):
     if launches_multi != i2v_launches(I2V_MULTI_STEPS, 0):
         raise RuntimeError(f"i2vgenxl multi: launches {launches_multi}, want "
                            f"{i2v_launches(I2V_MULTI_STEPS, 0)}")
-    check_i2v_steps("i2vgenxl multi", msteps, I2V_MULTI_STEPS)
+    check_steps("i2vgenxl multi", msteps, I2V_MULTI_STEPS)
     off = range(I2V_ACTIVE, I2V_EXPERTS)
     masked = [row[e] for step in trace_down for row in step for e in off]
     masked += [step[e] for step in trace_mid for e in off]
@@ -1898,12 +2096,142 @@ def run_i2vgenxl(dev, card, kernels):
     print(f"i2vgenxl multi on {card}: {I2V_ACTIVE} of {I2V_EXPERTS} experts, "
           f"{I2V_MULTI_STEPS} steps, first generate() {t_multi:.3f} s (denoise + decode, "
           f"cold); controlled step {multi_ms:.1f} ms (host clock, second run)")
-    i2v_reference_check(multi, "i2vgenxl multi", dict(
+    step_reference_check(multi, "i2vgenxl multi", dict(
         i2v_inputs(dev, bf, I2V_EXPERTS, 4, 256, SEED + 12), **small, control_guidance_end=1.0,
         inference_expert_masks=masks))
     del multi, unet, nets, adapter, vae, router
     torch.cuda.empty_cache()
     return launches, launches_multi
+
+
+def build_sdxl(dev, dtype):
+    """The SDXL towers at the full width of the JAX bench's ``sdxl_depth``
+    (``bench.py:426-490``): the SDXL UNet (``SDXL_CONFIG``: 320/640/1280, 1/2/10
+    transformer layers, cross 2048), the SD-v1.5 ControlNet, the adapter
+    (backbone "sdxl", cross 2048, one block at each of A-C's 3 slots, spatial
+    ResNet and transformer) and the SDXL VAE, in ``dtype``, with weights drawn
+    on the card from a seeded generator at scale 0.02."""
+    from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+    from ctrl_adapter_tpu_torch.models.controlnet import ControlNetModel
+    from ctrl_adapter_tpu_torch.models.unet_2d import SDXL_CONFIG, UNet2DConditionModel
+    from ctrl_adapter_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+    kw = dict(device=dev, dtype=dtype)
+    unet = UNet2DConditionModel(SDXL_CONFIG, **kw)
+    cnet = ControlNetModel(**kw)
+    adapter = ControlNetAdapter(backbone_model_name="sdxl", cross_attention_dim=2048,
+                                num_blocks=1, adapter_locations=("A", "B", "C"), **kw)
+    vae = AutoencoderKL(VAEConfig(scaling_factor=0.13025), **kw)
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    n_params = 0
+    with torch.no_grad():
+        for module in (unet, cnet, adapter, vae):
+            module.eval()
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.02)
+                n_params += p.numel()
+    return unet, cnet, adapter, vae, n_params
+
+
+def sdxl_inputs(dev, dtype, size, control, seed):
+    """Prompt (2, 77, 2048), pooled text (2, 1280), ControlNet prompt (2, 77,
+    768), a control image of 8 x ``control`` square in [0, 1] and the initial
+    latents, from a seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, scale: (torch.randn(*s, generator=g, device=dev) * scale).to(dtype)  # noqa: E731
+    return dict(prompt_embeds=r(2, 77, 2048, scale=0.02), add_text_embeds=r(2, 1280, scale=0.02),
+                controlnet_prompt_embeds=r(2, 77, 768, scale=0.02),
+                control_image=torch.rand(1, 8 * control, 8 * control, 3, generator=g,
+                                         device=dev).to(dtype),
+                latents=torch.randn(1, size // 8, size // 8, 4, generator=g, device=dev))
+
+
+def run_sdxl(dev, card, kernels):
+    """Phase 10: the SDXL control path at the full width of ``bench_sdxl``:
+    batch 1 at 1024x1024, CFG 7.5, SDXL_STEPS Euler steps with the control
+    window ending at 0.6, then the decode; returns the launch counts."""
+    from ctrl_adapter_tpu_torch.pipelines.common import (classifier_free_guidance_rescaled,
+                                                         control_window)
+    from ctrl_adapter_tpu_torch.pipelines.sdxl import SDXLControlNetAdapterPipeline
+
+    bf = torch.bfloat16
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    unet, cnet, adapter, vae, n_params = build_sdxl(dev, bf)
+    torch.cuda.synchronize()
+    print(f"sdxl: built the SDXL UNet, the SD-v1.5 ControlNet, the adapter and the SDXL VAE, "
+          f"{n_params / 1e9:.3f} B params bf16 (UNet "
+          f"{sum(p.numel() for p in unet.parameters()) / 1e9:.3f} B), in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pipe = SDXLControlNetAdapterPipeline(unet, cnet, adapter, vae)
+    inputs = sdxl_inputs(dev, bf, SDXL_SIZE, SDXL_CONTROL, SEED + 16)
+    kw = dict(height=SDXL_SIZE, width=SDXL_SIZE, guidance_scale=7.5, control_guidance_end=0.6,
+              control_latent_size=SDXL_CONTROL)
+
+    torch.cuda.reset_peak_memory_stats()
+    with launches_per_step(pipe, kernels) as steps:
+        image, launches, t_first = drive(pipe, inputs, kw, kernels, SDXL_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"sdxl: launches during the run {launches}")
+    if tuple(image.shape) != (1, SDXL_SIZE, SDXL_SIZE, 3):
+        raise RuntimeError(f"sdxl: image shape {tuple(image.shape)}")
+    im = image.float()
+    if not torch.isfinite(im).all() or im.min().item() < 0.0 or im.max().item() > 1.0:
+        raise RuntimeError("sdxl: image not finite or outside [0, 1]")
+    print(f"sdxl: image {tuple(image.shape)} finite, range [{im.min().item():.4f}, "
+          f"{im.max().item():.4f}], std {im.std().item():.4f}")
+    lo, hi = control_window(SDXL_STEPS, 0.0, 0.6)
+    want = sdxl_launches(hi - lo, SDXL_STEPS - (hi - lo))
+    if launches != want:
+        raise RuntimeError(f"sdxl: launches {launches}, want (JAX dispatch) {want}")
+    check_steps("sdxl", steps, SDXL_STEPS, sdxl_launches)
+
+    def steps_ms(end, n=SDXL_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        latents = pipe.generate(**inputs, **{**kw, "control_guidance_end": end},
+                                num_inference_steps=n, output_type="latent")
+        torch.cuda.synchronize()
+        return 1000 * (time.perf_counter() - t1) / n, latents
+
+    per_kind = {"controlled": [], "UNet-only": []}
+    for kind in ("controlled", "UNet-only", "UNet-only", "controlled"):  # in turns
+        per_kind[kind].append(steps_ms(1.0 if kind == "controlled" else 0.0)[0])
+    activity = {kind: device_activity(lambda end=end: steps_ms(end, 2))
+                for kind, end in (("controlled", 1.0), ("UNet-only", 0.0))}
+    towers = tower_ms({"ControlNet": cnet, "adapter": adapter, "UNet": unet},
+                      lambda: steps_ms(1.0, 2))
+    _, latents = steps_ms(0.6)
+    decode_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pipe._decode(latents, 0.13025)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t1)
+    print(f"sdxl on {card}: 1x{SDXL_SIZE}x{SDXL_SIZE}, CFG 7.5, Euler {SDXL_STEPS} steps "
+          f"({hi - lo} in the control window):")
+    print(f"  first generate() {t_first:.3f} s (denoise + decode, cold); peak device memory "
+          f"{peak_gb:.2f} GiB")
+    for kind, ms in per_kind.items():
+        print(f"  {kind} step: {', '.join(f'{t:.1f}' for t in ms)} ms (host clock, "
+              f"{SDXL_STEPS}-step runs in turns)")
+        print_activity("    profiled 2-step run: ", activity[kind], 2)
+    print("  tower calls in a controlled step (CUDA events, median of 2): " + "; ".join(
+        f"{name} {statistics.median(ts):.1f} ms" for name, ts in towers.items()))
+    print(f"  decode {decode_s[1]:.3f} s (second run; first {decode_s[0]:.3f} s)")
+    # 512x512: the UNet's level-1 attention at T = 1024, the adapter's A blocks
+    # at T = 4096, so K2 runs in both towers; K1 in the adapter
+    small = dict(height=512, width=512, num_inference_steps=2, guidance_scale=7.5,
+                 guidance_rescale=0.7, control_latent_size=32, control_guidance_end=1.0,
+                 output_type="latent")
+    step_reference_check(
+        pipe, "sdxl", dict(sdxl_inputs(dev, bf, 512, 32, SEED + 17), **small),
+        combine=lambda out: classifier_free_guidance_rescaled(out, 7.5, 0.7),
+        faults=("K1 without its SiLU", "K2 without head 0"))
+    del pipe, unet, cnet, adapter, vae, image, latents
+    torch.cuda.empty_cache()
+    return launches
 
 
 def run_exact_gelu(dev, card, full_kernel, k4_kernel):
@@ -2019,11 +2347,9 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: needs compute capability >= 9.0, got {cap}")
     # before any output: outside a checkout of the repo the script prints nothing
     from ctrl_adapter_tpu_torch.ops import _build
-    from ctrl_adapter_tpu_torch.ops import flash_attention as fa
     from ctrl_adapter_tpu_torch.ops import fused_block as fb
     from ctrl_adapter_tpu_torch.ops import fused_ff as ff
     from ctrl_adapter_tpu_torch.ops import fused_temporal as ft
-    from ctrl_adapter_tpu_torch.ops import group_norm as gn
 
     card = nvidia_smi_line()
     print(f"card: {card} (capability {cap[0]}.{cap[1]}, torch {torch.__version__}, "
@@ -2058,10 +2384,10 @@ def main() -> int:
     for name, rows in check_i2vgenxl_kernels(dev, card).items():
         results[name] += rows
     phase_done("phase 3 at the I2VGen-XL shapes")
-    kernels = {"group_norm_silu": gn.KERNEL, "flash_attention": fa.KERNEL,
-               "temporal_block": ft.KERNEL, "temporal_block_full": ft.KERNEL_FULL,
-               "ln_ff_residual": fb.KERNEL, "geglu": ff.KERNEL,
-               "flash_attention_bwd": fa.KERNEL_BWD}
+    for name, rows in check_sdxl_kernels(dev, card).items():
+        results[name] += rows
+    phase_done("phase 3 at the SDXL shapes")
+    kernels = kernel_counters()
     launches, launches_fb, k4_per_step = run_slices(dev, card, kernels)
     phase_done("phases 4-5, the SVD slice")
     # K4's per-step sums from the launches the fused-block run counted per step
@@ -2078,6 +2404,8 @@ def main() -> int:
     phase_done("phase 8, SVD training")
     launches_i2v, launches_i2v_multi = run_i2vgenxl(dev, card, kernels)
     phase_done("phase 9, I2VGen-XL")
+    launches_sdxl = run_sdxl(dev, card, kernels)
+    phase_done("phase 10, SDXL")
 
     meta = {  # name: (source, replaces, the run its launches come from)
         "group_norm_silu": ("ctrl_adapter_tpu_torch/csrc/group_norm.cu",
@@ -2108,7 +2436,8 @@ def main() -> int:
             if k not in ("controlled", "unet_only", "training")},
          "max_abs_err": max(r["max_abs_err"] for r in results[name]),
          "launches_i2vgenxl": launches_i2v[name],
-         "launches_i2vgenxl_multi": launches_i2v_multi[name]}
+         "launches_i2vgenxl_multi": launches_i2v_multi[name],
+         "launches_sdxl": launches_sdxl[name]}
         for name in kernels]}
     print(json.dumps(line))
     print(card)

@@ -12,6 +12,12 @@ torch's:
 - ``kernel`` (kd, kh, kw, in, out)     -> ``weight`` (out, in, kd, kh, kw)
 - ``scale``                            -> ``weight``
 
+The rule covers every name of the port: the SDXL slice's Linear
+``proj_in``/``proj_out`` and ``add_embedding`` are (in, out) kernels,
+``processor.to_k_ip.0`` is ``processor/to_k_ip_0``,
+``encoder_hid_proj.image_projection_layers.0.norm`` a LayerNorm's
+``scale``/``bias``, ``zero_convs.3`` the 1x1 conv ``zero_convs_3``.
+
 The bridge is strict: every port parameter is filled and every JAX leaf is used
 exactly once, or it raises. ``dtype`` overrides the module's dtypes, e.g.
 float32 for a trainer's master weights (``CtrlAdapterTrainer.load_masters``).

@@ -6,6 +6,14 @@ while their attention inner dim is ``in_channels`` (320/640/1280), so the
 temporal kernel K3 runs with ia != c here. Unadapted residual slots are zeros.
 Every GroupNorm of the adapter asks for kernel K1 (``kernel="prefer"``, the JAX
 ``use_pallas="prefer"``) and gets it where the JAX shape rule holds.
+
+For the SDXL backbone (``backbone_model_name="sdxl"``) every block upsamples x2
+in its first layer, since the SD-v1.5 ControlNet's 64x64 features meet SDXL's
+128x128 latents: through the spatial ResNet's ``up`` resize, or a bare nearest
+resize when the block has no ResNet; the unadapted slots are zeros of the
+doubled size. ``num_repeats > 1`` (experimental) runs the blocks that many
+times and sums each repeat's outputs through zero-initialised 1x1
+``zero_convs``.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from ..nn.embeddings import (TimestepEmbedding, Timesteps, get_timestep_embeddin
                              timestep_tensor)
 from ..nn.resnet import AlphaBlender, GroupNorm, ResnetBlock2D, TemporalResnetBlock
 from ..nn.unet_st_blocks import from_5d, to_5d
+from ..ops.resize import nearest_resize
 
 _LOCATION_ID_MAP = {
     "A": {3: [0, 1, 2], 2: [0, 2], 1: [2]},
@@ -57,10 +66,12 @@ class AdapterSpatioTemporal(nn.Module):
     def __init__(self, channels: int, num_layers: int = 1, add_spatial_resnet: bool = True,
                  add_temporal_resnet: bool = True, add_spatial_transformer: bool = True,
                  add_temporal_transformer: bool = True, cross_attention_dim: int = 1024,
-                 attention_head_dim: int = 64, device=None, dtype=None):
+                 attention_head_dim: int = 64, up_sampling_scale: float = 1.0, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.num_layers = num_layers
+        self.up_sampling_scale = up_sampling_scale
         self.channels = channels
         self.flags = (add_spatial_resnet, add_temporal_resnet, add_spatial_transformer,
                       add_temporal_transformer)
@@ -79,7 +90,7 @@ class AdapterSpatioTemporal(nn.Module):
         if add_spatial_resnet:
             self.spatial_resnets = nn.ModuleList([ResnetBlock2D(
                 channels, channels, channels, eps=1e-6, use_in_shortcut=True,
-                gn_kernel="prefer", **kw) for _ in layers])
+                gn_kernel="prefer", up=i == 0 and up_sampling_scale > 1, **kw) for i in layers])
         if add_temporal_resnet:
             self.temporal_resnets = nn.ModuleList([TemporalResnetBlock(
                 channels, channels, channels, eps=1e-6, gn_kernel="prefer", **kw) for _ in layers])
@@ -119,12 +130,16 @@ class AdapterSpatioTemporal(nn.Module):
                 ehs = ehs.repeat_interleave(bf // ehs.shape[0], dim=0)
             ehs = ehs.to(dtype)
 
+        scale = self.up_sampling_scale
+        up_size = (int(height * scale), int(width * scale))
         for i in range(self.num_layers):
             if spatial_res or temporal_res:
                 resnet_temb = self.resnet_time_embedding(
                     self.resnet_time_proj(timestep).to(dtype))
             if spatial_res:
-                hidden_states = self.spatial_resnets[i](hidden_states, resnet_temb)
+                hidden_states = self.spatial_resnets[i](
+                    hidden_states, resnet_temb, up_size if i == 0 and scale > 1 else None)
+                height, width = hidden_states.shape[-2:]
                 if temporal_res:
                     mix_5d = to_5d(hidden_states, num_frames)
             if temporal_res:
@@ -134,6 +149,9 @@ class AdapterSpatioTemporal(nn.Module):
                 if spatial_res:
                     hs_5d = self.resnets_time_mixer[i](mix_5d, hs_5d, indicator)
                 hidden_states = from_5d(hs_5d)
+            if not (spatial_res or temporal_res) and i == 0 and scale > 1:
+                hidden_states = nearest_resize(hidden_states, up_size)  # no ResNet to resize
+                height, width = up_size
 
             if spatial_tr or temporal_tr:
                 residual = hidden_states
@@ -163,7 +181,8 @@ class AdapterSpatioTemporal(nn.Module):
 
 
 class ControlNetAdapter(nn.Module):
-    """Adapters over the 12 + 1 ControlNet residual slots; zeros at unadapted slots."""
+    """Adapters over the 12 + 1 ControlNet residual slots; zeros at unadapted
+    slots (of twice the size for SDXL)."""
 
     def __init__(self, num_blocks: int = 2, num_adapters_per_location: int = 3,
                  cross_attention_dim: Optional[int] = None, add_spatial_resnet: bool = True,
@@ -172,38 +191,76 @@ class ControlNetAdapter(nn.Module):
                  adapter_locations: Tuple[str, ...] = ("A", "B", "C", "D", "M"),
                  custom_down_block_channels: Optional[Tuple[int, ...]] = None,
                  custom_mid_block_channels: Optional[int] = None, attention_head_dim: int = 64,
-                 device=None, dtype=None):
+                 backbone_model_name: str = "i2vgenxl", num_repeats: int = 1,
+                 out_channels: Optional[int] = None, device=None, dtype=None):
         super().__init__()
+        kw = dict(device=device, dtype=dtype)
         self.adapter_locations = tuple(adapter_locations)
+        # SDXL's latents are twice the SD-v1.5 ControlNet's features
+        self.up_scale = 2.0 if backbone_model_name == "sdxl" else 1.0
+        self.num_repeats = num_repeats
         self.down_block_ids = get_down_block_ids(adapter_locations, num_adapters_per_location)
         channels = (list(custom_down_block_channels) if custom_down_block_channels is not None
                     else get_down_block_channels(adapter_locations, num_adapters_per_location))
+        channels = channels[:len(self.down_block_ids)]
         block = lambda ch: AdapterSpatioTemporal(  # noqa: E731
             ch, num_blocks, add_spatial_resnet, add_temporal_resnet, add_spatial_transformer,
-            add_temporal_transformer, cross_attention_dim, attention_head_dim, device=device,
-            dtype=dtype)
+            add_temporal_transformer, cross_attention_dim, attention_head_dim, self.up_scale,
+            **kw)
         self.down_blocks_adapter = nn.ModuleList(
-            [block(ch) for ch in channels[:len(self.down_block_ids)]])
+            [block(ch) for _ in range(num_repeats) for ch in channels])
         self.mid_block_adapter = (block(custom_mid_block_channels or MID_BLOCK_CHANNELS)
                                   if "M" in adapter_locations else None)
+        self.zero_convs = None
+        if num_repeats > 1:
+            if out_channels is None:
+                raise ValueError("num_repeats > 1 needs out_channels")
+            # the reference's sum reads slot k of each repeat for the k-th
+            # adapted block, whose width this takes to be channels[k]
+            self.zero_convs = nn.ModuleList([nn.Conv2d(ch, out_channels, 1, **kw)
+                                             for _ in range(num_repeats) for ch in channels])
+            with torch.no_grad():
+                for conv in self.zero_convs:
+                    conv.weight.zero_()
+                    conv.bias.zero_()
 
     def forward(self, down_block_res_samples: Sequence[torch.Tensor],
                 mid_block_res_sample: Optional[torch.Tensor] = None, num_frames: int = 1,
                 timestep=None, encoder_hidden_states: Optional[torch.Tensor] = None
                 ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
         dtype = next(self.parameters()).dtype
-        out: List[torch.Tensor] = []
-        k = 0
-        for i, ref in enumerate(down_block_res_samples):
-            if i in self.down_block_ids:
-                out.append(self.down_blocks_adapter[k](
-                    ref.to(dtype), num_frames, timestep, encoder_hidden_states))
-                k += 1
-            else:
-                out.append(torch.zeros_like(ref))
+        n_slots = len(down_block_res_samples)
+        num_active = len([i for i in self.down_block_ids if i < n_slots])
+        out: List[torch.Tensor] = []  # num_repeats x n_slots
+        for r in range(self.num_repeats):
+            k = 0
+            for i, ref in enumerate(down_block_res_samples):
+                if i in self.down_block_ids:
+                    out.append(self.down_blocks_adapter[k + r * num_active](
+                        ref.to(dtype), num_frames, timestep, encoder_hidden_states))
+                    k += 1
+                elif self.up_scale > 1:
+                    n, c, h, w = ref.shape
+                    out.append(torch.zeros((n, c, 2 * h, 2 * w), dtype=ref.dtype,
+                                           device=ref.device))
+                else:
+                    out.append(torch.zeros_like(ref))
         mid = None
         if mid_block_res_sample is not None and self.mid_block_adapter is not None:
             mid = self.mid_block_adapter(
                 mid_block_res_sample.to(dtype),
                 num_frames, timestep, encoder_hidden_states)
-        return out, mid
+        if self.zero_convs is None:
+            return out, mid
+        aggregated = []
+        for r in range(self.num_repeats):
+            acc = 0.0
+            for k in range(num_active):
+                conv = self.zero_convs[k + r * num_active]
+                x = out[k + n_slots * r]
+                if x.shape[1] != conv.in_channels:
+                    raise ValueError(f"zero_convs.{k + r * num_active} reads slot {k} of "
+                                     f"width {x.shape[1]}, built for {conv.in_channels}")
+                acc = acc + conv(x.to(dtype))
+            aggregated.append(acc)
+        return aggregated, None

@@ -4,8 +4,8 @@ Counterpart of ``ctrl_adapter_tpu/nn/attention.py``. Parameter names are the
 diffusers ones (``to_q``, ``to_out.0``, ``ff.net.0.proj``, ``ff.net.2``).
 
 - ``Attention`` keeps the JAX paths: flash-eligible self-attention (the JAX
-  shape rule alone) goes to kernel K2 on head-split views of the projections
-  (no transposes); single-key
+  shape rule alone; never one with IP-Adapter image tokens) goes to kernel
+  K2 on head-split views of the projections (no transposes); single-key
   attention returns V broadcast; sequences of 32 or fewer use an einsum with an
   fp32 softmax; everything else is plain attention.
 - ``TemporalBasicTransformerBlock`` branches three ways on the JAX
@@ -56,11 +56,26 @@ class LayerNorm(nn.LayerNorm):
                             self.bias.float(), self.eps).to(x.dtype)
 
 
+class _IPProjections(nn.Module):
+    """The IP-Adapter's bias-free key and value projections of the image tokens,
+    under diffusers' loaded names ``processor.to_k_ip.0`` / ``processor.to_v_ip.0``."""
+
+    def __init__(self, kv_dim: int, inner: int, device=None, dtype=None):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.to_k_ip = nn.ModuleList([nn.Linear(kv_dim, inner, **kw)])
+        self.to_v_ip = nn.ModuleList([nn.Linear(kv_dim, inner, **kw)])
+
+
 class Attention(nn.Module):
-    """Multi-head attention, bias-free QKV, biased output projection."""
+    """Multi-head attention, bias-free QKV, biased output projection. With
+    ``ip_adapter`` (a cross-attention of a UNet with IP-Adapter image tokens),
+    the image tokens are attended with the same queries through ``processor``'s
+    projections and added, times ``ip_scale``, before ``to_out``."""
 
     def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64,
-                 cross_attention_dim: Optional[int] = None, device=None, dtype=None):
+                 cross_attention_dim: Optional[int] = None, ip_adapter: bool = False,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         inner = heads * dim_head
@@ -71,12 +86,16 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(kv_dim, inner, bias=False, **kw)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim, **kw),
                                      nn.Dropout(0.0)])
+        self.processor = _IPProjections(kv_dim, inner, **kw) if ip_adapter else None
 
     def forward(self, hidden_states: torch.Tensor,
-                encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                ip_hidden_states: Optional[torch.Tensor] = None,
+                ip_scale: float = 1.0) -> torch.Tensor:
         b, tq, _ = hidden_states.shape
         n, h = self.heads, self.dim_head
-        if encoder_hidden_states is None and fa.flash_eligible(tq, tq, h):
+        if (encoder_hidden_states is None and ip_hidden_states is None
+                and fa.flash_eligible(tq, tq, h)):
             # (B, T, N*H) projections seen as (B, N, T, H): no head-split copies
             split = lambda t: t.view(b, tq, n, h).transpose(1, 2)  # noqa: E731
             out = fa.attention_bnth(split(self.to_q(hidden_states)),
@@ -89,8 +108,14 @@ class Attention(nn.Module):
         q = self.to_q(hidden_states).view(b, tq, n, h)
         k = self.to_k(context).view(b, tk, n, h)
         v = self.to_v(context).view(b, tk, n, h)
-        out = fa.dot_product_attention(q, k, v)
-        return self.to_out[0](out.reshape(b, tq, n * h))
+        out = fa.dot_product_attention(q, k, v).reshape(b, tq, n * h)
+        if ip_hidden_states is not None:
+            ip = ip_hidden_states.to(hidden_states.dtype)
+            t_ip = ip.shape[1]
+            k_ip = self.processor.to_k_ip[0](ip).view(b, t_ip, n, h)
+            v_ip = self.processor.to_v_ip[0](ip).view(b, t_ip, n, h)
+            out = out + ip_scale * fa.dot_product_attention(q, k_ip, v_ip).reshape(b, tq, n * h)
+        return self.to_out[0](out)
 
 
 class GEGLU(nn.Module):
@@ -118,29 +143,32 @@ class FeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """LayerNorm-sandwiched self-attention, cross-attention and GEGLU FF."""
+    """LayerNorm-sandwiched self-attention, cross-attention and GEGLU FF. With
+    ``ip_adapter``, the cross-attention also attends IP-Adapter image tokens."""
 
     def __init__(self, dim: int, num_attention_heads: int, attention_head_dim: int,
-                 cross_attention_dim: Optional[int] = None, device=None, dtype=None):
+                 cross_attention_dim: Optional[int] = None, ip_adapter: bool = False,
+                 device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        attn = lambda cross: Attention(  # noqa: E731
-            dim, num_attention_heads, attention_head_dim, cross, **kw)
         self.norm1 = LayerNorm(dim, eps=1e-5, **kw)
-        self.attn1 = attn(None)
+        self.attn1 = Attention(dim, num_attention_heads, attention_head_dim, **kw)
         self.norm2 = self.attn2 = None
         if cross_attention_dim is not None:
             self.norm2 = LayerNorm(dim, eps=1e-5, **kw)
-            self.attn2 = attn(cross_attention_dim)
+            self.attn2 = Attention(dim, num_attention_heads, attention_head_dim,
+                                   cross_attention_dim, ip_adapter, **kw)
         self.norm3 = LayerNorm(dim, eps=1e-5, **kw)
         self.ff = FeedForward(dim, dim, **kw)
 
     def forward(self, hidden_states: torch.Tensor,
-                encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                ip_hidden_states: Optional[torch.Tensor] = None,
+                ip_scale: float = 1.0) -> torch.Tensor:
         hidden_states = self.attn1(self.norm1(hidden_states)) + hidden_states
         if self.attn2 is not None:
-            hidden_states = self.attn2(self.norm2(hidden_states),
-                                       encoder_hidden_states) + hidden_states
+            hidden_states = self.attn2(self.norm2(hidden_states), encoder_hidden_states,
+                                       ip_hidden_states, ip_scale) + hidden_states
         return fb.ln_ff_residual(hidden_states, *_ff_args(self.norm3, self.ff), 1e-5,
                                  gelu_approximate(self.norm3.weight.dtype), True)
 

@@ -9,7 +9,7 @@ rule ``group_norm.eligible`` holds. Every other norm runs the plain version.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -68,16 +68,20 @@ class Downsample2D(nn.Module):
 
 
 class ResnetBlock2D(nn.Module):
-    """GN -> SiLU -> conv3x3 -> +temb -> GN -> SiLU -> conv3x3 (+shortcut)."""
+    """GN -> SiLU -> (nearest upsample) -> conv3x3 -> +temb -> GN -> SiLU ->
+    conv3x3 (+shortcut). With ``up``, the hidden state and the input are both
+    resized to ``output_size`` (default 2x) after the first norm, the
+    reference fork's arbitrary-size upsample."""
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  temb_channels: Optional[int] = 512, groups: int = 32, eps: float = 1e-6,
                  output_scale_factor: float = 1.0, use_in_shortcut: Optional[bool] = None,
-                 gn_kernel: Optional[object] = None, device=None, dtype=None):
+                 gn_kernel: Optional[object] = None, up: bool = False, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         out_channels = out_channels or in_channels
         self.output_scale_factor = output_scale_factor
+        self.up = up
         self.norm1 = GroupNorm(groups, in_channels, eps, gn_kernel, **kw)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1, **kw)
         self.time_emb_proj = (nn.Linear(temb_channels, out_channels, **kw)
@@ -89,9 +93,14 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1, **kw)
                               if use_in_shortcut else None)
 
-    def forward(self, input_tensor: torch.Tensor,
-                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        hidden = self.conv1(self.norm1(input_tensor, silu=True))
+    def forward(self, input_tensor: torch.Tensor, temb: Optional[torch.Tensor] = None,
+                output_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        hidden = self.norm1(input_tensor, silu=True)
+        if self.up:
+            target = output_size or (2 * hidden.shape[-2], 2 * hidden.shape[-1])
+            input_tensor = nearest_resize(input_tensor, target)
+            hidden = nearest_resize(hidden, target)
+        hidden = self.conv1(hidden)
         if temb is not None and self.time_emb_proj is not None:
             hidden = hidden + self.time_emb_proj(F.silu(temb))[:, :, None, None]
         hidden = self.conv2(self.norm2(hidden, silu=True))

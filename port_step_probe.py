@@ -35,12 +35,6 @@ import chip_smoke as cs
 REPS = 3  # timed runs per measurement
 
 
-def idle_share(gen):
-    busy, span, by_name = cs.device_activity(lambda: gen(1))
-    n = sum(calls for _, calls in by_name.values())
-    return n, busy, span, sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
-
-
 def main() -> int:
     if not torch.cuda.is_available() or torch.cuda.get_device_capability(0) < (9, 0):
         raise SystemExit("port_step_probe: needs a CUDA card of capability >= 9.0")
@@ -117,12 +111,8 @@ def main() -> int:
     print(f"3. all-K1 vs plain-norm latents, 2 controlled steps: max|diff|/max|plain| = "
           f"{((a - b).abs().max() / b.abs().max()).item():.3e}")
 
-    n, busy, span, top = idle_share(gen)
-    print(f"4. profiled controlled step on {card}: {n} kernels, busy {busy / 1000:.1f} ms "
-          f"over a kernel span of {span / 1000:.1f} ms: device idle share "
-          f"{1 - busy / span:.3%}")
-    for name, (us, calls) in top:
-        print(f"   {us / 1000:8.2f} ms {us / busy:6.1%} x{calls:4d} {name[:110]}")
+    cs.print_activity(f"4. profiled controlled step on {card}: ",
+                      cs.device_activity(lambda: gen(1)), top=25)
     return 0
 
 

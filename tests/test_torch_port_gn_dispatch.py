@@ -13,7 +13,8 @@ per call, with ``group_norm.eligible``.
   device test patched to "TPU" and its kernel replaced by a spy. The adapter's
   norms carry "prefer" and all others None, as the JAX modules pass them.
 - The same at every norm of the I2VGen-XL path (adapter, I2VGen-XL UNet,
-  ControlNet, 2D VAE) at b*f = 32.
+  ControlNet, 2D VAE) at b*f = 32, and of the SDXL path (the SDXL adapter,
+  UNet, ControlNet and VAE) at batch 2.
 - Each flag value under the switch, at shapes the rule takes and refuses.
 """
 
@@ -193,6 +194,59 @@ def test_k1_choice_matches_jax_at_every_norm_of_the_i2vgenxl_path(jax_on_tpu, en
     if env is None:
         assert set(per_tower) == {"adapter"}
     else:  # the towers' norms the rule admits; the VAE's maps at 64x64 and up exceed it
+        assert per_tower["unet"] and per_tower["controlnet"]
+    assert not all(taken for *_, taken in seen)
+
+
+@pytest.mark.parametrize("env", [None, "1"], ids=["default", "fused-gn"])
+def test_k1_choice_matches_jax_at_every_norm_of_the_sdxl_path(jax_on_tpu, env):
+    """The SDXL path at full width, batch 2 (the CFG pair): the SDXL adapter
+    (its norms before and after the x2 upsample), the SDXL UNet at 128x128
+    latents, the ControlNet at 64x64 and the VAE decode at 1024x1024."""
+    import chip_smoke
+    from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+    from ctrl_adapter_tpu_torch.models.controlnet import ControlNetModel
+    from ctrl_adapter_tpu_torch.models.unet_2d import SDXL_CONFIG, UNet2DConditionModel
+    from ctrl_adapter_tpu_torch.models.vae import AutoencoderKL
+
+    _set_env(jax_on_tpu, env)
+    seen, state, kernel = _record_norms(jax_on_tpu)
+    e = lambda *s: torch.empty(*s, device=META, dtype=BF)  # noqa: E731
+    with chip_smoke.plain_kernels(), torch.no_grad():
+        jax_on_tpu.setattr(gn, "group_norm_silu", kernel)
+        state["tower"] = "adapter"
+        adapter = ControlNetAdapter(backbone_model_name="sdxl", cross_attention_dim=2048,
+                                    num_blocks=1, adapter_locations=("A", "B", "C"),
+                                    device=META, dtype=BF)
+        down, _ = adapter([e(2, c, h, h) for c, h in chip_smoke.adapter_blocks(64)[:-1]],
+                          None, num_frames=1, timestep=951.0,
+                          encoder_hidden_states=e(2, 77, 2048))
+        state["tower"] = "unet"
+        UNet2DConditionModel(SDXL_CONFIG, device=META, dtype=BF)(
+            e(2, 4, 128, 128), 951.0, e(2, 77, 2048),
+            {"text_embeds": e(2, 1280), "time_ids": e(2, 6)},
+            down_block_additional_residuals=down)
+        state["tower"] = "controlnet"
+        ControlNetModel(device=META, dtype=BF)(e(2, 4, 64, 64), 951.0, e(2, 77, 768),
+                                               e(2, 3, 512, 512))
+        state["tower"] = "vae"
+        AutoencoderKL(device=META, dtype=BF).decode(e(1, 4, 128, 128))
+
+    assert {(tower, flag) for tower, flag, _, _ in seen} == {
+        ("adapter", "prefer"), ("unet", None), ("controlnet", None), ("vae", None)}
+    verdicts = {}
+    for tower, flag, shape, taken in seen:
+        key = (flag, shape)
+        if key not in verdicts:
+            verdicts[key] = _jax_takes(flag, shape)
+        assert taken == verdicts[key], (tower, flag, shape, taken)
+    per_tower = Counter(tower for tower, _, _, taken in seen if taken)
+    assert per_tower["adapter"] == sum(chip_smoke.sdxl_k1_rows().values()) == 17
+    assert sum(tower == "adapter" for tower, *_ in seen) == 27
+    if env is None:
+        assert set(per_tower) == {"adapter"}
+    else:  # the switch adds the towers' norms the rule admits; the VAE's maps
+        # at 128x128 and up exceed it
         assert per_tower["unet"] and per_tower["controlnet"]
     assert not all(taken for *_, taken in seen)
 

@@ -466,7 +466,7 @@ def test_gpu_i2vgenxl_thin_denoise_matches_the_plain_path():
     pipe.generate(**inputs)
     torch.cuda.synchronize()
     assert all(k.launches > n for k, n in zip(kernels, before)), [k.launches for k in kernels]
-    chip_smoke.i2v_reference_check(pipe, "thin i2vgenxl", inputs)
+    chip_smoke.step_reference_check(pipe, "thin i2vgenxl", inputs)
 
 
 @pytest.mark.gpu
@@ -478,6 +478,134 @@ def test_gpu_i2vgenxl_denoise_loop_does_not_wait_for_the_card(router_type):
     stream synchronisation): a conditional router builds its input from the
     timestep and the CLIP embedding on the card, each step."""
     pipe, inputs = _thin_i2vgenxl(_dev(), experts=2, router_type=router_type)
+    pipe.generate(**inputs)  # builds the kernels and warms the allocator
+    sample = pipe._sample
+
+    def guarded(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return sample(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    pipe._sample = guarded
+    latents = pipe.generate(**inputs)
+    assert torch.isfinite(latents).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,t", [(2, 5, 16384), (2, 10, 4096), (2, 20, 1024)])
+def test_gpu_k2_at_the_sdxl_shapes(b, n, t):
+    """The SDXL path's self-attentions after CFG, as head-split views: the
+    adapter's A blocks after the x2 upsample (T = 16384, 128 key tiles per
+    query tile), the UNet's level 1 (T = 4096) and level 2 and mid (T = 1024)."""
+    dev = _dev()
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (_rand(g, dev, b, t, n * 64).to(BF).view(b, t, n, 64).transpose(1, 2)
+               for _ in range(3))
+    got = _launches(tfa.KERNEL, lambda: tfa.attention_bnth(q, k, v))
+    _check(got, tfa._torch_attention(q, k, v), atol=1e-2, rtol=2e-2, rel_norm=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,silu", [((2, 320, 64, 64), True), ((2, 1280, 32, 32), False),
+                                        ((2, 640, 16, 16), True)])
+def test_gpu_k1_at_the_sdxl_shapes(shape, silu):
+    """K1 at N = 2 (the SDXL adapter's CFG pair): 64 groups, each spread over
+    a cluster of 4 CTAs so that the grid covers the card."""
+    dev = _dev()
+    assert tgn.plan(shape, 32).branch == "cluster"
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = _rand(g, dev, *shape).to(BF)
+    w = (1.0 + _rand(g, dev, shape[1], scale=0.1)).to(BF)
+    b = _rand(g, dev, shape[1], scale=0.1).to(BF)
+    got = _launches(tgn.KERNEL, lambda: tgn.group_norm_silu(x, w, b, 32, 1e-6, silu))
+    _check(got, tgn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu), atol=1e-2, rtol=1e-2)
+
+
+def _thin_sdxl(dev):
+    """Thin SDXL towers in bf16 (head dim 64: at 512x512 the UNet's level-1
+    attention is flash-eligible at T = 1024 and the adapter's A blocks run at
+    T = 4096 after the x2 upsample), weights at scale 0.05 from a seeded
+    generator, and the generate() arguments of a 2-step run to the latents
+    with rescaled CFG."""
+    from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+    from ctrl_adapter_tpu_torch.models.controlnet import ControlNetConfig, ControlNetModel
+    from ctrl_adapter_tpu_torch.models.unet_2d import UNet2DConditionModel, UNet2DConfig
+    from ctrl_adapter_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from ctrl_adapter_tpu_torch.pipelines.sdxl import SDXLControlNetAdapterPipeline
+
+    kw = dict(device=dev, dtype=BF)
+    unet = UNet2DConditionModel(UNet2DConfig(
+        down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+        up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+        block_out_channels=(64, 128, 128), transformer_layers_per_block=(1, 1, 2),
+        num_attention_heads=(1, 2, 2), cross_attention_dim=64, use_linear_projection=True,
+        addition_embed_type="text_time", addition_time_embed_dim=8,
+        projection_class_embeddings_input_dim=32 + 48), **kw)
+    towers = [unet,
+              ControlNetModel(ControlNetConfig(block_out_channels=(64, 128, 128, 128),
+                                               num_attention_heads=(2, 2, 2, 2),
+                                               cross_attention_dim=32,
+                                               conditioning_embedding_out_channels=(16, 16, 32,
+                                                                                    32)), **kw),
+              ControlNetAdapter(backbone_model_name="sdxl", num_blocks=1, cross_attention_dim=64,
+                                adapter_locations=("A", "B", "C"),
+                                custom_down_block_channels=(64,) * 4 + (128,) * 5, **kw),
+              AutoencoderKL(VAEConfig(block_out_channels=(32, 32, 32, 32)), **kw)]
+    g = torch.Generator(device=dev).manual_seed(10)
+    with torch.no_grad():
+        for module in towers:
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.05)
+    pipe = SDXLControlNetAdapterPipeline(*towers)
+    r = lambda *shape: (torch.randn(*shape, generator=g, device=dev) * 0.1).to(BF)  # noqa: E731
+    inputs = dict(prompt_embeds=r(2, 7, 64), add_text_embeds=r(2, 32),
+                  controlnet_prompt_embeds=r(2, 7, 32),
+                  control_image=torch.rand(1, 256, 256, 3, generator=g, device=dev).to(BF),
+                  latents=torch.randn(1, 64, 64, 4, generator=g, device=dev),
+                  height=512, width=512, num_inference_steps=2, guidance_scale=7.5,
+                  guidance_rescale=0.7, control_guidance_end=1.0, control_latent_size=32,
+                  output_type="latent")
+    return pipe, inputs
+
+
+@pytest.mark.gpu
+def test_gpu_sdxl_thin_denoise_matches_the_plain_path():
+    """Two SDXL denoise steps of thin towers in bf16: the kernel path launches
+    K1 and K2 (in the adapter and the UNet), and its first controlled step
+    (the adapter's outputs, the UNet's output and the rescaled-CFG noise
+    prediction) is no farther from an fp32 run of the plain path than 2x the
+    bf16 plain path, while a K1 without its SiLU and a K2 without a head are:
+    ``chip_smoke.py``'s check at full width."""
+    import chip_smoke
+    from ctrl_adapter_tpu_torch.pipelines.common import classifier_free_guidance_rescaled
+
+    pipe, inputs = _thin_sdxl(_dev())
+    counts = {"adapter": [], "unet": []}  # K2's counter before and after each call
+    for name in counts:
+        module = getattr(pipe, name)
+        module.register_forward_pre_hook(lambda *_, n=name: counts[n].append(
+            tfa.KERNEL.launches))
+        module.register_forward_hook(lambda *_, n=name: counts[n].append(tfa.KERNEL.launches))
+    k1_before = tgn.KERNEL.launches
+    pipe.generate(**inputs)
+    torch.cuda.synchronize()
+    assert tgn.KERNEL.launches > k1_before
+    for name, (before, after, *_) in counts.items():
+        assert after > before, f"K2 not launched in the {name}"
+    chip_smoke.step_reference_check(
+        pipe, "thin sdxl", inputs,
+        combine=lambda out: classifier_free_guidance_rescaled(out, 7.5, 0.7),
+        faults=("K1 without its SiLU", "K2 without head 0"))
+
+
+@pytest.mark.gpu
+def test_gpu_sdxl_denoise_loop_does_not_wait_for_the_card():
+    """The SDXL denoise loop (ControlNet, adapter, UNet, rescaled CFG and the
+    Euler step) makes no call that waits for the card, as the I2VGen-XL
+    loop's test checks."""
+    pipe, inputs = _thin_sdxl(_dev())
     pipe.generate(**inputs)  # builds the kernels and warms the allocator
     sample = pipe._sample
 

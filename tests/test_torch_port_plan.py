@@ -51,7 +51,12 @@ from ctrl_adapter_tpu_torch.ops.backend import SMEM_PER_BLOCK
     # H = 128: 32 KiB tiles, 2 stages
     (2, 3, 1024, 128, 48, (48,), 2, 5 * 32768 + 64 + 1024),
     (1, 1, 128, 64, 1, (1,), 3, 7 * 16384 + 88 + 1024),
-], ids=["unet-l0", "unet-l1", "h128", "one-tile"])
+    # the SDXL adapter's A blocks after the x2 upsample: 128 Q tiles (and 128
+    # K/V tiles each) per (b, n) pair, 10 pairs; ~9.7 Q tiles per CTA, whose
+    # running K/V tile count (1,280 at most) and row offsets (< 16,384) stay
+    # far inside int32
+    (2, 5, 16384, 64, 1280, (132,), 3, 7 * 16384 + 88 + 1024),
+], ids=["unet-l0", "unet-l1", "h128", "one-tile", "sdxl-t16384"])
 def test_flash_plan_hand_worked(b, n, t, h, work, grid, stages, smem):
     p = fa.plan(b, n, t, h, sms=132)
     assert (p.work, p.grid, p.stages, p.smem_bytes) == (work, grid, stages, smem)
@@ -320,7 +325,14 @@ def test_hybrid_plan_refuses_what_the_kernel_does_not_take(args):
     ((2, 320, 14, 64, 64), "cluster", 8, 1, 71680, 512, 143360 + 256 + 16 * 3),
     # 64 groups of 70 KiB would fill 64 SMs: clusters of 4 fill 256 CTAs
     ((2, 1280, 14, 8, 8), "cluster", 4, 1, 8960, 256, 17920 + 256 + 16 * 12),
-], ids=["one-cta", "several-groups", "cluster-8", "cluster-fill"])
+    # SDXL's adapter at N = 2 (the CFG pair), 64 groups: 80 KiB groups fit one
+    # CTA but 64 CTAs would leave half the SMs idle, so clusters of 4 fill 256
+    ((2, 320, 64, 64), "cluster", 4, 1, 10240, 256, 20480 + 256 + 16 * 4),
+    ((2, 1280, 32, 32), "cluster", 4, 1, 10240, 256, 20480 + 256 + 16 * 12),
+    # 10 KiB groups: two a CTA would leave 32 < 2 x 132 CTAs, so clusters of 4
+    ((2, 640, 16, 16), "cluster", 4, 1, 1280, 256, 2560 + 256 + 16 * 7),
+], ids=["one-cta", "several-groups", "cluster-8", "cluster-fill", "sdxl-320x64x64",
+        "sdxl-1280x32x32", "sdxl-640x16x16"])
 def test_group_norm_plan_hand_worked(shape, branch, cluster, gpc, elems, grid, smem):
     p = gn.plan(shape, 32)
     assert (p.branch, p.cluster, p.groups_per_cta, p.elems, p.grid, p.smem_bytes, p.vec) == (
@@ -343,7 +355,7 @@ def test_group_norm_plan_two_pass_branch():
 def test_group_norm_plan_is_one_launch_on_every_adapter_shape():
     import chip_smoke
 
-    for (shape, _), n in chip_smoke.k1_rows().items():
+    for (shape, _), n in [*chip_smoke.k1_rows().items(), *chip_smoke.sdxl_k1_rows().items()]:
         p = gn.plan(shape, 32)
         assert p.branch != "two_pass" and p.smem_bytes <= SMEM_PER_BLOCK, (shape, p)
 
@@ -444,6 +456,50 @@ def test_chip_smoke_i2vgenxl_shape_lists_are_the_modules_dispatch(monkeypatch):
     assert len(flash) == 16 and len(flash[n_flash:]) == 10
     # K1: only the adapter's norms ("prefer"), the ones the JAX rule admits
     assert dict(Counter(norms)) == chip_smoke.k1_rows(f) and len(norms) == 47
+
+
+def test_chip_smoke_sdxl_shape_lists_are_the_modules_dispatch(monkeypatch):
+    """The SDXL rows ``chip_smoke.py`` times and the launches per step it
+    expects (K2 and K1, per controlled and per UNet-only step) are what the
+    port's SDXL adapter and SDXL UNet dispatch at full width (1024x1024, batch
+    2 after CFG), run once on the meta device: K2 79 times a controlled step
+    and 70 a UNet-only one, K1 17 times (the adapter's norms only)."""
+    import chip_smoke
+    from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+    from ctrl_adapter_tpu_torch.models.unet_2d import SDXL_CONFIG, UNet2DConditionModel
+
+    norms, flash = [], []
+    dev, bf = torch.device("meta"), torch.bfloat16
+    e = lambda *shape: torch.empty(*shape, device=dev, dtype=bf)  # noqa: E731
+    with chip_smoke.plain_kernels(), torch.no_grad():
+        monkeypatch.setattr(gn, "group_norm_silu", lambda x, w, b, g, eps, silu: norms.append(
+            (tuple(x.shape), silu)) or gn._torch_group_norm_silu(x, w, b, g, eps, silu))
+        monkeypatch.setattr(fa, "attention_bnth", lambda q, k, v: flash.append(
+            tuple(q.shape)) or fa._torch_attention(q, k, v))
+        adapter = ControlNetAdapter(backbone_model_name="sdxl", cross_attention_dim=2048,
+                                    num_blocks=1, adapter_locations=("A", "B", "C"),
+                                    device=dev, dtype=bf)
+        blocks = chip_smoke.adapter_blocks(chip_smoke.SDXL_CONTROL)[:-1]
+        down, _ = adapter([e(2, c, h, h) for c, h in blocks], None, num_frames=1,
+                          timestep=951.0, encoder_hidden_states=e(2, 77, 2048))
+        assert [tuple(d.shape[-2:]) for d in down] == [(2 * h, 2 * h) for _, h in blocks]
+        n_adapter = len(flash)
+        lat = chip_smoke.SDXL_SIZE // 8
+        unet = UNet2DConditionModel(SDXL_CONFIG, device=dev, dtype=bf)
+        unet(e(2, 4, lat, lat), 951.0, e(2, 77, 2048),
+             {"text_embeds": e(2, 1280), "time_ids": e(2, 6)},
+             down_block_additional_residuals=down,
+             mid_block_additional_residual=torch.zeros((), device=dev, dtype=bf))
+    rows = chip_smoke.sdxl_flash_rows()
+    assert {k: r["controlled"] for k, r in rows.items()} == dict(Counter(flash))
+    assert {k: r["unet_only"] for k, r in rows.items() if r["unet_only"]} == dict(
+        Counter(flash[n_adapter:]))
+    assert len(flash) == 79 and len(flash[n_adapter:]) == 70
+    assert Counter(flash[:n_adapter])[(2, 5, 16384, 64)] == 3
+    assert dict(Counter(norms)) == chip_smoke.sdxl_k1_rows() and len(norms) == 17
+    assert chip_smoke.sdxl_launches(2, 2) == dict(
+        group_norm_silu=34, flash_attention=2 * 79 + 2 * 70, temporal_block=0,
+        temporal_block_full=0, ln_ff_residual=0, geglu=0, flash_attention_bwd=0)
 
 
 # --------------------------------------------------------------- roofline
@@ -673,3 +729,70 @@ def test_device_activity_takes_the_union_of_kernel_spans(monkeypatch):
     busy, span, per_name = chip_smoke.device_activity(lambda: None)
     assert (busy, span) == (12 + 5 + 1, 31)
     assert per_name == {"a": [15.0, 2], "b": [7.0, 1], "c": [1.0, 1]}
+
+
+def _fake_traces(monkeypatch, traces):
+    """``torch.profiler.profile`` replaced by one that yields the next of
+    ``traces`` (lists of (device function name, start, end)) for each
+    profiled run."""
+    import types
+
+    import torch.profiler
+    from torch.autograd import DeviceType
+
+    def ev(name, start, end):
+        span = types.SimpleNamespace(start=start, end=end, elapsed_us=lambda: end - start)
+        return types.SimpleNamespace(name=name, device_type=DeviceType.CUDA, time_range=span)
+
+    runs = iter(traces)
+
+    class Profile:
+        def __init__(self, **_):
+            self.trace = [ev(*t) for t in next(runs)]
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *_):
+            return False
+
+        def events(self):
+            return self.trace
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+
+def test_device_activity_refuses_a_partial_trace(monkeypatch, capsys):
+    """A run that launched K2 twice and K1 once (their counters) but whose
+    trace holds one K2 event is partial: it is traced again, and after three
+    partial traces the result is None and "not measured" is printed; a
+    complete retry is taken as it is, never scaled up."""
+    import chip_smoke
+
+    fa.KERNEL.reset()
+    gn.KERNEL.reset()
+
+    def run():
+        fa.KERNEL.launches += 2
+        gn.KERNEL.launches += 1
+
+    k2 = "void (anonymous namespace)::flash_fwd_kernel<64>(CUtensorMap, float)"
+    k1 = "void (anonymous namespace)::gn_fused_kernel<true>(bf16 const*)"
+    partial = [(k2, 0, 10), (k1, 10, 12), ("other", 12, 14)]
+    whole = partial + [(k2, 20, 30)]
+    _fake_traces(monkeypatch, [partial] * 3)
+    assert chip_smoke.device_activity(run) is None
+    out = capsys.readouterr().out
+    assert "flash_attention 1 events of 2 launches" in out and "not measured" in out
+    _fake_traces(monkeypatch, [partial, whole])
+    busy, span, per_name = chip_smoke.device_activity(run)
+    assert (busy, span) == (14 + 10, 30) and per_name[k2] == [20.0, 2]
+    # the two-pass branch of K1 counts by its apply kernel, K2's backward by its main pass
+    names = ["gn_stats_kernel<8>", "gn_apply_kernel<8>", "flash_bwd_prep_kernel<64>",
+             "flash_bwd_kernel<64>", "flash_bwd_dq_convert_kernel<64>"]
+    assert chip_smoke.traced_launches(names, ["group_norm_silu", "flash_attention_bwd",
+                                              "flash_attention"]) == {
+        "group_norm_silu": 1, "flash_attention_bwd": 1, "flash_attention": 0}
+    fa.KERNEL.reset()
+    gn.KERNEL.reset()

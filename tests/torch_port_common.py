@@ -22,6 +22,13 @@ def nchw_to_nhwc(x: torch.Tensor) -> np.ndarray:
     return np.moveaxis(x.detach().numpy(), 1, -1)
 
 
+def port_config(cls, jax_config, **extra):
+    """An instance of the port's config dataclass ``cls`` with the fields it
+    shares with a JAX config, and ``extra``."""
+    names = set(cls.__dataclass_fields__)
+    return cls(**{k: v for k, v in vars(jax_config).items() if k in names}, **extra)
+
+
 def port(module: torch.nn.Module, params) -> torch.nn.Module:
     """Load a JAX param tree into a port module (strict) and set eval mode."""
     return load_from_jax(module, params).eval()

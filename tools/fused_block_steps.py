@@ -83,9 +83,12 @@ def main() -> int:
                     runs[name].append(ms)
         for _ in range(args.runs):
             for name in names:
-                busy, span, per_name = under(name, lambda: smoke.device_activity(
+                activity = under(name, lambda: smoke.device_activity(
                     lambda: pipe.generate(**inputs, **kw, num_inference_steps=STEPS,
                                           output_type="latent")))
+                if activity is None:  # every trace partial: this run is not measured
+                    continue
+                busy, span, per_name = activity
                 k4 = sum(us for kname, (us, _) in per_name.items() if "ln_ff_kernel" in kname)
                 d = device[name]
                 d["busy_ms_per_step"].append(busy / 1000 / STEPS)
@@ -94,7 +97,8 @@ def main() -> int:
     print(json.dumps({"tree": args.tag or root, "steps": STEPS, "runs": runs,
                       "median_ms": {k: statistics.median(v) for k, v in runs.items()},
                       "device": device,
-                      "device_median": {n: {k: statistics.median(v) for k, v in d.items()}
+                      "device_median": {n: {k: statistics.median(v) if v else None
+                                             for k, v in d.items()}
                                         for n, d in device.items()},
                       "card": smoke.nvidia_smi_line()}))
     return 0

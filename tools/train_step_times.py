@@ -80,7 +80,10 @@ def main() -> int:
         host_ms.append(1000 * (time.perf_counter() - t0))
     device = {"busy_ms": [], "idle_share": [], "k2_bwd_ms": [], "k2_bwd_launches": []}
     for _ in range(args.runs):
-        busy, span, per_name = smoke.device_activity(step)
+        activity = smoke.device_activity(step)
+        if activity is None:  # every trace partial: this run is not measured
+            continue
+        busy, span, per_name = activity
         bwd = [v for name, v in per_name.items() if "flash_bwd" in name]
         device["busy_ms"].append(busy / 1000)
         device["idle_share"].append(1 - busy / span)
@@ -88,7 +91,8 @@ def main() -> int:
         device["k2_bwd_launches"].append(sum(n for _, n in bwd))
     print(json.dumps({"tree": args.tag or root, "host_ms": host_ms,
                       "median_host_ms": statistics.median(host_ms), "device": device,
-                      "device_median": {k: statistics.median(v) for k, v in device.items()},
+                      "device_median": {k: statistics.median(v) if v else None
+                                        for k, v in device.items()},
                       "card": smoke.nvidia_smi_line()}), flush=True)
     return 0
 
