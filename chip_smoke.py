@@ -1,4 +1,4 @@
-"""Chip smoke test of the PyTorch port: the SVD, I2VGen-XL and SDXL control paths on one Hopper card.
+"""Chip smoke test of the PyTorch port on one Hopper card: the SVD, I2VGen-XL and SDXL paths.
 
     python3 chip_smoke.py
 
@@ -101,8 +101,30 @@ Phases (any failure raises and the script exits non-zero before its last line):
    step's adapter outputs, UNet output and rescaled-CFG noise prediction
    against an fp32 run of the plain path, with K1 without its SiLU and K2
    without a head as controls that must fail;
-11. print the per-kernel JSON line (with each kernel's launches on the
-   I2VGen-XL and SDXL runs), the card line, and the result line.
+11. the I2VGen-XL and SDXL training branches (``train/trainer.py``) at the
+   full width of ``configs/i2vgenxl_train_depth.yaml``,
+   ``configs/i2vgenxl_train_multi_condition.yaml`` and
+   ``configs/sdxl_train_depth.yaml`` (bf16 towers from a seeded generator,
+   fp32 masters, gradient checkpointing; ``run_train_branches``; their K1,
+   K2, K2 backward and K3 hybrid shapes at batch 1 get phase 3 rows after
+   the I2VGen-XL and SDXL ones, ``train_rows``): I2VGen-XL depth (1 x 16 x
+   512^2, one ControlNet, 3 steps), multi-condition (7 ControlNets, all run
+   every step as in the JAX loop, a simple-weights router in the adapter's
+   optimizer, 1-4 active experts drawn per step, 2 steps) and SDXL (1 x
+   1024^2, min-SNR gamma 5, 3 steps): finite losses and gradient norms,
+   every read adapter tensor a nonzero gradient, every master (the
+   router's) moved, each kernel's launches per step against
+   ``i2v_train_launches`` / ``sdxl_train_launches`` (the forward kernels in
+   the forward and the recompute, K2's backward once per attention
+   downstream of the adapter), the masked experts' router weights and
+   gradients exactly 0; ms/step, peak memory, a step in parts and the idle
+   share of a profiled step; a checkpoint with the router saved and loaded
+   back exactly; and on small inputs (I2VGen-XL multi-condition at 4 x
+   256^2, SDXL at 512^2) the loss and every gradient tensor against an fp32
+   run of the plain path (``train_reference_check``), with faulty kernels
+   as controls that must fail (``training_faults``);
+12. print the per-kernel JSON line (with each kernel's launches on the
+   I2VGen-XL, SDXL and training runs), the card line, and the result line.
 
 Device busy times and idle shares come from ``device_activity``, which
 refuses a trace that holds fewer events of a port kernel than the kernel's
@@ -116,6 +138,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -410,20 +433,22 @@ def hybrid_rows():
     return rows
 
 
-def k1_rows(frames: int = FRAMES):
+def k1_rows(frames: int = FRAMES, batch: int = 2):
     """K1's calls in one adapter call, by (shape, silu): per block the spatial
-    ResNet's two norms (SiLU) on (2f, c, h, h), the temporal ResNet's two (SiLU)
-    on (2, c, f, h, h) and the transformer's input norm (no SiLU) on (2f, c, h, h),
-    where the JAX rule (``group_norm.eligible``) admits them: 47 of the 65 at
-    f = 14 (SVD) and at f = 16 (I2VGen-XL). The temporal ResNet's norms at
+    ResNet's two norms (SiLU) on (batch f, c, h, h), the temporal ResNet's two
+    (SiLU) on (batch, c, f, h, h) and the transformer's input norm (no SiLU) on
+    (batch f, c, h, h), where the JAX rule (``group_norm.eligible``, per
+    sample) admits them: 47 of the 65 at f = 14 (SVD) and at f = 16
+    (I2VGen-XL), batch 2 (CFG) or 1 (training). The temporal ResNet's norms at
     16x16 to 64x64 exceed its 12 MiB budget and run plain, as in the JAX
     package."""
     from ctrl_adapter_tpu_torch.ops.group_norm import eligible
 
     rows = {}
     for c, h in adapter_blocks():
-        for shape, silu, n in (((2 * frames, c, h, h), False, 1), ((2 * frames, c, h, h), True, 2),
-                               ((2, c, frames, h, h), True, 2)):
+        for shape, silu, n in (((batch * frames, c, h, h), False, 1),
+                               ((batch * frames, c, h, h), True, 2),
+                               ((batch, c, frames, h, h), True, 2)):
             if eligible(shape, 32, 2):
                 rows[(shape, silu)] = rows.get((shape, silu), 0) + n
     return rows
@@ -432,11 +457,11 @@ def k1_rows(frames: int = FRAMES):
 I2V_FRAMES = 16
 
 
-def i2v_hybrid_rows(frames: int = I2V_FRAMES):
+def i2v_hybrid_rows(frames: int = I2V_FRAMES, batch: int = 2):
     """The K3 hybrid shapes of the I2VGen-XL path with their launches per
     controlled and per UNet-only step: the adapter's 13 temporal blocks
-    (b = 2 after CFG, c = 512, ia = the block's channels), each of which
-    ``dispatch_mode`` sends to "hybrid"; the I2VGen-XL UNet has no
+    (b = 2 after CFG, 1 in training; c = 512, ia = the block's channels), each
+    of which ``dispatch_mode`` sends to "hybrid"; the I2VGen-XL UNet has no
     ``TemporalBasicTransformerBlock``."""
     from ctrl_adapter_tpu_torch.models import adapter as ad
     from ctrl_adapter_tpu_torch.ops.fused_temporal import dispatch_mode
@@ -444,19 +469,22 @@ def i2v_hybrid_rows(frames: int = I2V_FRAMES):
     inner = ad._INNER_HEADS * 64
     rows = {}
     for c, h in adapter_blocks():
-        key = (2, frames, h * h, inner, c)
+        key = (batch, frames, h * h, inner, c)
         if dispatch_mode(*key, 4 * inner, torch.bfloat16) == "hybrid":
             rows.setdefault(key, {"where": "I2VGen-XL adapter", "controlled": 0,
                                   "unet_only": 0})["controlled"] += 1
     return rows
 
 
-def i2v_flash_rows(latent: int = SIZE // 8, frames: int = I2V_FRAMES):
+def i2v_flash_rows(latent: int = SIZE // 8, frames: int = I2V_FRAMES, batch: int = 2):
     """The K2 shapes (B, N, T, H) of the I2VGen-XL path with their launches
     per controlled and per UNet-only step: the flash-eligible spatial
     self-attentions of the UNet's cross-attention down and up blocks (heads =
     channels // 64) and of the adapter's spatial transformers (heads = the
-    block's channels // 64), at B = 2 x frames after CFG."""
+    block's channels // 64), at B = batch x frames (batch 2 after CFG, 1 in
+    training). "train_bwd" counts K2's backward per training step: the
+    adapter's attentions and the UNet's up blocks', the ones downstream of
+    the adapter's residuals (injected at the skips and after the mid block)."""
     from ctrl_adapter_tpu_torch.models.unet_i2vgen import I2VGenXLUNetConfig
     from ctrl_adapter_tpu_torch.ops.flash_attention import flash_eligible
 
@@ -464,21 +492,22 @@ def i2v_flash_rows(latent: int = SIZE // 8, frames: int = I2V_FRAMES):
     hd, n = cfg.attention_head_dim, len(cfg.block_out_channels)
     rows = {}
 
-    def add(channels, size, count, unet):
+    def add(channels, size, count, unet, grad):
         t = size * size
         if flash_eligible(t, t, hd):
-            row = rows.setdefault((2 * frames, channels // hd, t, hd),
-                                  {"controlled": 0, "unet_only": 0})
+            row = rows.setdefault((batch * frames, channels // hd, t, hd),
+                                  {"controlled": 0, "unet_only": 0, "train_bwd": 0})
             row["controlled"] += count
             row["unet_only"] += count if unet else 0
+            row["train_bwd"] += count if grad else 0
 
     for i in range(n - 1):  # CrossAttnDownBlock3D at levels 0 .. n-2
-        add(cfg.block_out_channels[i], latent >> i, cfg.layers_per_block, True)
+        add(cfg.block_out_channels[i], latent >> i, cfg.layers_per_block, True, False)
     rev = cfg.block_out_channels[::-1]
     for j in range(1, n):  # CrossAttnUpBlock3D after the first up block
-        add(rev[j], latent >> (n - 1 - j), cfg.layers_per_block + 1, True)
+        add(rev[j], latent >> (n - 1 - j), cfg.layers_per_block + 1, True, True)
     for c, h in adapter_blocks(latent):
-        add(c, h, 1, False)
+        add(c, h, 1, False, True)
     return rows
 
 
@@ -494,56 +523,61 @@ def sdxl_adapter_blocks(control: int = SDXL_CONTROL):
     return adapter_blocks(control)[:9]
 
 
-def sdxl_k1_rows(control: int = SDXL_CONTROL):
-    """K1's calls in one SDXL adapter call (batch 2, the CFG pair), by (shape,
-    silu): per block the spatial ResNet's norm1 (SiLU) at the input size, its
-    norm2 (SiLU) and the transformer's input norm (no SiLU) after the x2
-    upsample, where the JAX rule admits them: 17 of the 27 (at 128x128 and at
-    64x64 with 640 channels they exceed its 12 MiB budget)."""
+def sdxl_k1_rows(control: int = SDXL_CONTROL, batch: int = 2):
+    """K1's calls in one SDXL adapter call (batch 2, the CFG pair; 1 in
+    training), by (shape, silu): per block the spatial ResNet's norm1 (SiLU)
+    at the input size, its norm2 (SiLU) and the transformer's input norm (no
+    SiLU) after the x2 upsample, where the JAX rule admits them: 17 of the 27
+    (at 128x128 and at 64x64 with 640 channels they exceed its 12 MiB
+    budget)."""
     from ctrl_adapter_tpu_torch.ops.group_norm import eligible
 
     rows = {}
     for c, h in sdxl_adapter_blocks(control):
-        for shape, silu in (((2, c, h, h), True), ((2, c, 2 * h, 2 * h), True),
-                            ((2, c, 2 * h, 2 * h), False)):
+        for shape, silu in (((batch, c, h, h), True), ((batch, c, 2 * h, 2 * h), True),
+                            ((batch, c, 2 * h, 2 * h), False)):
             if eligible(shape, 32, 2):
                 rows[(shape, silu)] = rows.get((shape, silu), 0) + 1
     return rows
 
 
-def sdxl_flash_rows(latent: int = SDXL_SIZE // 8, control: int = SDXL_CONTROL):
-    """The K2 shapes (B, N, T, H) of the SDXL path, B = 2 after CFG, with their
-    launches per controlled and per UNet-only step: the self-attentions of the
-    SDXL UNet's transformer layers (its cross-attention down, mid and up
-    blocks; heads from ``SDXL_CONFIG``) and of the adapter's spatial
-    transformers after the x2 upsample (heads = the block's channels // 64),
-    where the JAX rule admits them."""
+def sdxl_flash_rows(latent: int = SDXL_SIZE // 8, control: int = SDXL_CONTROL, batch: int = 2):
+    """The K2 shapes (B, N, T, H) of the SDXL path, B = 2 after CFG (1 in
+    training), with their launches per controlled and per UNet-only step: the
+    self-attentions of the SDXL UNet's transformer layers (its
+    cross-attention down, mid and up blocks; heads from ``SDXL_CONFIG``) and
+    of the adapter's spatial transformers after the x2 upsample (heads = the
+    block's channels // 64), where the JAX rule admits them. "train_bwd"
+    counts K2's backward per training step: the adapter's attentions and the
+    UNet's up blocks' (the residuals enter at the skips only)."""
     from ctrl_adapter_tpu_torch.models.unet_2d import SDXL_CONFIG as cfg
     from ctrl_adapter_tpu_torch.ops.flash_attention import flash_eligible
 
     n = len(cfg.block_out_channels)
     rows = {}
 
-    def add(channels, heads, size, count, unet):
+    def add(channels, heads, size, count, unet, grad):
         t, hd = size * size, channels // heads
         if flash_eligible(t, t, hd):
-            row = rows.setdefault((2, heads, t, hd), {"controlled": 0, "unet_only": 0})
+            row = rows.setdefault((batch, heads, t, hd),
+                                  {"controlled": 0, "unet_only": 0, "train_bwd": 0})
             row["controlled"] += count
             row["unet_only"] += count if unet else 0
+            row["train_bwd"] += count if grad else 0
 
-    def level(i, count):
+    def level(i, count, grad):
         add(cfg.block_out_channels[i], cfg.num_attention_heads[i], latent >> i,
-            count * cfg.transformer_layers_per_block[i], True)
+            count * cfg.transformer_layers_per_block[i], True, grad)
 
     for i, kind in enumerate(cfg.down_block_types):
         if kind.startswith("CrossAttn"):
-            level(i, cfg.layers_per_block)
-    level(n - 1, 1)  # the mid block
+            level(i, cfg.layers_per_block, False)
+    level(n - 1, 1, False)  # the mid block
     for j, kind in enumerate(cfg.up_block_types):
         if kind.startswith("CrossAttn"):
-            level(n - 1 - j, cfg.layers_per_block + 1)
+            level(n - 1 - j, cfg.layers_per_block + 1, True)
     for c, h in sdxl_adapter_blocks(control):
-        add(c, c // 64, 2 * h, 1, False)
+        add(c, c // 64, 2 * h, 1, False, True)
     return rows
 
 
@@ -560,18 +594,45 @@ def sdxl_launches(controlled: int, unet_only: int):
                 flash_attention_bwd=0)
 
 
+def train_launches(k1, k2, k3=None):
+    """Each kernel's launches in one training step from one pass's K1 rows,
+    K2 rows and K3 hybrid rows (batch 1): the adapter and the UNet run under
+    gradient checkpointing, so each forward kernel launches in the forward
+    and again in the backward's recompute; K2's backward once per attention
+    downstream of the adapter (``train_bwd``). The other kernels' gradients
+    take their plain versions (``mirror_vjp``) and launch nothing."""
+    return dict(group_norm_silu=2 * sum(k1.values()),
+                flash_attention=2 * sum(r["controlled"] for r in k2.values()),
+                temporal_block=2 * sum(r["controlled"] for r in (k3 or {}).values()),
+                temporal_block_full=0, ln_ff_residual=0, geglu=0,
+                flash_attention_bwd=sum(r["train_bwd"] for r in k2.values()))
+
+
+def i2v_train_launches():
+    """Launches per I2VGen-XL training step at 1 x 16 x 512^2, whatever the
+    number of experts (the ControlNets launch no kernel)."""
+    return train_launches(k1_rows(I2V_FRAMES, 1), i2v_flash_rows(batch=1),
+                          i2v_hybrid_rows(I2V_FRAMES, 1))
+
+
+def sdxl_train_launches():
+    """Launches per SDXL training step at 1 x 1024^2."""
+    return train_launches(sdxl_k1_rows(batch=1), sdxl_flash_rows(batch=1))
+
+
 def per_step_total(name, rows, key):
     """Print the sum of launches x kernel ms against launches x bound over
     ``rows``: host-inclusive (``ms``), then on device time, warm and cold L2."""
     n = sum(r[key] for r in rows)
     bound = sum(r[key] * r["bound_ms"] for r in rows)
+    step = "training" if key.startswith("train") else key.replace("_", " ")
     for field, what in (("ms", "host-inclusive"), ("device_ms", "device, warm L2"),
                         ("cold_ms", "device, cold L2")):
         if any(r[key] and r[field] is None for r in rows):
-            print(f"  {name} per {key.replace('_', ' ')} step ({what}): not measured")
+            print(f"  {name} per {step} step ({what}): not measured")
             continue
         ms = sum(r[key] * r[field] for r in rows if r[key])
-        print(f"  {name} per {key.replace('_', ' ')} step ({what}): {n} launches, {ms:.3f} ms "
+        print(f"  {name} per {step} step ({what}): {n} launches, {ms:.3f} ms "
               f"of kernel against {bound:.3f} ms of bound ({100 * bound / ms:.1f} %)")
 
 
@@ -777,62 +838,74 @@ def sdpa_bwd_times(q, k, v, do):
     return times
 
 
-def check_flash_bwd(dev, card, rand, flush):
-    """K2's forward with its log-sum-exp and K2's backward against their plain
-    versions, in bf16, at the training path's shapes (B = 14 frames, no CFG)
-    and at H = 128; two backward calls on the same inputs (dK and dV equal to
-    the bit, dQ's run-to-run difference printed); the backward timed beside
-    its bound and SDPA's backward, on device time (warm and cold L2) and per
-    launch of its three (``kernel_times``), with the per-training-step sums;
-    the forward with and without the log-sum-exp at (28, 5, 4096, 64)."""
+def k2_bwd_row(rand, flush, shape):
+    """K2's forward with its log-sum-exp and K2's backward against their
+    plain versions at ``shape`` = (B, N, T, H), in bf16; two backward calls on
+    the same inputs (dK and dV equal to the bit, dQ's run-to-run difference
+    printed); the backward timed beside its bound and SDPA's backward, on
+    device time (warm and cold L2) and per launch of its three
+    (``kernel_times``)."""
     from ctrl_adapter_tpu_torch.ops import flash_attention as fa
     from ctrl_adapter_tpu_torch.ops import roofline as rl
 
     bf = torch.bfloat16
+    b_, n_, t_, h_ = shape
+    label = f"({b_},{n_},{t_},{h_})"
+    q, k, v = (rand(b_, t_, n_ * h_).to(bf).view(b_, t_, n_, h_).transpose(1, 2)
+               for _ in range(3))
+    do = rand(b_, t_, n_ * h_).to(bf).view(b_, t_, n_, h_).transpose(1, 2)
+    out, lse = fa._forward(q, k, v, True)
+    want_out, want_lse = fa._torch_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    compare(f"K2 forward {label} output", out, want_out, atol=1e-2, rtol=2e-2, rel_norm=1e-2)
+    compare(f"K2 forward {label} log-sum-exp", lse, want_lse, atol=1e-3, rtol=1e-4)
+    got = fa.attention_bnth_bwd(q, k, v, out, do, lse)
+    want = fa._torch_attention_bwd(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    # P and dS are rounded to bf16 before their products (as the TPU kernel
+    # does); the plain version keeps them in fp32: ~0.5 % in norm
+    err = max(compare(f"K2 backward {label} d{name}", g, w, atol=5e-2 * w.abs().max().item(),
+                      rtol=5e-2, rel_norm=2e-2)
+              for name, g, w in zip("qkv", got, want))
+    # dK and dV: each CTA owns its keys; dQ: fp32 sums added across key
+    # blocks in an order that changes from run to run
+    again = fa.attention_bnth_bwd(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    same = [torch.equal(x, y) for x, y in zip(got[1:], again[1:])]
+    ddq = (got[0].float() - again[0].float()).abs().max().item()
+    print(f"  K2 backward {label}, two calls: dK {'equal' if same[0] else 'DIFFER'}, "
+          f"dV {'equal' if same[1] else 'DIFFER'} to the bit; run-to-run max |dQ1 - dQ2| "
+          f"{ddq:.3e}")
+    if not all(same):
+        raise RuntimeError(f"K2 backward {label}: dK or dV differs between two calls")
+    del got, want, again, want_out, want_lse
+    bwd = lambda: fa.attention_bnth_bwd(q, k, v, out, do, lse)  # noqa: E731
+    ms = cuda_ms(bwd)
+    pms = cuda_ms(lambda: fa._torch_attention_bwd(q, k, v, out, do, lse), iters=3, reps=3,
+                  warmup=1)
+    row = report(label, err, ms, pms, rl.attention_bwd(b_, n_, t_, h_),
+                 sdpa_bwd_times(q, k, v, do))
+    split = kernel_times(bwd)
+    print("    the launches of one call (device, warm L2): " + (
+        "not measured" if split is None else
+        "; ".join(f"{name} {t:.4f} ms" for name, t in split.items())))
+    device_line(row, bwd, flush)
+    row.update(dq_run_to_run=ddq)
+    return row
+
+
+def check_flash_bwd(dev, card, rand, flush):
+    """K2's backward (``k2_bwd_row``) at the SVD training path's shapes (B =
+    14 frames, no CFG) and at H = 128, with the per-training-step sums; the
+    forward with and without the log-sum-exp at (28, 5, 4096, 64), in turns."""
+    from ctrl_adapter_tpu_torch.ops import flash_attention as fa
+
+    bf = torch.bfloat16
     print(f"K2 backward (bf16 in and out, fp32 accumulation) on {card}")
     rows = []
-    for (b_, n_, t_, h_), per_step in zip(K2_BWD_SHAPES, K2_BWD_PER_STEP):
-        label = f"({b_},{n_},{t_},{h_})"
-        q, k, v = (rand(b_, t_, n_ * h_).to(bf).view(b_, t_, n_, h_).transpose(1, 2)
-                   for _ in range(3))
-        do = rand(b_, t_, n_ * h_).to(bf).view(b_, t_, n_, h_).transpose(1, 2)
-        out, lse = fa._forward(q, k, v, True)
-        want_out, want_lse = fa._torch_attention(q, k, v, True)
-        torch.cuda.synchronize()
-        compare(f"K2 forward {label} output", out, want_out, atol=1e-2, rtol=2e-2, rel_norm=1e-2)
-        compare(f"K2 forward {label} log-sum-exp", lse, want_lse, atol=1e-3, rtol=1e-4)
-        got = fa.attention_bnth_bwd(q, k, v, out, do, lse)
-        want = fa._torch_attention_bwd(q, k, v, out, do, lse)
-        torch.cuda.synchronize()
-        # P and dS are rounded to bf16 before their products (as the TPU kernel
-        # does); the plain version keeps them in fp32: ~0.5 % in norm
-        err = max(compare(f"K2 backward {label} d{name}", g, w, atol=5e-2 * w.abs().max().item(),
-                          rtol=5e-2, rel_norm=2e-2)
-                  for name, g, w in zip("qkv", got, want))
-        # dK and dV: each CTA owns its keys; dQ: fp32 sums added across key
-        # blocks in an order that changes from run to run
-        again = fa.attention_bnth_bwd(q, k, v, out, do, lse)
-        torch.cuda.synchronize()
-        same = [torch.equal(x, y) for x, y in zip(got[1:], again[1:])]
-        ddq = (got[0].float() - again[0].float()).abs().max().item()
-        print(f"  K2 backward {label}, two calls: dK {'equal' if same[0] else 'DIFFER'}, "
-              f"dV {'equal' if same[1] else 'DIFFER'} to the bit; run-to-run max |dQ1 - dQ2| "
-              f"{ddq:.3e}")
-        if not all(same):
-            raise RuntimeError(f"K2 backward {label}: dK or dV differs between two calls")
-        del got, want, again
-        bwd = lambda: fa.attention_bnth_bwd(q, k, v, out, do, lse)  # noqa: E731
-        ms = cuda_ms(bwd)
-        pms = cuda_ms(lambda: fa._torch_attention_bwd(q, k, v, out, do, lse), iters=3, reps=3,
-                      warmup=1)
-        row = report(label, err, ms, pms, rl.attention_bwd(b_, n_, t_, h_),
-                     sdpa_bwd_times(q, k, v, do))
-        split = kernel_times(bwd)
-        print("    the launches of one call (device, warm L2): " + (
-            "not measured" if split is None else
-            "; ".join(f"{name} {t:.4f} ms" for name, t in split.items())))
-        device_line(row, bwd, flush)
-        row.update(training=per_step, dq_run_to_run=ddq)
+    for shape, per_step in zip(K2_BWD_SHAPES, K2_BWD_PER_STEP):
+        row = k2_bwd_row(rand, flush, shape)
+        row.update(training=per_step)
         rows.append(row)
     per_step_total("K2 backward", rows, "training")
     # the serving path's forward: no log-sum-exp written
@@ -1027,7 +1100,9 @@ def check_i2vgenxl_kernels(dev, card):
     adapter's norms the JAX rule admits, K2 at the UNet's and the adapter's
     flash-eligible self-attentions, K3 hybrid at the adapter's 13 temporal
     blocks (f = 16: the tiles hold no padded frame row), and at 4 key frames
-    of a sparse-frame run; per-step sums of each. Returns the rows by kernel."""
+    of a sparse-frame run; per-step sums of each; then at the I2VGen-XL
+    training step's shapes (b*f = 16), K2's backward included
+    (``train_rows``). Returns the rows by kernel."""
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
     rand = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
@@ -1054,14 +1129,54 @@ def check_i2vgenxl_kernels(dev, card):
     k3 += [hybrid_row(rand, flush, f"sparse f=4 ({b_},4,{s_},{c_}) ia={ia}",
                       (b_, 4, s_, c_, ia // 64), 0, 0)
            for (b_, _, s_, c_, ia) in list(i2v_hybrid_rows(4))[:3]]
-    return {"group_norm_silu": k1, "flash_attention": k2, "temporal_block": k3}
+    rows = {"group_norm_silu": k1, "flash_attention": k2, "temporal_block": k3}
+    train = train_rows(rand, flush, card, "I2VGen-XL", "train_i2vgenxl",
+                       k1_rows(I2V_FRAMES, 1), i2v_flash_rows(batch=1),
+                       i2v_hybrid_rows(I2V_FRAMES, 1))
+    return {name: rows.get(name, []) + train.get(name, []) for name in {*rows, *train}}
+
+
+def train_rows(rand, flush, card, model, key, k1, k2, k3=None):
+    """Phase 3 at a training path's shapes (batch 1, no CFG): K1, K2 forward
+    and backward and K3 hybrid at the rows of one pass, each with its
+    launches per training step under ``key`` (``train_launches``: the
+    forward kernels twice, K2's backward once per attention downstream of
+    the adapter), and their per-step sums. Returns the rows by kernel."""
+    print(f"{model} training shapes: K1 group_norm_silu (bf16, G=32, eps 1e-6) on {card}")
+    out = {"group_norm_silu": [], "flash_attention": [], "flash_attention_bwd": [],
+           "temporal_block": []}
+    for (shape, silu), n in k1.items():
+        out["group_norm_silu"].append(dict(k1_row(rand, flush, shape, silu, n),
+                                           controlled=0, **{key: 2 * n}))
+    print(f"{model} training shapes: K2 flash attention, forward and backward, on {card}")
+    for shape, r in k2.items():
+        row = k2_row(rand, shape, flush)
+        row.update(controlled=0, unet_only=0, **{key: 2 * r["controlled"]})
+        out["flash_attention"].append(row)
+        if r["train_bwd"]:
+            row = k2_bwd_row(rand, flush, shape)
+            row.update(**{key: r["train_bwd"]})
+            out["flash_attention_bwd"].append(row)
+        print(f"    {2 * r['controlled']} forward and {r['train_bwd']} backward launches per "
+              f"training step")
+    for (b_, f_, s_, c_, ia), r in (k3 or {}).items():
+        out["temporal_block"].append(dict(hybrid_row(
+            rand, flush, f"{model} training ({b_},{f_},{s_},{c_}) ia={ia}",
+            (b_, f_, s_, c_, ia // 64), 0, 0), **{key: 2 * r["controlled"]}))
+    for name, label in (("group_norm_silu", "K1"), ("flash_attention", "K2"),
+                        ("flash_attention_bwd", "K2 backward"), ("temporal_block", "K3 hybrid")):
+        if out[name]:
+            per_step_total(f"{label} ({model} training)", out[name], key)
+    return {name: rows for name, rows in out.items() if rows}
 
 
 def check_sdxl_kernels(dev, card):
     """Phase 3 at the SDXL path's shapes (batch 2, the CFG pair): K1 at the
     adapter's norms the JAX rule admits, K2 at the SDXL UNet's self-attentions
     (T = 4096 and 1024) and the adapter's after its x2 upsample (T = 16384 in
-    the A blocks); per-step sums of each. Returns the rows by kernel."""
+    the A blocks); per-step sums of each; then at the SDXL training step's
+    shapes (batch 1), K2's backward included (``train_rows``). Returns the
+    rows by kernel."""
     g = torch.Generator(device=dev).manual_seed(SEED + 14)
     rand = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
@@ -1077,7 +1192,10 @@ def check_sdxl_kernels(dev, card):
         k2.append(row)
     per_step_total("K2 (SDXL)", k2, "controlled")
     per_step_total("K2 (SDXL)", k2, "unet_only")
-    return {"group_norm_silu": k1, "flash_attention": k2}
+    rows = {"group_norm_silu": k1, "flash_attention": k2}
+    train = train_rows(rand, flush, card, "SDXL", "train_sdxl", sdxl_k1_rows(batch=1),
+                       sdxl_flash_rows(batch=1))
+    return {name: rows.get(name, []) + train.get(name, []) for name in {*rows, *train}}
 
 
 def check_kernels(dev, card):
@@ -1555,53 +1673,189 @@ def train_batch(dev, frames, size, seed):
 
 
 def _loss_and_grads(trainer, batch, draws):
-    """The step's loss and the adapter's gradient, flattened, in fp32."""
+    """The step's loss and the adapter's (and router's) gradient, one fp32
+    tensor per parameter."""
     params = trainer.optimizer.params
     for p in params:
         p.grad = None
     loss = trainer.loss(batch, draws)
     loss.backward()
-    grads = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).float().flatten()
-                       for p in params])
+    grads = [(torch.zeros_like(p) if p.grad is None else p.grad).float() for p in params]
     for p in params:
         p.grad = None
     return loss.detach().float(), grads
 
 
-def train_reference_check(trainer, dev):
-    """On a small input (one video of 2 frames at 128x128), the bf16 kernel
-    path's loss and adapter gradient and the bf16 plain path's, each against
-    an fp32 run of the plain path with the same weights and draws."""
-    import dataclasses
+def training_faults():
+    """Faults of the training path's kernels that its reference check must
+    see (label: context manager): K1 that drops its SiLU, K2's backward that
+    leaves head 0 out (dQ, dK and dV zeroed there), K3 hybrid that returns
+    its input. (dQ alone zeroed in a head passes the check at these random
+    weights: their nearly flat attention logits give dQ and dK a negligible
+    share of the gradient, and dV carries it.)"""
+    from ctrl_adapter_tpu_torch.ops import flash_attention as fa
 
+    def no_head_0(bwd):
+        def run(*args):
+            grads = [g.clone() for g in bwd(*args)]
+            for g in grads:
+                g[:, 0] = 0
+            return tuple(grads)
+        return run
+
+    faults = faulty_kernels()
+    return {"K1 without its SiLU": faults["K1 without its SiLU"],
+            "K2 backward without head 0": swapped(fa, "attention_bnth_bwd", no_head_0),
+            "K3 hybrid returning its input": faults["K3 hybrid returning its input"]}
+
+
+def train_reference_check(trainer, dev, label, batch, draws, cfg, faults=()):
+    """On a small input (``batch``, ``draws``, ``cfg``), the bf16 kernel
+    path's loss and gradients and the bf16 plain path's, each against an fp32
+    run of the plain path with the same weights and draws. Two rules: the
+    loss and the whole adapter (and router) gradient within 2x the plain
+    path's relative error + 1e-2; and each tensor's gradient error within 2x
+    the plain path's + 1e-3 of the fp32 gradient's global norm, which sees a
+    fault that only a few tensors carry. Then each of ``faults``
+    (``training_faults``) must fail one of them."""
     from ctrl_adapter_tpu_torch.train.trainer import CtrlAdapterTrainer
 
     full_cfg = trainer.config
-    cfg = dataclasses.replace(full_cfg, n_sample_frames=2, control_latent_size=16)
-    batch = train_batch(dev, 2, 128, SEED + 7)
-    draws = trainer.draw(torch.Generator(device=dev).manual_seed(SEED + 8), 1, 2, 16, 16)
     trainer.config = cfg
     try:
         got = _loss_and_grads(trainer, batch, draws)
         with plain_kernels():
             plain = _loss_and_grads(trainer, batch, draws)
-            ref_trainer = CtrlAdapterTrainer(cfg, *(copy.deepcopy(m).float() for m in (
-                trainer.unet, trainer.controlnet, trainer.adapter, trainer.vae)), device=dev)
+            fp32 = lambda m: None if m is None else copy.deepcopy(m).float()  # noqa: E731
+            ref_trainer = CtrlAdapterTrainer(
+                cfg, *(fp32(m) for m in (
+                    trainer.unet, trainer.controlnet, trainer.adapter, trainer.vae)),
+                router=fp32(trainer.router), device=dev)
             ref = _loss_and_grads(ref_trainer, batch, draws)
+        del ref_trainer
+        norm = torch.linalg.vector_norm
+        n = len(trainer.names)
+        parts = {"loss": lambda x: [x[0]], "adapter gradient": lambda x: x[1][:n]}
+        if trainer.router is not None:
+            parts["router gradient"] = lambda x: x[1][n:]
+        g_ref = norm(torch.cat([g.flatten() for g in ref[1]])).item()
+        err_p = [norm(a - b).item() for a, b in zip(plain[1], ref[1])]
+
+        def judge(run, verbose):
+            """(whole-vector errors ok, the largest per-tensor error over its
+            allowance, with the tensor's name)."""
+            ok = True
+            for what, pick in parts.items():
+                flat = lambda x: torch.cat([t.flatten() for t in pick(x)])  # noqa: E731
+                r = flat(ref)
+                e_k = (norm(flat(run) - r) / norm(r)).item()
+                e_p = (norm(flat(plain) - r) / norm(r)).item()
+                good = e_k <= 2 * e_p + 1e-2 and bool(torch.isfinite(flat(run)).all())
+                ok = ok and good
+                if verbose:
+                    print(f"  {what}: bf16 kernel path vs fp32 {e_k:.3e}, bf16 plain path vs "
+                          f"fp32 {e_p:.3e} (relative norm; tolerance 2x the plain path's + "
+                          f"1e-2) {'ok' if good else 'FAIL'}")
+            names = trainer.names + trainer.router_names
+            worst = max(((norm(a - b).item() / (2 * p + 1e-3 * g_ref), name)
+                         for a, b, p, name in zip(run[1], ref[1], err_p, names)))
+            return ok, worst
+
+        print(f"{label} training reference ({cfg.n_sample_frames} frames of "
+              f"{tuple(batch['frames'].shape[2:4])}, the loss and every gradient tensor):")
+        ok, (ratio, where) = judge(got, True)
+        print(f"  per tensor: largest kernel-path error / (2 x plain + 1e-3 of the fp32 "
+              f"gradient's norm) {ratio:.3f} ({where}; tolerance 1)")
+        if not ok or ratio > 1.0:
+            raise RuntimeError(f"{label} training: the kernel path is farther from the fp32 "
+                               f"reference than allowed")
+        for fault in faults:
+            with training_faults()[fault]:
+                ok, (ratio, where) = judge(_loss_and_grads(trainer, batch, draws), False)
+            fails = not ok or ratio > 1.0
+            print(f"  control, {fault}: whole-vector rules {'met' if ok else 'failed'}, largest "
+                  f"per-tensor ratio {ratio:.3f} ({where}): {'fails' if fails else 'PASSES'} "
+                  f"the check")
+            if not fails:
+                raise RuntimeError(f"{label} training: the reference check passes a kernel "
+                                   f"path with {fault}")
     finally:
         trainer.config = full_cfg
-    del ref_trainer
-    for what, i in (("loss", 0), ("adapter gradient", 1)):
-        norm = torch.linalg.vector_norm
-        err_k = (norm(got[i] - ref[i]) / norm(ref[i])).item()
-        err_p = (norm(plain[i] - ref[i]) / norm(ref[i])).item()
-        ok = err_k <= 2 * err_p + 1e-2
-        print(f"training reference (1x2x128x128), {what}: bf16 kernel path vs fp32 {err_k:.3e}, "
-              f"bf16 plain path vs fp32 {err_p:.3e} (relative norm; tolerance: kernel path "
-              f"within 2x the plain path's error + 1e-2) {'ok' if ok else 'FAIL'}")
-        if not (ok and torch.isfinite(got[i]).all()):
-            raise RuntimeError(f"training: the kernel path's {what} is farther from the fp32 "
-                               f"reference than allowed")
+
+
+def check_read_grads(label, trainer, single_key=True):
+    """After a step: every adapter parameter the forward reads has a nonzero
+    gradient; with ``single_key`` (one CLIP image token as the adapter's
+    encoder states) the single-key cross-attentions' norm2, to_q and to_k are
+    unread, as in the JAX package."""
+    params = trainer.optimizer.params[:len(trainer.names)]
+    unread = [n for n, p in zip(trainer.names, params) if p.grad is None]
+    zero = [n for n, p in zip(trainer.names, params) if p.grad is not None and not p.grad.any()]
+    odd = [n for n in unread if not (single_key and any(k in n for k in UNREAD_BY_SINGLE_KEY))]
+    print(f"{label}: {len(params) - len(unread)} of {len(params)} adapter tensors have a "
+          f"gradient, {len(zero)} of them zero; {len(unread)} unread"
+          + (" (the single-key cross-attentions' norm2, to_q, to_k)" if single_key else ""))
+    if zero or odd:
+        raise RuntimeError(f"{label}: zero gradients {zero[:5]}, unread {odd[:5]}")
+
+
+def step_parts(trainer, batch, draws):
+    """One more step in its three parts, each on the host clock around a
+    synchronize: {part: seconds}."""
+    params, masters = trainer.optimizer.params, trainer.optimizer.masters
+    parts = {}
+    for p in params:
+        p.grad = None
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss = trainer.loss(batch, draws)
+    torch.cuda.synchronize()
+    parts["forward (VAE encode, ControlNet, adapter, UNet, loss)"] = time.perf_counter() - t1
+    loss.backward()
+    torch.cuda.synchronize()
+    parts["backward (with the adapter's and the UNet's recompute)"] = (
+        time.perf_counter() - t1 - sum(parts.values()))
+    trainer.optimizer.step([torch.zeros_like(m) if p.grad is None else p.grad.float()
+                            for p, m in zip(params, masters)])
+    torch.cuda.synchronize()
+    parts["optimizer (clip, AdamW, masters to bf16)"] = (
+        time.perf_counter() - t1 - sum(parts.values()))
+    return parts
+
+
+def checkpoint_round_trip(label, trainer, dev, model_name):
+    """A checkpoint in the reference layout (``adapter_{step}/``, with a
+    router ``router_{step}/``, ``optimizer/``, ``config.json``), saved and
+    loaded back: the masters and the AdamW state must be equal to the bit."""
+    from ctrl_adapter_tpu_torch.train import checkpoints
+
+    t1 = time.perf_counter()
+    ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_ckpt")
+    step = trainer.optimizer.update_count
+    ckpt = checkpoints.save_checkpoint(ckpt_root, step, trainer.adapter_state(),
+                                       trainer.optimizer.state_dict(),
+                                       {"model_name": model_name},
+                                       router_state=trainer.router_state())
+    loaded = checkpoints.load_checkpoint(ckpt, step, map_location=dev)
+    t_ckpt = time.perf_counter() - t1
+    layout = sorted(os.listdir(ckpt))
+    shutil.rmtree(ckpt_root)
+    saved = {**trainer.adapter_state(), **{f"router.{k}": v for k, v in
+                                           (trainer.router_state() or {}).items()}}
+    got = {**loaded["adapter"], **{f"router.{k}": v for k, v in
+                                   loaded.get("router", {}).items()}}
+    same = saved.keys() == got.keys() and all(torch.equal(got[k], v) for k, v in saved.items())
+    saved_state = trainer.optimizer.adamw.state_dict()["state"]
+    loaded_state = loaded["optimizer"]["adamw"]["state"]
+    same = same and len(saved_state) == len(trainer.optimizer.masters) and all(
+        torch.equal(saved_state[i][k].to(dev), loaded_state[i][k].to(dev))
+        for i in saved_state for k in ("exp_avg", "exp_avg_sq", "step"))
+    layout = ", ".join(d if "." in d else f"{d}/" for d in layout)
+    print(f"{label}: checkpoint-{step} ({layout}) saved and loaded in {t_ckpt:.1f} s: masters"
+          f"{' (adapter and router)' if trainer.router is not None else ''} and AdamW state "
+          f"{'equal' if same else 'DIFFER'}")
+    if not same:
+        raise RuntimeError(f"{label}: the checkpoint did not restore the masters and AdamW state")
 
 
 def run_training(dev, card, kernels):
@@ -1609,7 +1863,6 @@ def run_training(dev, card, kernels):
     ``configs/svd_train_depth.yaml`` (1 x 14 x 512 x 512, skip_conv_in, bf16
     towers, fp32 adapter masters, gradient checkpointing) for 3 steps; returns
     the launch counts of the 3 steps."""
-    from ctrl_adapter_tpu_torch.train import checkpoints
     from ctrl_adapter_tpu_torch.train.trainer import CtrlAdapterTrainer, TrainConfig
 
     bf = torch.bfloat16
@@ -1648,38 +1901,12 @@ def run_training(dev, card, kernels):
               f"{step_ms[-1]:.1f} ms, launches {per_step[-1]}")
         if not (math.isfinite(loss) and math.isfinite(norm)):
             raise RuntimeError(f"training step {step + 1}: non-finite loss or grad_norm")
-        if step == 0:  # every adapter parameter the forward reads has a nonzero gradient
-            unread = [n for n, p in zip(trainer.names, params) if p.grad is None]
-            zero = [n for n, p in zip(trainer.names, params)
-                    if p.grad is not None and not p.grad.any()]
-            odd = [n for n in unread if not any(k in n for k in UNREAD_BY_SINGLE_KEY)]
-            print(f"training: {len(params) - len(unread)} of {len(params)} adapter tensors "
-                  f"have a gradient, {len(zero)} of them zero; {len(unread)} unread (the "
-                  f"single-key cross-attentions' norm2, to_q, to_k)")
-            if zero or odd:
-                raise RuntimeError(f"training: zero gradients {zero[:5]}, unread {odd[:5]}")
+        if step == 0:
+            check_read_grads("training", trainer)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {name: sum(s[name] for s in per_step) for name in kernels}
-    # where a step's time goes: one more step in its three parts, each on the
-    # host clock around a synchronize
-    parts = {}
-    draws = trainer.draw(gen, 1, FRAMES, SIZE // 8, SIZE // 8)
-    for p in params:
-        p.grad = None
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    loss = trainer.loss(batch, draws)
-    torch.cuda.synchronize()
-    parts["forward (VAE encode, ControlNet, adapter, UNet, loss)"] = time.perf_counter() - t1
-    loss.backward()
-    torch.cuda.synchronize()
-    parts["backward (with the adapter's and the UNet's recompute)"] = (
-        time.perf_counter() - t1 - sum(parts.values()))
-    trainer.optimizer.step([torch.zeros_like(m) if p.grad is None else p.grad.float()
-                            for p, m in zip(params, masters)])
-    torch.cuda.synchronize()
-    parts["optimizer (clip, AdamW, masters to bf16)"] = (
-        time.perf_counter() - t1 - sum(parts.values()))
+    # where a step's time goes: one more step in its three parts
+    parts = step_parts(trainer, batch, trainer.draw(gen, 1, FRAMES, SIZE // 8, SIZE // 8))
     print("training step in parts: " + "; ".join(f"{k} {1000 * v:.1f} ms"
                                                   for k, v in parts.items()))
     # one more step under torch.profiler (which slows the host several-fold,
@@ -1720,28 +1947,12 @@ def run_training(dev, card, kernels):
         print(f"training: K2 backward in the profiled step: "
               f"{sum(us for us, _ in k2_bwd) / 1000:.2f} ms of device time over "
               f"{sum(n for _, n in k2_bwd)} launches (3 a call)")
-
-    # a checkpoint in the reference layout, saved and loaded back exactly
-    t1 = time.perf_counter()
-    ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_ckpt")
-    step = trainer.optimizer.update_count
-    ckpt = checkpoints.save_checkpoint(ckpt_root, step, trainer.adapter_state(),
-                                       trainer.optimizer.state_dict(), {"model_name": "svd"})
-    loaded = checkpoints.load_checkpoint(ckpt, step, map_location=dev)
-    t_ckpt = time.perf_counter() - t1
-    shutil.rmtree(ckpt_root)
-    same = all(torch.equal(loaded["adapter"][n], m) for n, m in zip(trainer.names, masters))
-    saved_state = trainer.optimizer.adamw.state_dict()["state"]
-    loaded_state = loaded["optimizer"]["adamw"]["state"]
-    same = same and all(torch.equal(saved_state[i][k].to(dev), loaded_state[i][k].to(dev))
-                        for i in saved_state for k in ("exp_avg", "exp_avg_sq", "step"))
-    print(f"training: checkpoint-{step} (adapter_{step}/, optimizer/, "
-          f"config.json) saved and loaded in {t_ckpt:.1f} s: masters and AdamW state "
-          f"{'equal' if same else 'DIFFER'}")
-    if not same:
-        raise RuntimeError("training: the checkpoint did not restore the masters and AdamW state")
-    del loaded
-    train_reference_check(trainer, dev)
+    checkpoint_round_trip("training", trainer, dev, "svd")
+    # on 2 frames at 128x128
+    train_reference_check(
+        trainer, dev, "svd", train_batch(dev, 2, 128, SEED + 7),
+        trainer.draw(torch.Generator(device=dev).manual_seed(SEED + 8), 1, 2, 16, 16),
+        dataclasses.replace(cfg, n_sample_frames=2, control_latent_size=16))
     return launches
 
 
@@ -2234,6 +2445,249 @@ def run_sdxl(dev, card, kernels):
     return launches
 
 
+BRANCH_STEPS = 3      # training steps of the I2VGen-XL depth and SDXL runs
+BRANCH_MULTI_STEPS = 2  # of the multi-condition run
+MAX_ACTIVE = 4         # max_num_multi_source_train (configs/i2vgenxl_train_multi_condition.yaml)
+
+
+def branch_batch(dev, model, experts, frames, size, control, seed, mask=None):
+    """One training batch of ``model`` ("i2vgenxl" or "sdxl") from a seeded
+    generator, in the JAX layouts: frames in [-1, 1] (one for SDXL), one
+    depth-like condition per expert at 8 x ``control`` square, the ControlNet
+    text, and I2VGen-XL's CLIP image embedding and prompt (1024 wide) or
+    SDXL's prompt (2048 wide), pooled text and time ids; ``mask`` the
+    expert mask."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, scale: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
+    c8 = 8 * control
+    depth = torch.rand(experts, frames, c8, c8, 1, generator=g, device=dev)
+    batch = {"frames": torch.rand(1, frames, size, size, 3, generator=g, device=dev) * 2 - 1,
+             "controlnet_cond": depth.expand(-1, -1, -1, -1, 3).contiguous(),
+             "controlnet_text_emb": r(1, 77, 768, scale=0.02)}
+    if model == "i2vgenxl":
+        batch.update(image_embeddings=r(1, 1, 1024, scale=0.1),
+                     prompt_embeds=r(1, 77, 1024, scale=0.02))
+    else:
+        batch.update(prompt_embeds=r(1, 77, 2048, scale=0.02),
+                     pooled_prompt_embeds=r(1, 1280, scale=0.02),
+                     additional_time_ids=torch.tensor([[size, size, 0, 0, size, size]],
+                                                      dtype=torch.float32, device=dev))
+    if mask is not None:
+        batch["expert_mask"] = torch.tensor(mask, dtype=torch.float32, device=dev)
+    return batch
+
+
+def draw_mask(g, experts, max_active=MAX_ACTIVE):
+    """An expert mask with 1 to ``max_active`` active experts, drawn from the
+    host generator ``g`` as train.py draws it per batch."""
+    k = int(torch.randint(1, max_active + 1, (1,), generator=g))
+    on = torch.randperm(experts, generator=g)[:k].tolist()
+    return [float(e in on) for e in range(experts)]
+
+
+def run_branch(label, trainer, batches, kernels, want, single_key=True, gen=None):
+    """``len(batches)`` training steps of ``trainer`` with draws from
+    ``gen``: their losses, gradient norms, ms and launches against ``want``
+    (one step's, from the helpers); after the first step every adapter tensor
+    the forward reads has a nonzero gradient. Returns (ms per step, metrics
+    per step, peak GiB)."""
+    gen = gen or torch.Generator(device=trainer.device).manual_seed(SEED + 20)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, steps = [], []
+    for i, batch in enumerate(batches):
+        before = {name: k.launches for name, k in kernels.items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = trainer.train_step(batch, generator=gen)
+        torch.cuda.synchronize()
+        step_ms.append(1000 * (time.perf_counter() - t1))
+        launches = {name: k.launches - before[name] for name, k in kernels.items()}
+        loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+        print(f"{label} step {i + 1}: loss {loss:.6f}, grad_norm {norm:.6e}, "
+              f"{step_ms[-1]:.1f} ms, launches {launches}")
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise RuntimeError(f"{label} step {i + 1}: non-finite loss or grad_norm")
+        if launches != want:
+            raise RuntimeError(f"{label} step {i + 1}: launches {launches}, want (the JAX "
+                               f"dispatch, forward and recompute) {want}")
+        if i == 0:
+            check_read_grads(label, trainer, single_key)
+        steps.append(metrics)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label}: launches per step as the helpers give them "
+          f"{ {k: v for k, v in want.items() if v} }")
+    return step_ms, steps, peak_gb
+
+
+def print_branch(label, card, shape, step_ms, peak_gb, parts=None, activity=None):
+    print(f"{label} on {card}: {shape}, bf16 towers, fp32 masters, gradient checkpointing: "
+          f"step 1 {step_ms[0]:.1f} ms (cold); {statistics.mean(step_ms[1:]):.1f} ms/step over "
+          f"steps 2-{len(step_ms)} ({', '.join(f'{t:.1f}' for t in step_ms[1:])}); peak device "
+          f"memory {peak_gb:.2f} GiB")
+    if parts is not None:
+        print(f"  a step in parts: " + "; ".join(f"{k} {1000 * v:.1f} ms"
+                                                  for k, v in parts.items()))
+    if activity is not None or parts is not None:
+        print_activity("  a step under torch.profiler: ", activity)
+
+
+def masters_moved(label, masters, start, what="master"):
+    moved = sum(not torch.equal(a, b) for a, b in zip(start, masters))
+    print(f"{label}: {moved} of {len(masters)} {what} tensors moved")
+    if moved != len(masters):
+        raise RuntimeError(f"{label}: some {what} tensors did not move")
+
+
+def run_train_branches(dev, card, kernels):
+    """Phase 11: the I2VGen-XL and SDXL training branches and router training
+    at full width (bf16 towers from a seeded generator, fp32 masters,
+    gradient checkpointing): I2VGen-XL depth (``configs/i2vgenxl_train_depth.yaml``,
+    1 x 16 x 512^2, one ControlNet, 3 steps), I2VGen-XL multi-condition
+    (``configs/i2vgenxl_train_multi_condition.yaml``: 7 ControlNets, a
+    simple-weights router, 1-4 active experts drawn per step, 2 steps, a
+    checkpoint round trip), SDXL depth (``configs/sdxl_train_depth.yaml``,
+    1 x 1024^2, min-SNR gamma 5, 3 steps); launches per step against
+    ``i2v_train_launches`` / ``sdxl_train_launches``; the small-input checks
+    against an fp32 run of the plain path with faulty kernels as controls.
+    Returns the launch counts of the three runs."""
+    from ctrl_adapter_tpu_torch.models.multicontrolnet import MultiControlNetModel
+    from ctrl_adapter_tpu_torch.train.trainer import CtrlAdapterTrainer, TrainConfig
+
+    bf = torch.bfloat16
+    counts = {}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    unet, nets, adapter, vae, router, n_params = build_i2vgenxl(dev, bf, I2V_EXPERTS)
+    torch.cuda.synchronize()
+    print(f"i2vgenxl training: built the I2VGen-XL UNet, {I2V_EXPERTS} ControlNets, the adapter "
+          f"({sum(p.numel() for p in adapter.parameters()) / 1e6:.1f} M, fp32 masters) and the "
+          f"2D VAE, {n_params / 1e9:.3f} B params bf16, in {time.perf_counter() - t0:.1f} s")
+    lat = SIZE // 8
+    cfg = TrainConfig(model_name="i2vgenxl", n_sample_frames=I2V_FRAMES, output_fps=16,
+                      control_latent_size=lat, gradient_checkpointing=True)
+    want = i2v_train_launches()
+
+    # I2VGen-XL depth: one ControlNet, no router
+    label = "i2vgenxl depth training"
+    trainer = CtrlAdapterTrainer(cfg, unet, nets[0], adapter, vae, device=dev)
+    start = [m.clone() for m in trainer.optimizer.masters]
+    batch = branch_batch(dev, "i2vgenxl", 1, I2V_FRAMES, SIZE, lat, SEED + 21)
+    for k in kernels.values():
+        k.reset()
+    step_ms, _, peak_gb = run_branch(label, trainer, [batch] * BRANCH_STEPS, kernels, want)
+    counts["train_i2vgenxl"] = {name: k.launches for name, k in kernels.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    parts = step_parts(trainer, batch, trainer.draw(gen, 1, I2V_FRAMES, lat, lat))
+    activity = device_activity(lambda: trainer.train_step(batch, generator=gen))
+    masters_moved(label, trainer.optimizer.masters, start)
+    print_branch(label, card, f"1x{I2V_FRAMES}x{SIZE}x{SIZE}", step_ms, peak_gb, parts, activity)
+    del trainer, start, batch
+    torch.cuda.empty_cache()
+
+    # I2VGen-XL multi-condition: 7 ControlNets, all run every step as in the
+    # JAX loop, a simple-weights router in the adapter's optimizer
+    label = "i2vgenxl multi-condition training"
+    mcfg = dataclasses.replace(cfg, num_experts=I2V_EXPERTS, train_router=True)
+    trainer = CtrlAdapterTrainer(mcfg, unet, MultiControlNetModel(nets), adapter, vae,
+                                 router=router, device=dev)
+    n = len(trainer.names)
+    start = [m.clone() for m in trainer.optimizer.masters[n:]]
+    host = torch.Generator().manual_seed(SEED + 23)
+    masks = [draw_mask(host, I2V_EXPERTS) for _ in range(BRANCH_MULTI_STEPS)]
+    calls = [0] * I2V_EXPERTS
+    hooks = [net.register_forward_hook(lambda *_, e=e: calls.__setitem__(e, calls[e] + 1))
+             for e, net in enumerate(nets)]
+    for k in kernels.values():
+        k.reset()
+    batches = [branch_batch(dev, "i2vgenxl", I2V_EXPERTS, I2V_FRAMES, SIZE, lat, SEED + 24 + i,
+                            mask) for i, mask in enumerate(masks)]
+    seen, peaks, step_ms, steps = [], [], [], []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    try:
+        for i, (batch, mask) in enumerate(zip(batches, masks)):
+            ms, metrics, peak = run_branch(f"{label} (mask {mask})", trainer, [batch], kernels,
+                                           want, gen=gen)
+            step_ms, steps, peaks = step_ms + ms, steps + metrics, peaks + [peak]
+            off = [e for e in range(I2V_EXPERTS) if not mask[e]]
+            grads = [p.grad for p in trainer.optimizer.params[n:]]
+            dw, mw = metrics[0]["down_block_weights"], metrics[0]["mid_block_weights"]
+            zero_w = bool((dw[:, off] == 0).all() and (mw[off] == 0).all())
+            zero_g = all(g is not None and bool((g[off] == 0).all()) for g in grads)
+            rows = dw.sum(-1)
+            active = torch.linalg.vector_norm(torch.cat([g.flatten() for g in grads])).item()
+            print(f"{label} step {i + 1}: {len(off)} masked experts {off}: router weights "
+                  f"{'exactly 0' if zero_w else 'NONZERO'}, router gradients "
+                  f"{'exactly 0' if zero_g else 'NONZERO'}; each down row sums to "
+                  f"{rows.min().item():.6f}..{rows.max().item():.6f}; the router gradient's "
+                  f"norm {active:.3e}")
+            seen.append((zero_w, zero_g))
+    finally:
+        for h in hooks:
+            h.remove()
+    peak_gb = max(peaks)
+    counts["train_i2vgenxl_multi"] = {name: k.launches for name, k in kernels.items()}
+    print(f"{label}: ControlNet calls per expert {calls} (forward only: none is checkpointed)")
+    if calls != [BRANCH_MULTI_STEPS] * I2V_EXPERTS:
+        raise RuntimeError(f"{label}: ControlNet calls per expert {calls}: all "
+                           f"{I2V_EXPERTS} run once a step, as in the JAX loop")
+    if not all(w and g for w, g in seen):
+        raise RuntimeError(f"{label}: a masked expert has a nonzero router weight or gradient")
+    if any({"down_block_weights", "mid_block_weights"} - set(m) for m in steps):
+        raise RuntimeError(f"{label}: the router's weights are missing from the step's metrics")
+    masters_moved(label, trainer.optimizer.masters[n:], start, "router master")
+    print_branch(label, card, f"1x{I2V_FRAMES}x{SIZE}x{SIZE}, {I2V_EXPERTS} ControlNets",
+                 step_ms, peak_gb)
+    checkpoint_round_trip(label, trainer, dev, "i2vgenxl")
+    # 4 frames at 256x256: the adapter's A blocks and the UNet's level 0 at
+    # T = 1024, so K2 runs forward and backward; 3 experts active
+    small_mask = [1.0, 1.0, 0.0, 1.0] + [0.0] * (I2V_EXPERTS - 4)
+    train_reference_check(
+        trainer, dev, "i2vgenxl multi-condition",
+        branch_batch(dev, "i2vgenxl", I2V_EXPERTS, 4, 256, 32, SEED + 25, small_mask),
+        trainer.draw(torch.Generator(device=dev).manual_seed(SEED + 26), 1, 4, 32, 32),
+        dataclasses.replace(mcfg, n_sample_frames=4, control_latent_size=32),
+        faults=tuple(training_faults()))
+    del trainer, unet, nets, adapter, vae, router, batches, start
+    torch.cuda.empty_cache()
+
+    # SDXL depth with min-SNR
+    label = "sdxl training"
+    t0 = time.perf_counter()
+    unet, cnet, adapter, vae, n_params = build_sdxl(dev, bf)
+    torch.cuda.synchronize()
+    print(f"sdxl training: built the SDXL UNet, the SD-v1.5 ControlNet, the adapter "
+          f"({sum(p.numel() for p in adapter.parameters()) / 1e6:.1f} M, fp32 masters) and the "
+          f"SDXL VAE, {n_params / 1e9:.3f} B params bf16, in {time.perf_counter() - t0:.1f} s")
+    scfg = TrainConfig(model_name="sdxl", n_sample_frames=1, output_fps=1,
+                       control_latent_size=SDXL_CONTROL, snr_gamma=5.0,
+                       vae_scaling_factor=0.13025, gradient_checkpointing=True)
+    trainer = CtrlAdapterTrainer(scfg, unet, cnet, adapter, vae, device=dev)
+    start = [m.clone() for m in trainer.optimizer.masters]
+    batch = branch_batch(dev, "sdxl", 1, 1, SDXL_SIZE, SDXL_CONTROL, SEED + 27)
+    for k in kernels.values():
+        k.reset()
+    step_ms, _, peak_gb = run_branch(label, trainer, [batch] * BRANCH_STEPS, kernels,
+                                     sdxl_train_launches(), single_key=False)
+    counts["train_sdxl"] = {name: k.launches for name, k in kernels.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    lat = SDXL_SIZE // 8
+    parts = step_parts(trainer, batch, trainer.draw(gen, 1, 1, lat, lat))
+    activity = device_activity(lambda: trainer.train_step(batch, generator=gen))
+    masters_moved(label, trainer.optimizer.masters, start)
+    print_branch(label, card, f"1x{SDXL_SIZE}x{SDXL_SIZE}, min-SNR 5", step_ms, peak_gb, parts,
+                 activity)
+    # 512x512: the adapter's A blocks at T = 4096 after the x2 upsample, the
+    # UNet's level 1 at T = 1024
+    train_reference_check(
+        trainer, dev, "sdxl", branch_batch(dev, "sdxl", 1, 1, 512, 32, SEED + 29),
+        trainer.draw(torch.Generator(device=dev).manual_seed(SEED + 30), 1, 1, 64, 64),
+        dataclasses.replace(scfg, control_latent_size=32),
+        faults=("K1 without its SiLU", "K2 backward without head 0"))
+    del trainer, unet, cnet, adapter, vae, start, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
 def run_exact_gelu(dev, card, full_kernel, k4_kernel):
     """Phase 6: the JAX package's ``CTRL_ADAPTER_EXACT_GELU=1`` switch. A UNet
     level-0 temporal block (bf16, c = 320, 5 heads, 14 frames) still takes
@@ -2406,6 +2860,8 @@ def main() -> int:
     phase_done("phase 9, I2VGen-XL")
     launches_sdxl = run_sdxl(dev, card, kernels)
     phase_done("phase 10, SDXL")
+    launches_branches = run_train_branches(dev, card, kernels)
+    phase_done("phase 11, I2VGen-XL and SDXL training")
 
     meta = {  # name: (source, replaces, the run its launches come from)
         "group_norm_silu": ("ctrl_adapter_tpu_torch/csrc/group_norm.cu",
@@ -2433,11 +2889,13 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
          "launches": counts[meta[name][2]][name], "path": meta[name][2],
          **{k: v for k, v in results[name][0].items()
-            if k not in ("controlled", "unet_only", "training")},
+            if k not in ("controlled", "unet_only", "training", "train_i2vgenxl",
+                         "train_sdxl")},
          "max_abs_err": max(r["max_abs_err"] for r in results[name]),
          "launches_i2vgenxl": launches_i2v[name],
          "launches_i2vgenxl_multi": launches_i2v_multi[name],
-         "launches_sdxl": launches_sdxl[name]}
+         "launches_sdxl": launches_sdxl[name],
+         **{f"launches_{run}": n[name] for run, n in launches_branches.items()}}
         for name in kernels]}
     print(json.dumps(line))
     print(card)

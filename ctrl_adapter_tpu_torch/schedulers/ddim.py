@@ -60,6 +60,16 @@ class DDIMScheduler:
     def __init__(self, config: DDIMConfig = DDIMConfig()):
         self.config = config
         self.alphas_cumprod = torch.from_numpy(_make_alphas_cumprod(config))
+        self._alphas_on = {torch.device("cpu"): self.alphas_cumprod}
+
+    def alphas_cumprod_on(self, device) -> torch.Tensor:
+        """The alphas table on ``device``, moved there at the first call: the
+        training-side lookups index it where their timesteps live, so a step
+        copies nothing from the card to the host."""
+        device = torch.device(device)
+        if device not in self._alphas_on:
+            self._alphas_on[device] = self.alphas_cumprod.to(device)
+        return self._alphas_on[device]
 
     def set_timesteps(self, num_inference_steps: int) -> DDIMState:
         cfg = self.config
@@ -117,13 +127,14 @@ class DDIMScheduler:
     def add_noise(self, original_samples: torch.Tensor, noise: torch.Tensor,
                   timesteps: torch.Tensor) -> torch.Tensor:
         """sqrt(acp_t) x0 + sqrt(1 - acp_t) noise, per sample of ``timesteps`` (B,)."""
-        acp = self.alphas_cumprod[timesteps.cpu().long()].to(original_samples.device)
+        acp = self.alphas_cumprod_on(timesteps.device)[timesteps.long()].to(
+            original_samples.device)
         acp = _per_sample(acp, original_samples.dim())
         return acp ** 0.5 * original_samples + (1.0 - acp) ** 0.5 * noise
 
     def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor,
                      timesteps: torch.Tensor) -> torch.Tensor:
         """The v-prediction target sqrt(acp_t) noise - sqrt(1 - acp_t) x0."""
-        acp = self.alphas_cumprod[timesteps.cpu().long()].to(sample.device)
+        acp = self.alphas_cumprod_on(timesteps.device)[timesteps.long()].to(sample.device)
         acp = _per_sample(acp, sample.dim())
         return acp ** 0.5 * noise - (1.0 - acp) ** 0.5 * sample

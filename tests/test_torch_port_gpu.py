@@ -135,14 +135,19 @@ def test_gpu_k2_kernel_matches_plain(t, h, layout):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n,t,h", [(2, 3, 1024, 64), (1, 2, 4096, 64), (2, 2, 1024, 128),
-                                     (2, 3, 128, 64), (1, 2, 128, 128), (3, 7, 2048, 64)])
+                                     (2, 3, 128, 64), (1, 2, 128, 128), (3, 7, 2048, 64),
+                                     (16, 5, 4096, 64), (1, 5, 16384, 64)])
 def test_gpu_k2_backward_matches_plain(b, n, t, h):
     """K2's forward with its log-sum-exp and its backward (one call, one count)
     through ``FlashAttention`` on head-split views, against the plain backward
     on the kernel's own output and lse. P and dS are rounded to bf16 before
     their products in the kernel, not in the plain version: ~0.3 % in norm.
     T = 128 is one key block and one query tile; (3, 7, 2048, 64) launches 336
-    CTAs, two waves of 132 SMs and a part of a third."""
+    CTAs, two waves of 132 SMs and a part of a third. (16, 5, 4096, 64) is the
+    I2VGen-XL training step's UNet and adapter A-block attention at 16
+    frames; (1, 5, 16384, 64) the SDXL training step's adapter A blocks after
+    their x2 upsample: 128 key blocks add into each query row's fp32 dQ
+    scratch."""
     dev = _dev()
     g = torch.Generator(device=dev).manual_seed(5)
     q, k, v, do = (_rand(g, dev, b, t, n * h).to(BF).view(b, t, n, h).transpose(1, 2)
@@ -491,6 +496,41 @@ def test_gpu_i2vgenxl_denoise_loop_does_not_wait_for_the_card(router_type):
     pipe._sample = guarded
     latents = pipe.generate(**inputs)
     assert torch.isfinite(latents).all()
+
+
+@pytest.mark.gpu
+def test_gpu_i2vgenxl_training_step_does_not_wait_for_the_card():
+    """The I2VGen-XL training step's loss and backward, with two experts and
+    a trainable router, make no call that waits for the card
+    (``set_sync_debug_mode("error")``): DDIM indexes its alphas on the
+    timesteps' device, the router's mask and weights stay there. Only the
+    optimizer's clip reads the gradient norm on the host, outside the
+    guard."""
+    from ctrl_adapter_tpu_torch.train.trainer import CtrlAdapterTrainer, TrainConfig
+
+    dev = _dev()
+    pipe, inputs = _thin_i2vgenxl(dev, experts=2, router_type="simple_weights")
+    cfg = TrainConfig(model_name="i2vgenxl", n_sample_frames=4, control_latent_size=32,
+                      num_experts=2, train_router=True)
+    trainer = CtrlAdapterTrainer(cfg, pipe.unet, pipe.controlnet, pipe.adapter, pipe.vae,
+                                 router=pipe.router, device=dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    batch = {"frames": torch.rand(1, 4, 256, 256, 3, generator=g, device=dev) * 2 - 1,
+             "controlnet_cond": inputs["control_images"].float(),
+             "controlnet_text_emb": inputs["controlnet_prompt_embeds"][1:],
+             "prompt_embeds": inputs["prompt_embeds"][1:],
+             "image_embeddings": inputs["image_embeddings"],
+             "expert_mask": torch.tensor([1.0, 0.0], device=dev)}
+    trainer.train_step(batch, generator=g)  # builds the kernels, moves DDIM's table
+    draws = trainer.draw(g, 1, 4, 32, 32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, weights = trainer.loss_and_weights(batch, draws)
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(loss) and (weights["down_block_weights"][:, 1] == 0).all()
 
 
 @pytest.mark.gpu

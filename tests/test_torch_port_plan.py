@@ -502,6 +502,121 @@ def test_chip_smoke_sdxl_shape_lists_are_the_modules_dispatch(monkeypatch):
         temporal_block_full=0, ln_ff_residual=0, geglu=0, flash_attention_bwd=0)
 
 
+def _record_training_pass(monkeypatch, run):
+    """``run()`` once on the meta device with the plain kernels and grad on:
+    (temporal dispatches, K1 norms (shape, silu), K2 calls (shape, whether
+    an input needs a gradient, so that K2's backward runs for it))."""
+    import chip_smoke
+
+    dispatch, norms, flash = [], [], []
+    real = ft.dispatch_mode
+    monkeypatch.setattr(ft, "dispatch_mode", lambda *a: dispatch.append(
+        (a[:5], real(*a))) or dispatch[-1][1])
+    with chip_smoke.plain_kernels(), torch.enable_grad():
+        monkeypatch.setattr(gn, "group_norm_silu", lambda x, w, b, g, eps, silu: norms.append(
+            (tuple(x.shape), silu)) or gn._torch_group_norm_silu(x, w, b, g, eps, silu))
+        monkeypatch.setattr(fa, "attention_bnth", lambda q, k, v: flash.append(
+            (tuple(q.shape), q.requires_grad or k.requires_grad or v.requires_grad))
+            or fa._torch_attention(q, k, v))
+        run()
+    # copies: the helpers held against them call dispatch_mode too
+    return list(dispatch), list(norms), list(flash)
+
+
+def _check_training_rows(dispatch, norms, flash, k1, k2, k3, launches):
+    """One pass's dispatch against the helper's rows, and the helper's
+    launches per training step: the forward kernels twice (forward and
+    the checkpointed recompute), K2's backward once per attention with an
+    input that needs a gradient."""
+    assert {k: r["controlled"] for k, r in k2.items()} == dict(Counter(s for s, _ in flash))
+    assert {k: r["train_bwd"] for k, r in k2.items() if r["train_bwd"]} == dict(
+        Counter(s for s, grad in flash if grad))
+    assert dict(Counter(norms)) == k1
+    hybrid = Counter(a for a, m in dispatch if m == "hybrid")
+    assert {k: r["controlled"] for k, r in k3.items()} == dict(hybrid)
+    assert launches == dict(
+        group_norm_silu=2 * len(norms), flash_attention=2 * len(flash),
+        temporal_block=2 * sum(hybrid.values()), temporal_block_full=0, ln_ff_residual=0,
+        geglu=0, flash_attention_bwd=sum(grad for _, grad in flash))
+
+
+def test_chip_smoke_i2vgenxl_training_launches_are_the_modules_dispatch(monkeypatch):
+    """Phase 11's I2VGen-XL rows and launches per training step
+    (``i2v_train_launches``: K1 94, K2 32, K2 backward 12, K3 hybrid 26) are
+    what the trainable adapter (16 frames, batch 1) and the frozen I2VGen-XL
+    UNet that takes its residuals dispatch at full width, run once on the
+    meta device with grad on: K2's backward at the adapter's 6 attentions
+    and the UNet's 6 up-block ones."""
+    import chip_smoke
+    from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+    from ctrl_adapter_tpu_torch.models.unet_i2vgen import I2VGenXLUNet
+
+    f = chip_smoke.I2V_FRAMES
+    dev, bf = torch.device("meta"), torch.bfloat16
+    e = lambda *shape: torch.empty(*shape, device=dev, dtype=bf)  # noqa: E731
+
+    def run():
+        adapter = ControlNetAdapter(cross_attention_dim=1024, num_blocks=1,
+                                    adapter_locations=("A", "B", "C", "D", "M"),
+                                    add_temporal_resnet=True, add_temporal_transformer=True,
+                                    device=dev, dtype=bf)
+        t = torch.full((1,), 981.0, device=dev)
+        down, mid = adapter([e(f, c, h, h) for c, h in chip_smoke.adapter_blocks()[:-1]],
+                            e(f, 1280, 8, 8), num_frames=f, timestep=t,
+                            encoder_hidden_states=e(1, 1, 1024))
+        unet = I2VGenXLUNet(device=dev, dtype=bf).requires_grad_(False)
+        out = unet(e(1, f, 4, 64, 64), t, torch.full((1,), 16.0, device=dev),
+                   e(1, f, 4, 64, 64), e(1, 1, 1024), e(1, 77, 1024), down, mid)
+        assert out.requires_grad
+
+    dispatch, norms, flash = _record_training_pass(monkeypatch, run)
+    _check_training_rows(dispatch, norms, flash, chip_smoke.k1_rows(f, 1),
+                         chip_smoke.i2v_flash_rows(batch=1), chip_smoke.i2v_hybrid_rows(f, 1),
+                         chip_smoke.i2v_train_launches())
+    assert chip_smoke.i2v_train_launches() == dict(
+        group_norm_silu=94, flash_attention=32, temporal_block=26, temporal_block_full=0,
+        ln_ff_residual=0, geglu=0, flash_attention_bwd=12)
+
+
+def test_chip_smoke_sdxl_training_launches_are_the_modules_dispatch(monkeypatch):
+    """Phase 11's SDXL rows and launches per training step
+    (``sdxl_train_launches``: K1 34, K2 158, K2 backward 45) are what the
+    trainable SDXL adapter (batch 1) and the frozen SDXL UNet at 1024x1024
+    dispatch, run once on the meta device with grad on: K2's backward at
+    the adapter's 9 attentions (3 at T = 16384) and the UNet's 36 up-block
+    ones, none in its down or mid blocks."""
+    import chip_smoke
+    from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+    from ctrl_adapter_tpu_torch.models.unet_2d import SDXL_CONFIG, UNet2DConditionModel
+
+    dev, bf = torch.device("meta"), torch.bfloat16
+    e = lambda *shape: torch.empty(*shape, device=dev, dtype=bf)  # noqa: E731
+
+    def run():
+        adapter = ControlNetAdapter(backbone_model_name="sdxl", cross_attention_dim=2048,
+                                    num_blocks=1, adapter_locations=("A", "B", "C"),
+                                    device=dev, dtype=bf)
+        t = torch.full((1,), 951.0, device=dev)
+        blocks = chip_smoke.adapter_blocks(chip_smoke.SDXL_CONTROL)[:-1]
+        down, _ = adapter([e(1, c, h, h) for c, h in blocks], None, num_frames=1, timestep=t,
+                          encoder_hidden_states=e(1, 77, 2048))
+        lat = chip_smoke.SDXL_SIZE // 8
+        unet = UNet2DConditionModel(SDXL_CONFIG, device=dev, dtype=bf).requires_grad_(False)
+        out = unet(e(1, 4, lat, lat), t, e(1, 77, 2048),
+                   {"text_embeds": e(1, 1280), "time_ids": e(1, 6)}, down,
+                   torch.zeros((), device=dev))
+        assert out.requires_grad
+
+    dispatch, norms, flash = _record_training_pass(monkeypatch, run)
+    _check_training_rows(dispatch, norms, flash, chip_smoke.sdxl_k1_rows(batch=1),
+                         chip_smoke.sdxl_flash_rows(batch=1), {},
+                         chip_smoke.sdxl_train_launches())
+    assert Counter(s for s, grad in flash if grad)[(1, 5, 16384, 64)] == 3
+    assert chip_smoke.sdxl_train_launches() == dict(
+        group_norm_silu=34, flash_attention=158, temporal_block=0, temporal_block_full=0,
+        ln_ff_residual=0, geglu=0, flash_attention_bwd=45)
+
+
 # --------------------------------------------------------------- roofline
 def test_roofline_attention_hand_worked():
     cost = rl.attention(28, 5, 4096, 4096, 64)

@@ -9,7 +9,13 @@
   accumulation 2 against the JAX trainer's optax chain over 5 updates, with
   gradients that do and do not trigger the clip;
 - the port (package and ``chip_smoke.py``) imports no JAX, optax, orbax or
-  JAX-package module.
+  JAX-package module;
+- DDIM's ``add_noise`` and ``get_velocity`` against JAX's, indexing the alphas
+  on the timesteps' device (a ``meta`` run: no copy to the host);
+- on a thin I2VGen-XL trainer with random weights (no JAX): the DDIM
+  branches' integer timestep draws come from the generator, and a checkpoint
+  with a router (``router_{step}/``) restores the adapter's and the router's
+  masters and the optimizer exactly.
 
 Tolerances: exact for the sampler's indices; 1e-6 relative for the losses and
 the schedules (fp32 against fp64/fp32 arithmetic); 2e-5 absolute for the VAE
@@ -38,16 +44,29 @@ from ctrl_adapter_tpu.train import losses as jl
 from ctrl_adapter_tpu.train.trainer import CtrlAdapterTrainer as JTrainer
 from ctrl_adapter_tpu.train.trainer import TrainConfig as JTrainConfig
 from ctrl_adapter_tpu.train.trainer import _build_lr_schedule
-from ctrl_adapter_tpu_torch.models.router import fuse_expert_residuals
-from ctrl_adapter_tpu_torch.models.vae import VAEConfig
+from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+from ctrl_adapter_tpu_torch.models.controlnet import ControlNetConfig, ControlNetModel
+from ctrl_adapter_tpu_torch.models.multicontrolnet import MultiControlNetModel
+from ctrl_adapter_tpu_torch.models.router import ControlNetRouter, fuse_expert_residuals
+from ctrl_adapter_tpu_torch.models.unet_i2vgen import I2VGenXLUNet, I2VGenXLUNetConfig
+from ctrl_adapter_tpu_torch.schedulers.ddim import DDIMConfig as TDDIMConfig
+from ctrl_adapter_tpu_torch.schedulers.ddim import DDIMScheduler as TDDIMScheduler
+from ctrl_adapter_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from ctrl_adapter_tpu_torch.models.vae_temporal import AutoencoderKLTemporalDecoder
 from ctrl_adapter_tpu_torch.schedulers.euler_discrete import (karras_sigmas,
                                                               sample_training_sigmas_timesteps)
+from ctrl_adapter_tpu_torch.train import checkpoints
 from ctrl_adapter_tpu_torch.train import losses as tl
-from ctrl_adapter_tpu_torch.train.trainer import MasterOptimizer, TrainConfig, build_lr_schedule
+from ctrl_adapter_tpu_torch.train.trainer import (CtrlAdapterTrainer, MasterOptimizer,
+                                                  TrainConfig, build_lr_schedule)
 
+from .test_torch_i2vgen_modules import THIN_UNET as THIN_I2V_UNET
+from .test_torch_i2vgen_modules import THIN_VAE as THIN_2D_VAE
 from .test_torch_port_modules import THIN_VAE
-from .torch_port_common import assert_close, nchw_to_nhwc, nhwc_to_nchw, port
+from .test_torch_train_i2vgen import ADAPTER as I2V_ADAPTER
+from .test_torch_train_i2vgen import _batch as i2v_batch
+from .test_video_pipelines import CNET_CFG
+from .torch_port_common import assert_close, nchw_to_nhwc, nhwc_to_nchw, port, port_config
 from .utils import fake_init
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -183,3 +202,102 @@ def test_port_and_chip_smoke_import_no_jax_optax_orbax():
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in banned]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("prediction", ["epsilon", "v_prediction"])
+def test_ddim_add_noise_and_velocity_match_jax(prediction):
+    """``add_noise`` and ``get_velocity`` index the alphas on the timesteps'
+    device and give JAX's values (and those of the host table's lookup, to
+    the bit); on the ``meta`` device they run without a copy to the host."""
+    rng = np.random.default_rng(36)
+    x0, noise = (rng.standard_normal((3, 2, 4, 8, 8)).astype(np.float32) for _ in range(2))
+    t = np.array([0, 517, 999])
+    jsched = DDIMScheduler(DDIMConfig(prediction_type=prediction))
+    tsched = TDDIMScheduler(TDDIMConfig(prediction_type=prediction))
+    T = torch.from_numpy  # noqa: N806
+    for name in ("add_noise", "get_velocity"):
+        got = getattr(tsched, name)(T(x0), T(noise), T(t))
+        want = getattr(jsched, name)(jnp.asarray(x0), jnp.asarray(noise), jnp.asarray(t))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+        acp = tsched.alphas_cumprod[T(t)].reshape(3, 1, 1, 1, 1)
+        host = (acp ** 0.5 * T(x0) + (1 - acp) ** 0.5 * T(noise) if name == "add_noise"
+                else acp ** 0.5 * T(noise) - (1 - acp) ** 0.5 * T(x0))
+        assert torch.equal(got, host)
+        meta = getattr(tsched, name)(*(torch.empty(a.shape, device="meta") for a in (x0, noise)),
+                                     torch.zeros(3, dtype=torch.int64, device="meta"))
+        assert meta.device.type == "meta" and meta.shape == x0.shape
+    assert tsched.alphas_cumprod_on("meta") is tsched.alphas_cumprod_on("meta")
+
+
+# ------------------------------- a thin I2VGen-XL trainer, random weights
+def _thin_i2v_trainer(num_experts=1, seed=0, **cfg):
+    """A port I2VGen-XL trainer on the thin towers of
+    ``tests/test_torch_train_i2vgen.py`` with torch-random weights (no JAX);
+    with more than one expert a simple-weights router."""
+    g = torch.Generator().manual_seed(seed)
+    unet = I2VGenXLUNet(I2VGenXLUNetConfig(**THIN_I2V_UNET))
+    nets = [ControlNetModel(port_config(ControlNetConfig, CNET_CFG)) for _ in range(num_experts)]
+    vae = AutoencoderKL(VAEConfig(**THIN_2D_VAE))
+    adapter = ControlNetAdapter(backbone_model_name="i2vgenxl", **I2V_ADAPTER)
+    router = ControlNetRouter(num_experts, "simple_weights") if num_experts > 1 else None
+    with torch.no_grad():
+        for module in (unet, *nets, vae, adapter):
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    config = TrainConfig(**dict(dict(model_name="i2vgenxl", n_sample_frames=4,
+                                     control_latent_size=8, num_experts=num_experts), **cfg))
+    return CtrlAdapterTrainer(config, unet, MultiControlNetModel(nets) if router else nets[0],
+                              adapter, vae, router=router, device="cpu")
+
+
+def _torch_batch(num_experts):
+    return {k: torch.from_numpy(v) for k, v in i2v_batch(num_experts, seed=1).items()}
+
+
+def test_ddim_train_step_draws_from_the_generator():
+    """The DDIM branches draw an integer timestep in [0, 1000) from the
+    generator: the same seed gives the same step, another seed another."""
+    trainer = _thin_i2v_trainer()
+    draws = trainer.draw(torch.Generator().manual_seed(5), 3, 4, 8, 8)
+    assert draws["time"].dtype == torch.int64 and draws["time"].shape == (3,)
+    assert 0 <= int(draws["time"].min()) and int(draws["time"].max()) < 1000
+    batch = _torch_batch(1)
+    losses = []
+    for seed in (5, 5, 6):
+        trainer = _thin_i2v_trainer()
+        gen = torch.Generator().manual_seed(seed)
+        losses.append(float(trainer.train_step(batch, generator=gen)["loss"]))
+    assert losses[0] == losses[1] != losses[2]
+
+
+def test_router_checkpoint_round_trip(tmp_path):
+    """With a router, a checkpoint holds ``router_{step}/`` beside
+    ``adapter_{step}/`` under the router's diffusers names, and restores both
+    modules' masters and the optimizer state over both exactly: a step from
+    the restored trainer equals a step from the one that saved it."""
+    trainer = _thin_i2v_trainer(3)
+    batch = _torch_batch(3)
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(2):
+        metrics = trainer.train_step(batch, generator=gen)
+    assert metrics["down_block_weights"].shape == (12, 3)
+    router_state = trainer.router_state()
+    assert set(router_state) == ({f"down_blocks_router.{i}.wg.weight" for i in range(12)}
+                                 | {"mid_block_router.wg.weight"})
+    ckpt = checkpoints.save_checkpoint(str(tmp_path), 2, trainer.adapter_state(),
+                                       trainer.optimizer.state_dict(),
+                                       {"model_name": "i2vgenxl"}, router_state=router_state)
+    assert sorted(os.listdir(ckpt)) == ["adapter_2", "config.json", "optimizer", "router_2"]
+    loaded = checkpoints.load_checkpoint(ckpt, 2)
+    restored = _thin_i2v_trainer(3)  # the same frozen towers and a fresh router
+    restored.load_masters(loaded["adapter"], loaded["router"])
+    restored.optimizer.load_state_dict(loaded["optimizer"])
+    for a, b in zip(trainer.optimizer.masters, restored.optimizer.masters):
+        assert torch.equal(a, b)
+    for name, p in restored.router.named_parameters():
+        assert torch.equal(p, router_state[name])
+    draws = trainer.draw(torch.Generator().manual_seed(4), 1, 4, 8, 8)
+    for t in (trainer, restored):
+        t.train_step(batch, draws=draws)
+    for a, b in zip(trainer.optimizer.masters, restored.optimizer.masters):
+        assert torch.equal(a, b)
