@@ -39,7 +39,9 @@ Phases (any failure raises and the script exits non-zero before its last line):
    the norm (47 adapter norms per controlled step); time the denoise loop
    with K1 at every adapter norm (the dispatch before the repair) in turns
    with the JAX rule; then, on a small input, check the kernel path against
-   an fp32 reference of the same weights;
+   an fp32 reference of the same weights, and measure the JAX pipelines'
+   promotion of the residuals to fp32 (``promotion_check``: the bf16 path and
+   the promoted one, each against fp32);
 5. the same pipeline in the fused-block configuration
    (``CTRL_ADAPTER_FUSED_BLOCK=1``, a switch of the JAX package) for 2 steps:
    the same checks, and K4 must launch; ms/step beside the default's; K4's
@@ -124,7 +126,18 @@ Phases (any failure raises and the script exits non-zero before its last line):
    run of the plain path (``train_reference_check``), with faulty kernels
    as controls that must fail (``training_faults``);
 12. print the per-kernel JSON line (with each kernel's launches on the
-   I2VGen-XL, SDXL and training runs), the card line, and the result line.
+   I2VGen-XL, SDXL, training and CLI runs), the card line, and the result line;
+13. (run before 12) the serving CLI, ``inference_torch.main``, at the main
+   path's full width (SVD, depth, skip_conv_in, 14 frames at 512x512, 4 steps
+   cut from 25) on a fixture of 512^2 PNG frames written by the port's
+   encoder: (a) with ``--fake_weights``; (b) from diffusers-layout folders
+   written by ``convert/release.py`` into a temporary directory (bf16 UNet,
+   temporal VAE, SD-v1.5 ControlNet and adapter; fp16 CLIP-L text tower with
+   a small BPE tokenizer and CLIP-H vision tower). Checks the status line,
+   both gifs (14 frames), the video, K1, K2, K3 full and K3 hybrid launched per
+   step as in phase 4, every loaded tensor bit for bit as written, and the
+   encoders (no kernel launched, finite, within 1e-3 of CPU fp32 copies);
+   prints load seconds, encoder ms, ms per step, decode seconds and peak GiB.
 
 Device busy times and idle shares come from ``device_activity``, which
 refuses a trace that holds fewer events of a port kernel than the kernel's
@@ -136,6 +149,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import dataclasses
@@ -1462,16 +1476,20 @@ def drive(pipe, inputs, kw, kernels, steps):
 
 
 @contextlib.contextmanager
-def launches_per_step(pipe, kernels):
+def launches_per_step(pipe, kernels, ms=None):
     """Count the launches of each of ``kernels`` (name: counter) in each
     denoise step of the runs inside: yields a list that gets, per step,
     (whether the step ran the ControlNet, {name: launches in the step}). A
     step starts at the first tower call after the previous step's UNet call
-    and ends with its own."""
-    steps, state = [], {"mark": None, "controlled": False}
+    and ends with its own. Given a list ``ms``, each step also appends its
+    host-clock ms to it, the card synchronised at both ends."""
+    steps, state = [], {"mark": None, "controlled": False, "t0": None}
 
     def start(*_):
         if state["mark"] is None:
+            if ms is not None:
+                torch.cuda.synchronize()
+                state["t0"] = time.perf_counter()
             state.update(mark={n: k.launches for n, k in kernels.items()}, controlled=False)
 
     def controlnet(*_):
@@ -1479,6 +1497,9 @@ def launches_per_step(pipe, kernels):
         state["controlled"] = True
 
     def unet_done(*_):
+        if ms is not None:
+            torch.cuda.synchronize()
+            ms.append(1000 * (time.perf_counter() - state["t0"]))
         steps.append((state["controlled"],
                       {n: k.launches - state["mark"][n] for n, k in kernels.items()}))
         state["mark"] = None
@@ -1532,6 +1553,56 @@ def reference_check(pipe, label, small, skw):
         raise RuntimeError(f"{label}: kernel path is farther from the fp32 reference than allowed")
 
 
+def promotion_check(pipe, small, skw):
+    """The JAX pipelines multiply the ControlNet's bf16 residuals by an fp32
+    conditioning scale (``ctrl_adapter_tpu/pipelines/svd.py:300``), which
+    promotes them, and the adapter's work on them, to fp32; the port keeps
+    bf16. On the small input, with the plain kernels on both sides, the port's
+    bf16 path and the same path with the residuals promoted (the ControlNet's
+    outputs upcast to fp32 and the adapter run in fp32, on a float32 copy of its
+    bf16 weights; the UNet adds the adapter's outputs in its bf16), each against
+    an fp32 run. Prints the distances and the verdict: a fault where the bf16
+    path is farther from fp32 than twice the promoted path."""
+    promoted = copy.copy(pipe)
+    adapter32 = copy.deepcopy(pipe.adapter).float()
+
+    def controlnet32(*args, **kwargs):
+        downs, mid = pipe.controlnet(*args, **kwargs)
+        return [d.float() for d in downs], mid.float()
+
+    promoted.controlnet, promoted.adapter = controlnet32, adapter32
+    with plain_kernels():
+        bf16 = pipe.generate(**small, **skw).float()
+        prom = promoted.generate(**small, **skw).float()
+        ref = fp32_copy(pipe).generate(**small, **skw).float()
+    torch.cuda.synchronize()
+    del adapter32
+    scale, norm = ref.abs().max(), ref.norm()
+    errs = {}
+    for label, x in (("bf16", bf16), ("promoted", prom)):
+        errs[label] = (((x - ref).abs().max() / scale).item(), ((x - ref).norm() / norm).item())
+    verdict = ("fault: the bf16 residuals are farther from fp32 than twice the promoted ones"
+               if errs["bf16"][0] > 2 * errs["promoted"][0] else
+               "known difference: within twice the promoted path's distance")
+    print(f"fp32 promotion (1x4x256x256, 2 steps, latents, plain kernels; max error relative to "
+          f"max|fp32|, norm error relative to |fp32|): bf16 residuals {errs['bf16'][0]:.4e} "
+          f"max, {errs['bf16'][1]:.4e} norm; promoted residuals {errs['promoted'][0]:.4e} max, "
+          f"{errs['promoted'][1]:.4e} norm; ratio {errs['bf16'][0] / errs['promoted'][0]:.3f} "
+          f"(max), {errs['bf16'][1] / errs['promoted'][1]:.3f} (norm): {verdict}")
+    return errs
+
+
+def per_kind(label, steps):
+    """{"controlled" / "unet_only": {kernel: launches}} from ``launches_per_step``'s
+    list; raises when two steps of a kind differ."""
+    out = {}
+    for controlled, counts in steps:
+        kind = "controlled" if controlled else "unet_only"
+        if out.setdefault(kind, counts) != counts:
+            raise RuntimeError(f"{label}: launches differ between {kind} steps: {steps}")
+    return out
+
+
 def run_slices(dev, card, kernels):
     """Phases 4 and 5; returns the launch counts of the default and the
     fused-block runs, and K4's launches per controlled and per UNet-only step
@@ -1550,9 +1621,11 @@ def run_slices(dev, card, kernels):
 
     # phase 4, the default configuration: the main path run
     torch.cuda.reset_peak_memory_stats()
-    video, launches, t_first = drive(pipe, inputs, kw, kernels, STEPS)
+    with launches_per_step(pipe, kernels) as steps:
+        video, launches, t_first = drive(pipe, inputs, kw, kernels, STEPS)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"slice: launches during the run {launches}")
+    per_step = per_kind("slice", steps)
+    print(f"slice: launches during the run {launches}; per step {per_step}")
     check_video(video, "slice")
     on_path = ("group_norm_silu", "flash_attention", "temporal_block", "temporal_block_full")
     missing = [name for name in on_path if launches[name] == 0]
@@ -1617,6 +1690,7 @@ def run_slices(dev, card, kernels):
     skw = dict(height=256, width=256, num_frames=4, num_inference_steps=2, skip_conv_in=True,
                control_latent_size=32, device=dev, output_type="latent")
     reference_check(pipe, "slice", small, skw)
+    promotion_check(pipe, small, skw)
 
     # phase 5, the fused-block configuration (K4 on the 320-wide FFs)
     fb_steps = 2
@@ -1651,7 +1725,7 @@ def run_slices(dev, card, kernels):
           f"CTRL_ADAPTER_FUSED_BLOCK=1, {default_ms:.1f} ms/step default (same steps, run "
           f"right after)")
     del pipe
-    return launches, launches_fb, k4_per_step
+    return launches, launches_fb, k4_per_step, per_step
 
 
 TRAIN_STEPS = 3
@@ -2792,6 +2866,447 @@ def run_feed_forward(dev, card, kernel):
     return launches
 
 
+# ------------------------------------------------------- phase 13, the CLI
+CLI_PROMPT = "a red sports car drives along a coastal road at sunset"
+CLI_STEPS = 4
+PREPROCESSOR = {  # feature_extractor/preprocessor_config.json of the SVD release
+    "crop_size": {"height": 224, "width": 224}, "do_center_crop": True,
+    "do_convert_rgb": True, "do_normalize": True, "do_rescale": True, "do_resize": True,
+    "image_mean": [0.48145466, 0.4578275, 0.40821073],
+    "image_std": [0.26862954, 0.26130258, 0.27577711], "resample": 3,
+    "rescale_factor": 0.00392156862745098, "size": {"shortest_edge": 224},
+}
+
+
+def smooth_frames(rng, n, size, channels=3):
+    """``n`` uint8 frames (size, size, channels) of smooth fields that drift from
+    frame to frame: per channel a sum of four random plane waves."""
+    import numpy as np
+
+    yy, xx = (a.astype(np.float32) / size for a in np.mgrid[0:size, 0:size])
+    waves = rng.uniform(-1.0, 1.0, (channels, 4, 5))  # fy, fx, ft, phase, amplitude
+    frames = []
+    for t in range(n):
+        img = np.stack([sum(a * np.sin(2 * np.pi * (3 * fy * yy + 3 * fx * xx + 0.05 * ft * t)
+                                       + 3 * ph) for fy, fx, ft, ph, a in waves[c])
+                        for c in range(channels)], axis=-1)
+        frames.append(np.clip(127.5 + 60.0 * img, 0, 255).astype(np.uint8))
+    return frames
+
+
+def write_cli_fixture(root, frames, size, control_types, seed, sample="s0",
+                      prompt=CLI_PROMPT):
+    """The reference's evaluation layout under ``root``: ``raw_input/{sample}/000.png``
+    ..., one folder of gray condition frames per control type, ``captions.json``."""
+    import numpy as np
+    from ctrl_adapter_tpu_torch.utils.image import save_png
+
+    rng = np.random.default_rng(seed)
+    for i, fr in enumerate(smooth_frames(rng, frames, size)):
+        save_png(fr, os.path.join(root, "raw_input", sample, f"{i:03d}.png"))
+    for ctype in control_types:
+        for i, fr in enumerate(smooth_frames(rng, frames, size, channels=1)):
+            save_png(np.repeat(fr, 3, axis=2), os.path.join(root, ctype, sample, f"{i:03d}.png"))
+    with open(os.path.join(root, "captions.json"), "w") as fh:
+        json.dump({f"{sample}.mp4": prompt}, fh)
+    return root
+
+
+def write_tokenizer(path, pad_token="<|endoftext|>", words=None):
+    """A small CLIP BPE tokenizer folder: the 512 byte tokens, merges that make
+    each of ``words`` (default: those of ``CLI_PROMPT``) one token, the two
+    specials; ``pad_token`` in special_tokens_map.json."""
+    from ctrl_adapter_tpu_torch.models.tokenizer import bytes_to_unicode
+
+    chars = list(bytes_to_unicode().values())
+    merges = []
+    for word in words or CLI_PROMPT.split():
+        pieces = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(pieces) > 1:
+            if (pieces[0], pieces[1]) not in merges:
+                merges.append((pieces[0], pieces[1]))
+            pieces = [pieces[0] + pieces[1]] + pieces[2:]
+    vocab = chars + [c + "</w>" for c in chars] + [a + b for a, b in merges]
+    vocab = list(dict.fromkeys(vocab)) + ["<|startoftext|>", "<|endoftext|>"]
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as fh:
+        json.dump({t: i for i, t in enumerate(vocab)}, fh)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as fh:
+        fh.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as fh:
+        json.dump({"model_max_length": 77, "tokenizer_class": "CLIPTokenizer"}, fh)
+    with open(os.path.join(path, "special_tokens_map.json"), "w") as fh:
+        json.dump({"bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
+                   "unk_token": "<|endoftext|>", "pad_token": pad_token}, fh)
+    return len(vocab)
+
+
+@torch.no_grad()
+def random_fill(module, seed, scale=0.02):
+    """Every parameter of ``module`` drawn from a seeded generator on its device."""
+    params = list(module.parameters())
+    g = torch.Generator(device=params[0].device).manual_seed(seed)
+    for p in params:
+        p.copy_(torch.randn(p.shape, generator=g, device=p.device) * scale)
+    return module
+
+
+def write_tower(path, module, config, dtype):
+    """A transformers folder: ``model.safetensors`` in ``dtype`` + ``config.json``."""
+    from ctrl_adapter_tpu_torch.convert.release import write_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    write_safetensors({k: v.to(dtype) for k, v in module.state_dict().items()},
+                      os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(config, fh, indent=2)
+
+
+def write_text_encoder(root, cfg, seed, dtype, device, subfolder="text_encoder",
+                       tokenizer="tokenizer", pad_token="<|endoftext|>"):
+    """A fabricated CLIP text tower of ``cfg`` (``models/clip.py:CLIPTextConfig``)
+    and its tokenizer folder under ``root``; returns the tower."""
+    from ctrl_adapter_tpu_torch.models.clip import CLIPTextModel
+
+    write_tokenizer(os.path.join(root, tokenizer), pad_token)
+    tower = random_fill(CLIPTextModel(cfg, device=device), seed)
+    config = {"model_type": "clip_text_model", "vocab_size": cfg.vocab_size,
+              "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers,
+              "num_attention_heads": cfg.num_heads, "intermediate_size": cfg.intermediate_size,
+              "max_position_embeddings": cfg.max_position_embeddings,
+              "hidden_act": cfg.hidden_act, "layer_norm_eps": cfg.layer_norm_eps,
+              "eos_token_id": cfg.eos_token_id}
+    if cfg.projection_dim is not None:
+        config["projection_dim"] = cfg.projection_dim
+    write_tower(os.path.join(root, subfolder), tower, config, dtype)
+    return tower
+
+
+def write_image_encoder(root, cfg, seed, dtype, device):
+    """A fabricated CLIP vision tower of ``cfg`` under ``root``/image_encoder, and
+    ``feature_extractor/preprocessor_config.json``; returns the tower."""
+    from ctrl_adapter_tpu_torch.models.clip import CLIPVisionModel
+
+    tower = random_fill(CLIPVisionModel(cfg, device=device), seed)
+    config = {"model_type": "clip_vision_model", "image_size": cfg.image_size,
+              "patch_size": cfg.patch_size, "hidden_size": cfg.hidden_size,
+              "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+              "intermediate_size": cfg.intermediate_size, "hidden_act": cfg.hidden_act,
+              "layer_norm_eps": cfg.layer_norm_eps, "projection_dim": cfg.projection_dim}
+    write_tower(os.path.join(root, "image_encoder"), tower, config, dtype)
+    os.makedirs(os.path.join(root, "feature_extractor"), exist_ok=True)
+    with open(os.path.join(root, "feature_extractor", "preprocessor_config.json"), "w") as fh:
+        json.dump(PREPROCESSOR, fh, indent=2)
+    return tower
+
+
+def write_stack(pipe, root):
+    """The pipeline's towers as diffusers release folders under ``root`` (``unet``,
+    ``vae``, ``adapter``, ``router``, ``controlnet``, ``controlnet_1``, ...),
+    each tensor in its module's dtype; returns the CLI flags that read them."""
+    from ctrl_adapter_tpu_torch.convert.release import save_release
+    from ctrl_adapter_tpu_torch.models.multicontrolnet import MultiControlNetModel
+
+    for name in ("unet", "vae", "adapter", "router"):
+        module = getattr(pipe, name, None)
+        if module is not None:
+            save_release(module.state_dict(), os.path.join(root, name))
+    multi = (pipe.controlnet if isinstance(pipe.controlnet, MultiControlNetModel)
+             else MultiControlNetModel([pipe.controlnet]))
+    cn_dirs = multi.save_pretrained(root)
+    flags = ["--pretrained_model_path", root, "--adapter_checkpoint_path",
+             os.path.join(root, "adapter"), "--controlnet_model_paths", *cn_dirs]
+    if getattr(pipe, "router", None) is not None:
+        flags += ["--router_checkpoint_path", os.path.join(root, "router")]
+    return flags
+
+
+def decode_gif(blob):
+    """The frames of a GIF (global or local colour table, no interlace, each
+    frame the full canvas) as (n, h, w, 3) uint8: enough to read back what
+    ``utils/image.py:encode_gif`` writes."""
+    import struct
+
+    import numpy as np
+
+    if blob[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError("not a GIF file")
+    w, h, flags = struct.unpack("<HHB", blob[6:11])
+    pos = 13
+    table = None
+    if flags & 0x80:
+        n = 3 << ((flags & 7) + 1)
+        table = np.frombuffer(blob[pos: pos + n], np.uint8).reshape(-1, 3)
+        pos += n
+    frames = []
+    while pos < len(blob):
+        kind = blob[pos]
+        pos += 1
+        if kind == 0x3B:
+            break
+        if kind == 0x21:  # extension: a label, then sub-blocks
+            pos += 1
+            while blob[pos]:
+                pos += blob[pos] + 1
+            pos += 1
+            continue
+        if kind != 0x2C:
+            raise ValueError(f"GIF: unknown block {kind:#x}")
+        _, _, fw, fh, fflags = struct.unpack("<HHHHB", blob[pos: pos + 9])
+        pos += 9
+        colors = table
+        if fflags & 0x80:
+            n = 3 << ((fflags & 7) + 1)
+            colors = np.frombuffer(blob[pos: pos + n], np.uint8).reshape(-1, 3)
+            pos += n
+        if fflags & 0x40 or (fw, fh) != (w, h):
+            raise ValueError("GIF: interlaced or partial frames are not read")
+        min_size = blob[pos]
+        pos += 1
+        data = bytearray()
+        while blob[pos]:
+            data += blob[pos + 1: pos + 1 + blob[pos]]
+            pos += blob[pos] + 1
+        pos += 1
+        frames.append(colors[np.frombuffer(_lzw_decode(bytes(data), min_size), np.uint8)
+                             [: w * h].reshape(h, w)])
+    return np.stack(frames)
+
+
+def _lzw_decode(data, min_size):
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    out = bytearray()
+    bits = nbits = pos = 0
+    size = min_size + 1
+    table = [bytes([i]) for i in range(clear)] + [b"", b""]
+    prev = None
+    while True:
+        while nbits < size:
+            if pos >= len(data):
+                return bytes(out)
+            bits |= data[pos] << nbits
+            nbits += 8
+            pos += 1
+        code = bits & ((1 << size) - 1)
+        bits >>= size
+        nbits -= size
+        if code == clear:
+            table = table[: eoi + 1]
+            size, prev = min_size + 1, None
+            continue
+        if code == eoi:
+            return bytes(out)
+        if prev is None:
+            entry = table[code]
+        else:
+            entry = table[code] if code < len(table) else prev + prev[:1]
+            table.append(prev + entry[:1])
+            if len(table) == (1 << size) and size < 12:
+                size += 1
+        out += entry
+        prev = entry
+
+
+def cli_run(label, argv, kernels):
+    """``inference_torch.main(argv)`` on the card, its towers hooked as they are
+    built: launches and host ms per denoise step, decode seconds; every launch
+    count from 0 just before the call, read just after; the status line
+    checked. Returns the run and what was measured."""
+    import io
+
+    import inference_torch
+
+    box = {}
+    build = inference_torch.build_modules
+    hooks = contextlib.ExitStack()
+
+    def hooked_build(args, device, dtype=torch.bfloat16):
+        pipe = build(args, device, dtype)
+        box["ms"] = []
+        box["steps"] = hooks.enter_context(launches_per_step(pipe, kernels, box["ms"]))
+        decode = pipe._decode
+
+        def timed_decode(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = decode(*args, **kwargs)
+            torch.cuda.synchronize()
+            box["decode_s"] = time.perf_counter() - t0
+            return out
+
+        pipe._decode = timed_decode
+        return pipe
+
+    stdout = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    box["before_gb"] = torch.cuda.memory_allocated() / 2 ** 30
+    for k in kernels.values():
+        k.reset()
+    with hooks, swapped(inference_torch, "build_modules", lambda _: hooked_build), \
+            contextlib.redirect_stdout(stdout):
+        run = inference_torch.main(argv)
+    box["launches"] = {name: k.launches for name, k in kernels.items()}
+    box["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    lines = stdout.getvalue().strip().splitlines()
+    print("\n".join(f"{label}: CLI stdout: {line}" for line in lines))
+    if not lines or json.loads(lines[-1]) != {"status": "ok", "output": run.out_root}:
+        raise RuntimeError(f"{label}: the CLI printed no status line: {lines[-3:]}")
+    return run, box
+
+
+def check_cli_run(label, run, box, want_per_step, card):
+    """The outputs of one SVD CLI run: the video, the two gifs, the launches
+    per step against phase 4's; prints its times."""
+    video = torch.from_numpy(run.videos["s0"])
+    check_video(video, label, FRAMES)
+    out = os.path.join(run.out_root, "s0")
+    for name, width in (("output.gif", SIZE), ("output_concat.gif", 2 * SIZE)):
+        with open(os.path.join(out, name), "rb") as fh:
+            frames = decode_gif(fh.read())
+        if frames.shape != (FRAMES, SIZE, width, 3):
+            raise RuntimeError(f"{label}: {name} decodes to {frames.shape}")
+    per_step = per_kind(label, box["steps"])
+    on_path = ("group_norm_silu", "flash_attention", "temporal_block", "temporal_block_full")
+    wrong = {kind: ({n: counts[n] for n in on_path},
+                    {n: want_per_step[kind][n] for n in on_path})
+             for kind, counts in per_step.items()
+             if any(counts[n] != want_per_step[kind][n] for n in on_path)}
+    if wrong or set(per_step) != set(want_per_step):
+        raise RuntimeError(f"{label}: launches per step differ from phase 4 (got, want): {wrong}")
+    ms = {kind: [m for (c, _), m in zip(box["steps"], box["ms"]) if c == (kind == "controlled")]
+          for kind in ("controlled", "unet_only")}
+    print(f"{label}: output.gif and output_concat.gif decode to {FRAMES} frames of {SIZE}x{SIZE} "
+          f"and {SIZE}x{2 * SIZE}; K1, K2, K3 full and K3 hybrid per step as phase 4: "
+          + "; ".join(f"{kind} {[per_step[kind][n] for n in on_path]}" for kind in per_step))
+    print(f"{label} on {card}: load {run.load_s:.2f} s; encoders + image latent "
+          f"{run.encode_ms['s0']:.1f} ms; "
+          + "; ".join(f"{kind} steps {', '.join(f'{m:.1f}' for m in v)} ms"
+                      for kind, v in ms.items())
+          + f" (host clock, card synchronised at each end); decode {box['decode_s']:.3f} s; "
+          f"generate {run.generate_s['s0']:.2f} s; peak {box['peak_gb']:.2f} GiB, of which "
+          f"{box['before_gb']:.2f} GiB allocated before the call")
+    return per_step
+
+
+# The fp32 towers on the card against the CPU read 4.2e-7 (CLIP-L) and 8.8e-7
+# (CLIP-H) of max|CPU| on the H100; TF32 or a bf16 path would be far above this.
+ENCODER_TOL = 1e-5
+
+
+def encoder_check(label, run, written, card):
+    """The loaded encoders equal the written towers (fp16 files, ``written`` on
+    the CPU), launch no kernel, give finite outputs, and agree with CPU fp32
+    copies of themselves: max error relative to max|CPU| within ENCODER_TOL
+    (fp32 on both, TF32 off)."""
+    import numpy as np
+
+    text, image = run.encoders["controlnet"], run.encoders["image"]
+    for name, module in (("text", text.tower.model), ("image", image.model)):
+        got = module.state_dict()
+        for k, v in written[name].state_dict().items():
+            if not torch.equal(got[k].cpu(), v.half().float()):
+                raise RuntimeError(f"{label}: loaded {name} encoder tensor {k} differs")
+    frame = (np.random.default_rng(SEED).uniform(0, 255, (SIZE, SIZE, 3))).astype(np.uint8)
+    calls = {"text": lambda enc: enc([CLI_PROMPT], [""]),
+             "image": lambda enc: enc([frame], antialiased=True)}
+    kernels = kernel_counters()
+    for k in kernels.values():
+        k.reset()
+    outs = {name: fn(enc) for (name, fn), enc in zip(calls.items(), (text, image))}
+    if any(k.launches for k in kernels.values()):
+        raise RuntimeError(f"{label}: the encoders launched a port kernel")
+    times = {name: cuda_ms(lambda fn=fn, enc=enc: fn(enc), iters=3, reps=3)
+             for (name, fn), enc in zip(calls.items(), (text, image))}
+    cpu_text, cpu_image = copy.copy(text), copy.copy(image)
+    cpu_text.tower = copy.copy(text.tower)
+    cpu_text.tower.model = copy.deepcopy(text.tower.model).cpu()
+    cpu_text.tower.device = torch.device("cpu")
+    cpu_image.model = copy.deepcopy(image.model).cpu()
+    cpu_image.device = torch.device("cpu")
+    for name, enc in (("text", cpu_text), ("image", cpu_image)):
+        ref = calls[name](enc)
+        got = outs[name].cpu()
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"{label}: {name} encoder output is not finite")
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        what = ("CLIP-L text, prompt and negative" if name == "text"
+                else "CLIP-H vision, one frame, SVD preprocessing")
+        print(f"{label}: {name} encoder {tuple(got.shape)} finite, on the card vs CPU fp32: max "
+              f"error {err:.3e} of max|CPU| (tolerance {ENCODER_TOL:g}); {times[name]:.2f} ms "
+              f"on {card} ({what})")
+        if err > ENCODER_TOL:
+            raise RuntimeError(f"{label}: {name} encoder on the card differs from the CPU")
+
+
+def run_cli(dev, card, kernels, want_per_step):
+    """Phase 13: ``inference_torch.py`` on the card at the main path's full
+    width (SVD, 14 frames at 512x512, depth, skip_conv_in, 4 steps): (a) with
+    ``--fake_weights``, (b) from diffusers-layout folders (the UNet, the
+    temporal VAE, the SD-v1.5 ControlNet and the 13-block adapter in bf16
+    safetensors; CLIP-L text with a small BPE tokenizer and CLIP-H vision in
+    fp16) written into a temporary directory, removed at the end."""
+    import tempfile
+
+    import inference_torch
+    from ctrl_adapter_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        fixture = write_cli_fixture(os.path.join(root, "fixture"), FRAMES, SIZE, ["depth"],
+                                    seed=SEED + 13)
+        argv = ["--model_name", "svd", "--control_types", "depth", "--skip_conv_in", "True",
+                "--n_sample_frames", str(FRAMES), "--height", str(SIZE), "--width", str(SIZE),
+                "--num_inference_steps", str(CLI_STEPS), "--evaluation_input_folder", fixture]
+        run, box = cli_run("cli (a) fake weights", argv + [
+            "--evaluation_output_folder", os.path.join(root, "out_a"), "--fake_weights"],
+            kernels)
+        check_cli_run("cli (a) fake weights", run, box, want_per_step, card)
+        launches = {"cli_fake": box["launches"]}
+        del run
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        src = inference_torch.build_modules(
+            argparse.Namespace(model_name="svd", control_types=["depth"]), dev)
+        for i, module in enumerate(inference_torch.towers(src).values()):
+            random_fill(module, SEED + 20 + i)
+        release = os.path.join(root, "release")
+        flags = write_stack(src, release)
+        sd15 = os.path.join(root, "sd15")
+        written = {
+            "text": write_text_encoder(sd15, CLIPTextConfig(eos_token_id=2), SEED + 30,
+                                       torch.float16, dev),
+            "image": write_image_encoder(release, CLIPVisionConfig(), SEED + 31, torch.float16,
+                                         dev)}
+        # what was written waits on the CPU, so the card holds only the CLI's own
+        for module in (*inference_torch.towers(src).values(), *written.values()):
+            module.cpu()
+        torch.cuda.empty_cache()
+        n_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root)
+                      for f in fs)
+        print(f"cli (b): wrote {n_bytes / 2 ** 30:.3f} GiB ({n_bytes} bytes) of fixture, "
+              f"diffusers-layout towers and encoders in {time.perf_counter() - t0:.1f} s")
+        run, box = cli_run("cli (b) diffusers folders", argv + [
+            "--evaluation_output_folder", os.path.join(root, "out_b"), *flags,
+            "--controlnet_text_encoder_path", sd15], kernels)
+        for name, module in inference_torch.towers(src).items():
+            got = inference_torch.towers(run.pipe)[name].state_dict()
+            bad = [k for k, v in module.state_dict().items()
+                   if not torch.equal(got[k].cpu(), v)]
+            if bad or set(got) != set(module.state_dict()):
+                raise RuntimeError(f"cli (b): loaded {name} differs from the written: {bad[:5]}")
+        print(f"cli (b): every tensor of the UNet, the VAE, the ControlNet and the adapter "
+              f"loaded equals the one written, bit for bit")
+        check_cli_run("cli (b) diffusers folders", run, box, want_per_step, card)
+        encoder_check("cli (b)", run, written, card)
+        launches["cli_release"] = box["launches"]
+        del run, src, written
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -2842,7 +3357,7 @@ def main() -> int:
         results[name] += rows
     phase_done("phase 3 at the SDXL shapes")
     kernels = kernel_counters()
-    launches, launches_fb, k4_per_step = run_slices(dev, card, kernels)
+    launches, launches_fb, k4_per_step, per_step = run_slices(dev, card, kernels)
     phase_done("phases 4-5, the SVD slice")
     # K4's per-step sums from the launches the fused-block run counted per step
     k4 = {**results["ln_ff_residual"][0], "controlled": 0, "unet_only": 0, **k4_per_step}
@@ -2862,6 +3377,8 @@ def main() -> int:
     phase_done("phase 10, SDXL")
     launches_branches = run_train_branches(dev, card, kernels)
     phase_done("phase 11, I2VGen-XL and SDXL training")
+    launches_branches.update(run_cli(dev, card, kernels, per_step))
+    phase_done("phase 13, the CLI")
 
     meta = {  # name: (source, replaces, the run its launches come from)
         "group_norm_silu": ("ctrl_adapter_tpu_torch/csrc/group_norm.cu",

@@ -4,22 +4,54 @@ Counterpart of ``ctrl_adapter_tpu/models/multicontrolnet.py:MultiControlNetModel
 (the reference's fork that keeps the experts' residuals apart, so that the
 router can weigh them). The experts are held as ``nets`` (an ``nn.ModuleList``
 of ``ControlNetModel``, the diffusers name); a masked expert is never run.
+On disk the experts are release folders ``controlnet``, ``controlnet_1``, ...
+under one root (``from_pretrained`` / ``save_pretrained``, the reference's
+``multicontrolnet.py`` layout).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 
-from .controlnet import ControlNetModel
+from ..convert.release import load_release, save_release
+from .controlnet import ControlNetConfig, ControlNetModel
+
+
+def _subfolder(idx: int) -> str:
+    return "controlnet" if idx == 0 else f"controlnet_{idx}"
 
 
 class MultiControlNetModel(nn.Module):
     def __init__(self, controlnets: Sequence[ControlNetModel]):
         super().__init__()
         self.nets = nn.ModuleList(controlnets)
+
+    @classmethod
+    def from_pretrained(cls, root: str, config: ControlNetConfig = ControlNetConfig(),
+                        device=None, dtype=None) -> "MultiControlNetModel":
+        """Load every ``controlnet``, ``controlnet_1``, ... folder under ``root``
+        into a ControlNet of ``config`` (strict, by diffusers names)."""
+        nets = []
+        while os.path.isdir(os.path.join(root, _subfolder(len(nets)))):
+            net = ControlNetModel(config, device=device, dtype=dtype)
+            load_release(net, os.path.join(root, _subfolder(len(nets))))
+            nets.append(net.eval())
+        if not nets:
+            raise FileNotFoundError(f"no controlnet subdirs under {root}")
+        return cls(nets)
+
+    def save_pretrained(self, root: str) -> List[str]:
+        """Write each expert as a release folder under ``root``; returns the
+        folders in expert order."""
+        paths = [os.path.join(root, _subfolder(idx)) for idx in range(self.num_experts)]
+        for net, path in zip(self.nets, paths):
+            save_release(net.state_dict(), path, config=dataclasses.asdict(net.config))
+        return paths
 
     @property
     def num_experts(self) -> int:

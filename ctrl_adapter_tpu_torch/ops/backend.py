@@ -3,6 +3,8 @@
 The hand-written kernels target Hopper (``sm_90a``). A tensor decides where its
 op runs: on a CUDA device of capability >= (9, 0) the kernel launches; on the CPU
 the plain PyTorch version runs. Anything else is refused by the kernel wrappers.
+Entry points run on the card unless their caller names another device
+(``resolve_device``).
 """
 
 from __future__ import annotations
@@ -33,3 +35,13 @@ def sm_count(device: torch.device) -> int:
     if device not in _SMS:
         _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
     return _SMS[device]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The CUDA card, or the device the caller names; no card and no name raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device (torch.cuda.is_available() is false); the CPU "
+                           "runs only when the caller passes device='cpu'")
+    return torch.device("cuda")

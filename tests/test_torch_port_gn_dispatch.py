@@ -101,8 +101,8 @@ def test_k1_choice_matches_jax_at_every_norm_of_the_slice(jax_on_tpu, env):
     _set_env(jax_on_tpu, env)
     seen, state, kernel = _record_norms(jax_on_tpu)
     e = lambda *s: torch.empty(*s, device=META, dtype=BF)  # noqa: E731
-    with chip_smoke.plain_kernels(), torch.no_grad():
-        jax_on_tpu.setattr(gn, "group_norm_silu", kernel)
+    with chip_smoke.plain_kernels(), torch.no_grad(), jax_on_tpu.context() as mp:
+        mp.setattr(gn, "group_norm_silu", kernel)  # undone before the wrappers return
         state["tower"] = "adapter"
         adapter = ControlNetAdapter(cross_attention_dim=1024, num_blocks=1,
                                     adapter_locations=("A", "B", "C", "D", "M"),
@@ -158,8 +158,8 @@ def test_k1_choice_matches_jax_at_every_norm_of_the_i2vgenxl_path(jax_on_tpu, en
     seen, state, kernel = _record_norms(jax_on_tpu)
     f = chip_smoke.I2V_FRAMES
     e = lambda *s: torch.empty(*s, device=META, dtype=BF)  # noqa: E731
-    with chip_smoke.plain_kernels(), torch.no_grad():
-        jax_on_tpu.setattr(gn, "group_norm_silu", kernel)
+    with chip_smoke.plain_kernels(), torch.no_grad(), jax_on_tpu.context() as mp:
+        mp.setattr(gn, "group_norm_silu", kernel)  # undone before the wrappers return
         state["tower"] = "adapter"
         adapter = ControlNetAdapter(cross_attention_dim=1024, num_blocks=1,
                                     adapter_locations=("A", "B", "C", "D", "M"),
@@ -212,8 +212,8 @@ def test_k1_choice_matches_jax_at_every_norm_of_the_sdxl_path(jax_on_tpu, env):
     _set_env(jax_on_tpu, env)
     seen, state, kernel = _record_norms(jax_on_tpu)
     e = lambda *s: torch.empty(*s, device=META, dtype=BF)  # noqa: E731
-    with chip_smoke.plain_kernels(), torch.no_grad():
-        jax_on_tpu.setattr(gn, "group_norm_silu", kernel)
+    with chip_smoke.plain_kernels(), torch.no_grad(), jax_on_tpu.context() as mp:
+        mp.setattr(gn, "group_norm_silu", kernel)  # undone before the wrappers return
         state["tower"] = "adapter"
         adapter = ControlNetAdapter(backbone_model_name="sdxl", cross_attention_dim=2048,
                                     num_blocks=1, adapter_locations=("A", "B", "C"),

@@ -374,8 +374,10 @@ def _drive_on_meta(monkeypatch):
     monkeypatch.setattr(ft, "dispatch_mode", lambda *a: dispatch.append(
         (a[:5], real(*a))) or dispatch[-1][1])
     dev, bf = torch.device("meta"), torch.bfloat16
-    with chip_smoke.plain_kernels(), torch.no_grad():
-        monkeypatch.setattr(gn, "group_norm_silu", lambda x, w, b, g, eps, silu: norms.append(
+    # the spies are undone (mp) before plain_kernels puts the wrappers back:
+    # undone after, they would leave the plain versions in the ops modules
+    with chip_smoke.plain_kernels(), torch.no_grad(), monkeypatch.context() as mp:
+        mp.setattr(gn, "group_norm_silu", lambda x, w, b, g, eps, silu: norms.append(
             (tuple(x.shape), silu)) or gn._torch_group_norm_silu(x, w, b, g, eps, silu))
         adapter = ControlNetAdapter(cross_attention_dim=1024, num_blocks=1,
                                     adapter_locations=("A", "B", "C", "D", "M"),
@@ -428,10 +430,10 @@ def test_chip_smoke_i2vgenxl_shape_lists_are_the_modules_dispatch(monkeypatch):
     dev, bf = torch.device("meta"), torch.bfloat16
     e = lambda *shape: torch.empty(*shape, device=dev, dtype=bf)  # noqa: E731
     marks = {}
-    with chip_smoke.plain_kernels(), torch.no_grad():
-        monkeypatch.setattr(gn, "group_norm_silu", lambda x, w, b, g, eps, silu: norms.append(
+    with chip_smoke.plain_kernels(), torch.no_grad(), monkeypatch.context() as mp:
+        mp.setattr(gn, "group_norm_silu", lambda x, w, b, g, eps, silu: norms.append(
             (tuple(x.shape), silu)) or gn._torch_group_norm_silu(x, w, b, g, eps, silu))
-        monkeypatch.setattr(fa, "attention_bnth", lambda q, k, v: flash.append(
+        mp.setattr(fa, "attention_bnth", lambda q, k, v: flash.append(
             tuple(q.shape)) or fa._torch_attention(q, k, v))
         adapter = ControlNetAdapter(cross_attention_dim=1024, num_blocks=1,
                                     adapter_locations=("A", "B", "C", "D", "M"),
@@ -471,10 +473,10 @@ def test_chip_smoke_sdxl_shape_lists_are_the_modules_dispatch(monkeypatch):
     norms, flash = [], []
     dev, bf = torch.device("meta"), torch.bfloat16
     e = lambda *shape: torch.empty(*shape, device=dev, dtype=bf)  # noqa: E731
-    with chip_smoke.plain_kernels(), torch.no_grad():
-        monkeypatch.setattr(gn, "group_norm_silu", lambda x, w, b, g, eps, silu: norms.append(
+    with chip_smoke.plain_kernels(), torch.no_grad(), monkeypatch.context() as mp:
+        mp.setattr(gn, "group_norm_silu", lambda x, w, b, g, eps, silu: norms.append(
             (tuple(x.shape), silu)) or gn._torch_group_norm_silu(x, w, b, g, eps, silu))
-        monkeypatch.setattr(fa, "attention_bnth", lambda q, k, v: flash.append(
+        mp.setattr(fa, "attention_bnth", lambda q, k, v: flash.append(
             tuple(q.shape)) or fa._torch_attention(q, k, v))
         adapter = ControlNetAdapter(backbone_model_name="sdxl", cross_attention_dim=2048,
                                     num_blocks=1, adapter_locations=("A", "B", "C"),
@@ -512,10 +514,10 @@ def _record_training_pass(monkeypatch, run):
     real = ft.dispatch_mode
     monkeypatch.setattr(ft, "dispatch_mode", lambda *a: dispatch.append(
         (a[:5], real(*a))) or dispatch[-1][1])
-    with chip_smoke.plain_kernels(), torch.enable_grad():
-        monkeypatch.setattr(gn, "group_norm_silu", lambda x, w, b, g, eps, silu: norms.append(
+    with chip_smoke.plain_kernels(), torch.enable_grad(), monkeypatch.context() as mp:
+        mp.setattr(gn, "group_norm_silu", lambda x, w, b, g, eps, silu: norms.append(
             (tuple(x.shape), silu)) or gn._torch_group_norm_silu(x, w, b, g, eps, silu))
-        monkeypatch.setattr(fa, "attention_bnth", lambda q, k, v: flash.append(
+        mp.setattr(fa, "attention_bnth", lambda q, k, v: flash.append(
             (tuple(q.shape), q.requires_grad or k.requires_grad or v.requires_grad))
             or fa._torch_attention(q, k, v))
         run()

@@ -192,10 +192,11 @@ def _imports(path):
 
 
 def test_port_and_chip_smoke_import_no_jax_optax_orbax():
-    """No import statement of the port's package or of ``chip_smoke.py`` names
-    jax, flax, optax, orbax or the JAX package (``ctrl_adapter_tpu``)."""
+    """No import statement of the port's package, of ``chip_smoke.py`` or of
+    ``inference_torch.py`` names jax, flax, optax, orbax or the JAX package
+    (``ctrl_adapter_tpu``)."""
     pkg = os.path.join(REPO, "ctrl_adapter_tpu_torch")
-    files = [os.path.join(REPO, "chip_smoke.py")] + [
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "inference_torch.py")] + [
         os.path.join(d, f) for d, _, names in os.walk(pkg) for f in names if f.endswith(".py")]
     assert len(files) > 30
     banned = ("jax", "flax", "optax", "orbax", "ctrl_adapter_tpu")
