@@ -126,7 +126,8 @@ Phases (any failure raises and the script exits non-zero before its last line):
    run of the plain path (``train_reference_check``), with faulty kernels
    as controls that must fail (``training_faults``);
 12. print the per-kernel JSON line (with each kernel's launches on the
-   I2VGen-XL, SDXL, training and CLI runs), the card line, and the result line;
+   I2VGen-XL, SDXL, training and both CLIs' runs), the card line, and the
+   result line;
 13. (run before 12) the serving CLI, ``inference_torch.main``, at the main
    path's full width (SVD, depth, skip_conv_in, 14 frames at 512x512, 4 steps
    cut from 25) on a fixture of 512^2 PNG frames written by the port's
@@ -137,7 +138,29 @@ Phases (any failure raises and the script exits non-zero before its last line):
    both gifs (14 frames), the video, K1, K2, K3 full and K3 hybrid launched per
    step as in phase 4, every loaded tensor bit for bit as written, and the
    encoders (no kernel launched, finite, within 1e-3 of CPU fp32 copies);
-   prints load seconds, encoder ms, ms per step, decode seconds and peak GiB.
+   prints load seconds, encoder ms, ms per step, decode seconds and peak GiB;
+14. (run before 12, after 13) the training CLI, ``train_torch.main``, at full
+   width from ``configs/*.yaml`` read by the port's YAML reader
+   (``run_train_cli``): (a) SVD depth (1 x 14 x 512^2, skip_conv_in,
+   ``--fake_weights``), 3 steps under a one-rank NCCL group (``--multihost``
+   with torchrun's variables for a world of one), checkpoints at
+   steps 2 and 3, a validation gif at step 3: finite losses, the log's
+   records, K1, K2, K2 backward, K3 hybrid and K3 full per step as phase 8,
+   the gif's 14 frames, checkpoint-3 read back bit for bit, each step's
+   all-reduce returning its gradient unchanged and the 3 updates replayed
+   without a group from the same gradients equal to the bit; then the same
+   3 steps without a group (step 1's loss equal to the bit; the updates
+   apart by K2 backward's run-to-run dQ only); (b) a resume from
+   checkpoint-2 for step 3: masters and optimizer state restored bit for
+   bit, step 3's loss (a)'s; (c) ``inference_torch.main`` serving (a)'s
+   ``adapter_3`` (the other towers drawn on the card), 2 steps (one
+   controlled, one UNet-only): the video and launches per step as phase 4; (d) I2VGen-XL multi-condition (7
+   ControlNets, a simple-weights router, 1-4 active) and SDXL depth at
+   1024^2, 2 steps each: launches per step as phase 11, masked experts'
+   router weights exactly 0, the router's checkpoint read back; after each
+   run the card holds no more than before it. Prints per run the build
+   seconds, ms per step after the first and peak GiB, and the phase's
+   seconds.
 
 Device busy times and idle shares come from ``device_activity``, which
 refuses a trace that holds fewer events of a port kernel than the kernel's
@@ -153,6 +176,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1437,17 +1461,23 @@ def k1_everywhere():
 
 
 @contextlib.contextmanager
-def env_switch(name: str):
-    """Set an opt-in switch of the JAX package (``name=1``) and restore it."""
-    saved = os.environ.get(name)
-    os.environ[name] = "1"
+def environ(values: dict):
+    """Set the environment variables ``values`` inside the block, and restore them."""
+    saved = {name: os.environ.get(name) for name in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if saved is None:
-            del os.environ[name]
-        else:
-            os.environ[name] = saved
+        for name, value in saved.items():
+            if value is None:
+                del os.environ[name]
+            else:
+                os.environ[name] = value
+
+
+def env_switch(name: str):
+    """Set an opt-in switch of the JAX package (``name=1``) and restore it."""
+    return environ({name: "1"})
 
 
 def check_video(video, label, frames=FRAMES):
@@ -2027,7 +2057,7 @@ def run_training(dev, card, kernels):
         trainer, dev, "svd", train_batch(dev, 2, 128, SEED + 7),
         trainer.draw(torch.Generator(device=dev).manual_seed(SEED + 8), 1, 2, 16, 16),
         dataclasses.replace(cfg, n_sample_frames=2, control_latent_size=16))
-    return launches
+    return launches, per_step
 
 
 I2V_STEPS = 4        # DDIM steps of the depth run: 3 inside the control window (end 0.8)
@@ -3307,6 +3337,363 @@ def run_cli(dev, card, kernels, want_per_step):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------- phase 14, the training CLI
+TRAIN_PATH_KERNELS = ("group_norm_silu", "flash_attention", "flash_attention_bwd",
+                      "temporal_block", "temporal_block_full")
+
+
+def config_copy(name, root, data_path):
+    """``configs/{name}`` with its ``DATA_PATH`` pointed at ``data_path`` (the
+    YAML keys overwrite the flags, as in the reference), written under
+    ``root``; read back through the port's YAML reader (the card's host has no
+    PyYAML). Returns the copy's path and its values."""
+    from ctrl_adapter_tpu_torch.config import load_yaml
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", name)
+    with open(src) as fh:
+        text = fh.read()
+    if text.count("DATA_PATH: ./outputs\n") != 1:
+        raise RuntimeError(f"{name}: no 'DATA_PATH: ./outputs' line to repoint")
+    path = os.path.join(root, f"{os.path.basename(data_path)}_{name}")
+    with open(path, "w") as fh:
+        fh.write(text.replace("DATA_PATH: ./outputs\n", f"DATA_PATH: {data_path}\n"))
+    values = load_yaml(path)
+    if values["DATA_PATH"] != data_path or values != {**load_yaml(src), "DATA_PATH": data_path}:
+        raise RuntimeError(f"{name}: the copy reads back as {values}")
+    return path, values
+
+
+def train_cli_run(label, argv, kernels, capture=None):
+    """``train_torch.main(argv)`` on the card with each kernel's launches
+    counted per ``train_step`` (every count from 0 just before the call, read
+    just after); ``capture(trainer)`` runs before the first step. Prints the
+    losses, build seconds, ms per step after the first and peak GiB; returns
+    the run and what was measured. Raises on a non-finite loss."""
+    import train_torch
+    from ctrl_adapter_tpu_torch.train.trainer import CtrlAdapterTrainer
+
+    box = {"steps": []}
+
+    def counted(step):
+        def run(self, *args, **kwargs):
+            if capture is not None and not box["steps"]:
+                capture(self)
+            before = {n: k.launches for n, k in kernels.items()}
+            out = step(self, *args, **kwargs)
+            box["steps"].append({n: k.launches - before[n] for n, k in kernels.items()})
+            return out
+        return run
+
+    torch.cuda.reset_peak_memory_stats()
+    box["before_gb"] = torch.cuda.memory_allocated() / 2 ** 30
+    for k in kernels.values():
+        k.reset()
+    with swapped(CtrlAdapterTrainer, "train_step", counted):
+        run = train_torch.main(argv)
+    box["launches"] = {name: k.launches for name, k in kernels.items()}
+    box["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [r["loss"] for r in run.records]
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{label}: non-finite losses {losses}")
+    ms = [1000 * s for s in run.step_s]
+    print(f"{label}: steps {[r['step'] for r in run.records]}, losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; build, fill or load and init "
+          f"{run.build_s:.2f} s; step 1 {ms[0]:.1f} ms, "
+          + (f"{statistics.mean(ms[1:]):.1f} ms/step after it "
+             f"({', '.join(f'{t:.1f}' for t in ms[1:])})" if len(ms) > 1 else "one step")
+          + f"; peak {box['peak_gb']:.2f} GiB ({box['before_gb']:.2f} GiB allocated before)")
+    return run, box
+
+
+def check_train_launches(label, box, want):
+    """Each step's launches of the training path's kernels equal ``want``."""
+    wrong = [(i + 1, {n: s[n] for n in TRAIN_PATH_KERNELS}) for i, s in enumerate(box["steps"])
+             if any(s[n] != want[n] for n in TRAIN_PATH_KERNELS)]
+    if wrong or not box["steps"]:
+        raise RuntimeError(f"{label}: launches per step (step, counts) {wrong}, want "
+                           f"{ {n: want[n] for n in TRAIN_PATH_KERNELS} }")
+    print(f"{label}: K1, K2, K2 backward, K3 hybrid, K3 full per step "
+          f"{[want[n] for n in TRAIN_PATH_KERNELS]} in each of {len(box['steps'])} steps, as the "
+          f"library runs' (phases 8, 11)")
+
+
+def released(label, before):
+    """After the caller dropped a run: the card holds no more than the
+    ``before`` GiB allocated before it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"{label}: after the run the card holds {left:.2f} GiB ({before:.2f} before it)")
+    if left > before + 0.5:
+        raise RuntimeError(f"{label}: {left - before:.2f} GiB left on the card after the run")
+
+
+def states_equal(a, b):
+    return a.keys() == b.keys() and all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def update_gap(start, a, b, dev):
+    """||(a - start) - (b - start)|| / ||a - start|| over lists of tensors,
+    each moved to ``dev`` in turn."""
+    num = den = 0.0
+    for s, x, y in zip(start, a, b):
+        s, x, y = (t.to(dev).float() for t in (s, x, y))
+        num += float(torch.sum((x - y) ** 2))
+        den += float(torch.sum((x - s) ** 2))
+    return math.sqrt(num / den)
+
+
+def run_train_cli(dev, card, kernels, svd_per_step, serve_per_step):
+    """Phase 14: ``train_torch.main`` on the card at full width. (a) SVD depth
+    (``configs/svd_train_depth.yaml``: 1 x 14 x 512^2, skip_conv_in,
+    ``--fake_weights``), 3 steps under a one-rank NCCL group (``--multihost``
+    with torchrun's variables for a world of one), a checkpoint at
+    step 2 and at step 3, a validation sample at step 3; the same 3 steps
+    without a group; (b) a resume from ``checkpoint-2`` for step 3; (c)
+    ``inference_torch.main`` serving (a)'s ``adapter_3``; (d) I2VGen-XL
+    multi-condition (7 ControlNets, a simple-weights router, 1-4 active) and
+    SDXL depth at 1024^2, 2 steps each. Returns the launch counts of (a) and
+    (d)."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    import inference_torch
+    from ctrl_adapter_tpu_torch.convert.release import load_release
+    from ctrl_adapter_tpu_torch.train import checkpoints
+    from ctrl_adapter_tpu_torch.train import trainer as trainer_mod
+    from ctrl_adapter_tpu_torch.train.trainer import MasterOptimizer
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    counts = {}
+    try:
+        # (a) under a one-rank NCCL group: the all-reduce of every step's fp32
+        # gradient checked to return its input, bit for bit; the gradients and
+        # the first masters kept for a replay without the group
+        data_a = os.path.join(root, "a")
+        cfg_a, values = config_copy("svd_train_depth.yaml", root, data_a)
+        common = ["--yaml_file", cfg_a, "--fake_weights", "--max_train_steps", "3",
+                  "--seed", str(SEED)]
+        argv_a = common + ["--checkpointing_steps", "2", "--run_validation",
+                           "--validate_every_steps", "3"]
+        seen = {"grads": [], "identity": []}
+
+        def checked(reduce):
+            def run(flat, group):
+                before = flat.clone()
+                out = reduce(flat, group)
+                seen["identity"].append(torch.equal(before, out))
+                seen["grads"].append(before.to("cpu", copy=True))
+                return out
+            return run
+
+        def keep_start(trainer):
+            seen["start"] = [m.detach().to("cpu", copy=True) for m in trainer.optimizer.masters]
+
+        torchrun = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+                    "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+        with environ(torchrun), swapped(trainer_mod, "all_reduce_mean_", checked):
+            run_a = train_cli_run("train CLI (a) svd, one-rank NCCL group",
+                                  argv_a + ["--multihost"], kernels, keep_start)
+        run, box = run_a
+        counts["train_cli_svd"] = box["launches"]
+        if run.mesh.world_size != 1 or run.mesh.group is None or dist.is_initialized():
+            raise RuntimeError(f"train CLI (a): not under a one-rank group it left: {run.mesh}")
+        if len(seen["identity"]) != 3 or not all(seen["identity"]):
+            raise RuntimeError(f"train CLI (a): the one-rank all-reduce changed the gradient: "
+                               f"{seen['identity']}")
+        check_train_launches("train CLI (a)", box, svd_per_step)
+        with open(os.path.join(data_a, "train_log.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        if logged != run.records or [r["step"] for r in logged] != [1, 2, 3] or any(
+                r["lr"] != values.get("learning_rate", 5e-5) or r["loss_time"] <= 0
+                for r in logged):
+            raise RuntimeError(f"train CLI (a): the log's records {logged}")
+        with open(run.validations[0], "rb") as fh:
+            frames = decode_gif(fh.read())
+        if run.validations != [os.path.join(data_a, "validation", "step_3.gif")] or \
+                frames.shape != (FRAMES, SIZE, SIZE, 3):
+            raise RuntimeError(f"train CLI (a): validation {run.validations}, {frames.shape}")
+        want_ckpts = [os.path.join(data_a, f"checkpoint-{i}") for i in (2, 3)]
+        loaded = checkpoints.load_checkpoint(want_ckpts[1], 3)
+        opt = run.trainer.optimizer.state_dict()
+        same = (run.checkpoints == want_ckpts and states_equal(loaded["adapter"],
+                                                               run.trainer.adapter_state())
+                and loaded["optimizer"]["update_count"] == opt["update_count"] == 3
+                and all(states_equal(st, loaded["optimizer"]["adamw"]["state"][i])
+                        for i, st in opt["adamw"]["state"].items()))
+        print(f"train CLI (a): {len(logged)} log records as returned; validation step_3.gif "
+              f"decodes to {frames.shape}; checkpoints "
+              f"{[os.path.basename(c) for c in run.checkpoints]}"
+              f", checkpoint-3 read back {'equal to the bit' if same else 'DIFFERENT'}; the "
+              f"one-rank NCCL all-reduce returned each step's gradient unchanged, bit for bit")
+        if not same:
+            raise RuntimeError("train CLI (a): checkpoint-3 does not read back as written")
+        del loaded, opt
+        # the same updates without a group, from the same gradients
+        replay = MasterOptimizer(run.trainer.config,
+                                 [torch.nn.Parameter(m.to(dev, copy=True)) for m in seen["start"]])
+        shapes = [m.shape for m in replay.masters]
+        for flat in seen["grads"]:
+            replay.step([g.view(s) for g, s in zip(flat.to(dev).split([math.prod(s) for s in
+                                                                         shapes]), shapes)])
+        replayed = all(torch.equal(a, b) for a, b in
+                       zip(replay.masters, run.trainer.optimizer.masters))
+        masters_a = [m.detach().to("cpu", copy=True) for m in run.trainer.optimizer.masters]
+        print(f"train CLI (a): the 3 updates replayed without a group from the same gradients "
+              f"give masters {'equal to the bit' if replayed else 'DIFFERENT'}")
+        if not replayed:
+            raise RuntimeError("train CLI (a): a one-rank group changed the masters")
+        del replay, seen["grads"]
+        losses_a, before = [r["loss"] for r in run.records], box["before_gb"]
+        del run, run_a, box
+        released("train CLI (a)", before)
+
+        # the same 3 steps without any group
+        data_f = os.path.join(root, "f")
+        cfg_f, _ = config_copy("svd_train_depth.yaml", root, data_f)
+        run_f = train_cli_run("train CLI (a) svd, no group", ["--yaml_file", cfg_f] + common[2:]
+                              + ["--save_starting_step", "4"], kernels)
+        run, box = run_f
+        check_train_launches("train CLI (a) no group", box, svd_per_step)
+        gap = update_gap(seen["start"], masters_a, run.trainer.optimizer.masters, dev)
+        first_equal = run.records[0]["loss"] == losses_a[0]
+        print(f"train CLI (a) no group: step 1 loss "
+              f"{'equal to the bit' if first_equal else 'DIFFERENT'}"
+              f" (the forward is deterministic); losses of steps 2-3 "
+              f"{[r['loss'] - x for r, x in zip(run.records[1:], losses_a[1:])]} from the "
+              f"grouped run's; the two runs' updates differ by {gap:.3e} of their norm (K2 "
+              f"backward's dQ sums in the order its CTAs finish; tolerance 1e-2)")
+        if not first_equal or gap > 1e-2 or run.mesh.group is not None:
+            raise RuntimeError("train CLI (a): the run without a group differs")
+        before = box["before_gb"]
+        del run, run_f, box
+        released("train CLI (a) no group", before)
+
+        # (b) resume from checkpoint-2 for step 3
+        data_b = os.path.join(root, "b")
+        cfg_b, _ = config_copy("svd_train_depth.yaml", root, data_b)
+        restored = {}
+
+        def keep_restored(trainer):
+            restored["adapter"] = {k: v.detach().cpu().clone()
+                                   for k, v in trainer.adapter_state().items()}
+            restored["optimizer"] = copy.deepcopy(trainer.optimizer.state_dict())
+
+        run_b = train_cli_run("train CLI (b) resume", ["--yaml_file", cfg_b] + common[2:] + [
+            "--adapter_resume_path", want_ckpts[0], "--adapter_resume_step", "2",
+            "--save_starting_step", "4"], kernels, keep_restored)
+        run, box = run_b
+        check_train_launches("train CLI (b)", box, svd_per_step)
+        written = checkpoints.load_checkpoint(want_ckpts[0], 2)
+        wopt, ropt = written["optimizer"], restored["optimizer"]
+        exact = (states_equal(written["adapter"], restored["adapter"])
+                 and (wopt["update_count"], wopt["mini_step"], wopt["acc_grads"])
+                 == (ropt["update_count"], ropt["mini_step"], ropt["acc_grads"]) == (2, 0, None)
+                 and all(states_equal(st, ropt["adamw"]["state"][i])
+                         for i, st in wopt["adamw"]["state"].items()))
+        loss_b = run.records[0]["loss"]
+        rel = abs(loss_b - losses_a[2]) / abs(losses_a[2])
+        print(f"train CLI (b): resumed at step {run.records[0]['step']}: masters, AdamW state, "
+              f"update count and accumulation restored "
+              f"{'equal to the bit' if exact else 'DIFFERENT'}"
+              f" to checkpoint-2; step 3 loss {loss_b:.9f} against (a)'s {losses_a[2]:.9f} "
+              f"(relative {rel:.3e}; tolerance 1e-5, the forward of the same masters)")
+        if not exact or [r["step"] for r in run.records] != [3] or rel > 1e-5:
+            raise RuntimeError("train CLI (b): the resume is not exact")
+        before = box["before_gb"]
+        del run, run_b, box, written, wopt, ropt, restored
+        shutil.rmtree(want_ckpts[0])
+        released("train CLI (b)", before)
+
+        # (c) serve (a)'s adapter_3 through inference_torch.main, the other
+        # towers drawn on the card
+        adapter_dir = os.path.join(want_ckpts[1], "adapter_3")
+
+        def fabricate_then_load(_):
+            def run(pipe, scale=0.02):
+                for i, module in enumerate(inference_torch.towers(pipe).values()):
+                    random_fill(module, SEED + 40 + i, scale)
+                load_release(pipe.adapter, adapter_dir)
+            return run
+
+        fixture = write_cli_fixture(os.path.join(root, "fixture"), FRAMES, SIZE, ["depth"],
+                                    seed=SEED + 14)
+        argv_c = ["--model_name", "svd", "--control_types", "depth", "--skip_conv_in", "True",
+                  "--n_sample_frames", str(FRAMES), "--height", str(SIZE), "--width", str(SIZE),
+                  "--num_inference_steps", "2", "--evaluation_input_folder", fixture,
+                  "--evaluation_output_folder", os.path.join(root, "c"), "--fake_weights"]
+        with torch.no_grad(), swapped(inference_torch, "fabricate_params", fabricate_then_load):
+            serve, sbox = cli_run("train CLI (c) serving adapter_3", argv_c, kernels)
+        got = serve.pipe.adapter.state_dict()
+        same = all(torch.equal(got[k], v.to(got[k].device, got[k].dtype)) for k, v in
+                   zip((n for n, _ in serve.pipe.adapter.named_parameters()), masters_a))
+        print(f"train CLI (c): the served adapter is (a)'s masters in bf16 "
+              f"{'to the bit' if same else 'DIFFERENT'}")
+        if not same:
+            raise RuntimeError("train CLI (c): the served adapter differs from the trained one")
+        check_cli_run("train CLI (c)", serve, sbox, serve_per_step, card)
+        del serve, got, masters_a, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) I2VGen-XL multi-condition and SDXL depth, 2 steps each
+        data_d = os.path.join(root, "d")
+        cfg_d, values = config_copy("i2vgenxl_train_multi_condition.yaml", root, data_d)
+        run_d = train_cli_run("train CLI (d) i2vgenxl multi-condition", [
+            "--yaml_file", cfg_d, "--fake_weights", "--max_train_steps", "2",
+            "--seed", str(SEED)], kernels)
+        run, box = run_d
+        counts["train_cli_i2vgenxl_multi"] = box["launches"]
+        check_train_launches("train CLI (d) i2vgenxl", box, i2v_train_launches())
+        n_on = []
+        for rec, mask in zip(run.records, run.expert_masks):
+            w, off = np.asarray(rec["down_block_weights"]), np.asarray(mask) == 0
+            n_on.append(int(sum(mask)))
+            if not (1 <= n_on[-1] <= values["max_num_multi_source_train"]
+                    and (w[:, off] == 0).all()):
+                raise RuntimeError(f"train CLI (d): mask {mask}, router weights {w}")
+        router = torch.load(os.path.join(data_d, "checkpoint-2", "router_2",
+                                         checkpoints.WEIGHTS_NAME), weights_only=True)
+        same = (run.checkpoints == [os.path.join(data_d, "checkpoint-2")]
+                and states_equal(router, run.trainer.router_state()))
+        print(f"train CLI (d) i2vgenxl: {len(run.trainer.experts)} ControlNets, "
+              f"{n_on} experts active per step, the masked ones' router weights exactly 0; "
+              f"checkpoint-2/router_2 read back {'equal to the bit' if same else 'DIFFERENT'}")
+        if not same:
+            raise RuntimeError("train CLI (d): the router's checkpoint differs")
+        before = box["before_gb"]
+        del run, run_d, box, router
+        released("train CLI (d) i2vgenxl", before)
+        shutil.rmtree(data_d)
+
+        data_s = os.path.join(root, "s")
+        cfg_s, _ = config_copy("sdxl_train_depth.yaml", root, data_s)
+        run_s = train_cli_run("train CLI (d) sdxl", [
+            "--yaml_file", cfg_s, "--fake_weights", "--max_train_steps", "2",
+            "--save_starting_step", "3", "--seed", str(SEED)], kernels)
+        counts["train_cli_sdxl"] = run_s[1]["launches"]
+        check_train_launches("train CLI (d) sdxl", run_s[1], sdxl_train_launches())
+        before = run_s[1]["before_gb"]
+        del run_s
+        released("train CLI (d) sdxl", before)
+        print(f"phase 14 on {card}: {time.perf_counter() - t_phase:.1f} s")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free a moment ago."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -3369,7 +3756,7 @@ def main() -> int:
           "FF through K4's op (as the JAX package's do) and no model builds FeedForward on "
           "its own; its launches below are those of the FeedForward run")
     phase_done("phases 6-7")
-    launches_train = run_training(dev, card, kernels)
+    launches_train, train_per_step = run_training(dev, card, kernels)
     phase_done("phase 8, SVD training")
     launches_i2v, launches_i2v_multi = run_i2vgenxl(dev, card, kernels)
     phase_done("phase 9, I2VGen-XL")
@@ -3379,6 +3766,8 @@ def main() -> int:
     phase_done("phase 11, I2VGen-XL and SDXL training")
     launches_branches.update(run_cli(dev, card, kernels, per_step))
     phase_done("phase 13, the CLI")
+    launches_branches.update(run_train_cli(dev, card, kernels, train_per_step[0], per_step))
+    phase_done("phase 14, the training CLI")
 
     meta = {  # name: (source, replaces, the run its launches come from)
         "group_norm_silu": ("ctrl_adapter_tpu_torch/csrc/group_norm.cu",

@@ -2,14 +2,19 @@
 
 A copy of ``ctrl_adapter_tpu/config.py`` (the reference's ~45 flags of
 ``train.py:59-342`` and ``inference.py:21-172``, same names, types and
-defaults), so that the port's CLIs parse to the same namespaces. ``yaml`` is
-imported only where a YAML file is read.
+defaults), so that the port's CLIs parse to the same namespaces.
+
+``load_yaml`` reads a config without PyYAML (the card's host has none): the
+flat subset that ``configs/*.yaml`` uses, resolved as PyYAML's ``safe_load``
+resolves it (YAML 1.1) so that both give the same dict. Anything outside the
+subset raises ``ValueError`` with its line number; the reader never guesses.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Any, Dict, Optional
+import re
+from typing import Any, Dict, List, Optional, Tuple
 
 
 def bool_flag(s: str) -> bool:
@@ -25,11 +30,149 @@ def bool_flag(s: str) -> bool:
     raise argparse.ArgumentTypeError(f"invalid boolean flag: {s!r}")
 
 
-def load_yaml(path: str) -> Dict[str, Any]:
-    import yaml  # only a YAML config needs it; the inference CLI reads none
+# PyYAML's implicit resolvers (``yaml/resolver.py``) for the forms of the
+# subset, whole-string matches
+_BOOL = {**dict.fromkeys(("true", "True", "TRUE"), True),
+         **dict.fromkeys(("false", "False", "FALSE"), False)}
+_NULL = ("", "~", "null", "Null", "NULL")
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9]*)")
+_FLOAT = re.compile(r"[-+]?[0-9]+\.[0-9]*(?:[eE][-+][0-9]+)?|\.[0-9]+(?:[eE][-+][0-9]+)?")
+# what PyYAML would read as a boolean, a number, a timestamp, a merge key or a
+# value tag in forms outside the subset (yes/no/on/off, .inf and .nan,
+# underscores, octal, hex, binary, base 60, dates)
+_OUTSIDE = re.compile(r"""yes|Yes|YES|no|No|NO|on|On|ON|off|Off|OFF
+    |[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)
+    |[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?0x[0-9a-fA-F_]+
+    |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?
+    |[-+]?[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?
+    |[-+]?(?:0|[1-9][0-9_]*)|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}(?:[Tt \t].*)?|<<|=""", re.X)
+_KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_]*):(?=\s|$)(.*)")
+_ITEM = re.compile(r"( *)-(?=\s|$)(.*)")
 
+
+def _fail(lineno: int, what: str):
+    raise ValueError(f"line {lineno}: {what} (outside the YAML subset this reader takes)")
+
+
+def _quoted(text: str, lineno: int) -> Tuple[str, str]:
+    """(the value of the quoted scalar that starts ``text``, what follows it);
+    a quoted scalar holds no escape."""
+    quote = text[0]
+    end = text.find(quote, 1)
+    if end < 0:
+        _fail(lineno, "a quoted string not closed on its line")
+    value, rest = text[1:end], text[end + 1:]
+    if (quote == '"' and "\\" in value) or (quote == "'" and rest.startswith("'")):
+        _fail(lineno, "an escape in a quoted string")
+    return value, rest
+
+
+def _resolve(plain: str, lineno: int):
+    """A plain scalar as PyYAML's resolvers read it."""
+    if plain in _NULL:
+        return None
+    if plain in _BOOL:
+        return _BOOL[plain]
+    if _INT.fullmatch(plain):
+        return int(plain)
+    if _FLOAT.fullmatch(plain):
+        return float(plain)
+    if _OUTSIDE.fullmatch(plain):
+        _fail(lineno, f"the scalar {plain!r}")
+    return plain
+
+
+def _scalar(text: str, lineno: int):
+    """One scalar (plain, single- or double-quoted) with an optional trailing
+    comment; ``text`` has no leading space."""
+    if text[:1] in ("'", '"'):
+        value, rest = _quoted(text, lineno)
+        if rest.strip() and not re.match(r"\s+#", rest):
+            _fail(lineno, f"text after a quoted string: {rest.strip()!r}")
+        return value
+    plain = re.split(r"\s#", text, maxsplit=1)[0].rstrip()
+    if plain[:1] and (plain[0] in "[]{},&*!|>%@`#" or plain[:2] in ("- ", "? ", ": ")
+                      or plain in ("-", "?", ":")):
+        _fail(lineno, f"the value {plain!r}")
+    if ": " in plain or plain.endswith(":"):
+        _fail(lineno, f"a nested mapping in {plain!r}")
+    return _resolve(plain, lineno)
+
+
+def _is_blank(line: str) -> bool:
+    stripped = line.strip()
+    return not stripped or stripped.startswith("#")
+
+
+def parse_yaml(text: str) -> Dict[str, Any]:
+    """The mapping of a YAML document in the subset of ``configs/*.yaml``:
+    top-level ``key: scalar`` lines (null, ``true``/``false``, decimal ints,
+    floats with a point, plain strings and quoted ones without escapes),
+    ``key:`` followed by ``- item`` lines of scalars, the empty flow list
+    ``[]``, full-line and trailing comments, and an anchor ``&name`` on a
+    key's block list with aliases ``*name`` to it (the same object, as PyYAML
+    gives). Values equal ``yaml.safe_load``'s."""
+    lines = text.splitlines()
+    out: Dict[str, Any] = {}
+    anchors: Dict[str, Any] = {}
+    i = 0
+    while i < len(lines):
+        line, lineno = lines[i], i + 1
+        i += 1
+        if "\t" in line:
+            _fail(lineno, "a tab")
+        if _is_blank(line):
+            continue
+        m = _KEY.match(line)
+        if not m:
+            _fail(lineno, f"{line.strip()!r} is not a top-level 'key: value'")
+        key, rest = m.group(1), m.group(2).strip()
+        if key in out:
+            _fail(lineno, f"the key {key!r} a second time")
+        anchor = None
+        a = re.match(r"&([A-Za-z0-9_-]+)(?=\s|$)\s*(.*)", rest)
+        if a:
+            anchor, rest = a.group(1), a.group(2)
+        if not rest or rest.startswith("#"):
+            items: List[Any] = []
+            indent = None
+            while i < len(lines) and (_is_blank(lines[i]) or _ITEM.match(lines[i])):
+                if not _is_blank(lines[i]):
+                    item = _ITEM.match(lines[i])
+                    if indent is None:
+                        indent = len(item.group(1))
+                    elif len(item.group(1)) != indent:
+                        _fail(i + 1, "list items at different indentations")
+                    body = item.group(2).strip()
+                    items.append(None if not body or body.startswith("#")
+                                 else _scalar(body, i + 1))
+                i += 1
+            value = items if indent is not None else None
+        elif anchor is not None:
+            _fail(lineno, f"the anchor &{anchor} on a scalar")
+        elif rest.startswith("*"):
+            name = re.split(r"\s#", rest[1:], maxsplit=1)[0].rstrip()
+            if name not in anchors:
+                _fail(lineno, f"the alias *{name} of no anchor before it")
+            value = anchors[name]
+        elif re.fullmatch(r"\[\s*\](?:\s+#.*)?", rest):
+            value = []
+        else:
+            value = _scalar(rest, lineno)
+        if anchor is not None:
+            anchors[anchor] = value
+        out[key] = value
+    return out
+
+
+def load_yaml(path: str) -> Dict[str, Any]:
+    """The config file ``path`` read by ``parse_yaml``."""
     with open(path) as f:
-        return yaml.safe_load(f) or {}
+        text = f.read()
+    try:
+        return parse_yaml(text)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
 
 def merge_yaml_over_args(args: argparse.Namespace, yaml_file: Optional[str]) -> argparse.Namespace:

@@ -38,7 +38,11 @@ class _WeightGate(nn.Module):
     def __init__(self, num_experts: int, in_features: int = 1, device=None, dtype=None):
         super().__init__()
         self.wg = nn.Linear(in_features, num_experts, bias=False, device=device, dtype=dtype)
-        nn.init.normal_(self.wg.weight, std=in_features ** -0.5)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """The JAX router's init (``models/router.py:49``): normal(1/sqrt(in_features))."""
+        nn.init.normal_(self.wg.weight, std=self.wg.in_features ** -0.5, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.float(), self.wg.weight.float())
@@ -67,6 +71,12 @@ class ControlNetRouter(nn.Module):
             self.down_blocks_router = nn.ModuleList([gate() for _ in range(num_routers)])
             if add_mid_block_router:
                 self.mid_block_router = gate()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Redraw every gate under its init, from ``generator`` when given."""
+        for module in self.modules():
+            if isinstance(module, _WeightGate):
+                module.reset_parameters(generator)
 
     @property
     def conditional(self) -> bool:

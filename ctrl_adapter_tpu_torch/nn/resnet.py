@@ -154,6 +154,7 @@ class AlphaBlender(nn.Module):
             raise ValueError(merge_strategy)
         self.merge_strategy = merge_strategy
         self.switch = switch_spatial_to_temporal_mix
+        self.alpha = alpha  # mix_factor's initial value
         self.mix_factor = nn.Parameter(torch.full((1,), alpha, device=device, dtype=dtype))
 
     def forward(self, x_spatial: torch.Tensor, x_temporal: torch.Tensor,

@@ -46,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from ..models.multicontrolnet import MultiControlNetModel
 from ..models.router import build_router_input, fuse_expert_residuals
 from ..ops.resize import adaptive_avg_pool2d
+from ..parallel.mesh import all_reduce_mean_
 from ..schedulers.ddim import DDIMConfig, DDIMScheduler
 from ..schedulers.euler_discrete import karras_sigmas, sample_training_sigmas_timesteps
 from .losses import edm_loss, min_snr_loss, mse_loss
@@ -197,10 +198,16 @@ class CtrlAdapterTrainer:
     ``ControlNetRouter``) weighs them and trains with the adapter; without
     it their residuals are summed. The I2VGen-XL and SDXL branches noise
     with the JAX trainer's default DDIM schedule at
-    ``config.prediction_type``."""
+    ``config.prediction_type``.
+
+    With a ``process_group`` (data parallelism, ``parallel/mesh.py``) each
+    process trains on its slice of the batch, and every step's fp32
+    gradients are averaged over the group before the norm, the clip and
+    AdamW (in ``MasterOptimizer``'s parameter order, one flat buffer), so
+    that every process makes the same update."""
 
     def __init__(self, config: TrainConfig, unet, controlnet, adapter, vae, router=None,
-                 device="cuda"):
+                 device="cuda", process_group=None):
         if config.model_name not in MODEL_NAMES:
             raise ValueError(f"model_name={config.model_name!r}, not one of {MODEL_NAMES}")
         if config.snr_gamma and config.model_name == "svd":
@@ -220,6 +227,7 @@ class CtrlAdapterTrainer:
             raise RuntimeError("CtrlAdapterTrainer: no CUDA device; pass device='cpu' to run "
                                "on the CPU")
         self.config = config
+        self.process_group = process_group
         self.unet, self.controlnet, self.adapter, self.vae = unet, controlnet, adapter, vae
         self.experts, self.router = experts, router
         for tower in (unet, vae, *experts):
@@ -469,7 +477,8 @@ class CtrlAdapterTrainer:
         calls). ``draws`` (from :meth:`draw`) replace the generator's when
         given. Returns {"loss", "grad_norm"} as 0-d fp32 tensors, and with a
         router its "down_block_weights" (num_routers, E) and
-        "mid_block_weights" (E,)."""
+        "mid_block_weights" (E,): the loss and the weights of this process's
+        slice, the norm of the gradient averaged over the group."""
         if draws is None:
             b, f, h, w, _ = batch["frames"].shape
             draws = self.draw(generator, b, f, h // self.latent_factor, w // self.latent_factor)
@@ -480,6 +489,12 @@ class CtrlAdapterTrainer:
         loss.backward()
         grads = [torch.zeros_like(m) if p.grad is None else p.grad.float()
                  for p, m in zip(params, self.optimizer.masters)]
+        if self.process_group is not None:
+            flat = all_reduce_mean_(torch.cat([g.reshape(-1) for g in grads]),
+                                    self.process_group)
+            grads = [g.view_as(m) for g, m in
+                     zip(flat.split([m.numel() for m in self.optimizer.masters]),
+                         self.optimizer.masters)]
         grad_norm = global_norm(grads)
         self.optimizer.step(grads)
         return {"loss": loss.detach(), "grad_norm": grad_norm,

@@ -26,6 +26,7 @@
 
 import argparse
 import glob
+import importlib
 import io
 import json
 import os
@@ -52,9 +53,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))
 
 
-def _jax_cli():
-    """``inference.py``, imported with the JAX compile-cache settings it sets
-    restored afterwards; asserts that the import compiled nothing."""
+def _jax_cli(name="inference"):
+    """The JAX CLI ``{name}.py``, imported with the JAX compile-cache settings
+    it sets restored afterwards; asserts that the import compiled nothing."""
     events = []
     saved = {k: getattr(jax.config, k) for k in
              ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")}
@@ -64,13 +65,13 @@ def _jax_cli():
 
     jax.monitoring.register_event_duration_secs_listener(listener)
     try:
-        import inference
+        cli = importlib.import_module(name)
     finally:
         for k, v in saved.items():
             jax.config.update(k, v)
         jax.monitoring.unregister_event_duration_listener(listener)
     assert not [e for e in events if "compile" in e], events
-    return inference
+    return cli
 
 
 # ----------------------------------------------------------------- parsers

@@ -276,15 +276,16 @@ def test_bridge_is_strict():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and ``inference_torch.py``, imports without
-    pulling in JAX."""
+    """Every module of the port, ``inference_torch.py`` and ``train_torch.py``
+    import without pulling in JAX or yaml."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ctrl_adapter_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
-        "for n in names + ['inference_torch']: importlib.import_module(n)\n"
+        "for n in names + ['inference_torch', 'train_torch']: importlib.import_module(n)\n"
         "assert len(names) >= 25, names\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ctrl_adapter_tpu')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'ctrl_adapter_tpu', 'yaml')]\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

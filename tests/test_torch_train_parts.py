@@ -8,8 +8,8 @@
   the JAX trainer's optax schedule, and clip + AdamW under gradient
   accumulation 2 against the JAX trainer's optax chain over 5 updates, with
   gradients that do and do not trigger the clip;
-- the port (package and ``chip_smoke.py``) imports no JAX, optax, orbax or
-  JAX-package module;
+- the port (package, ``chip_smoke.py`` and the two CLIs) imports no JAX,
+  optax, orbax, JAX-package module or yaml;
 - DDIM's ``add_noise`` and ``get_velocity`` against JAX's, indexing the alphas
   on the timesteps' device (a ``meta`` run: no copy to the host);
 - on a thin I2VGen-XL trainer with random weights (no JAX): the DDIM
@@ -192,14 +192,18 @@ def _imports(path):
 
 
 def test_port_and_chip_smoke_import_no_jax_optax_orbax():
-    """No import statement of the port's package, of ``chip_smoke.py`` or of
-    ``inference_torch.py`` names jax, flax, optax, orbax or the JAX package
-    (``ctrl_adapter_tpu``)."""
+    """No import statement of the port's package (its ``parallel/`` package
+    included), of ``chip_smoke.py``, ``inference_torch.py`` or
+    ``train_torch.py`` names jax, flax, optax, orbax, the JAX package
+    (``ctrl_adapter_tpu``) or yaml (the card's host has no PyYAML;
+    ``config.load_yaml`` reads the configs itself)."""
     pkg = os.path.join(REPO, "ctrl_adapter_tpu_torch")
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "inference_torch.py")] + [
+    files = [os.path.join(REPO, name) for name in
+             ("chip_smoke.py", "inference_torch.py", "train_torch.py")] + [
         os.path.join(d, f) for d, _, names in os.walk(pkg) for f in names if f.endswith(".py")]
     assert len(files) > 30
-    banned = ("jax", "flax", "optax", "orbax", "ctrl_adapter_tpu")
+    assert os.path.join(pkg, "parallel", "mesh.py") in files
+    banned = ("jax", "flax", "optax", "orbax", "ctrl_adapter_tpu", "yaml")
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in banned]
     assert not bad, bad

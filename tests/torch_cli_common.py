@@ -1,8 +1,9 @@
-"""Thin towers and fabricated folders for the tests of ``inference_torch.py``.
+"""Thin towers and fabricated folders for the tests of the two CLIs of the port.
 
-The CLI builds its towers at the released widths; the tests swap its
-``build_modules`` for ``thin_build_modules``, which builds the same classes at
-thin widths in float32 on the CPU. The widths the CLI's inputs fix stay: the
+The CLIs build their towers at the released widths; the tests swap
+``inference_torch.build_modules`` for ``thin_build_modules`` and
+``train_torch.build_modules`` for ``thin_train_modules``, which build the same
+classes at thin widths in float32 on the CPU. The widths the CLI's inputs fix stay: the
 ControlNet's prompt width 768, the image embedding 1024, SDXL's 2048-wide
 prompt and 1280-wide pooled embedding. ``write_thin_release`` writes a
 pipeline's towers as diffusers folders, with thin CLIP encoders at those
@@ -13,13 +14,14 @@ behind a blocking import hook).
 
 from __future__ import annotations
 
+import argparse
 import os
 
 import torch
 
 import chip_smoke
 from ctrl_adapter_tpu_torch.conditions import MULTI_CONDITION_EXPERT_ORDER
-from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter, get_down_block_ids
 from ctrl_adapter_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
 from ctrl_adapter_tpu_torch.models.controlnet import ControlNetConfig, ControlNetModel
 from ctrl_adapter_tpu_torch.models.multicontrolnet import MultiControlNetModel
@@ -55,6 +57,17 @@ SDXL_UNET = UNet2DConfig(
     transformer_layers_per_block=(1, 2), num_attention_heads=(2, 2), cross_attention_dim=2048,
     use_linear_projection=True, norm_num_groups=16, addition_embed_type="text_time",
     addition_time_embed_dim=8, projection_class_embeddings_input_dim=1280 + 6 * 8)
+# SDXL trains only at 1024^2 (train.py's control latent min(64, height // 8) is
+# half the UNet latent there alone): three levels of 32 channels at the 128^2
+# latent, attention at 32^2 only, the two-residual levels of SDXL's UNet so
+# that the adapter's slots 0-8 meet residuals of their sizes
+SDXL_TRAIN_UNET = UNet2DConfig(
+    down_block_types=("DownBlock2D", "DownBlock2D", "CrossAttnDownBlock2D"),
+    up_block_types=("CrossAttnUpBlock2D", "UpBlock2D", "UpBlock2D"), block_out_channels=(32,) * 3,
+    transformer_layers_per_block=(1, 1, 1), num_attention_heads=(2, 2, 2),
+    cross_attention_dim=2048, use_linear_projection=True, norm_num_groups=16,
+    addition_embed_type="text_time", addition_time_embed_dim=8,
+    projection_class_embeddings_input_dim=1280 + 6 * 8)
 # SD-v1.5 CLIP-L and OpenCLIP-H towers at 2 layers, their output widths kept
 CN_TEXT = CLIPTextConfig(vocab_size=1024, hidden_size=768, num_layers=2, num_heads=4,
                          intermediate_size=64, eos_token_id=2)
@@ -113,6 +126,39 @@ def thin_build_modules(args, device, dtype=torch.float32):
         if module is not None:
             module.eval().requires_grad_(False)
     return pipe
+
+
+def thin_train_modules(args, num_experts, device, dtype=torch.float32):
+    """``train_torch.build_modules`` at thin widths (float32 by default): the
+    towers of ``thin_build_modules``, ``num_experts`` ControlNets, the adapter
+    of the flags at the thin ControlNet's residual widths (for the flags'
+    defaults, ``thin_build_modules``'s adapter) and, for several experts, a
+    router of ``args.router_type``."""
+    pipe = thin_build_modules(argparse.Namespace(model_name=args.model_name,
+                                                 control_types=args.control_types[:1]),
+                              device, dtype)
+    sdxl = args.model_name == "sdxl"
+    cnet = SDXL_CNET if sdxl else CNET
+    nets = [ControlNetModel(cnet, device=device, dtype=dtype) for _ in range(num_experts)]
+    widths = (32,) * 12 if sdxl else THIN_CHANNELS
+    ids = get_down_block_ids(args.adapter_locations, args.num_adapters_per_location)
+    adapter = ControlNetAdapter(
+        backbone_model_name=args.model_name, num_blocks=args.num_blocks,
+        num_adapters_per_location=args.num_adapters_per_location,
+        cross_attention_dim=args.cross_attention_dim,
+        adapter_locations=tuple(args.adapter_locations),
+        add_spatial_resnet=args.add_spatial_resnet,
+        add_temporal_resnet=args.add_temporal_resnet and not sdxl,
+        add_spatial_transformer=args.add_spatial_transformer,
+        add_temporal_transformer=args.add_temporal_transformer and not sdxl,
+        custom_down_block_channels=[widths[i] for i in ids],
+        custom_mid_block_channels=32 if sdxl else 64, attention_head_dim=16,
+        num_repeats=args.num_repeats, out_channels=args.out_channels, device=device,
+        dtype=dtype)
+    router = (ControlNetRouter(num_experts, args.router_type, device=device, dtype=torch.float32)
+              if num_experts > 1 else None)
+    unet = UNet2DConditionModel(SDXL_TRAIN_UNET, device=device, dtype=dtype) if sdxl else pipe.unet
+    return unet, nets, adapter, pipe.vae, router
 
 
 def write_thin_release(pipe, model_name, root, dtype=torch.float32):
