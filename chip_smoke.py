@@ -37,8 +37,8 @@ Phases (any failure raises and the script exits non-zero before its last line):
    temporal blocks took the JAX dispatch (K3 "full" at UNet level 0, K3
    "hybrid" at level 1 and in the adapter) and K1 where the JAX rule admits
    the norm (47 adapter norms per controlled step); time the denoise loop
-   with K1 at every adapter norm (the dispatch before the repair) in turns
-   with the JAX rule; then, on a small input, check the kernel path against
+   with K1 at every adapter norm (the dispatch before the repair) beside
+   the JAX rule, one run each; then, on a small input, check the kernel path against
    an fp32 reference of the same weights, and measure the JAX pipelines'
    promotion of the residuals to fp32 (``promotion_check``: the bf16 path and
    the promoted one, each against fp32);
@@ -126,12 +126,13 @@ Phases (any failure raises and the script exits non-zero before its last line):
    run of the plain path (``train_reference_check``), with faulty kernels
    as controls that must fail (``training_faults``);
 12. print the per-kernel JSON line (with each kernel's launches on the
-   I2VGen-XL, SDXL, training and both CLIs' runs), the card line, and the
-   result line;
+   I2VGen-XL, SDXL, training and both CLIs' runs and phase 15's), the card
+   line, and the result line;
 13. (run before 12) the serving CLI, ``inference_torch.main``, at the main
    path's full width (SVD, depth, skip_conv_in, 14 frames at 512x512, 4 steps
    cut from 25) on a fixture of 512^2 PNG frames written by the port's
-   encoder: (a) with ``--fake_weights``; (b) from diffusers-layout folders
+   encoder: (a) with ``--fake_weights`` (its towers drawn on the card,
+   ``fill_on_card``, not from host numpy); (b) from diffusers-layout folders
    written by ``convert/release.py`` into a temporary directory (bf16 UNet,
    temporal VAE, SD-v1.5 ControlNet and adapter; fp16 CLIP-L text tower with
    a small BPE tokenizer and CLIP-H vision tower). Checks the status line,
@@ -161,6 +162,24 @@ Phases (any failure raises and the script exits non-zero before its last line):
    run the card holds no more than before it. Prints per run the build
    seconds, ms per step after the first and peak GiB, and the phase's
    seconds.
+15. (run before 12, after 14) condition extraction and the dataset path
+   (``run_conditions``), from checkpoints fabricated at the published
+   widths (seeded, scale 0.02, the depth heads' last bias 1): transformers
+   ``Intel/dpt-large`` (ViT-L/16, 384^2), MiDaS ``dpt_swin2_large_384`` and
+   SegFormer-b5 ADE 640. (1) DPT-L, MiDaS SwinV2-L, SegFormer, canny and
+   shuffle in fp32 on phase 13's 14 frames of 512^2: ms a call (median of 3
+   after a warm one), peak GiB, no port kernel, and one frame against a CPU
+   copy (``extractor_check``); (2) ``inference_torch.main
+   --extract_control_conditions`` (SVD depth, ``--fake_weights``, 4 steps)
+   from a working directory that holds ``Intel/dpt-large``: conditions equal
+   ``DepthDPT``'s, launches per step as phase 4's; (3) ``train_torch.main``
+   on real data (two PNG-frame clips of 20 frames at 512^2, two 1024^2
+   images, captions csvs, ``CTRL_ADAPTER_ANNOTATORS``) from phase 13's
+   diffusers folders: SVD depth 3 steps with validation on the real batch
+   (its ``_concat.gif``), launches per step as phase 8's; SVD mixed
+   depth/canny 2 steps, each step on its batch type's ControlNet; SDXL depth
+   2 steps at 1024^2 from freshly written SDXL folders, launches as phase
+   11's. Prints the prefetcher's waits and the phase's seconds.
 
 Device busy times and idle shares come from ``device_activity``, which
 refuses a trace that holds fewer events of a port kernel than the kernel's
@@ -1694,7 +1713,7 @@ def run_slices(dev, card, kernels):
     print(f"  peak device memory {peak_gb:.2f} GiB (first generate())")
     # K1 where the JAX rule admits the norm: 47 of the adapter's 65 per
     # controlled step; the 18 temporal-ResNet norms at 16x16..64x64 run plain.
-    # Against the dispatch before the repair (K1 at all 65), in turns.
+    # Against the dispatch before the repair (K1 at all 65), one run each.
     k1_want = sum(k1_rows().values()) * (hi - lo)
     if launches["group_norm_silu"] != k1_want:
         raise RuntimeError(f"K1 launched {launches['group_norm_silu']} times, want {k1_want} "
@@ -1702,8 +1721,7 @@ def run_slices(dev, card, kernels):
     # The host clock spreads by more than the ~10 ms at stake, so each turn
     # also reads the device's busy time over one more profiled run.
     rule_ms = {"JAX rule": [], "K1 at every adapter norm": []}
-    for rule in ("JAX rule", "K1 at every adapter norm", "K1 at every adapter norm",
-                 "JAX rule"):
+    for rule in ("JAX rule", "K1 at every adapter norm"):
         with k1_everywhere() if rule != "JAX rule" else contextlib.nullcontext():
             before = kernels["group_norm_silu"].launches
             ms, _ = ms_per_step(pipe, inputs, kw, STEPS)
@@ -1713,7 +1731,7 @@ def run_slices(dev, card, kernels):
         rule_ms[rule].append((ms, busy))
         print(f"  K1 dispatch, {rule}: {n_k1} K1 launches, denoise {ms:.1f} ms/step (host), "
               f"{fmt_ms(busy)}/step device busy")
-    print(f"slice on {card}: the K1 repair's cost, {STEPS} steps in turns (host; device busy): "
+    print(f"slice on {card}: the K1 repair's cost, {STEPS} steps each (host; device busy): "
           + "; ".join(f"{rule} " + ", ".join(f"{h:.1f}; {fmt_ms(d)}" for h, d in ts) + "/step"
                       for rule, ts in rule_ms.items()))
     small = slice_inputs(dev, bf, 4, 256, SEED + 2)
@@ -3030,6 +3048,162 @@ def write_image_encoder(root, cfg, seed, dtype, device):
     return tower
 
 
+# ------------------------------------- phase 15, condition extraction and data
+# preprocessor_config.json of the two transformers checkpoints the extractors
+# default to (Intel/dpt-large, nvidia/segformer-b5-finetuned-ade-640-640)
+DPT_PREPROCESSOR = {"do_normalize": True, "do_resize": True, "do_rescale": True,
+                    "feature_extractor_type": "DPTFeatureExtractor", "image_mean": [0.5] * 3,
+                    "image_std": [0.5] * 3, "keep_aspect_ratio": False, "ensure_multiple_of": 1,
+                    "resample": 3, "rescale_factor": 1 / 255, "size": 384}
+SEGFORMER_PREPROCESSOR = {"do_normalize": True, "do_resize": True,
+                          "feature_extractor_type": "SegformerFeatureExtractor",
+                          "image_mean": [0.485, 0.456, 0.406],
+                          "image_std": [0.229, 0.224, 0.225], "reduce_labels": True,
+                          "resample": 2, "size": 640}
+
+
+@torch.no_grad()
+def seeded_fill(module, seed, scale=0.02):
+    """Every parameter of ``module`` (and a BatchNorm's running statistics)
+    drawn from a generator of ``seed`` on its device: a norm's weight
+    1 + scale * N(0, 1), a running variance 1 + |N(0, 1)| / 2, the rest
+    scale * N(0, 1)."""
+    dev = next(module.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    norms = (torch.nn.LayerNorm, torch.nn.GroupNorm, torch.nn.BatchNorm2d)
+    for mod in module.modules():
+        tensors = dict(mod.named_parameters(recurse=False))
+        if isinstance(mod, torch.nn.BatchNorm2d):
+            tensors.update(running_mean=mod.running_mean, running_var=mod.running_var)
+        for name, t in tensors.items():
+            draw = torch.randn(t.shape, generator=g, device=dev)
+            if name == "running_var":
+                t.copy_(1 + 0.5 * draw.abs())
+            elif name == "weight" and isinstance(mod, norms):
+                t.copy_(1 + scale * draw)
+            else:
+                t.copy_(scale * draw)
+    return module
+
+
+def _write_transformers_folder(root, module, config, preprocessor):
+    from ctrl_adapter_tpu_torch.convert.release import write_safetensors
+
+    os.makedirs(root, exist_ok=True)
+    write_safetensors({k: v.float().cpu() for k, v in module.state_dict().items()},
+                      os.path.join(root, "model.safetensors"))
+    for name, value in (("config.json", config), ("preprocessor_config.json", preprocessor)):
+        with open(os.path.join(root, name), "w") as fh:
+            json.dump(value, fh, indent=2)
+
+
+def write_dpt(root, cfg, seed, device, scale=0.02, preprocessor=None):
+    """A transformers ``DPTForDepthEstimation`` folder of ``cfg``
+    (``conditions/dpt.py:DPTConfig``), seeded (``seeded_fill``), the head's
+    last bias 1; returns the module."""
+    from ctrl_adapter_tpu_torch.conditions.dpt import DPTForDepthEstimation
+
+    model = seeded_fill(DPTForDepthEstimation(cfg, device=device), seed, scale)
+    with torch.no_grad():  # the depth above the final relu's zero, as a trained head's
+        model.head.head[4].bias.fill_(1.0)
+    config = {"model_type": "dpt", "is_hybrid": False, "readout_type": "project",
+              "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers,
+              "num_attention_heads": cfg.num_heads, "intermediate_size": cfg.intermediate_size,
+              "patch_size": cfg.patch_size, "image_size": cfg.image_size,
+              "layer_norm_eps": cfg.layer_norm_eps, "hidden_act": "gelu", "qkv_bias": True,
+              "backbone_out_indices": list(cfg.backbone_out_indices),
+              "neck_hidden_sizes": list(cfg.neck_hidden_sizes),
+              "reassemble_factors": list(cfg.reassemble_factors),
+              "fusion_hidden_size": cfg.fusion_hidden_size}
+    _write_transformers_folder(root, model, config, preprocessor or DPT_PREPROCESSOR)
+    return model
+
+
+def write_segformer(root, cfg, seed, device, scale=0.02, preprocessor=None):
+    """A transformers ``SegformerForSemanticSegmentation`` folder of ``cfg``,
+    seeded; returns the module."""
+    from ctrl_adapter_tpu_torch.conditions.segformer import SegformerForSemanticSegmentation
+
+    model = seeded_fill(SegformerForSemanticSegmentation(cfg, device=device), seed, scale)
+    config = {"model_type": "segformer", "num_labels": cfg.num_labels,
+              "id2label": {str(i): f"class_{i}" for i in range(cfg.num_labels)},
+              "hidden_sizes": list(cfg.hidden_sizes), "depths": list(cfg.depths),
+              "num_attention_heads": list(cfg.num_heads), "sr_ratios": list(cfg.sr_ratios),
+              "patch_sizes": list(cfg.patch_sizes), "strides": list(cfg.strides),
+              "mlp_ratios": list(cfg.mlp_ratios), "decoder_hidden_size": cfg.decoder_hidden_size,
+              "layer_norm_eps": cfg.layer_norm_eps, "hidden_act": "gelu",
+              "num_encoder_blocks": len(cfg.depths), "num_channels": 3,
+              "reshape_last_stage": True}
+    _write_transformers_folder(root, model, config, preprocessor or SEGFORMER_PREPROCESSOR)
+    return model
+
+
+def write_midas(path, cfg, seed, device, scale=0.02, features=256):
+    """A MiDaS ``dpt_swin2_*.pt`` of ``cfg`` (``conditions/swin2.py:SwinV2Config``):
+    the model's state dict (seeded, the head's last bias 1) with the
+    backbone's index, table and mask buffers beside it, as the released file
+    holds them; returns the module."""
+    from ctrl_adapter_tpu_torch.conditions.dpt_swin import DPTSwinDepthModel
+
+    model = seeded_fill(DPTSwinDepthModel(cfg, features, device=device), seed, scale)
+    with torch.no_grad():  # the depth above the final relu's zero, as a trained head's
+        model.scratch.output_conv[4].bias.fill_(1.0)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    for name, buf in model.named_buffers():
+        if name.startswith("pretrained.model.") and buf is not None:
+            state[name] = buf.cpu()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(state, path)
+    return model
+
+
+def write_clip_folder(root, n_clips, frames, size, seed, prompt=CLI_PROMPT):
+    """``n_clips`` clips of ``frames`` smooth PNG frames (``clip{i}/000.png``,
+    ...) and ``captions.csv`` under ``root``; returns (folder, csv)."""
+    import numpy as np
+    from ctrl_adapter_tpu_torch.utils.image import save_png
+
+    rng = np.random.default_rng(seed)
+    for i in range(n_clips):
+        for j, fr in enumerate(smooth_frames(rng, frames, size)):
+            save_png(fr, os.path.join(root, f"clip{i}", f"{j:03d}.png"))
+    csv_path = os.path.join(root, "captions.csv")
+    with open(csv_path, "w") as fh:
+        fh.write("name,caption\n" + "".join(f"clip{i}.mp4,{prompt} {i}\n" for i in range(n_clips)))
+    return root, csv_path
+
+
+def write_image_folder(root, n_images, size, seed, prompt=CLI_PROMPT):
+    """``n_images`` smooth PNG images and ``captions.csv`` under ``root``."""
+    import numpy as np
+    from ctrl_adapter_tpu_torch.utils.image import save_png
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for i, fr in enumerate(smooth_frames(rng, n_images, size)):
+        save_png(fr, os.path.join(root, f"img{i}.png"))
+    csv_path = os.path.join(root, "captions.csv")
+    with open(csv_path, "w") as fh:
+        fh.write("name,caption\n" + "".join(f"img{i}.png,{prompt} {i}\n"
+                                            for i in range(n_images)))
+    return root, csv_path
+
+
+def fill_on_card(seed):
+    """A stand-in for ``inference_torch.fabricate_params`` (for ``swapped``):
+    ``--fake_weights``' towers drawn on the card by ``random_fill`` from
+    generators of ``seed`` + i, not from host numpy (~40 s for SVD's 2.6 B
+    values on the card's host)."""
+    import inference_torch
+
+    def make(_):
+        def run(pipe, scale=0.02):
+            for i, module in enumerate(inference_torch.towers(pipe).values()):
+                random_fill(module, seed + i, scale)
+        return run
+    return make
+
+
 def write_stack(pipe, root):
     """The pipeline's towers as diffusers release folders under ``root`` (``unet``,
     ``vae``, ``adapter``, ``router``, ``controlnet``, ``controlnet_1``, ...),
@@ -3268,73 +3442,69 @@ def encoder_check(label, run, written, card):
             raise RuntimeError(f"{label}: {name} encoder on the card differs from the CPU")
 
 
-def run_cli(dev, card, kernels, want_per_step):
+def run_cli(dev, card, kernels, want_per_step, root):
     """Phase 13: ``inference_torch.py`` on the card at the main path's full
     width (SVD, 14 frames at 512x512, depth, skip_conv_in, 4 steps): (a) with
     ``--fake_weights``, (b) from diffusers-layout folders (the UNet, the
     temporal VAE, the SD-v1.5 ControlNet and the 13-block adapter in bf16
     safetensors; CLIP-L text with a small BPE tokenizer and CLIP-H vision in
-    fp16) written into a temporary directory, removed at the end."""
-    import tempfile
-
+    fp16) written under ``root``, the caller's directory: ``fixture/``,
+    ``release/`` and ``sd15/`` stay there for phase 15."""
     import inference_torch
     from ctrl_adapter_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    try:
-        fixture = write_cli_fixture(os.path.join(root, "fixture"), FRAMES, SIZE, ["depth"],
-                                    seed=SEED + 13)
-        argv = ["--model_name", "svd", "--control_types", "depth", "--skip_conv_in", "True",
-                "--n_sample_frames", str(FRAMES), "--height", str(SIZE), "--width", str(SIZE),
-                "--num_inference_steps", str(CLI_STEPS), "--evaluation_input_folder", fixture]
+    fixture = write_cli_fixture(os.path.join(root, "fixture"), FRAMES, SIZE, ["depth"],
+                                seed=SEED + 13)
+    argv = ["--model_name", "svd", "--control_types", "depth", "--skip_conv_in", "True",
+            "--n_sample_frames", str(FRAMES), "--height", str(SIZE), "--width", str(SIZE),
+            "--num_inference_steps", str(CLI_STEPS), "--evaluation_input_folder", fixture]
+    with swapped(inference_torch, "fabricate_params", fill_on_card(SEED + 10)):
         run, box = cli_run("cli (a) fake weights", argv + [
             "--evaluation_output_folder", os.path.join(root, "out_a"), "--fake_weights"],
             kernels)
-        check_cli_run("cli (a) fake weights", run, box, want_per_step, card)
-        launches = {"cli_fake": box["launches"]}
-        del run
-        torch.cuda.empty_cache()
+    check_cli_run("cli (a) fake weights", run, box, want_per_step, card)
+    launches = {"cli_fake": box["launches"]}
+    del run
+    torch.cuda.empty_cache()
 
-        t0 = time.perf_counter()
-        src = inference_torch.build_modules(
-            argparse.Namespace(model_name="svd", control_types=["depth"]), dev)
-        for i, module in enumerate(inference_torch.towers(src).values()):
-            random_fill(module, SEED + 20 + i)
-        release = os.path.join(root, "release")
-        flags = write_stack(src, release)
-        sd15 = os.path.join(root, "sd15")
-        written = {
-            "text": write_text_encoder(sd15, CLIPTextConfig(eos_token_id=2), SEED + 30,
-                                       torch.float16, dev),
-            "image": write_image_encoder(release, CLIPVisionConfig(), SEED + 31, torch.float16,
-                                         dev)}
-        # what was written waits on the CPU, so the card holds only the CLI's own
-        for module in (*inference_torch.towers(src).values(), *written.values()):
-            module.cpu()
-        torch.cuda.empty_cache()
-        n_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root)
-                      for f in fs)
-        print(f"cli (b): wrote {n_bytes / 2 ** 30:.3f} GiB ({n_bytes} bytes) of fixture, "
-              f"diffusers-layout towers and encoders in {time.perf_counter() - t0:.1f} s")
-        run, box = cli_run("cli (b) diffusers folders", argv + [
-            "--evaluation_output_folder", os.path.join(root, "out_b"), *flags,
-            "--controlnet_text_encoder_path", sd15], kernels)
-        for name, module in inference_torch.towers(src).items():
-            got = inference_torch.towers(run.pipe)[name].state_dict()
-            bad = [k for k, v in module.state_dict().items()
-                   if not torch.equal(got[k].cpu(), v)]
-            if bad or set(got) != set(module.state_dict()):
-                raise RuntimeError(f"cli (b): loaded {name} differs from the written: {bad[:5]}")
-        print(f"cli (b): every tensor of the UNet, the VAE, the ControlNet and the adapter "
-              f"loaded equals the one written, bit for bit")
-        check_cli_run("cli (b) diffusers folders", run, box, want_per_step, card)
-        encoder_check("cli (b)", run, written, card)
-        launches["cli_release"] = box["launches"]
-        del run, src, written
-        torch.cuda.empty_cache()
-        return launches
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    src = inference_torch.build_modules(
+        argparse.Namespace(model_name="svd", control_types=["depth"]), dev)
+    for i, module in enumerate(inference_torch.towers(src).values()):
+        random_fill(module, SEED + 20 + i)
+    release = os.path.join(root, "release")
+    flags = write_stack(src, release)
+    sd15 = os.path.join(root, "sd15")
+    written = {
+        "text": write_text_encoder(sd15, CLIPTextConfig(eos_token_id=2), SEED + 30,
+                                   torch.float16, dev),
+        "image": write_image_encoder(release, CLIPVisionConfig(), SEED + 31, torch.float16,
+                                     dev)}
+    # what was written waits on the CPU, so the card holds only the CLI's own
+    for module in (*inference_torch.towers(src).values(), *written.values()):
+        module.cpu()
+    torch.cuda.empty_cache()
+    n_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root)
+                  for f in fs)
+    print(f"cli (b): wrote {n_bytes / 2 ** 30:.3f} GiB ({n_bytes} bytes) of fixture, "
+          f"diffusers-layout towers and encoders in {time.perf_counter() - t0:.1f} s")
+    run, box = cli_run("cli (b) diffusers folders", argv + [
+        "--evaluation_output_folder", os.path.join(root, "out_b"), *flags,
+        "--controlnet_text_encoder_path", sd15], kernels)
+    for name, module in inference_torch.towers(src).items():
+        got = inference_torch.towers(run.pipe)[name].state_dict()
+        bad = [k for k, v in module.state_dict().items()
+               if not torch.equal(got[k].cpu(), v)]
+        if bad or set(got) != set(module.state_dict()):
+            raise RuntimeError(f"cli (b): loaded {name} differs from the written: {bad[:5]}")
+    print(f"cli (b): every tensor of the UNet, the VAE, the ControlNet and the adapter "
+          f"loaded equals the one written, bit for bit")
+    check_cli_run("cli (b) diffusers folders", run, box, want_per_step, card)
+    encoder_check("cli (b)", run, written, card)
+    launches["cli_release"] = box["launches"]
+    del run, src, written
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------- phase 14, the training CLI
@@ -3685,6 +3855,403 @@ def run_train_cli(dev, card, kernels, svd_per_step, serve_per_step):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------- phase 15, condition extraction and real data
+EXTRACT_TIMES = 3  # timed calls after a warm one
+# an extractor on the card against its CPU copy, one frame, fp32 (TF32 off):
+# the network's output within this share of its largest value
+NET_TOL = 1e-4
+# segmentation: the share of pixels whose class may flip at a near-tie
+SEG_FLIP = 1e-3
+REAL_TYPES = ("depth", "canny")  # the mixed run's types
+
+
+def _cpu_copy(extractor):
+    """The estimator with its network copied to the CPU."""
+    out = copy.copy(extractor)
+    out.model = copy.deepcopy(extractor.model).cpu()
+    out.device = torch.device("cpu")
+    if hasattr(extractor, "palette"):
+        out.palette = extractor.palette.cpu()
+    return out
+
+
+def _io(module, run, replace=None):
+    """``run()``'s result, the inputs ``module`` was given and the outputs it
+    gave during it; with ``replace`` the module takes that input in place of
+    its own (its own is still what is recorded)."""
+    inputs, outputs = [], []
+
+    def pre(m, args):
+        inputs.append(args[0].detach())
+        if replace is not None:
+            return (replace.to(args[0].device, args[0].dtype),) + args[1:]
+        return None
+
+    handles = [module.register_forward_pre_hook(pre),
+               module.register_forward_hook(lambda m, i, out: outputs.append(out.detach()))]
+    try:
+        return run(), inputs, outputs
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def extractor_check(label, fn, cpu_fn, frames, card, kernels, nets=None, step=None):
+    """``fn`` on the card over ``frames``: a warm call, then ``EXTRACT_TIMES``
+    timed ones (host clock, card synchronised) and the peak memory; no port
+    kernel may launch. Then ``fn`` and ``cpu_fn`` on the first frame: uint8
+    maps within one step (segmentation: at most ``SEG_FLIP`` of the pixels
+    apart). With ``nets`` = (the card's network, the CPU's): the networks'
+    inputs (each device's preprocessing) within ``step``, one uint8 step in
+    the network's units; the CPU network is given the card's input, and its
+    output must lie within ``NET_TOL`` of its largest value from the card's;
+    and one call's device busy time and top kernels under
+    ``torch.profiler``. Returns the card's maps of ``frames``."""
+    import numpy as np
+
+    for k in kernels.values():
+        k.reset()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    maps = fn(frames)
+    times = []
+    for _ in range(EXTRACT_TIMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(frames)
+        torch.cuda.synchronize()
+        times.append(1000 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if any(k.launches for k in kernels.values()):
+        raise RuntimeError(f"{label}: the extractor launched a port kernel")
+    if len(maps) != len(frames) or any(m.shape != f.shape or m.dtype != np.uint8
+                                       for m, f in zip(maps, frames)):
+        raise RuntimeError(f"{label}: maps {[m.shape for m in maps[:2]]} for frames "
+                           f"{frames[0].shape}")
+    if nets is not None:
+        got_map, got_in, got = _io(nets[0], lambda: fn(frames[:1]))
+        got_in = got_in[0].float().cpu()
+        ref_map, ref_in, want = _io(nets[1], lambda: cpu_fn(frames[:1]), replace=got_in)
+        in_diff = float((got_in - ref_in[0]).abs().max())
+    else:
+        got_map, ref_map = fn(frames[:1]), cpu_fn(frames[:1])
+    diff = np.abs(got_map[0].astype(int) - ref_map[0])
+    if label.startswith("segmentation"):
+        apart = float((diff.max(axis=-1) > 0).mean())
+        what = f"{apart:.2e} of the pixels in another class (tolerance {SEG_FLIP:g})"
+        bad = apart > SEG_FLIP
+    else:
+        what = f"max uint8 difference {int(diff.max())} (tolerance 1)"
+        bad = diff.max() > 1
+    if nets is not None:
+        got, want = got[0].float().cpu(), want[0]
+        rel = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+        what += (f"; preprocessed input {in_diff:.3e} apart (tolerance {step:.3e}, one uint8 "
+                 f"step); network output on the card's input {rel:.3e} of max|CPU| "
+                 f"{float(want.abs().max()):.3e} (tolerance {NET_TOL:g})")
+        bad = (bad or not rel <= NET_TOL or not torch.isfinite(got).all()
+               or not in_diff <= step * 1.01)  # float32's rounding of one step
+    print(f"{label}: {len(frames)} frames of {frames[0].shape[1]}x{frames[0].shape[0]}: "
+          f"{statistics.median(times):.1f} ms a call (median of {EXTRACT_TIMES}: "
+          f"{', '.join(f'{t:.1f}' for t in times)}; host clock, card synchronised), peak "
+          f"{peak:.2f} GiB ({before:.2f} allocated before), no port kernel; on the card vs "
+          f"the CPU, one frame: {what}; {card}")
+    if bad:
+        raise RuntimeError(f"{label}: the card's output differs from the CPU's")
+    if nets is not None:
+        print_activity(f"{label}: one call: ", device_activity(lambda: fn(frames)), unit="call",
+                       top=5)
+    return maps
+
+
+def cuda_left(label, before, top=6):
+    """After the caller dropped a run: the GiB the card still holds (gc run,
+    cache emptied); over ``before`` + 0.1, the largest live CUDA tensors the
+    collector can see are printed."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"{label}: after the run the card holds {left:.2f} GiB ({before:.2f} before it)")
+    if left > before + 0.1:
+        seen = {}
+        for obj in gc.get_objects():
+            try:
+                if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                    seen[obj.data_ptr()] = (obj.untyped_storage().nbytes(), tuple(obj.shape),
+                                            obj.dtype, type(obj).__name__)
+            except Exception:  # objects that fail isinstance or a storage query: not tensors
+                continue
+        found = sorted(seen.values(), key=lambda t: -t[0])
+        print(f"  {len(found)} live CUDA tensors found, {sum(t[0] for t in found) / 2 ** 30:.2f} "
+              f"GiB; the largest: " + "; ".join(f"{n / 2 ** 20:.1f} MiB {shape} {dtype} {kind}"
+                                               for n, shape, dtype, kind in found[:top]))
+    return left - before
+
+
+def data_config(name, root, data_path, train_data, prompts, edits=()):
+    """``configs/{name}`` with ``DATA_PATH``, ``train_data_path`` and
+    ``train_prompt_path`` pointed at ``data_path``, ``train_data`` and
+    ``prompts`` and the text ``edits`` (old, new) made, written under ``root``
+    and read back by the port's YAML reader. Returns the copy's path."""
+    from ctrl_adapter_tpu_torch.config import load_yaml
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", name)
+    with open(src) as fh:
+        text = fh.read()
+    key = {"videos": "sample_data/videos", "video_captions": "sample_data/video_captions.csv",
+           "images": "sample_data/images", "image_captions": "sample_data/image_captions.csv"}
+    kind = "images" if "train_data_path: sample_data/images" in text else "videos"
+    edits = [("DATA_PATH: ./outputs\n", f"DATA_PATH: {data_path}\n"),
+             (key[kind], train_data), (key[kind[:-1] + "_captions"], prompts), *edits]
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: {old!r} is not in it once")
+        text = text.replace(old, new)
+    path = os.path.join(root, f"{os.path.basename(data_path)}_{name}")
+    with open(path, "w") as fh:
+        fh.write(text)
+    values = load_yaml(path)
+    if (values["DATA_PATH"], values["train_data_path"], values["train_prompt_path"]) != (
+            data_path, train_data, prompts):
+        raise RuntimeError(f"{name}: the copy reads back as {values}")
+    return path, values
+
+
+def write_sdxl_release(dev, root):
+    """SDXL's towers (``inference_torch.build_modules``, a seeded fill),
+    CLIP-L and OpenCLIP-bigG text towers with their tokenizers, as diffusers
+    folders under ``root``; returns the training CLI's flags."""
+    import argparse as _argparse
+
+    import inference_torch
+    from ctrl_adapter_tpu_torch.models.clip import CLIPTextConfig
+
+    pipe = inference_torch.build_modules(
+        _argparse.Namespace(model_name="sdxl", control_types=["depth"]), dev)
+    for i, module in enumerate(inference_torch.towers(pipe).values()):
+        random_fill(module, SEED + 60 + i)
+    flags = write_stack(pipe, root)
+    towers = [write_text_encoder(root, CLIPTextConfig(eos_token_id=2), SEED + 65,
+                                 torch.float16, dev),
+              write_text_encoder(root, CLIPTextConfig(hidden_size=1280, num_layers=32,
+                                                      num_heads=20, intermediate_size=5120,
+                                                      hidden_act="gelu", eos_token_id=2,
+                                                      projection_dim=1280),
+                                 SEED + 66, torch.float16, dev, subfolder="text_encoder_2",
+                                 tokenizer="tokenizer_2", pad_token="!")]
+    del pipe, towers
+    gc.collect()
+    torch.cuda.empty_cache()
+    i = flags.index("--adapter_checkpoint_path")
+    return flags[:i] + flags[i + 2:]
+
+
+def real_train_run(label, argv, kernels, want, t_phase):
+    """``train_cli_run`` on real data: prints the time each step's batch was
+    waited for and the types of each step's batch, checks the launches per
+    step against ``want`` and that each step ran the ControlNet of its batch's
+    type. Returns the run's counts, its validation files and the GiB it left
+    on the card (``cuda_left``)."""
+    from ctrl_adapter_tpu_torch.train.trainer import CtrlAdapterTrainer
+
+    nets = []
+    step = CtrlAdapterTrainer.train_step
+
+    def with_net(fn):
+        def run(self, *args, **kwargs):
+            nets.append(self.experts[0])
+            return fn(self, *args, **kwargs)
+        return run
+
+    with swapped(CtrlAdapterTrainer, "train_step", with_net):
+        run, box = train_cli_run(label, argv, kernels)
+    print(f"{label}: the run ended {time.perf_counter() - t_phase:.1f} s into phase 15")
+    if CtrlAdapterTrainer.train_step is not step:
+        raise RuntimeError(f"{label}: train_step was not restored")
+    if len(run.wait_s) != len(run.records):
+        raise RuntimeError(f"{label}: {len(run.wait_s)} batches for {len(run.records)} steps")
+    check_train_launches(label, box, want)
+    towers = []
+    for types, net in zip(run.step_types, nets):
+        if types:
+            owner = [t for t, n in run.controlnet_by_type.items() if n is net]
+            towers.append(owner)
+            if owner != [types[0]]:
+                raise RuntimeError(f"{label}: a {types[0]} batch ran the {owner} ControlNet")
+    net = None  # the loop's name would keep the last ControlNet alive
+    print(f"{label}: waited for the prefetcher "
+          f"{', '.join(f'{1000 * w:.1f}' for w in run.wait_s)} ms before steps "
+          f"{[r['step'] for r in run.records]}"
+          + (f"; each step's batch type and the tower it ran: "
+             f"{[(t[0], o[0]) for t, o in zip(run.step_types, towers)]}" if towers else ""))
+    before = box["before_gb"]
+    launches = box["launches"]
+    validations = list(run.validations)
+    del run, box, nets
+    return launches, validations, cuda_left(label, before)
+
+
+def run_conditions(dev, card, kernels, serve_per_step, train_per_step, root):
+    """Phase 15: condition extraction and the dataset path at full width.
+    Fabricated checkpoints (seeded, scale 0.02): ``Intel/dpt-large`` (ViT-L/16
+    at 384^2), MiDaS ``dpt_swin2_large_384`` and SegFormer-b5 ADE 640. (1) Each
+    extractor on phase 13's 14 frames of 512^2 (``extractor_check``); (2)
+    ``inference_torch.main --extract_control_conditions`` (SVD depth,
+    ``--fake_weights``, 4 steps) from a working directory that holds
+    ``Intel/dpt-large``; (3) ``train_torch.main`` on real data from phase
+    13's diffusers folders under ``root``: SVD depth (3 steps, validation on
+    the real batch), SDXL depth at 1024^2 (2 steps), SVD mixed depth/canny (2
+    steps). Returns the launch counts of (2) and (3)."""
+    import numpy as np
+
+    import inference_torch
+    from ctrl_adapter_tpu_torch.conditions import extractors as ex
+    from ctrl_adapter_tpu_torch.conditions.dpt import DPT_LARGE_CONFIG
+    from ctrl_adapter_tpu_torch.conditions.dpt_swin import DepthDPTSwin
+    from ctrl_adapter_tpu_torch.conditions.segformer import SEGFORMER_B5_ADE_CONFIG
+    from ctrl_adapter_tpu_torch.conditions.swin2 import SWIN2_LARGE_384
+    from ctrl_adapter_tpu_torch.utils.image import image_to_unit
+
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        print(f"[phase 15: {what} at {time.perf_counter() - t_phase:.1f} s]")
+
+    counts, left = {}, []  # left: (run, GiB it left on the card), checked at the end
+    start_gb = torch.cuda.memory_allocated() / 2 ** 30
+    annot = os.path.join(root, "annotators")
+    dpt_dir = os.path.join(annot, ex.DEFAULT_PATHS["depth"])
+    seg_dir = os.path.join(annot, ex.DEFAULT_PATHS["segmentation"])
+    midas = os.path.join(annot, "dpt_swin2_large_384.pt")
+    t0 = time.perf_counter()
+    for module in (write_dpt(dpt_dir, DPT_LARGE_CONFIG, SEED + 50, dev),
+                   write_midas(midas, SWIN2_LARGE_384, SEED + 51, dev),
+                   write_segformer(seg_dir, SEGFORMER_B5_ADE_CONFIG, SEED + 52, dev)):
+        n = sum(p.numel() for p in module.parameters())
+        print(f"phase 15: wrote {type(module).__name__} ({n / 1e6:.1f} M parameters, fp32)")
+        del module
+    torch.cuda.empty_cache()
+    print(f"phase 15: the three checkpoints written in {time.perf_counter() - t0:.1f} s")
+
+    # (1) each extractor on phase 13's frames, on the card and against the CPU
+    frames = smooth_frames(np.random.default_rng(SEED + 13), FRAMES, SIZE)
+    dpt, seg = ex.DepthDPT(dpt_dir, dev), ex.SegmentationSegformer(seg_dir, dev)
+    swin = DepthDPTSwin(midas, SWIN2_LARGE_384, device=dev)
+    # one uint8 step in each network's input units: 1 / 255 over the std
+    for label, est, step in (("depth (DPT-L, Intel/dpt-large)", dpt, 1 / 255 / 0.5),
+                             ("depth (MiDaS dpt_swin2_large_384)", swin, 1 / 255 / 0.5),
+                             ("segmentation (SegFormer-b5 ADE 640)", seg,
+                              1 / 255 / min(seg.processor.image_std))):
+        cpu = _cpu_copy(est)
+        extractor_check(label, est, cpu, frames, card, kernels, (est.model, cpu.model), step)
+    del est, cpu, swin, seg  # the loop's names would keep the last network alive
+    gc.collect()
+    torch.cuda.empty_cache()
+    on_card, on_cpu = ex.ConditionExtractor(device=dev), ex.ConditionExtractor(device="cpu")
+    for ctype in ("canny", "shuffle"):
+        extractor_check(ctype, lambda f, c=ctype: on_card.extract(c, f),
+                        lambda f, c=ctype: on_cpu.extract(c, f), frames, card, kernels)
+    mark("(1) the extractors done")
+
+    # (2) the serving CLI extracting depth on the fly
+    seen = []
+
+    def recorded(load):
+        def run(*args, **kwargs):
+            seen.append((args[3], load(*args, **kwargs)))
+            return seen[-1][1]
+        return run
+
+    argv = ["--model_name", "svd", "--control_types", "depth", "--skip_conv_in", "True",
+            "--n_sample_frames", str(FRAMES), "--height", str(SIZE), "--width", str(SIZE),
+            "--num_inference_steps", str(CLI_STEPS), "--evaluation_input_folder",
+            os.path.join(root, "fixture"), "--evaluation_output_folder",
+            os.path.join(root, "out_extract"), "--fake_weights",
+            "--extract_control_conditions", "True"]
+    with contextlib.chdir(annot), swapped(inference_torch, "load_conditions", recorded), \
+            swapped(inference_torch, "fabricate_params", fill_on_card(SEED + 70)):
+        run, box = cli_run("cli (c) --extract_control_conditions", argv, kernels)
+    check_cli_run("cli (c) --extract_control_conditions", run, box, serve_per_step, card)
+    used, conds = seen[0]
+    same = len(seen) == 1 and np.array_equal(
+        conds[0], np.stack([image_to_unit(m) for m in dpt(used)]))
+    print(f"cli (c): the CLI's depth conditions {conds.shape} "
+          f"{'equal' if same else 'DIFFER FROM'} DepthDPT's direct output on the same frames")
+    if not same or not all(np.array_equal(a, b) for a, b in zip(used, frames)):
+        raise RuntimeError("cli (c): the extracted conditions differ from DepthDPT's, or the "
+                           "CLI read other frames than (1)'s")
+    counts["cli_extract"] = box["launches"]
+    del run, box, seen, used, conds, dpt, on_card, on_cpu
+    left.append(("(1)-(2)", cuda_left("phase 15 (1)-(2)", start_gb)))
+    mark("(2) the serving CLI done")
+
+    # (3) the training CLI on real data
+    clips, clip_csv = write_clip_folder(os.path.join(root, "clips"), 2, 20, SIZE, SEED + 53)
+    images, image_csv = write_image_folder(os.path.join(root, "images"), 2, SDXL_SIZE, SEED + 54)
+    release, sd15 = os.path.join(root, "release"), os.path.join(root, "sd15")
+    towers = ["--pretrained_model_path", release, "--controlnet_text_encoder_path", sd15,
+              "--seed", str(SEED)]
+    with environ({"CTRL_ADAPTER_ANNOTATORS": json.dumps({"depth": dpt_dir})}):
+        cfg, _ = data_config("svd_train_depth.yaml", root, os.path.join(root, "r_svd"), clips,
+                             clip_csv)
+        launches, validations, gib = real_train_run(
+            "train CLI (e) svd depth, real data", [
+                "--yaml_file", cfg, *towers, "--max_train_steps", "3",
+                "--controlnet_model_paths", os.path.join(release, "controlnet"),
+                "--run_validation", "--validate_every_steps", "3", "--num_inference_steps",
+                str(CLI_STEPS), "--save_starting_step", "4"],
+            kernels, train_per_step, t_phase)
+        counts["train_real_svd"] = launches
+        left.append(("svd", gib))
+        gif = os.path.join(root, "r_svd", "validation", "step_3.gif")
+        shapes = []
+        for path in (gif, gif.replace(".gif", "_concat.gif")):
+            with open(path, "rb") as fh:
+                shapes.append(decode_gif(fh.read()).shape)
+        print(f"train CLI (e): validation on the step's real batch: step_3.gif {shapes[0]}, "
+              f"step_3_concat.gif {shapes[1]}")
+        if validations != [gif] or shapes != [(FRAMES, SIZE, SIZE, 3),
+                                              (FRAMES, SIZE, 2 * SIZE, 3)]:
+            raise RuntimeError(f"train CLI (e): validation {validations}, {shapes}")
+
+        # a second per-type ControlNet: a copy of the depth one under its own folder
+        canny = os.path.join(root, "controlnet_canny")
+        shutil.copytree(os.path.join(release, "controlnet"), canny)
+        cfg, values = data_config(
+            "svd_train_mixed.yaml", root, os.path.join(root, "r_mixed"), clips, clip_csv,
+            edits=[("- depth\n- canny\n- normal\n- segmentation\n- softedge\n- lineart\n"
+                    "- openpose\n", "".join(f"- {t}\n" for t in REAL_TYPES))])
+        if values["mixed_control_types_training"] != list(REAL_TYPES):
+            raise RuntimeError(f"svd_train_mixed.yaml copy: {values}")
+        counts["train_real_mixed"], _, gib = real_train_run(
+            "train CLI (e) svd mixed depth/canny, real data", [
+                "--yaml_file", cfg, *towers, "--max_train_steps", "2",
+                "--save_starting_step", "3", "--controlnet_model_paths",
+                os.path.join(release, "controlnet"), canny], kernels, train_per_step, t_phase)
+        left.append(("mixed", gib))
+        shutil.rmtree(canny)
+
+        t0 = time.perf_counter()
+        sdxl_root = os.path.join(root, "sdxl")
+        sdxl_flags = write_sdxl_release(dev, sdxl_root)
+        print(f"train CLI (e) sdxl: wrote the SDXL towers, CLIP-L and bigG in "
+              f"{time.perf_counter() - t0:.1f} s")
+        cfg, _ = data_config("sdxl_train_depth.yaml", root, os.path.join(root, "r_sdxl"),
+                             images, image_csv)
+        counts["train_real_sdxl"], _, gib = real_train_run(
+            "train CLI (e) sdxl depth, real data", [
+                "--yaml_file", cfg, *sdxl_flags, "--max_train_steps", "2", "--seed", str(SEED),
+                "--save_starting_step", "3"], kernels, sdxl_train_launches(), t_phase)
+        left.append(("sdxl", gib))
+        shutil.rmtree(sdxl_root)
+    print(f"phase 15 on {card}: {time.perf_counter() - t_phase:.1f} s")
+    leaks = [(what, gib) for what, gib in left if gib > 0.5]
+    if leaks:
+        raise RuntimeError(f"phase 15: runs left memory on the card (GiB): {leaks}")
+    return counts
+
+
 def free_port() -> int:
     """A TCP port on 127.0.0.1 that was free a moment ago."""
     import socket
@@ -3764,10 +4331,20 @@ def main() -> int:
     phase_done("phase 10, SDXL")
     launches_branches = run_train_branches(dev, card, kernels)
     phase_done("phase 11, I2VGen-XL and SDXL training")
-    launches_branches.update(run_cli(dev, card, kernels, per_step))
-    phase_done("phase 13, the CLI")
-    launches_branches.update(run_train_cli(dev, card, kernels, train_per_step[0], per_step))
-    phase_done("phase 14, the training CLI")
+    import tempfile
+
+    shared = tempfile.mkdtemp(prefix="chip_smoke_cli_")  # phase 13's folders, read by 15
+    try:
+        launches_branches.update(run_cli(dev, card, kernels, per_step, shared))
+        phase_done("phase 13, the CLI")
+        launches_branches.update(run_train_cli(dev, card, kernels, train_per_step[0],
+                                               per_step))
+        phase_done("phase 14, the training CLI")
+        launches_branches.update(run_conditions(dev, card, kernels, per_step,
+                                                train_per_step[0], shared))
+        phase_done("phase 15, condition extraction and real-data training")
+    finally:
+        shutil.rmtree(shared, ignore_errors=True)
 
     meta = {  # name: (source, replaces, the run its launches come from)
         "group_norm_silu": ("ctrl_adapter_tpu_torch/csrc/group_norm.cu",

@@ -1,11 +1,9 @@
-"""Condition types of the control experts.
+"""Condition extraction (``extractors.py``) and its networks.
 
-The extractors themselves (``ctrl_adapter_tpu/conditions/``) are not ported
-yet; this holds the expert order of the released multi-condition checkpoints,
-copied from ``ctrl_adapter_tpu/conditions/extractors.py``.
+``MULTI_CONDITION_EXPERT_ORDER`` lives in ``extractors.py``, as in the JAX
+package, and is re-exported here.
 """
 
-# reference expert order for multi-condition checkpoints (`inference.py:314-345`)
-MULTI_CONDITION_EXPERT_ORDER = (
-    "depth", "canny", "normal", "softedge", "segmentation", "lineart", "openpose",
-)
+from .extractors import MULTI_CONDITION_EXPERT_ORDER
+
+__all__ = ["MULTI_CONDITION_EXPERT_ORDER"]

@@ -1,13 +1,15 @@
 """Per-sample control-fidelity metrics behind the inference CLI's ``--evaluate``.
 
 Counterpart of ``ctrl_adapter_tpu/evaluation/metrics.py``: PSNR, global SSIM,
-temporal consistency (mean and max frame deltas) and the edge F1 of canny
-re-extracted from the output against the condition. The port has no condition
-extractors yet (ROADMAP Queue 1 item 5): canny runs through cv2 where it is
-installed, and the correlation of re-extracted depth with the condition depth
-is None with the reason in ``skipped``, as the JAX package reports it without
-a local DPT checkpoint; the correlation comes with the depth extractor. A metrics file never measures less than it claims: every metric of
-the control type appears, None with a reason when it could not be computed.
+temporal consistency (mean and max frame deltas), the edge F1 of canny
+re-extracted from the output (the port's canny, ``conditions/extractors.py``,
+on the CPU) against the condition, and the correlation of depth re-extracted
+by a caller's ``depth_extractor`` with the condition depth. Without an
+extractor the correlation is None with the reason in ``skipped``, as the JAX
+package reports it without a local DPT checkpoint (its default is the hybrid
+MiDaS of transformers, which neither package has natively). A metrics file
+never measures less than it claims: every metric of the control type
+appears, None with a reason when it could not be computed.
 """
 
 from __future__ import annotations
@@ -17,12 +19,10 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..conditions.extractors import extract_canny
 from ..utils.image import unit_to_uint8
 
 logger = logging.getLogger(__name__)
-
-NO_DEPTH_EXTRACTOR = "the port has no depth extractor yet (ROADMAP Queue 1 item 5)"
-NO_CANNY = "canny extraction needs cv2 until the port's extractors land (ROADMAP Queue 1 item 5)"
 
 
 def psnr(a: np.ndarray, b: np.ndarray, data_range: float = 1.0) -> float:
@@ -56,15 +56,6 @@ def temporal_consistency(frames: np.ndarray) -> Dict[str, float]:
     }
 
 
-def extract_canny(image: np.ndarray, low: int = 100, high: int = 200) -> np.ndarray:
-    """Canny edges at the reference thresholds, (h, w, 3) uint8 RGB -> edge map
-    replicated to 3 channels; needs cv2."""
-    import cv2
-
-    edges = cv2.Canny(image, low, high)
-    return np.repeat(edges[:, :, None], 3, axis=2)
-
-
 def canny_control_f1(
     generated: np.ndarray, condition_edges: np.ndarray, low: int = 100, high: int = 200
 ) -> float:
@@ -82,36 +73,59 @@ def canny_control_f1(
     return float(2 * precision * recall / (precision + recall))
 
 
+def depth_control_correlation(
+    generated: np.ndarray, condition_depth: np.ndarray, extractor=None
+) -> Optional[float]:
+    """Pearson correlation between the condition depth map and depth
+    re-extracted from the generated image by ``extractor`` (a callable on a
+    list of uint8 frames, such as ``DepthDPT``); None without one."""
+    if extractor is None:
+        logger.warning("depth_control_correlation unavailable: no depth extractor given")
+        return None
+    gen_depth = extractor([generated])[0][..., 0].astype(np.float64)
+    cond = condition_depth[..., 0].astype(np.float64)
+    gd = gen_depth - gen_depth.mean()
+    cd = cond - cond.mean()
+    denom = np.sqrt((gd**2).sum() * (cd**2).sum())
+    return float((gd * cd).sum() / denom) if denom > 0 else None
+
+
 def evaluate_video(
     video: np.ndarray,  # (f, h, w, 3) in [0,1]
     condition_frames: Optional[np.ndarray] = None,  # (f, h, w, 3) uint8
     control_type: str = "canny",
+    depth_extractor=None,
 ) -> Dict[str, object]:
-    """Per-sample metrics; single images pass ``video`` with f = 1. The depth
-    correlation is None (see the module docstring)."""
+    """Per-sample metrics; single images pass ``video`` with f = 1."""
     out: Dict[str, object] = {"skipped": []}
     if video.shape[0] > 1:
         out.update(temporal_consistency(video))
     if condition_frames is not None and control_type in ("canny", "scribble", "softedge",
                                                          "lineart"):
-        try:
-            f1s = [canny_control_f1(unit_to_uint8(video[i]), condition_frames[i])
-                   for i in range(video.shape[0])]
-            out["edge_control_f1"] = float(np.mean(f1s))
-        except ImportError:
-            out["edge_control_f1"] = None
-            out["skipped"].append(f"edge_control_f1: {NO_CANNY}")
+        f1s = [canny_control_f1(unit_to_uint8(video[i]), condition_frames[i])
+               for i in range(video.shape[0])]
+        out["edge_control_f1"] = float(np.mean(f1s))
         out["edge_metric_method"] = (
             f"canny(100,200) re-extraction vs {control_type} condition binarized@127"
         )
     if condition_frames is not None and control_type == "depth":
-        logger.warning(
-            "depth_control_correlation unavailable (no local DPT checkpoint?): %s",
-            NO_DEPTH_EXTRACTOR,
-        )
-        out["depth_control_correlation"] = None
-        out["skipped"].append(
-            "depth_control_correlation: depth extractor unavailable "
-            "(no local DPT checkpoint)"
-        )
+        if depth_extractor is None:
+            logger.warning("depth_control_correlation unavailable: no depth extractor given")
+            out["depth_control_correlation"] = None
+            out["skipped"].append(
+                "depth_control_correlation: depth extractor unavailable "
+                "(no local DPT checkpoint)"
+            )
+        else:
+            corrs = []
+            for i in range(video.shape[0]):
+                c = depth_control_correlation(unit_to_uint8(video[i]), condition_frames[i],
+                                              extractor=depth_extractor)
+                if c is not None:
+                    corrs.append(c)
+            out["depth_control_correlation"] = float(np.mean(corrs)) if corrs else None
+            if not corrs:
+                out["skipped"].append(
+                    "depth_control_correlation: extraction failed on all frames"
+                )
     return out

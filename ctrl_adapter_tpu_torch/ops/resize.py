@@ -2,18 +2,24 @@
 
 Counterpart of the functions of ``ctrl_adapter_tpu/ops/resize.py`` that the
 ported paths use: the 64x64 ControlNet latent bridge (``adaptive_avg_pool2d``),
-the adapter's nearest upsample to an arbitrary size (``nearest_resize``), and
+the adapter's nearest upsample to an arbitrary size (``nearest_resize``),
 SVD's CLIP image preprocessing (``antialiased_resize`` over
-``bicubic_resize_align_corners``).
+``bicubic_resize_align_corners``), and the condition extractors' resizes:
+``bilinear_resize`` and ``bicubic_resize`` (``jax.image.resize``'s rules),
+``bilinear_resize_align_corners``, and ``cv2_resize`` (``utils/image.py:resize``
+on the tensor's device).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.image import resize_weights
 
 
 def nearest_resize(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -115,3 +121,122 @@ def antialiased_resize(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor
     x = _blur_axis(x, ks[1], sigmas[1], -1)
     x = _blur_axis(x, ks[0], sigmas[0], -2)
     return bicubic_resize_align_corners(x, out_hw)
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(0.0, 1.0 - x)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic kernel with a = -0.5 (torch and cv2 use -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+@functools.lru_cache(maxsize=64)
+def _scale_weights(n_in: int, n_out: int, kernel: str) -> np.ndarray:
+    """``jax.image.resize``'s weight matrix (n_out, n_in) in float64
+    (``jax._src.image.scale.compute_weight_mat``, antialiased, no translation):
+    half-pixel sample points, the kernel widened by in/out when shrinking, each
+    row's weights divided by their sum (near the borders too, where torch and
+    cv2 clamp the index instead). Read-only: the cache hands it to every
+    caller."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[:, None] - np.arange(n_in, dtype=np.float64)[None, :]) / kernel_scale
+    w = {"linear": _triangle, "cubic": _keys_cubic}[kernel](x)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    w = np.where(inside[:, None], w, 0.0)
+    w.setflags(write=False)
+    return w
+
+
+def _jax_resize(x: torch.Tensor, out_hw: Tuple[int, int], kernel: str) -> torch.Tensor:
+    h, w = x.shape[-2], x.shape[-1]
+    if out_hw[0] != h:
+        wh = torch.tensor(_scale_weights(h, out_hw[0], kernel), dtype=x.dtype, device=x.device)
+        x = torch.einsum("oh,...hw->...ow", wh, x)
+    if out_hw[1] != w:
+        ww = torch.tensor(_scale_weights(w, out_hw[1], kernel), dtype=x.dtype, device=x.device)
+        x = torch.einsum("ow,...hw->...ho", ww, x)
+    return x
+
+
+def bilinear_resize(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(method="bilinear")`` over the two trailing axes:
+    half-pixel centres, antialiased when shrinking (not ``F.interpolate``)."""
+    return _jax_resize(x, out_hw, "linear")
+
+
+def bicubic_resize(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(method="cubic")`` over the two trailing axes: Keys'
+    cubic (a = -0.5), antialiased when shrinking, weights renormalised at the
+    borders."""
+    return _jax_resize(x, out_hw, "cubic")
+
+
+def bilinear_resize_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize with torch's ``align_corners=True`` source positions
+    (``i * (in - 1) / (out - 1)``), H then W, in the float32 arithmetic of the
+    JAX function (``ctrl_adapter_tpu/ops/resize.py``)."""
+
+    def interp_axis(arr: torch.Tensor, out: int, axis: int) -> torch.Tensor:
+        n = arr.shape[axis]
+        if n == out:
+            return arr
+        if out == 1 or n == 1:
+            return arr.index_select(axis, torch.zeros(out, dtype=torch.long, device=arr.device))
+        pos = torch.arange(out, dtype=torch.float32, device=arr.device) * (n - 1) / (out - 1)
+        lo = torch.floor(pos).long().clamp(0, n - 2)
+        w = (pos - lo.float()).to(arr.dtype)
+        shape = [1] * arr.ndim
+        shape[axis] = out
+        w = w.reshape(shape)
+        return arr.index_select(axis, lo) * (1 - w) + arr.index_select(axis, lo + 1) * w
+
+    x = interp_axis(x, out_hw[0], x.ndim - 2)
+    return interp_axis(x, out_hw[1], x.ndim - 1)
+
+
+def apply_taps(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
+    """The (n_out, n_in) ``weights`` applied along ``axis`` of ``x``: each
+    row's nonzero taps gathered, multiplied and summed in ``x``'s dtype. No
+    matrix product, so float64 and int64 stay elementwise work on the card
+    (where a float64 product of these shapes ran as thousands of slow
+    launches)."""
+    nz = weights != 0
+    k = max(int(nz.sum(axis=1).max()), 1)
+    n_out = weights.shape[0]
+    idx = np.zeros((n_out, k), np.int64)
+    w = np.zeros((n_out, k), weights.dtype)
+    for o in range(n_out):
+        cols = np.flatnonzero(nz[o])
+        idx[o, :len(cols)] = cols
+        w[o, :len(cols)] = weights[o, cols]
+    axis %= x.ndim
+    g = x.index_select(axis, torch.from_numpy(idx.reshape(-1)).to(x.device))
+    g = g.unflatten(axis, (n_out, k))
+    shape = [1] * g.ndim
+    shape[axis], shape[axis + 1] = n_out, k
+    return (g * torch.from_numpy(w).to(x.device, x.dtype).reshape(shape)).sum(axis + 1)
+
+
+def cv2_resize(x: torch.Tensor, out_hw: Tuple[int, int], interpolation: str = "cubic"
+               ) -> torch.Tensor:
+    """``utils/image.py:resize`` (cv2's weights, float64, H then W) over the two
+    trailing axes of ``x`` on its device: uint8 in, rounded uint8 out; a float
+    tensor keeps its dtype."""
+    h, w = x.shape[-2:]
+    y = x.to(torch.float64)
+    if out_hw[0] != h:
+        y = apply_taps(y, resize_weights(h, out_hw[0], interpolation), -2)
+    if out_hw[1] != w:
+        y = apply_taps(y, resize_weights(w, out_hw[1], interpolation), -1)
+    if x.dtype == torch.uint8:
+        return torch.round(y).clamp(0, 255).to(torch.uint8)
+    return y.to(x.dtype)

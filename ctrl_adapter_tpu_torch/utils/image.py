@@ -16,7 +16,9 @@ host that has numpy and zlib only:
   separable, on (h, w[, c]) uint8 or float arrays; uint8 results are rounded,
   within one step of cv2's fixed-point arithmetic; an unchanged size returns
   a copy;
-- JPEG is read through cv2 where it is installed, and raises otherwise.
+- JPEG is read through cv2 where it is installed, and raises otherwise;
+- video clips (``load_video_frames``): mp4/avi/mov/webm files through cv2
+  where it is installed, else a clip is a directory of PNG frames.
 """
 
 from __future__ import annotations
@@ -39,6 +41,11 @@ def image_to_unit(image: np.ndarray) -> np.ndarray:
 
 def unit_to_uint8(image: np.ndarray) -> np.ndarray:
     return np.clip(np.asarray(image) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def image_to_tensor(image: np.ndarray) -> np.ndarray:
+    """uint8 RGB -> float32 [-1, 1] (VAE input convention)."""
+    return image.astype(np.float32) / 127.5 - 1.0
 
 
 # --------------------------------------------------------------------- resizes
@@ -98,6 +105,11 @@ def _area_weights(n_in: int, n_out: int) -> np.ndarray:
 _WEIGHTS = {"linear": _linear_weights, "cubic": _cubic_weights, "area": _area_weights}
 
 
+def resize_weights(n_in: int, n_out: int, interpolation: str) -> np.ndarray:
+    """The (n_out, n_in) float64 matrix ``resize`` applies along one axis."""
+    return _WEIGHTS[interpolation](n_in, n_out)
+
+
 def resize(image: np.ndarray, out_hw: Tuple[int, int], interpolation: str = "linear"
            ) -> np.ndarray:
     """``cv2.resize(image, (out_w, out_h), interpolation=...)`` for "linear" (the
@@ -111,12 +123,12 @@ def resize(image: np.ndarray, out_hw: Tuple[int, int], interpolation: str = "lin
         rows = np.arange(oh) * h // oh
         cols = np.arange(ow) * w // ow
         return image[rows][:, cols].copy()
-    make = _WEIGHTS[interpolation]
     x = image.astype(np.float64)
     if oh != h:
-        x = np.tensordot(make(h, oh), x, axes=(1, 0))
+        x = np.tensordot(resize_weights(h, oh, interpolation), x, axes=(1, 0))
     if ow != w:
-        x = np.moveaxis(np.tensordot(make(w, ow), x, axes=(1, 1)), 0, 1)
+        x = np.moveaxis(np.tensordot(resize_weights(w, ow, interpolation), x, axes=(1, 1)),
+                        0, 1)
     if image.dtype == np.uint8:
         return np.clip(np.rint(x), 0, 255).astype(np.uint8)
     return x.astype(image.dtype)
@@ -376,9 +388,76 @@ def read_image(path: str) -> np.ndarray:
 
 
 def load_image(path: str, size: Tuple[int, int] = (512, 512)) -> np.ndarray:
-    img = read_image(path)
+    return center_crop_and_resize(_rgb(read_image(path)), size)
+
+
+# ---------------------------------------------------------------------- video
+
+VIDEO_EXTENSIONS = (".mp4", ".avi", ".mov", ".webm")
+
+
+def _rgb(img: np.ndarray) -> np.ndarray:
+    """Gray, gray + alpha, RGB or RGBA uint8 -> RGB."""
     if img.ndim == 2:
-        img = np.repeat(img[:, :, None], 3, axis=2)
-    if img.shape[2] == 4:
-        img = img[:, :, :3]
-    return center_crop_and_resize(img, size)
+        img = img[:, :, None]
+    if img.shape[2] in (1, 2):
+        img = np.repeat(img[:, :, :1], 3, axis=2)
+    return img[:, :, :3]
+
+
+def _sample_indices(total: int, n_frames: int, native_fps: float, target_fps: int):
+    """Every ``round(native / target)``-th frame from the first, the first
+    ``n_frames``; too few: ``n_frames`` indices spread evenly over the clip."""
+    stride = max(1, int(round(native_fps / target_fps)))
+    idxs = list(range(0, total, stride))[:n_frames]
+    if len(idxs) < n_frames:
+        idxs = np.linspace(0, max(total - 1, 0), n_frames).astype(int).tolist()
+    return idxs
+
+
+def load_video_frames(
+    path: str, n_frames: int, target_fps: int = 16, size: Tuple[int, int] = (512, 512)
+) -> List[np.ndarray]:
+    """A clip -> ``n_frames`` RGB uint8 frames sampled at ``target_fps``,
+    resized and centre-cropped to ``size`` (``center_crop_and_resize``).
+
+    ``path`` is a video file (mp4/avi/mov/webm), decoded through cv2 as the JAX
+    package does (the file's own fps), or a directory of PNG frames in name
+    order, taken to be at ``target_fps``. A frame that cannot be read repeats
+    the one before it (zeros for the first). A video file on a host without
+    cv2 raises ``RuntimeError``."""
+    if os.path.isdir(path):
+        names = sorted(f for f in os.listdir(path) if f.lower().endswith(".png"))
+        if not names:
+            raise ValueError(f"{path}: no PNG frames")
+        frames: List[np.ndarray] = []
+        for idx in _sample_indices(len(names), n_frames, target_fps, target_fps):
+            try:
+                frames.append(center_crop_and_resize(
+                    _rgb(read_image(os.path.join(path, names[idx]))), size))
+            except (OSError, ValueError):
+                frames.append(frames[-1] if frames else np.zeros((*size, 3), np.uint8))
+        return frames
+    if not path.lower().endswith(VIDEO_EXTENSIONS):
+        raise ValueError(f"{path}: not a video file ({', '.join(VIDEO_EXTENSIONS)}) or a "
+                         f"directory of PNG frames")
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(f"{path}: decoding a video file needs cv2, which is not installed; "
+                           "give the clip as a directory of PNG frames") from e
+    cap = cv2.VideoCapture(path)
+    try:
+        native_fps = cap.get(cv2.CAP_PROP_FPS) or target_fps
+        total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        frames = []
+        for idx in _sample_indices(total, n_frames, native_fps, target_fps):
+            cap.set(cv2.CAP_PROP_POS_FRAMES, idx)
+            ok, frame = cap.read()
+            if not ok:
+                frames.append(frames[-1] if frames else np.zeros((*size, 3), np.uint8))
+                continue
+            frames.append(center_crop_and_resize(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB), size))
+    finally:
+        cap.release()
+    return frames

@@ -3,7 +3,7 @@
 The port's counterpart of ``inference.py``, with the same flags
 (``ctrl_adapter_tpu_torch/config.py:add_inference_args`` plus ``--fake_weights``,
 ``--max_samples``, ``--lora`` and ``--lora_scale``): per sample it reads the
-frames and the pre-extracted condition frames, encodes the prompt and the
+frames and their condition frames (read or extracted), encodes the prompt and the
 first frame, generates, and writes ``output.gif`` and ``output_concat.gif``
 (``output.png`` for SDXL), ``metrics.json`` under ``--evaluate``, and a final
 ``{"status": "ok", "output": ...}`` line.
@@ -24,8 +24,13 @@ Weights:
 
 The towers run in bf16 and the encoders in fp32 on the CUDA card; ``main``
 raises when there is none unless its caller passes ``device="cpu"``. Condition
-frames are read from ``{input_root}/{control_type}/{sample}/*.png``; extracting
-them on the fly is not ported yet (ROADMAP Queue 1 item 5).
+frames are read from ``{input_root}/{control_type}/{sample}/*.png``; with
+``--extract_control_conditions``, or where that folder is missing, they are
+extracted from the frames on the same device (``conditions/extractors.py``:
+depth from ``Intel/dpt-large``, segmentation from
+``nvidia/segformer-b5-finetuned-ade-640-640``, both folders read relative to
+the working directory; canny and shuffle need none). A type whose network is
+not ported yet raises ``NotImplementedError`` before any tower is built.
 
     python inference_torch.py --model_name svd --control_types depth --fake_weights \\
         --evaluation_input_folder FRAMES_DIR --num_inference_steps 4 --n_sample_frames 14
@@ -44,7 +49,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ctrl_adapter_tpu_torch.conditions import MULTI_CONDITION_EXPERT_ORDER
+from ctrl_adapter_tpu_torch.conditions.extractors import (
+    MULTI_CONDITION_EXPERT_ORDER, ConditionExtractor, check_control_types)
 from ctrl_adapter_tpu_torch.config import add_inference_args
 from ctrl_adapter_tpu_torch.convert.release import load_release
 from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
@@ -68,7 +74,6 @@ CROSS_DIM = {"i2vgenxl": 1024, "svd": 1024, "sdxl": 2048}
 ADAPTER_LOCATIONS = {"i2vgenxl": ("A", "B", "C", "D", "M"),
                      "svd": ("A", "B", "C", "D", "M"),
                      "sdxl": ("A", "B", "C")}
-NOT_PORTED = "on-the-fly condition extraction is not ported yet (ROADMAP Queue 1 item 5)"
 
 
 @dataclasses.dataclass
@@ -200,24 +205,33 @@ def build_encoders(args, device) -> Dict[str, object]:
     return encoders
 
 
-def load_conditions(args, input_root, sample_name, frames):
+def extracted_types(args, input_root, samples):
+    """The control types ``load_conditions`` will extract for ``samples``."""
+    return [c for c in args.control_types
+            if args.extract_control_conditions
+            or any(not os.path.isdir(os.path.join(input_root, c, s)) for s in samples)]
+
+
+def load_conditions(args, input_root, sample_name, frames, extractor=None):
     """Pre-extracted condition frames in the reference fixture layout
-    ``{input_root}/{control_type}/{sample}/*.png`` -> (E, f, 512, 512, 3) in [0, 1]."""
+    ``{input_root}/{control_type}/{sample}/*.png``, or, with
+    ``--extract_control_conditions`` or no such folder, ``extractor``'s maps
+    of ``frames`` (a ``ConditionExtractor`` on the card when None) ->
+    (E, f, 512, 512, 3) in [0, 1]."""
     conds = []
     for ctype in args.control_types:
         cdir = os.path.join(input_root, ctype, sample_name)
-        if args.extract_control_conditions or not os.path.isdir(cdir):
-            raise NotImplementedError(
-                f"{NOT_PORTED}: pass pre-extracted frames in {cdir}"
-                + (" and leave --extract_control_conditions off"
-                   if args.extract_control_conditions else ""))
-        files = sorted(
-            fn for fn in os.listdir(cdir)
-            if fn.lower().endswith((".png", ".jpg", ".jpeg"))
-        )[: len(frames)]
-        maps = [load_image(os.path.join(cdir, fn), (512, 512)) for fn in files]
-        while len(maps) < len(frames):
-            maps.append(maps[-1])
+        if os.path.isdir(cdir) and not args.extract_control_conditions:
+            files = sorted(
+                fn for fn in os.listdir(cdir)
+                if fn.lower().endswith((".png", ".jpg", ".jpeg"))
+            )[: len(frames)]
+            maps = [load_image(os.path.join(cdir, fn), (512, 512)) for fn in files]
+            while len(maps) < len(frames):
+                maps.append(maps[-1])
+        else:
+            extractor = extractor or ConditionExtractor()
+            maps = extractor.extract(ctype, frames)
         conds.append(np.stack([image_to_unit(m) for m in maps]))
     return np.stack(conds)  # (E, f, 512, 512, 3)
 
@@ -238,6 +252,20 @@ def main(argv=None, device=None) -> InferenceRun:
     parser.add_argument("--lora_scale", type=float, default=1.0)
     args = parser.parse_args(argv)
     device = resolve_device(device)
+
+    # evaluation set: {root}/raw_input/{sample}/*.png with sibling
+    # {root}/{control_type}/{sample}/ condition folders
+    input_root = args.evaluation_input_folder
+    raw_root = os.path.join(input_root, "raw_input")
+    if not os.path.isdir(raw_root):
+        raw_root = input_root
+    samples = sorted(
+        d for d in os.listdir(raw_root) if os.path.isdir(os.path.join(raw_root, d))
+    ) or [""]
+    if args.max_samples:
+        samples = samples[: args.max_samples]
+    check_control_types(extracted_types(args, input_root, samples))
+    extractor = ConditionExtractor(device=device)
 
     t0 = time.perf_counter()
     pipe = build_modules(args, device)
@@ -273,18 +301,6 @@ def main(argv=None, device=None) -> InferenceRun:
         args.evaluation_output_folder, args.model_name, "_".join(args.control_types))
     os.makedirs(out_root, exist_ok=True)
 
-    # evaluation set: {root}/raw_input/{sample}/*.png with sibling
-    # {root}/{control_type}/{sample}/ condition folders
-    input_root = args.evaluation_input_folder
-    raw_root = os.path.join(input_root, "raw_input")
-    if not os.path.isdir(raw_root):
-        raw_root = input_root
-    samples = sorted(
-        d for d in os.listdir(raw_root) if os.path.isdir(os.path.join(raw_root, d))
-    ) or [""]
-    if args.max_samples:
-        samples = samples[: args.max_samples]
-
     run = InferenceRun(pipe, encoders, out_root, {}, load_s, {}, {})
     for sample_name in samples:
         frame_dir = os.path.join(raw_root, sample_name)
@@ -298,7 +314,8 @@ def main(argv=None, device=None) -> InferenceRun:
         frames = [load_image(os.path.join(frame_dir, fn), (512, 512)) for fn in frame_files]
         while len(frames) < f:
             frames.append(frames[-1])
-        conds = load_conditions(args, input_root, sample_name, frames)  # (E,f,512,512,3)
+        conds = load_conditions(args, input_root, sample_name, frames,
+                                extractor)  # (E, f, 512, 512, 3)
         # SDXL's ControlNet features sit at half the backbone latent size (the
         # adapter upsamples x2); the video backbones share the 64x64 latent grid
         if args.use_size_512:

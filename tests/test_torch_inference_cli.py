@@ -19,9 +19,15 @@
   JAX's ``apply_lora`` folds.
 - At full width on the ``meta`` device, the CLI's SVD towers have the names
   and shapes of the JAX CLI's ``jax.eval_shape`` trees.
-- The thin SVD CLI (both weight paths) and every port module run in a
-  subprocess where cv2, imageio, PIL, yaml, safetensors, transformers, regex
-  and JAX cannot be imported, as on the card's host.
+- ``--extract_control_conditions`` (depth from a thin ``Intel/dpt-large`` in
+  the working directory, and canny): the conditions the CLI used are within
+  one uint8 step of the JAX CLI's ``load_conditions``; an unported type is
+  refused before any tower is built, a missing depth checkpoint with its
+  reason.
+- The thin SVD CLI (both weight paths, and extraction of depth, canny and
+  segmentation) and every port module run in a subprocess where cv2,
+  imageio, PIL, yaml, safetensors, transformers, regex and JAX cannot be
+  imported, as on the card's host.
 """
 
 import argparse
@@ -391,16 +397,58 @@ def test_cli_lora_folds_like_jax(fixture_dir, thin_cli, tmp_path):
     assert changed == 3
 
 
-def test_cli_needs_a_card_and_pre_extracted_conditions(fixture_dir, thin_cli, tmp_path):
+def test_cli_needs_a_card_and_pre_extracted_conditions(fixture_dir, thin_cli, tmp_path,
+                                                       monkeypatch):
+    """No card: refused. Extraction of a type whose network is not ported:
+    ``NotImplementedError`` before any tower is built. Depth extraction with no
+    ``Intel/dpt-large`` folder in the working directory: refused, naming the
+    missing fallback."""
     argv = tc.cli_argv("svd", ["depth"], fixture_dir, str(tmp_path), "--fake_weights")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             thin_cli.main(argv)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    built = []
+    monkeypatch.setattr(thin_cli, "build_modules",
+                        lambda *a, **k: built.append(1) or tc.thin_build_modules(*a, **k))
+    for extra in (["--extract_control_conditions", "True"], []):  # scribble has no folder
+        with pytest.raises(NotImplementedError, match="item 5"):
+            thin_cli.main(tc.cli_argv("svd", ["scribble"], fixture_dir, str(tmp_path),
+                                      "--fake_weights", *extra), device="cpu")
+    assert not built
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no transformers fallback"):
         thin_cli.main(argv + ["--extract_control_conditions", "True"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        thin_cli.main(tc.cli_argv("svd", ["scribble"], fixture_dir, str(tmp_path),
-                                  "--fake_weights"), device="cpu")
+
+
+@pytest.mark.parametrize("ctype", ["depth", "canny"])
+def test_cli_extracts_conditions_like_jax(ctype, fixture_dir, thin_cli, tmp_path, monkeypatch):
+    """``--extract_control_conditions`` from a working directory holding a thin
+    ``Intel/dpt-large``: the conditions the CLI generated with are within one
+    uint8 step of the JAX CLI's ``load_conditions`` on the same frames."""
+    monkeypatch.chdir(tmp_path)
+    tc.write_annotators(str(tmp_path))
+    seen = []
+
+    def recorded(*a, **k):
+        seen.append((a[3], load(*a, **k)))
+        return seen[-1][1]
+
+    load = inference_torch.load_conditions
+    monkeypatch.setattr(thin_cli, "load_conditions", recorded)
+    run = thin_cli.main(tc.cli_argv("svd", [ctype], fixture_dir, str(tmp_path / "out"),
+                                    "--fake_weights", "--extract_control_conditions", "True"),
+                        device="cpu")
+    assert len(seen) == 1 and run.videos["s0"].shape == (1, tc.FRAMES, 64, 64, 3)
+    frames, conds = seen[0]
+    jax_cli = _jax_cli()
+    args = argparse.Namespace(control_types=[ctype], extract_control_conditions=True)
+    want = jax_cli.load_conditions(args, fixture_dir, "s0", frames)
+    assert conds.shape == want.shape == (1, tc.FRAMES, 512, 512, 3)
+    assert np.abs(conds - want).max() <= 1 / 255 + 1e-6
+    pre = inference_torch.load_conditions(
+        argparse.Namespace(control_types=[ctype], extract_control_conditions=False),
+        fixture_dir, "s0", frames)
+    assert not np.array_equal(pre, conds)  # the fixture's own folder was not read
 
 
 def test_cli_svd_towers_match_jax_trees():
@@ -485,6 +533,13 @@ real = inference_torch.main(tc.cli_argv("svd", ["depth"], fx, os.path.join(root,
                             device="cpu")
 for run in (fake, real):
     assert tc.frames_of(os.path.join(run.out_root, "s0", "output.gif")).shape == (3, 64, 64, 3)
+os.chdir(root)
+tc.write_annotators(root)
+for ctype in ("depth", "canny", "segmentation"):
+    run = inference_torch.main(tc.cli_argv("svd", [ctype], fx, os.path.join(root, ctype),
+                                           "--fake_weights", "--extract_control_conditions",
+                                           "True"), device="cpu")
+    assert run.videos["s0"].shape == (1, 3, 64, 64, 3)
 jpg = os.path.join(root, "x.jpg")
 open(jpg, "wb").write(b"\\xff\\xd8\\xff")
 try:

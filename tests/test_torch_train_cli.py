@@ -28,9 +28,15 @@
   ``checkpoint-2`` for step 3 equal to the uninterrupted run; the trained
   ``adapter_{step}/`` and ``router_{step}/`` served by ``inference_torch.main``;
   the frozen towers loaded from diffusers folders, with a per-type tower of
-  mixed-type training resident; the dataset path and a missing card refused;
-  and one run with yaml, cv2, imageio, PIL, safetensors, transformers, wandb
-  and JAX blocked, as on the card's host.
+  mixed-type training resident; the dataset path (``_real_data``: thin
+  diffusers folders, two PNG-frame clips, a thin ``Intel/dpt-large`` named by
+  ``CTRL_ADAPTER_ANNOTATORS``): two SVD depth steps with the log, a
+  checkpoint and validation on the step's batch with its ``_concat.gif``,
+  and, under ``--mixed_control_types_training depth canny``, each step run
+  by the ControlNet of its batch's type; an unported type refused before
+  anything is built, and a missing card; and one run of each data path with
+  yaml, cv2, imageio, PIL, safetensors, transformers, wandb and JAX blocked,
+  as on the card's host.
 """
 
 import argparse
@@ -453,19 +459,105 @@ def test_cli_loads_diffusers_folders_with_mixed_type_towers(thin_train, tmp_path
                         device="cpu")
 
 
-def test_cli_refuses_the_dataset_path_and_a_missing_card(thin_train, tmp_path):
-    with pytest.raises(SystemExit, match="item 5"):
-        thin_train.main(_argv("svd", "--DATA_PATH", str(tmp_path)), device="cpu")
+def test_cli_refuses_the_dataset_path_and_a_missing_card(thin_train, tmp_path, monkeypatch):
+    """The dataset path of a type whose network is not ported (here through
+    ``--mixed_control_types_training``) is refused before anything is built;
+    no card: refused."""
+    monkeypatch.setattr(thin_train, "build_trainer", lambda *a, **k: pytest.fail("built"))
+    for flags in (["--control_types", "normal"],
+                  ["--mixed_control_types_training", "depth", "openpose"]):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            thin_train.main(_argv("svd", "--DATA_PATH", str(tmp_path), *flags), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             thin_train.main(_argv("svd", "--fake_weights", "--DATA_PATH", str(tmp_path)))
+
+
+def _real_data(tmp_path, monkeypatch, model="svd", types=("depth",)):
+    """Thin diffusers folders (one ControlNet per type), PNG-frame clips, and
+    ``CTRL_ADAPTER_ANNOTATORS`` at a thin ``Intel/dpt-large``; returns the
+    flags."""
+    src = tc.thin_build_modules(argparse.Namespace(model_name=model,
+                                                   control_types=list(types)), "cpu")
+    flags = tc.train_flags(tc.write_thin_release(src, model, str(tmp_path / "release")))
+    nets = (src.controlnet.nets if isinstance(src.controlnet, MultiControlNetModel)
+            else [src.controlnet])
+    if len(nets) < len(types):  # SVD's pipeline holds one: the others as copies
+        extra = MultiControlNetModel([nets[0]] * len(types)).save_pretrained(
+            str(tmp_path / "types"))
+        i = flags.index("--controlnet_model_paths")
+        flags = flags[:i + 1] + extra + flags[i + 2:]
+    annotators = tc.write_annotators(str(tmp_path / "annotators"))
+    monkeypatch.setenv("CTRL_ADAPTER_ANNOTATORS", json.dumps(annotators))
+    clips, csv_path = tc.write_clips(str(tmp_path / "clips"))
+    return [*flags, "--train_data_path", clips, "--train_prompt_path", csv_path,
+            "--control_types", *types]
+
+
+def _recording(monkeypatch):
+    """Swap in a ``train_step`` that records each step's batch shapes and the
+    ControlNet it ran."""
+    seen = []
+    step = CtrlAdapterTrainer.train_step
+
+    def recorded(self, batch, *a, **k):
+        seen.append(({k: tuple(v.shape) for k, v in batch.items()}, self.experts[0]))
+        return step(self, batch, *a, **k)
+
+    monkeypatch.setattr(CtrlAdapterTrainer, "train_step", recorded)
+    return seen
+
+
+def test_cli_trains_on_real_data(thin_train, tmp_path, monkeypatch):
+    """Two steps of SVD depth on a folder of two PNG-frame clips: batches of
+    frames, depth maps, SD-v1.5 and CLIP image embeddings from the fabricated
+    towers; the log, a checkpoint, and validation on the step's batch with
+    its ``_concat.gif``."""
+    seen = _recording(monkeypatch)
+    out = str(tmp_path / "out")
+    run = thin_train.main(_argv("svd", "--skip_conv_in", "True", "--max_train_steps", "2",
+                                "--checkpointing_steps", "2", "--run_validation",
+                                "--validate_every_steps", "2", "--num_inference_steps", "2",
+                                "--DATA_PATH", out, *_real_data(tmp_path, monkeypatch)),
+                          device="cpu")
+    assert [r["step"] for r in run.records] == [1, 2]
+    assert all(math.isfinite(r["loss"]) for r in run.records)
+    assert len(run.wait_s) == 2 and run.step_types == [None, None]
+    with open(os.path.join(out, "train_log.jsonl")) as fh:
+        assert [json.loads(line) for line in fh] == run.records
+    assert run.checkpoints == [os.path.join(out, "checkpoint-2")]
+    shapes = seen[0][0]
+    assert shapes == {"frames": (1, tc.FRAMES, 64, 64, 3),
+                      "controlnet_cond": (1, tc.FRAMES, 64, 64, 3),
+                      "controlnet_text_emb": (1, 77, 768), "image_embeddings": (1, 1, 1024)}
+    gif = os.path.join(out, "validation", "step_2.gif")
+    assert run.validations == [gif]
+    assert tc.frames_of(gif).shape == (tc.FRAMES, 64, 64, 3)
+    assert tc.frames_of(gif.replace(".gif", "_concat.gif")).shape == (tc.FRAMES, 64, 128, 3)
+
+
+def test_cli_swaps_the_mixed_type_tower(thin_train, tmp_path, monkeypatch):
+    """``--mixed_control_types_training depth canny`` on real data: each step
+    runs the resident ControlNet of its batch's type."""
+    seen = _recording(monkeypatch)
+    run = thin_train.main(_argv("svd", "--skip_conv_in", "True", "--max_train_steps", "4",
+                                "--checkpointing_steps", "9", "--DATA_PATH",
+                                str(tmp_path / "out"), "--mixed_control_types_training",
+                                "depth", "canny",
+                                *_real_data(tmp_path, monkeypatch, types=("depth", "canny"))),
+                          device="cpu")
+    types = [t[0] for t in run.step_types]
+    assert set(types) == {"depth", "canny"} and len(types) == 4
+    assert run.controlnet_by_type["depth"] is not run.controlnet_by_type["canny"]
+    for ctype, (_, net) in zip(types, seen):
+        assert net is run.controlnet_by_type[ctype]
 
 
 BLOCKED = ("cv2", "imageio", "PIL", "yaml", "safetensors", "transformers", "wandb", "regex",
            "jax", "flax", "optax", "orbax", "ctrl_adapter_tpu")
 
 _SUBPROCESS = """
-import importlib.abc, io, json, os, sys, contextlib
+import argparse, importlib.abc, io, json, os, sys, contextlib
 BLOCKED = {blocked!r}
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -490,6 +582,19 @@ with contextlib.redirect_stderr(err):
                             "--validate_every_steps", "1"], device="cpu")
 assert "wandb unavailable" in err.getvalue() and "8-bit Adam" in err.getvalue(), err.getvalue()
 assert len(run.records) == 1 and run.checkpoints and run.validations
+clips, csv_path = tc.write_clips(os.path.join({tmp!r}, "clips"))
+os.environ["CTRL_ADAPTER_ANNOTATORS"] = json.dumps(tc.write_annotators({tmp!r}))
+src = tc.thin_build_modules(argparse.Namespace(model_name="svd", control_types=["depth"]), "cpu")
+flags = tc.train_flags(tc.write_thin_release(src, "svd", os.path.join({tmp!r}, "release")))
+real_cfg = os.path.join({tmp!r}, "real.yaml")
+with open(real_cfg, "w") as fh:
+    fh.write(open(cfg).read().replace("sample_data/videos", clips)
+             .replace("sample_data/video_captions.csv", csv_path)
+             .replace(os.path.join({tmp!r}, "o"), os.path.join({tmp!r}, "r")))
+with contextlib.redirect_stderr(io.StringIO()):
+    real = train_torch.main(["--yaml_file", real_cfg, "--max_train_steps", "1",
+                             "--mixed_precision", "no", *flags], device="cpu")
+assert len(real.records) == 1 and real.wait_s
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok", json.dumps(run.records[-1]["loss"]))

@@ -7,7 +7,10 @@ classes at thin widths in float32 on the CPU. The widths the CLI's inputs fix st
 ControlNet's prompt width 768, the image embedding 1024, SDXL's 2048-wide
 prompt and 1280-wide pooled embedding. ``write_thin_release`` writes a
 pipeline's towers as diffusers folders, with thin CLIP encoders at those
-widths, so the real-weights path runs too. Imports neither JAX nor any
+widths, so the real-weights path runs too; ``write_annotators`` writes thin
+depth and segmentation checkpoints where the extractors look for them, and
+``write_clips`` a folder of PNG-frame clips for the training data path.
+Imports neither JAX nor any
 package the card's host lacks (``test_cli_runs_without_host_packages`` runs it
 behind a blocking import hook).
 """
@@ -21,6 +24,9 @@ import torch
 
 import chip_smoke
 from ctrl_adapter_tpu_torch.conditions import MULTI_CONDITION_EXPERT_ORDER
+from ctrl_adapter_tpu_torch.conditions.dpt import DPTConfig
+from ctrl_adapter_tpu_torch.conditions.extractors import DEFAULT_PATHS
+from ctrl_adapter_tpu_torch.conditions.segformer import SegformerConfig
 from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter, get_down_block_ids
 from ctrl_adapter_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
 from ctrl_adapter_tpu_torch.models.controlnet import ControlNetConfig, ControlNetModel
@@ -80,6 +86,13 @@ VISION = CLIPVisionConfig(image_size=224, patch_size=32, hidden_size=64, num_lay
                           num_heads=4, intermediate_size=64, projection_dim=1024)
 SIZE = {"svd": 64, "i2vgenxl": 64, "sdxl": 128}  # --height/--width of the thin runs
 FRAMES = 3
+# the extractors' networks at the thin widths of tests/test_dpt.py and tests/test_segformer.py
+THIN_DPT = DPTConfig(hidden_size=32, num_layers=4, num_heads=4, intermediate_size=64,
+                     patch_size=8, image_size=32, backbone_out_indices=(0, 1, 2, 3),
+                     neck_hidden_sizes=(16, 32, 64, 64), fusion_hidden_size=16)
+THIN_SEGFORMER = SegformerConfig(num_labels=9, hidden_sizes=(8, 16, 24, 32), depths=(1, 1, 2, 1),
+                                 num_heads=(1, 2, 3, 4), mlp_ratios=(2, 2, 2, 2),
+                                 decoder_hidden_size=16)
 
 
 def thin_build_modules(args, device, dtype=torch.float32):
@@ -198,3 +211,31 @@ def write_fixture(root, control_types):
 def frames_of(path):
     with open(path, "rb") as fh:
         return chip_smoke.decode_gif(fh.read())
+
+
+def write_annotators(root):
+    """Thin ``Intel/dpt-large`` and SegFormer folders under ``root`` at the
+    extractors' default paths (preprocessing to 32^2 and 64^2); returns
+    {type: folder}."""
+    chip_smoke.write_dpt(os.path.join(root, DEFAULT_PATHS["depth"]), THIN_DPT, 21, "cpu",
+                         scale=0.2, preprocessor=dict(chip_smoke.DPT_PREPROCESSOR, size=32))
+    chip_smoke.write_segformer(os.path.join(root, DEFAULT_PATHS["segmentation"]),
+                               THIN_SEGFORMER, 22, "cpu", scale=0.3,
+                               preprocessor=dict(chip_smoke.SEGFORMER_PREPROCESSOR, size=64))
+    return {k: os.path.join(root, v) for k, v in DEFAULT_PATHS.items()}
+
+
+def write_clips(root, frames=5, size=64):
+    """Two PNG-frame clips and their captions csv; returns (folder, csv)."""
+    return chip_smoke.write_clip_folder(root, 2, frames, size, seed=6)
+
+
+def train_flags(flags):
+    """``write_thin_release``'s flags without the adapter's and the router's
+    folders, which the training CLI does not read."""
+    out = list(flags)
+    for name in ("--adapter_checkpoint_path", "--router_checkpoint_path"):
+        if name in out:
+            i = out.index(name)
+            del out[i: i + 2]
+    return out

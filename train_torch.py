@@ -23,12 +23,25 @@ The port's counterpart of ``train.py``, with the same flags
   ``--controlnet_model_paths`` folder per control type; the towers of
   ``--mixed_control_types_training`` stay resident.
 - Data: synthetic batches in the trainer's layouts (``--synthetic_data``, or
-  with ``--fake_weights``). The dataset path, and with it the per-batch swap
-  of the mixed-type towers, waits for the extractors (``NOT_PORTED``).
-- Step ``s`` takes its batch, expert mask, sparse frames and the seed of its
-  noise draws from numpy's generator of ``(--seed, s)``: every process draws
-  the same, and a resumed run continues at ``adapter_resume_step + 1`` with
-  what an uninterrupted run would have drawn.
+  with ``--fake_weights``), or the dataset path (``build_real_data_pipeline``,
+  as ``train.py``'s): ``--train_data_path`` holds clips (video files where
+  cv2 is installed, else directories of PNG frames) or images (SDXL,
+  ``--input_data_type images``), ``--train_prompt_path`` their captions; two
+  prefetch threads read them, extract their conditions on the card
+  (``conditions/extractors.py``; checkpoint paths by type from the JSON of
+  ``CTRL_ADAPTER_ANNOTATORS``) and encode the captions and first frames with
+  the CLIP towers of ``--pretrained_model_path`` and
+  ``--controlnet_text_encoder_path``. Under ``--mixed_control_types_training``
+  each batch has one type, and the resident ControlNet of that type is
+  swapped in for its step. A type whose network is not ported yet raises
+  ``NotImplementedError`` before anything is built.
+- Step ``s`` takes its synthetic batch, expert mask, sparse frames and the
+  seed of its noise draws from numpy's generator of ``(--seed, s)``: every
+  process draws the same, and a resumed run continues at
+  ``adapter_resume_step + 1`` with what an uninterrupted run would have
+  drawn. The dataset's items come from the prefetcher's own generators,
+  seeded with ``--seed`` plus the process's rank, so that the processes read
+  different items.
 - Several processes, one card each: ``torchrun --nproc_per_node N
   train_torch.py ... --multihost`` (``cuda:LOCAL_RANK``, NCCL). Each builds
   the global batch of ``train_batch_size`` x N and trains on its slice; the
@@ -62,6 +75,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ctrl_adapter_tpu_torch.conditions.extractors import ConditionExtractor, check_control_types
 from ctrl_adapter_tpu_torch.config import add_train_args, merge_yaml_over_args
 from ctrl_adapter_tpu_torch.convert.release import load_release
 from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
@@ -78,10 +92,9 @@ from ctrl_adapter_tpu_torch.parallel import mesh as parallel
 from ctrl_adapter_tpu_torch.train.checkpoints import load_checkpoint, save_checkpoint
 from ctrl_adapter_tpu_torch.train.init import init_trainable
 from ctrl_adapter_tpu_torch.train.trainer import CtrlAdapterTrainer, TrainConfig
-from ctrl_adapter_tpu_torch.utils.image import save_gif, save_png
+from ctrl_adapter_tpu_torch.utils.image import (resize, save_concat_gif, save_gif, save_png,
+                                                unit_to_uint8)
 
-NOT_PORTED = ("the dataset path (video and image loaders, condition extraction, prompt "
-              "encoding) is not ported yet (ROADMAP Queue 1 item 5)")
 # the std of the --fake_weights towers' draws
 FAKE_WEIGHT_SCALE = 0.02
 # the router input's width per conditional router type: a 256-wide timestep
@@ -95,8 +108,10 @@ class TrainRun:
     """What ``main`` did: the trainer, this process's place among the
     processes, the records it logged, the checkpoints and validation samples it
     wrote, the resident per-type ControlNets of mixed-type training, each
-    step's expert mask, and its timings (seconds to build, fill or load and
-    initialise; seconds of each ``train_step``, the card synchronised)."""
+    step's expert mask and (real data) control types, and its timings
+    (seconds to build, fill or load and initialise; seconds of each
+    ``train_step``, the card synchronised; seconds each real batch was waited
+    for)."""
 
     trainer: CtrlAdapterTrainer
     mesh: parallel.Mesh
@@ -107,6 +122,8 @@ class TrainRun:
     expert_masks: List[Optional[List[float]]]
     build_s: float
     step_s: List[float]
+    step_types: List[Optional[List[str]]] = dataclasses.field(default_factory=list)
+    wait_s: List[float] = dataclasses.field(default_factory=list)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -239,6 +256,15 @@ def load_frozen_real(args, trainer: CtrlAdapterTrainer) -> Dict[str, ControlNetM
     return by_type
 
 
+def draw_expert_mask(rng: np.random.Generator, args, cfg: TrainConfig) -> np.ndarray:
+    """1 to ``max_num_multi_source_train`` of the experts on."""
+    mask = np.zeros((cfg.num_experts,), np.float32)
+    on = rng.choice(cfg.num_experts, rng.integers(1, args.max_num_multi_source_train + 1),
+                    replace=False)
+    mask[on] = 1.0
+    return mask
+
+
 def synthetic_batch(rng: np.random.Generator, args, cfg: TrainConfig, b: int, f: int
                     ) -> Dict[str, np.ndarray]:
     """A global batch of ``b`` samples in the trainer's layouts, drawn from
@@ -259,22 +285,22 @@ def synthetic_batch(rng: np.random.Generator, args, cfg: TrainConfig, b: int, f:
         batch["prompt_embeds"] = rng.standard_normal((b, 77, 1024)).astype(np.float32) * 0.1
         batch["image_embeddings"] = np.ones((b, 1, 1024), np.float32) * 0.1
     if cfg.num_experts > 1:
-        mask = np.zeros((cfg.num_experts,), np.float32)
-        on = rng.choice(cfg.num_experts, rng.integers(1, args.max_num_multi_source_train + 1),
-                        replace=False)
-        mask[on] = 1.0
-        batch["expert_mask"] = mask
+        batch["expert_mask"] = draw_expert_mask(rng, args, cfg)
     return batch
 
 
-def step_inputs(args, cfg: TrainConfig, step: int, b: int, f: int):
-    """(global batch, sparse frame indices or None, seed of the noise draws)
-    of ``step``, from numpy's generator of ``(--seed, step)``: the same in
-    every process. Sparse frames: 1-4 of the ``f`` frames, sorted
+def step_inputs(args, cfg: TrainConfig, step: int, b: int, f: int, synthetic: bool = True):
+    """(global synthetic batch, or only the expert mask under several experts
+    when not ``synthetic``; sparse frame indices or None; seed of the noise
+    draws) of ``step``, from numpy's generator of ``(--seed, step)``: the
+    same in every process. Sparse frames: 1-4 of the ``f`` frames, sorted
     (``train.py:587-591``)."""
     rng = np.random.default_rng([args.seed, step])
     draw_seed = int(rng.integers(2 ** 62))
-    batch = synthetic_batch(rng, args, cfg, b, f)
+    if synthetic:
+        batch = synthetic_batch(rng, args, cfg, b, f)
+    else:
+        batch = {"expert_mask": draw_expert_mask(rng, args, cfg)} if cfg.num_experts > 1 else {}
     sparse = None
     if args.apply_sparse_frame_mask:
         sparse = sorted(rng.choice(f, int(rng.integers(1, 5)), replace=False).tolist())
@@ -290,12 +316,77 @@ def shard_step(mesh: parallel.Mesh, raw: Dict[str, np.ndarray]) -> Dict[str, tor
     return {**parallel.shard_batch(mesh, t), **cond, **whole}
 
 
+def build_real_data_pipeline(args, cfg: TrainConfig, b: int, f: int, device: torch.device,
+                             seed: int):
+    """The dataset path of ``train.py:109-183``: the dataset, its extractor on
+    ``device`` (paths from ``CTRL_ADAPTER_ANNOTATORS``), the caption and
+    first-frame encoders (``post_collate``, in the workers) and a
+    ``Prefetcher`` of batches of ``b`` items, seeded with ``seed``."""
+    from ctrl_adapter_tpu_torch.data.loader import ImageDataset, Prefetcher, VideoDataset
+    from ctrl_adapter_tpu_torch.models.text_encoders import (
+        CLIPImageEncoder, CLIPTextEncoder, build_controlnet_text_encoder)
+
+    annotators = json.loads(os.environ.get("CTRL_ADAPTER_ANNOTATORS", "{}"))
+    extractor = ConditionExtractor(local_model_paths=annotators, device=device)
+    mixed = list(args.mixed_control_types_training or [])
+    if args.model_name == "sdxl" or args.input_data_type == "images":
+        dataset = ImageDataset(args.train_data_path, args.train_prompt_path, size=args.height,
+                               control_size=cfg.control_latent_size * 8,
+                               control_types=args.control_types, extractor=extractor)
+    else:
+        dataset = VideoDataset(args.train_data_path, args.train_prompt_path, n_sample_frames=f,
+                               output_fps=args.output_fps, size=args.height,
+                               control_types=args.control_types, extractor=extractor)
+    path = args.pretrained_model_path
+    cn_text = build_controlnet_text_encoder(path, args.controlnet_text_encoder_path,
+                                            args.model_name, device=device)
+    # SVD conditions on the CLIP image embedding only: its folder has no text tower
+    text_enc = CLIPTextEncoder(path, device=device) if args.model_name != "svd" else None
+    text_enc_2 = (CLIPTextEncoder(path, subfolder="text_encoder_2", with_projection=True,
+                                  device=device) if args.model_name == "sdxl" else None)
+    image_enc = (CLIPImageEncoder(path, device=device)
+                 if args.model_name in ("i2vgenxl", "svd") else None)
+
+    def post_collate(batch):
+        captions = batch.pop("captions")
+        first = batch.pop("first_frames")  # (b, h, w, 3) in [-1, 1]
+        out = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+               for k, v in batch.items()}
+        # the positive half of the [negative; positive] SD-v1.5 embedding
+        out["controlnet_text_emb"] = cn_text(captions)[len(captions):]
+        if args.model_name == "sdxl":
+            h1, _ = text_enc.encode_with_pooled(captions)
+            h2, pooled = text_enc_2.encode_with_pooled(captions)
+            out["prompt_embeds"] = torch.cat([h1, h2], dim=-1)
+            out["pooled_prompt_embeds"] = pooled
+            out["additional_time_ids"] = torch.tensor(
+                [[args.height, args.width, 0, 0, args.height, args.width]],
+                dtype=torch.float32).repeat(len(captions), 1)
+        else:
+            if text_enc is not None:
+                out["prompt_embeds"] = text_enc(captions)
+            first_u8 = ((first + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+            out["image_embeddings"] = image_enc(list(first_u8))
+        return out
+
+    chooser = None
+    if mixed and cfg.num_experts == 1:
+        chooser = lambda rng: [rng.choice(mixed)]  # noqa: E731
+    return Prefetcher(dataset, batch_size=b, num_workers=2, seed=seed,
+                      control_types_chooser=chooser, post_collate=post_collate, device=device)
+
+
 @torch.no_grad()
-def run_validation(args, trainer: CtrlAdapterTrainer, step: int) -> str:
-    """One sample of the synthetic path's fixed pseudo-inputs (zero prompt,
-    image and first-frame latent, conditions at 0.5) at 4 steps through the
-    backbone's pipeline with the current adapter (``train.py:442-574``);
-    returns the gif (png for SDXL) under ``{DATA_PATH}/validation``."""
+def run_validation(args, trainer: CtrlAdapterTrainer, step: int,
+                   batch: Optional[Dict[str, torch.Tensor]] = None) -> str:
+    """One sample through the backbone's pipeline with the current adapter
+    (``train.py:442-574``). With the step's real ``batch``: its first item's
+    prompt, ControlNet and image embeddings (zero negatives), the VAE mean of
+    its first frame and its conditions, at ``--num_inference_steps``, and a
+    ``_concat.gif`` of conditions beside the video; without one the fixed
+    pseudo-inputs of the synthetic path (zero embeddings and first-frame
+    latent, conditions at 0.5) at 4 steps. Returns the gif (png for SDXL)
+    under ``{DATA_PATH}/validation``."""
     from ctrl_adapter_tpu_torch.pipelines.i2vgenxl import I2VGenXLControlNetAdapterPipeline
     from ctrl_adapter_tpu_torch.pipelines.sdxl import SDXLControlNetAdapterPipeline
     from ctrl_adapter_tpu_torch.pipelines.svd import SVDControlNetAdapterPipeline
@@ -305,26 +396,45 @@ def run_validation(args, trainer: CtrlAdapterTrainer, step: int) -> str:
     s = cfg.control_latent_size
     lh, lw = args.height // trainer.latent_factor, args.width // trainer.latent_factor
     zeros = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
-    cond = torch.full((cfg.num_experts, f, s * 8, s * 8, 3), 0.5, device=dev)
-    common = dict(height=args.height, width=args.width, num_inference_steps=4,
+    if batch is not None:
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        pe_pos = batch["prompt_embeds"][:1] if "prompt_embeds" in batch else zeros(
+            1, 77, args.cross_attention_dim)
+        cn_pos = batch["controlnet_text_emb"][:1]
+        prompt_embeds = torch.cat([torch.zeros_like(pe_pos), pe_pos])
+        cn_embeds = torch.cat([torch.zeros_like(cn_pos), cn_pos])
+        image_emb = batch["image_embeddings"][:1] if "image_embeddings" in batch else zeros(
+            1, 1, 1024)
+        first = batch["frames"][:1, 0].permute(0, 3, 1, 2)
+        first_latent = trainer.vae.encode_moments(first)[0].float().permute(0, 2, 3, 1)
+        cond = batch["controlnet_cond"][:, :f]
+        steps = args.num_inference_steps
+    else:
+        prompt_embeds, cn_embeds = zeros(2, 77, args.cross_attention_dim), zeros(2, 77, 768)
+        image_emb, first_latent = zeros(1, 1, 1024), zeros(1, lh, lw, 4)
+        cond = torch.full((cfg.num_experts, f, s * 8, s * 8, 3), 0.5, device=dev)
+        steps = 4
+    common = dict(height=args.height, width=args.width, num_inference_steps=steps,
                   control_latent_size=s, generator=torch.Generator(dev).manual_seed(step))
     if args.model_name == "i2vgenxl":
         pipe = I2VGenXLControlNetAdapterPipeline(trainer.unet, trainer.controlnet,
                                                  trainer.adapter, trainer.vae,
                                                  router=trainer.router)
-        video = pipe.generate(zeros(2, 77, args.cross_attention_dim), zeros(2, 77, 768),
-                              zeros(1, 1, 1024), zeros(1, lh, lw, 4), cond, num_frames=f,
-                              **common)
+        video = pipe.generate(prompt_embeds, cn_embeds, image_emb, first_latent, cond,
+                              num_frames=f, **common)
     elif args.model_name == "svd":
         pipe = SVDControlNetAdapterPipeline(trainer.unet, trainer.experts[0], trainer.adapter,
                                             trainer.vae)
-        video = pipe.generate(zeros(1, 1, 1024), zeros(1, lh, lw, 4), zeros(2, 77, 768),
-                              cond[0], num_frames=f, skip_conv_in=cfg.skip_conv_in, **common)
+        video = pipe.generate(image_emb, first_latent, cn_embeds, cond[0], num_frames=f,
+                              skip_conv_in=cfg.skip_conv_in, **common)
     else:
         pipe = SDXLControlNetAdapterPipeline(trainer.unet, trainer.experts[0], trainer.adapter,
                                              trainer.vae)
-        video = pipe.generate(zeros(2, 77, args.cross_attention_dim), zeros(2, 1280),
-                              zeros(2, 77, 768), cond[0, :1], **common)[None]
+        pooled = zeros(2, 1280)
+        if batch is not None:
+            pooled_pos = batch["pooled_prompt_embeds"][:1]
+            pooled = torch.cat([torch.zeros_like(pooled_pos), pooled_pos])
+        video = pipe.generate(prompt_embeds, pooled, cn_embeds, cond[0, :1], **common)[None]
     frames = list(video[0].float().cpu().numpy())
     out = os.path.join(args.DATA_PATH, "validation", f"step_{step}.gif")
     if len(frames) == 1:
@@ -332,6 +442,13 @@ def run_validation(args, trainer: CtrlAdapterTrainer, step: int) -> str:
         save_png(frames[0], out)
     else:
         save_gif(frames, out, fps=args.output_fps)
+        if batch is not None:
+            cond_vis = [unit_to_uint8(c) for c in cond[0].float().cpu().numpy()]
+            gen_vis = [unit_to_uint8(v) for v in frames]
+            if cond_vis[0].shape != gen_vis[0].shape:
+                cond_vis = [resize(c, gen_vis[0].shape[:2]) for c in cond_vis]
+            save_concat_gif([cond_vis, gen_vis], out.replace(".gif", "_concat.gif"),
+                            fps=args.output_fps)
     print(f"validation sample -> {out}", file=sys.stderr)
     return out
 
@@ -344,8 +461,8 @@ def _sync(device: torch.device) -> None:
 def main(argv=None, device=None) -> TrainRun:
     args = parse_args(argv)
     if not (args.synthetic_data or args.fake_weights):
-        raise SystemExit(f"train_torch.py: {NOT_PORTED}; pass --synthetic_data or "
-                         f"--fake_weights")
+        check_control_types(list(args.control_types)
+                            + list(args.mixed_control_types_training or []))
     device = resolve_device(device)
     if args.multihost and device.type == "cuda":
         device = torch.device("cuda", parallel.local_rank())
@@ -409,51 +526,74 @@ def _train(args, device: torch.device, mesh: parallel.Mesh) -> TrainRun:
             print(f"wandb unavailable ({e}); falling back to JSONL log", file=sys.stderr)
 
     run = TrainRun(trainer, mesh, [], [], [], controlnet_by_type, [], build_s, [])
-    if args.run_validation and args.run_validation_at_start and lead:
-        run.validations.append(run_validation(args, trainer, 0))
-    for step in range(first, args.max_train_steps + 1):
-        t_step = time.perf_counter()
-        raw, sparse, draw_seed = step_inputs(args, cfg, step, b, f)
-        run.expert_masks.append(raw["expert_mask"].tolist() if "expert_mask" in raw else None)
-        batch = shard_step(mesh, raw)
-        gen = torch.Generator(device).manual_seed(draw_seed)
-        draws = parallel.shard_batch(mesh, trainer.draw(gen, b, f, lh, lw))
-        lr = trainer.optimizer.lr_schedule(trainer.optimizer.update_count)
-        t1 = time.perf_counter()
-        metrics = trainer.train_step(batch, sparse, draws=draws)
-        _sync(device)
-        run.step_s.append(time.perf_counter() - t1)
-        # the loss (and the router's weights) of this step, averaged over the processes
-        logged = torch.cat([metrics["loss"].float().reshape(1)]
-                           + ([metrics["down_block_weights"].float().reshape(-1)]
-                              if cfg.num_experts > 1 else []))
-        if mesh.group is not None:
-            parallel.all_reduce_mean_(logged, mesh.group)
-        logged = logged.cpu()
-        rec = {"step": step, "loss": float(logged[0]), "lr": lr,
-               "loss_time": time.perf_counter() - t_step}
-        if cfg.num_experts > 1:
-            rec["down_block_weights"] = logged[1:].reshape(
-                metrics["down_block_weights"].shape).tolist()
-        run.records.append(rec)
-        if not lead:
-            continue
-        with open(log_path, "a") as fh:
-            fh.write(json.dumps(rec) + "\n")
-        if wandb_run is not None:
-            wandb_run.log(rec, step=step)
-        print(f"step {step}: loss={rec['loss']:.5f} ({rec['loss_time']:.2f}s)", file=sys.stderr)
-        if args.run_validation and step % args.validate_every_steps == 0:
-            run.validations.append(run_validation(args, trainer, step))
-        if ((step % args.checkpointing_steps == 0 or step == args.max_train_steps)
-                and step >= args.save_starting_step):
-            path = save_checkpoint(
-                args.DATA_PATH, step, trainer.adapter_state(), trainer.optimizer.state_dict(),
-                config={"model_name": args.model_name,
-                        "adapter_locations": list(args.adapter_locations)},
-                router_state=trainer.router_state())
-            run.checkpoints.append(path)
-            print(f"checkpoint -> {path}", file=sys.stderr)
+    prefetcher = None
+    if not (args.synthetic_data or args.fake_weights):
+        prefetcher = build_real_data_pipeline(args, cfg, args.train_batch_size, f, device,
+                                              seed=args.seed + mesh.rank)
+    try:
+        if args.run_validation and args.run_validation_at_start and lead:
+            run.validations.append(run_validation(args, trainer, 0))
+        for step in range(first, args.max_train_steps + 1):
+            t_step = time.perf_counter()
+            raw, sparse, draw_seed = step_inputs(args, cfg, step, b, f,
+                                                 synthetic=prefetcher is None)
+            run.expert_masks.append(raw["expert_mask"].tolist() if "expert_mask" in raw else None)
+            if prefetcher is None:
+                batch = shard_step(mesh, raw)
+            else:
+                t_wait = time.perf_counter()
+                batch = prefetcher.next()
+                run.wait_s.append(time.perf_counter() - t_wait)
+                ctypes = batch.pop("control_types", None)
+                run.step_types.append(ctypes)
+                if ctypes and run.controlnet_by_type:  # the batch type's resident tower
+                    net = run.controlnet_by_type[ctypes[0]]
+                    trainer.controlnet, trainer.experts = net, [net]
+                if "expert_mask" in raw:
+                    batch["expert_mask"] = torch.from_numpy(raw["expert_mask"])
+            gen = torch.Generator(device).manual_seed(draw_seed)
+            draws = parallel.shard_batch(mesh, trainer.draw(gen, b, f, lh, lw))
+            lr = trainer.optimizer.lr_schedule(trainer.optimizer.update_count)
+            t1 = time.perf_counter()
+            metrics = trainer.train_step(batch, sparse, draws=draws)
+            _sync(device)
+            run.step_s.append(time.perf_counter() - t1)
+            # the loss (and the router's weights) of this step, averaged over the processes
+            logged = torch.cat([metrics["loss"].float().reshape(1)]
+                               + ([metrics["down_block_weights"].float().reshape(-1)]
+                                  if cfg.num_experts > 1 else []))
+            if mesh.group is not None:
+                parallel.all_reduce_mean_(logged, mesh.group)
+            logged = logged.cpu()
+            rec = {"step": step, "loss": float(logged[0]), "lr": lr,
+                   "loss_time": time.perf_counter() - t_step}
+            if cfg.num_experts > 1:
+                rec["down_block_weights"] = logged[1:].reshape(
+                    metrics["down_block_weights"].shape).tolist()
+            run.records.append(rec)
+            if not lead:
+                continue
+            with open(log_path, "a") as fh:
+                fh.write(json.dumps(rec) + "\n")
+            if wandb_run is not None:
+                wandb_run.log(rec, step=step)
+            print(f"step {step}: loss={rec['loss']:.5f} ({rec['loss_time']:.2f}s)", file=sys.stderr)
+            if args.run_validation and step % args.validate_every_steps == 0:
+                run.validations.append(run_validation(
+                    args, trainer, step, None if prefetcher is None else batch))
+            if ((step % args.checkpointing_steps == 0 or step == args.max_train_steps)
+                    and step >= args.save_starting_step):
+                path = save_checkpoint(
+                    args.DATA_PATH, step, trainer.adapter_state(), trainer.optimizer.state_dict(),
+                    config={"model_name": args.model_name,
+                            "adapter_locations": list(args.adapter_locations)},
+                    router_state=trainer.router_state())
+                run.checkpoints.append(path)
+                print(f"checkpoint -> {path}", file=sys.stderr)
+
+    finally:
+        if prefetcher is not None:
+            prefetcher.close()
     return run
 
 
