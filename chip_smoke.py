@@ -61,8 +61,8 @@ Phases (any failure raises and the script exits non-zero before its last line):
    drawn from a seeded generator; checks finite losses and gradient norms, a
    nonzero gradient on every adapter tensor the forward reads, that every
    master moved, K2's backward 12 times a step and K1, K2, K3 full and K3
-   hybrid forward in every step, and a checkpoint saved and loaded back
-   exactly; prints ms/step (steps 2-3), peak memory, a fourth step split
+   hybrid forward in every step (its checkpoint round trip is phase 14's);
+   prints ms/step (steps 2-3), peak memory, a fourth step split
    into forward, backward and optimizer, and, from a fifth under
    ``torch.profiler``, the device's idle share; then, on
    2 frames at 128x128, the kernel path's loss and adapter gradient against an
@@ -120,8 +120,8 @@ Phases (any failure raises and the script exits non-zero before its last line):
    the forward and the recompute, K2's backward once per attention
    downstream of the adapter), the masked experts' router weights and
    gradients exactly 0; ms/step, peak memory, a step in parts and the idle
-   share of a profiled step; a checkpoint with the router saved and loaded
-   back exactly; and on small inputs (I2VGen-XL multi-condition at 4 x
+   share of a profiled step (the checkpoint round trip is phase 14's); and
+   on small inputs (I2VGen-XL multi-condition at 4 x
    256^2, SDXL at 512^2) the loss and every gradient tensor against an fp32
    run of the plain path (``train_reference_check``), with faulty kernels
    as controls that must fail (``training_faults``);
@@ -155,31 +155,44 @@ Phases (any failure raises and the script exits non-zero before its last line):
    checkpoint-2 for step 3: masters and optimizer state restored bit for
    bit, step 3's loss (a)'s; (c) ``inference_torch.main`` serving (a)'s
    ``adapter_3`` (the other towers drawn on the card), 2 steps (one
-   controlled, one UNet-only): the video and launches per step as phase 4; (d) I2VGen-XL multi-condition (7
-   ControlNets, a simple-weights router, 1-4 active) and SDXL depth at
-   1024^2, 2 steps each: launches per step as phase 11, masked experts'
-   router weights exactly 0, the router's checkpoint read back; after each
-   run the card holds no more than before it. Prints per run the build
-   seconds, ms per step after the first and peak GiB, and the phase's
-   seconds.
+   controlled, one UNet-only): the video and launches per step as phase 4; (d) SDXL
+   depth at 1024^2, 2 steps: launches per step as phase 11 (the I2VGen-XL
+   multi-condition CLI run is phase 15 (4)); after each run the card holds
+   no more than before it. Prints per run the build seconds, ms per step
+   after the first and peak GiB, and the phase's seconds.
 15. (run before 12, after 14) condition extraction and the dataset path
    (``run_conditions``), from checkpoints fabricated at the published
    widths (seeded, scale 0.02, the depth heads' last bias 1): transformers
-   ``Intel/dpt-large`` (ViT-L/16, 384^2), MiDaS ``dpt_swin2_large_384`` and
-   SegFormer-b5 ADE 640. (1) DPT-L, MiDaS SwinV2-L, SegFormer, canny and
-   shuffle in fp32 on phase 13's 14 frames of 512^2: ms a call (median of 3
-   after a warm one), peak GiB, no port kernel, and one frame against a CPU
-   copy (``extractor_check``); (2) ``inference_torch.main
+   ``Intel/dpt-large`` (ViT-L/16, 384^2), MiDaS ``dpt_swin2_large_384``,
+   SegFormer-b5 ADE 640, and the five lllyasviel/Annotators files in their
+   released layouts (``write_annotators``: PiDiNet table 5, ControlNetHED,
+   the lineart generator, NormalBAE's NNET, the OpenPose body). (1) DPT-L,
+   MiDaS SwinV2-L, SegFormer, canny, shuffle, PiDiNet, HED (soft edges and
+   scribbles), lineart, NormalBAE and OpenPose in fp32 on phase 13's 14
+   frames of 512^2: ms a call (median of 3 after a warm one), peak GiB, no
+   port kernel, and one frame against a CPU copy (``extractor_check``:
+   scribbles and OpenPose canvases equal); OpenPose's peaks and people,
+   and its decoding and drawing on the host over ``pose_fields()`` held to
+   the JAX package's canvas (``pose_report``); (2) ``inference_torch.main
    --extract_control_conditions`` (SVD depth, ``--fake_weights``, 4 steps)
    from a working directory that holds ``Intel/dpt-large``: conditions equal
    ``DepthDPT``'s, launches per step as phase 4's; (3) ``train_torch.main``
    on real data (two PNG-frame clips of 20 frames at 512^2, two 1024^2
-   images, captions csvs, ``CTRL_ADAPTER_ANNOTATORS``) from phase 13's
-   diffusers folders: SVD depth 3 steps with validation on the real batch
-   (its ``_concat.gif``), launches per step as phase 8's; SVD mixed
-   depth/canny 2 steps, each step on its batch type's ControlNet; SDXL depth
-   2 steps at 1024^2 from freshly written SDXL folders, launches as phase
-   11's. Prints the prefetcher's waits and the phase's seconds.
+   images, captions csvs, ``CTRL_ADAPTER_ANNOTATORS`` naming all seven
+   checkpoints) from phase 13's diffusers folders: SVD depth 2 steps with
+   validation on the real batch (its ``_concat.gif``), launches per step as
+   phase 8's; ``svd_train_mixed.yaml`` as it stands (seven types, one
+   ControlNet folder each) 2 steps, each step on its batch type's
+   ControlNet; SDXL depth 2 steps at 1024^2 from freshly written SDXL
+   folders, launches as phase 11's; (4) ``i2vgenxl_train_multi_condition.yaml``
+   on the clips (16 frames at 512^2, all seven conditions extracted for
+   every clip by the prefetcher on the card; 7 ControlNets, a simple-weights
+   router, 1-4 active; 2 steps) from freshly written I2VGen-XL folders:
+   launches per step as phase 11's multi-condition run, masked experts'
+   router weights exactly 0, every type extracted for every item,
+   ``checkpoint-2/router_2`` read back equal to the router. Prints the
+   prefetcher's waits, peak GiB, what each run left on the card and the
+   phase's seconds.
 
 Device busy times and idle shares come from ``device_activity``, which
 refuses a trace that holds fewer events of a port kernel than the kernel's
@@ -192,6 +205,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -766,6 +780,10 @@ def traced_launches(names, kernels):
     return out
 
 
+_DeviceEvent = collections.namedtuple("_DeviceEvent", "name start end")  # µs
+PROFILER_COST = {"traces": 0, "traced_s": 0.0, "read_s": 0.0}
+
+
 def device_activity(run, attempts: int = 3):
     """``run()`` under ``torch.profiler``: (busy, span, per_name) of the CUDA
     kernels it launched, in µs. busy is the union of their spans, span the
@@ -776,19 +794,39 @@ def device_activity(run, attempts: int = 3):
     only if it holds an event of each port kernel's traced function for every
     launch its counter saw during the run; else ``run()`` is made again, up
     to ``attempts`` times in all, and then the result is None ("not
-    measured"). A partial trace is never scaled up."""
+    measured"). A partial trace is never scaled up.
+
+    The device events are read off the profiler's raw kineto results, with
+    the names and times ``prof.events()`` gives them (``_rewrite_name``,
+    microseconds from the trace's start): ``prof.events()`` builds a Python
+    event for every host-side launch record as well, seconds a trace at the
+    main path's sizes. ``PROFILER_COST`` adds up the traces' seconds."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _rewrite_name
     from torch.profiler import ProfilerActivity, profile
 
     counters = kernel_counters()
     for attempt in range(attempts):
         torch.cuda.synchronize()
         before = {name: k.launches for name, k in counters.items()}
+        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
+        t1 = time.perf_counter()
         launched = {name: k.launches - before[name] for name, k in counters.items()}
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        result = prof.profiler.kineto_results
+        start, names, kern = result.trace_start_ns(), {}, []
+        for e in result.events():
+            if e.device_type() == DeviceType.CUDA and not e.is_hidden_event():
+                raw = e.name()
+                if raw not in names:
+                    names[raw] = _rewrite_name(name=raw, with_wildcard=True)
+                kern.append(_DeviceEvent(names[raw], (e.start_ns() - start) / 1000,
+                                         (e.end_ns() - start) / 1000))
+        PROFILER_COST["traces"] += 1
+        PROFILER_COST["traced_s"] += t1 - t0
+        PROFILER_COST["read_s"] += time.perf_counter() - t1
         traced = traced_launches([e.name for e in kern], counters)
         short = {name: (traced[name], n) for name, n in launched.items() if traced[name] < n}
         if kern and not short:
@@ -799,7 +837,7 @@ def device_activity(run, attempts: int = 3):
     else:
         print("  device_activity: not measured (every trace was partial)")
         return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    spans = sorted((e.start, e.end) for e in kern)
     busy, (cur_s, cur_e) = 0.0, spans[0]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -811,7 +849,7 @@ def device_activity(run, attempts: int = 3):
     per_name = {}
     for e in kern:
         t = per_name.setdefault(e.name, [0.0, 0])
-        t[0] += e.time_range.elapsed_us()
+        t[0] += e.end - e.start
         t[1] += 1
     return busy, spans[-1][1] - spans[0][0], per_name
 
@@ -1945,41 +1983,6 @@ def step_parts(trainer, batch, draws):
     return parts
 
 
-def checkpoint_round_trip(label, trainer, dev, model_name):
-    """A checkpoint in the reference layout (``adapter_{step}/``, with a
-    router ``router_{step}/``, ``optimizer/``, ``config.json``), saved and
-    loaded back: the masters and the AdamW state must be equal to the bit."""
-    from ctrl_adapter_tpu_torch.train import checkpoints
-
-    t1 = time.perf_counter()
-    ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_ckpt")
-    step = trainer.optimizer.update_count
-    ckpt = checkpoints.save_checkpoint(ckpt_root, step, trainer.adapter_state(),
-                                       trainer.optimizer.state_dict(),
-                                       {"model_name": model_name},
-                                       router_state=trainer.router_state())
-    loaded = checkpoints.load_checkpoint(ckpt, step, map_location=dev)
-    t_ckpt = time.perf_counter() - t1
-    layout = sorted(os.listdir(ckpt))
-    shutil.rmtree(ckpt_root)
-    saved = {**trainer.adapter_state(), **{f"router.{k}": v for k, v in
-                                           (trainer.router_state() or {}).items()}}
-    got = {**loaded["adapter"], **{f"router.{k}": v for k, v in
-                                   loaded.get("router", {}).items()}}
-    same = saved.keys() == got.keys() and all(torch.equal(got[k], v) for k, v in saved.items())
-    saved_state = trainer.optimizer.adamw.state_dict()["state"]
-    loaded_state = loaded["optimizer"]["adamw"]["state"]
-    same = same and len(saved_state) == len(trainer.optimizer.masters) and all(
-        torch.equal(saved_state[i][k].to(dev), loaded_state[i][k].to(dev))
-        for i in saved_state for k in ("exp_avg", "exp_avg_sq", "step"))
-    layout = ", ".join(d if "." in d else f"{d}/" for d in layout)
-    print(f"{label}: checkpoint-{step} ({layout}) saved and loaded in {t_ckpt:.1f} s: masters"
-          f"{' (adapter and router)' if trainer.router is not None else ''} and AdamW state "
-          f"{'equal' if same else 'DIFFER'}")
-    if not same:
-        raise RuntimeError(f"{label}: the checkpoint did not restore the masters and AdamW state")
-
-
 def run_training(dev, card, kernels):
     """Phase 8: the SVD training step at the full width of
     ``configs/svd_train_depth.yaml`` (1 x 14 x 512 x 512, skip_conv_in, bf16
@@ -2069,7 +2072,8 @@ def run_training(dev, card, kernels):
         print(f"training: K2 backward in the profiled step: "
               f"{sum(us for us, _ in k2_bwd) / 1000:.2f} ms of device time over "
               f"{sum(n for _, n in k2_bwd)} launches (3 a call)")
-    checkpoint_round_trip("training", trainer, dev, "svd")
+    # (the checkpoint round trip of masters and AdamW state is phase 14's:
+    # checkpoint-3 read back, the resume from checkpoint-2)
     # on 2 frames at 128x128
     train_reference_check(
         trainer, dev, "svd", train_batch(dev, 2, 128, SEED + 7),
@@ -2759,7 +2763,8 @@ def run_train_branches(dev, card, kernels):
     masters_moved(label, trainer.optimizer.masters[n:], start, "router master")
     print_branch(label, card, f"1x{I2V_FRAMES}x{SIZE}x{SIZE}, {I2V_EXPERTS} ControlNets",
                  step_ms, peak_gb)
-    checkpoint_round_trip(label, trainer, dev, "i2vgenxl")
+    # (no checkpoint round trip here: phase 14 holds the format's, masters and
+    # AdamW state; phase 15 (4) reads the router's checkpoint back)
     # 4 frames at 256x256: the adapter's A blocks and the UNet's level 0 at
     # T = 1024, so K2 runs forward and backward; 3 experts active
     small_mask = [1.0, 1.0, 0.0, 1.0] + [0.0] * (I2V_EXPERTS - 4)
@@ -3155,6 +3160,154 @@ def write_midas(path, cfg, seed, device, scale=0.02, features=256):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     torch.save(state, path)
     return model
+
+
+def nnet_release_shapes(stem=48, stages=None, head=2048, dims=(2048, 1024, 512, 256, 128)):
+    """{name: shape} of ``scannet.pt``'s ``model`` state dict (the NormalBAE
+    NNET: geffnet's tf_efficientnet_b5_ap under ``encoder.original_model``,
+    BatchNorms apart, its unused ``bn2`` kept, and the decoder; without the
+    ``module.`` prefix) and the set of BatchNorm weight names."""
+    from ctrl_adapter_tpu_torch.conditions.normalbae import B5_STAGES
+
+    stages = stages or B5_STAGES
+    enc = "encoder.original_model"
+    out, norms = {}, set()
+
+    def bn(prefix, c):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{prefix}.{leaf}"] = (c,)
+        out[f"{prefix}.num_batches_tracked"] = ()
+        norms.add(f"{prefix}.weight")
+
+    def conv(name, o, i, k, bias=False, groups=1):
+        out[f"{name}.weight"] = (o, i // groups, k, k)
+        if bias:
+            out[f"{name}.bias"] = (o,)
+
+    conv(f"{enc}.conv_stem", stem, 3, 3)
+    bn(f"{enc}.bn1", stem)
+    cin = stem
+    for s, (repeats, k, _stride, expand, cout) in enumerate(stages):
+        for j in range(repeats):
+            t, mid, se = f"{enc}.blocks.{s}.{j}", cin * expand, max(1, cin // 4)
+            if expand != 1:
+                conv(f"{t}.conv_pw", mid, cin, 1)
+                bn(f"{t}.bn1", mid)
+            conv(f"{t}.conv_dw", mid, mid, k, groups=mid)
+            bn(f"{t}.bn1" if expand == 1 else f"{t}.bn2", mid)
+            conv(f"{t}.se.conv_reduce", se, mid, 1, bias=True)
+            conv(f"{t}.se.conv_expand", mid, se, 1, bias=True)
+            conv(f"{t}.conv_pw" if expand == 1 else f"{t}.conv_pwl", cout, mid, 1)
+            bn(f"{t}.bn2" if expand == 1 else f"{t}.bn3", cout)
+            cin = cout
+    conv(f"{enc}.conv_head", head, cin, 1)
+    bn(f"{enc}.bn2", head)
+    skips = [stages[i][4] for i in (0, 1, 2, 4)]
+    conv("decoder.conv2", dims[0], head, 1, bias=True)
+    for i, cin in enumerate((dims[0] + skips[3], dims[1] + skips[2], dims[2] + skips[1],
+                             dims[3] + skips[0])):
+        net = f"decoder.up{i + 1}._net"
+        conv(f"{net}.0", dims[i + 1], cin, 3, bias=True)
+        bn(f"{net}.1", dims[i + 1])
+        conv(f"{net}.3", dims[i + 1], dims[i + 1], 3, bias=True)
+        bn(f"{net}.4", dims[i + 1])
+    conv("decoder.out_conv_res8", 4, dims[2], 3, bias=True)
+    for scale, c in (("res4", dims[2]), ("res2", dims[3]), ("res1", dims[4])):
+        for i, (o, n) in zip((0, 2, 4, 6), ((128, c + 4), (128, 128), (128, 128), (4, 128))):
+            out[f"decoder.out_conv_{scale}.{i}.weight"] = (o, n, 1)  # Conv1d
+            out[f"decoder.out_conv_{scale}.{i}.bias"] = (o,)
+    return out, norms
+
+
+def annotator_release_shapes():
+    """{type: ({name: shape}, BatchNorm weight names)} of the five released
+    annotator state dicts at the published widths, without prefixes:
+    ``table5_pidinet.pth`` (raw 3x3 difference convs), ``ControlNetHED.pth``,
+    ``sk_model.pth`` (3 residual blocks), ``scannet.pt``,
+    ``body_pose_model.pth`` (the caffe export's names)."""
+    from ctrl_adapter_tpu_torch.conditions import hed, lineart, openpose, pidinet
+
+    def shapes(module, strip=""):
+        return {k.removeprefix(strip): tuple(v.shape) for k, v in module.state_dict().items()}
+
+    pidi = shapes(pidinet.PiDiNet(device="meta"))
+    raw = [("init_block.weight", pidinet.CARV4[0])] + [
+        (f"block{s + 1}_{b + 1}.conv1.weight", op) for s, b, op in pidinet._blocks(pidinet.CARV4)]
+    for name, op in raw:  # the checkpoint holds rd's 3x3 weight; the converter makes it 5x5
+        pidi[name] = pidi[name][:2] + (3, 3)
+    return {"softedge": (pidi, set()),
+            "scribble": (shapes(hed.ControlNetHED(device="meta")), set()),
+            "lineart": (shapes(lineart.LineartGenerator(3, device="meta")), set()),
+            "normal": nnet_release_shapes(),
+            "openpose": (shapes(openpose.BodyPoseNet(device="meta"), "layers."), set())}
+
+
+def write_annotators(root, seed, device, scale=0.02):
+    """The five released annotator checkpoints under ``root``, in their files'
+    layouts (``{"state_dict": {"module." ...}}`` for PiDiNet, ``{"model":
+    {"module." ...}}`` for NNET, the bare state dict for the others), every
+    tensor drawn on ``device`` from a generator of ``seed``: a BatchNorm's
+    weight 1 + scale N(0, 1), its running variance 1 + |N| / 2, its counter
+    0, the rest scale N(0, 1). Returns {type: path}."""
+    from ctrl_adapter_tpu_torch.conditions.extractors import ANNOTATORS
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    paths = {}
+    for ctype, (spec, norms) in annotator_release_shapes().items():
+        state = {}
+        for name, shape in spec.items():
+            if name.endswith("num_batches_tracked"):
+                state[name] = torch.tensor(0)
+                continue
+            draw = torch.randn(shape, generator=g, device=device)
+            if name.endswith("running_var"):
+                draw = 1 + 0.5 * draw.abs()
+            elif name in norms:
+                draw = 1 + scale * draw
+            else:
+                draw = scale * draw
+            state[name] = draw.cpu()
+        if ctype == "softedge":
+            state = {"state_dict": {f"module.{k}": v for k, v in state.items()}}
+        elif ctype == "normal":
+            state = {"model": {f"module.{k}": v for k, v in state.items()}}
+        paths[ctype] = os.path.join(root, ANNOTATORS[ctype][1])
+        os.makedirs(root, exist_ok=True)
+        torch.save(state, paths[ctype])
+    return paths
+
+
+def pose_fields(h=96, w=96):
+    """OpenPose heat (h, w, 19) and PAF (h, w, 38) fields of two people of 6
+    parts (nose, neck, both shoulders and elbows), gaussian peaks and unit
+    limb vectors 5 pixels wide: what the decoding and the drawing are held to
+    where the seeded networks find no one (``POSE_CANVAS_SHA256``)."""
+    import numpy as np
+    from ctrl_adapter_tpu_torch.conditions.openpose import LIMB_SEQ, MAP_IDX
+
+    heat = np.zeros((h, w, 19), np.float32)
+    paf = np.zeros((h, w, 38), np.float32)
+    ys, xs = np.mgrid[0:h, 0:w]
+    people = [{1: (10, 30), 2: (20, 30), 3: (20, 42), 6: (20, 18), 4: (34, 46), 7: (34, 14)},
+              {1: (50, 60), 2: (60, 60), 3: (60, 72), 6: (60, 48), 4: (74, 76), 7: (74, 44)}]
+    for person in people:
+        for part, (y, x) in person.items():
+            heat[:, :, part - 1] += np.exp(-((ys - y) ** 2 + (xs - x) ** 2) / (2 * 2.5 ** 2))
+        for k, (a, b) in enumerate(LIMB_SEQ):
+            if a in person and b in person:
+                (ya, xa), (yb, xb) = person[a], person[b]
+                v = np.array([xb - xa, yb - ya], np.float32)
+                v /= np.linalg.norm(v)
+                for t in np.linspace(0, 1, 40):
+                    y, x = int(round(ya + t * (yb - ya))), int(round(xa + t * (xb - xa)))
+                    for c, val in zip(MAP_IDX[k], v):
+                        paf[max(y - 2, 0):y + 3, max(x - 2, 0):x + 3, c - 19] = val
+    return heat, paf
+
+
+# sha256 of the JAX package's draw_bodypose canvas (cv2) of pose_fields()'s two
+# people (tests/test_torch_annotators.py::test_pose_fields_canvas_is_the_jax_one)
+POSE_CANVAS_SHA256 = "99dac71d6462d1c2c3f983ca7b8e371da3af1dcb32ec1191e1bdf216b5c93fb7"
 
 
 def write_clip_folder(root, n_clips, frames, size, seed, prompt=CLI_PROMPT):
@@ -3620,10 +3773,9 @@ def run_train_cli(dev, card, kernels, svd_per_step, serve_per_step):
     with torchrun's variables for a world of one), a checkpoint at
     step 2 and at step 3, a validation sample at step 3; the same 3 steps
     without a group; (b) a resume from ``checkpoint-2`` for step 3; (c)
-    ``inference_torch.main`` serving (a)'s ``adapter_3``; (d) I2VGen-XL
-    multi-condition (7 ControlNets, a simple-weights router, 1-4 active) and
-    SDXL depth at 1024^2, 2 steps each. Returns the launch counts of (a) and
-    (d)."""
+    ``inference_torch.main`` serving (a)'s ``adapter_3``; (d) SDXL depth at
+    1024^2, 2 steps (the I2VGen-XL multi-condition run went to phase 15 (4),
+    on real data). Returns the launch counts of (a) and (d)."""
     import tempfile
 
     import numpy as np
@@ -3809,36 +3961,8 @@ def run_train_cli(dev, card, kernels, svd_per_step, serve_per_step):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (d) I2VGen-XL multi-condition and SDXL depth, 2 steps each
-        data_d = os.path.join(root, "d")
-        cfg_d, values = config_copy("i2vgenxl_train_multi_condition.yaml", root, data_d)
-        run_d = train_cli_run("train CLI (d) i2vgenxl multi-condition", [
-            "--yaml_file", cfg_d, "--fake_weights", "--max_train_steps", "2",
-            "--seed", str(SEED)], kernels)
-        run, box = run_d
-        counts["train_cli_i2vgenxl_multi"] = box["launches"]
-        check_train_launches("train CLI (d) i2vgenxl", box, i2v_train_launches())
-        n_on = []
-        for rec, mask in zip(run.records, run.expert_masks):
-            w, off = np.asarray(rec["down_block_weights"]), np.asarray(mask) == 0
-            n_on.append(int(sum(mask)))
-            if not (1 <= n_on[-1] <= values["max_num_multi_source_train"]
-                    and (w[:, off] == 0).all()):
-                raise RuntimeError(f"train CLI (d): mask {mask}, router weights {w}")
-        router = torch.load(os.path.join(data_d, "checkpoint-2", "router_2",
-                                         checkpoints.WEIGHTS_NAME), weights_only=True)
-        same = (run.checkpoints == [os.path.join(data_d, "checkpoint-2")]
-                and states_equal(router, run.trainer.router_state()))
-        print(f"train CLI (d) i2vgenxl: {len(run.trainer.experts)} ControlNets, "
-              f"{n_on} experts active per step, the masked ones' router weights exactly 0; "
-              f"checkpoint-2/router_2 read back {'equal to the bit' if same else 'DIFFERENT'}")
-        if not same:
-            raise RuntimeError("train CLI (d): the router's checkpoint differs")
-        before = box["before_gb"]
-        del run, run_d, box, router
-        released("train CLI (d) i2vgenxl", before)
-        shutil.rmtree(data_d)
-
+        # (d) SDXL depth, 2 steps (I2VGen-XL multi-condition runs on real data in
+        # phase 15 (4), through the same CLI path)
         data_s = os.path.join(root, "s")
         cfg_s, _ = config_copy("sdxl_train_depth.yaml", root, data_s)
         run_s = train_cli_run("train CLI (d) sdxl", [
@@ -3862,23 +3986,25 @@ EXTRACT_TIMES = 3  # timed calls after a warm one
 NET_TOL = 1e-4
 # segmentation: the share of pixels whose class may flip at a near-tie
 SEG_FLIP = 1e-3
-REAL_TYPES = ("depth", "canny")  # the mixed run's types
 
 
 def _cpu_copy(extractor):
-    """The estimator with its network copied to the CPU."""
+    """The estimator with its network and its tensors (a palette, the
+    normalisation) copied to the CPU."""
     out = copy.copy(extractor)
     out.model = copy.deepcopy(extractor.model).cpu()
     out.device = torch.device("cpu")
-    if hasattr(extractor, "palette"):
-        out.palette = extractor.palette.cpu()
+    for name, value in vars(extractor).items():
+        if isinstance(value, torch.Tensor):
+            setattr(out, name, value.cpu())
     return out
 
 
 def _io(module, run, replace=None):
     """``run()``'s result, the inputs ``module`` was given and the outputs it
-    gave during it; with ``replace`` the module takes that input in place of
-    its own (its own is still what is recorded)."""
+    gave during it (the last of a tuple or list: OpenPose's heatmaps, NNET's
+    finest prediction); with ``replace`` the module takes that input in place
+    of its own (its own is still what is recorded)."""
     inputs, outputs = [], []
 
     def pre(m, args):
@@ -3888,7 +4014,8 @@ def _io(module, run, replace=None):
         return None
 
     handles = [module.register_forward_pre_hook(pre),
-               module.register_forward_hook(lambda m, i, out: outputs.append(out.detach()))]
+               module.register_forward_hook(lambda m, i, out: outputs.append(
+                   (out[-1] if isinstance(out, (tuple, list)) else out).detach()))]
     try:
         return run(), inputs, outputs
     finally:
@@ -3896,12 +4023,14 @@ def _io(module, run, replace=None):
             h.remove()
 
 
-def extractor_check(label, fn, cpu_fn, frames, card, kernels, nets=None, step=None):
+def extractor_check(label, fn, cpu_fn, frames, card, kernels, nets=None, step=None,
+                    exact=False):
     """``fn`` on the card over ``frames``: a warm call, then ``EXTRACT_TIMES``
     timed ones (host clock, card synchronised) and the peak memory; no port
     kernel may launch. Then ``fn`` and ``cpu_fn`` on the first frame: uint8
-    maps within one step (segmentation: at most ``SEG_FLIP`` of the pixels
-    apart). With ``nets`` = (the card's network, the CPU's): the networks'
+    maps within one step (equal with ``exact``; segmentation: at most
+    ``SEG_FLIP`` of the pixels apart). With ``nets`` = (the card's network,
+    the CPU's): the networks'
     inputs (each device's preprocessing) within ``step``, one uint8 step in
     the network's units; the CPU network is given the card's input, and its
     output must lie within ``NET_TOL`` of its largest value from the card's;
@@ -3942,8 +4071,8 @@ def extractor_check(label, fn, cpu_fn, frames, card, kernels, nets=None, step=No
         what = f"{apart:.2e} of the pixels in another class (tolerance {SEG_FLIP:g})"
         bad = apart > SEG_FLIP
     else:
-        what = f"max uint8 difference {int(diff.max())} (tolerance 1)"
-        bad = diff.max() > 1
+        what = f"max uint8 difference {int(diff.max())} (tolerance {0 if exact else 1})"
+        bad = diff.max() > (0 if exact else 1)
     if nets is not None:
         got, want = got[0].float().cpu(), want[0]
         rel = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
@@ -4047,12 +4176,12 @@ def write_sdxl_release(dev, root):
     return flags[:i] + flags[i + 2:]
 
 
-def real_train_run(label, argv, kernels, want, t_phase):
+def real_train_run(label, argv, kernels, want, t_phase, check=None):
     """``train_cli_run`` on real data: prints the time each step's batch was
     waited for and the types of each step's batch, checks the launches per
-    step against ``want`` and that each step ran the ControlNet of its batch's
-    type. Returns the run's counts, its validation files and the GiB it left
-    on the card (``cuda_left``)."""
+    step against ``want``, that each step ran the ControlNet of its batch's
+    type and ``check(run)``. Returns the run's counts, its validation files
+    and the GiB it left on the card (``cuda_left``)."""
     from ctrl_adapter_tpu_torch.train.trainer import CtrlAdapterTrainer
 
     nets = []
@@ -4080,6 +4209,8 @@ def real_train_run(label, argv, kernels, want, t_phase):
             if owner != [types[0]]:
                 raise RuntimeError(f"{label}: a {types[0]} batch ran the {owner} ControlNet")
     net = None  # the loop's name would keep the last ControlNet alive
+    if check is not None:
+        check(run)
     print(f"{label}: waited for the prefetcher "
           f"{', '.join(f'{1000 * w:.1f}' for w in run.wait_s)} ms before steps "
           f"{[r['step'] for r in run.records]}"
@@ -4092,25 +4223,96 @@ def real_train_run(label, argv, kernels, want, t_phase):
     return launches, validations, cuda_left(label, before)
 
 
+def pose_report(est, frames):
+    """OpenPose on the card: its heatmaps' range, the peaks per part over
+    ``frames`` and the people found per frame; then the decoding and the
+    drawing on the host over ``pose_fields()``, its canvas held to the JAX
+    package's (``POSE_CANVAS_SHA256``)."""
+    import hashlib
+
+    import numpy as np
+    from ctrl_adapter_tpu_torch.conditions import openpose as op
+
+    paf, heat = est.maps(np.stack(frames))
+    masks = op.peak_masks(heat)
+    people = []
+    for i in range(len(frames)):
+        peaks = op.find_peaks(heat[i], masks=masks[i])
+        people.append(len(op.assemble_subsets(
+            peaks, op.score_connections(paf[i], peaks, frames[i].shape[0]))[1]))
+    print(f"openpose on the card: heatmaps in [{float(heat.min()):.4f}, "
+          f"{float(heat.max()):.4f}]; peaks per part over the {len(frames)} frames "
+          f"{masks.sum(dim=(0, 2, 3)).tolist()}; people found per frame {people}")
+    del paf, heat, masks
+    t0 = time.perf_counter()
+    fheat, fpaf = pose_fields()
+    peaks = op.find_peaks(torch.from_numpy(fheat))
+    candidate, subset = op.assemble_subsets(
+        peaks, op.score_connections(torch.from_numpy(fpaf), peaks, fheat.shape[0]))
+    canvas = op.draw_bodypose(fheat.shape[0], fheat.shape[1], candidate, subset)
+    digest = hashlib.sha256(canvas.tobytes()).hexdigest()
+    same = digest == POSE_CANVAS_SHA256 and len(subset) == 2
+    print(f"openpose decoding and drawing on this host over pose_fields(): "
+          f"{sum(map(len, peaks))} peaks, {len(subset)} people, canvas sha256 {digest[:16]}... "
+          f"{'equal to' if same else 'DIFFERENT FROM'} the JAX package's (cv2's drawing); "
+          f"{1000 * (time.perf_counter() - t0):.1f} ms")
+    if not same:
+        raise RuntimeError("openpose: the decoded and drawn pose_fields() canvas differs")
+
+
+def write_i2v_release(dev, root):
+    """I2VGen-XL's UNet and VAE (``inference_torch.build_modules``, a seeded
+    fill), its text tower (OpenCLIP ViT-H: 1024 wide, 23 layers) with a
+    tokenizer, and the CLIP-H vision tower, as diffusers folders under
+    ``root``."""
+    import inference_torch
+    from ctrl_adapter_tpu_torch.convert.release import save_release
+    from ctrl_adapter_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
+
+    pipe = inference_torch.build_modules(
+        argparse.Namespace(model_name="i2vgenxl", control_types=["depth"]), dev)
+    for i, name in enumerate(("unet", "vae")):
+        module = getattr(pipe, name)
+        random_fill(module, SEED + 80 + i)
+        save_release(module.state_dict(), os.path.join(root, name))
+    written = [write_text_encoder(root, CLIPTextConfig(hidden_size=1024, num_layers=23,
+                                                       num_heads=16, intermediate_size=4096,
+                                                       hidden_act="gelu", eos_token_id=2),
+                                  SEED + 82, torch.float16, dev),
+               write_image_encoder(root, CLIPVisionConfig(), SEED + 83, torch.float16, dev)]
+    del pipe, written
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_conditions(dev, card, kernels, serve_per_step, train_per_step, root):
     """Phase 15: condition extraction and the dataset path at full width.
     Fabricated checkpoints (seeded, scale 0.02): ``Intel/dpt-large`` (ViT-L/16
-    at 384^2), MiDaS ``dpt_swin2_large_384`` and SegFormer-b5 ADE 640. (1) Each
-    extractor on phase 13's 14 frames of 512^2 (``extractor_check``); (2)
+    at 384^2), MiDaS ``dpt_swin2_large_384``, SegFormer-b5 ADE 640 and the five
+    lllyasviel/Annotators files in their released layouts (PiDiNet table 5,
+    ControlNetHED, the lineart generator, NormalBAE's NNET, the OpenPose
+    body). (1) Each extractor on phase 13's 14 frames of 512^2
+    (``extractor_check``; OpenPose also ``pose_report``); (2)
     ``inference_torch.main --extract_control_conditions`` (SVD depth,
     ``--fake_weights``, 4 steps) from a working directory that holds
     ``Intel/dpt-large``; (3) ``train_torch.main`` on real data from phase
-    13's diffusers folders under ``root``: SVD depth (3 steps, validation on
-    the real batch), SDXL depth at 1024^2 (2 steps), SVD mixed depth/canny (2
-    steps). Returns the launch counts of (2) and (3)."""
+    13's diffusers folders under ``root``: SVD depth (2 steps, validation on
+    the real batch), SVD mixed over the seven types of
+    ``svd_train_mixed.yaml`` (2 steps), SDXL depth at 1024^2 (2 steps); (4) I2VGen-XL
+    multi-condition (``i2vgenxl_train_multi_condition.yaml``: 7 ControlNets,
+    a simple-weights router, 1-4 active, all seven conditions extracted for
+    every clip; 2 steps, checkpoint-2's router read back). Returns the launch
+    counts of (2)-(4)."""
     import numpy as np
 
     import inference_torch
     from ctrl_adapter_tpu_torch.conditions import extractors as ex
+    from ctrl_adapter_tpu_torch.conditions import hed, lineart, normalbae, openpose, pidinet
     from ctrl_adapter_tpu_torch.conditions.dpt import DPT_LARGE_CONFIG
     from ctrl_adapter_tpu_torch.conditions.dpt_swin import DepthDPTSwin
     from ctrl_adapter_tpu_torch.conditions.segformer import SEGFORMER_B5_ADE_CONFIG
     from ctrl_adapter_tpu_torch.conditions.swin2 import SWIN2_LARGE_384
+    from ctrl_adapter_tpu_torch.train import checkpoints
     from ctrl_adapter_tpu_torch.utils.image import image_to_unit
 
     t_phase = time.perf_counter()
@@ -4132,7 +4334,8 @@ def run_conditions(dev, card, kernels, serve_per_step, train_per_step, root):
         print(f"phase 15: wrote {type(module).__name__} ({n / 1e6:.1f} M parameters, fp32)")
         del module
     torch.cuda.empty_cache()
-    print(f"phase 15: the three checkpoints written in {time.perf_counter() - t0:.1f} s")
+    paths = write_annotators(os.path.join(annot, "lllyasviel_Annotators"), SEED + 55, dev)
+    print(f"phase 15: the eight checkpoints written in {time.perf_counter() - t0:.1f} s")
 
     # (1) each extractor on phase 13's frames, on the card and against the CPU
     frames = smooth_frames(np.random.default_rng(SEED + 13), FRAMES, SIZE)
@@ -4152,6 +4355,34 @@ def run_conditions(dev, card, kernels, serve_per_step, train_per_step, root):
     for ctype in ("canny", "shuffle"):
         extractor_check(ctype, lambda f, c=ctype: on_card.extract(c, f),
                         lambda f, c=ctype: on_cpu.extract(c, f), frames, card, kernels)
+    # the five annotator networks: (label, estimator, the input step, the
+    # calls checked as (label suffix, keyword arguments, maps equal))
+    nets = (("softedge (PiDiNet table 5)", lambda: pidinet.SoftEdgePidiNet(paths["softedge"], dev),
+             1 / 255, (("", {}, False),)),
+            ("HED (ControlNetHED)", lambda: hed.ScribbleHED(paths["scribble"], dev), 1.0,
+             ((", soft edges", {"scribble": False}, False),
+              (", scribble", {"scribble": True}, True))),
+            ("lineart (sk_model, 3 residual blocks)",
+             lambda: lineart.LineartDetector(paths["lineart"], dev), 1 / 255, (("", {}, False),)),
+            ("normal (NormalBAE NNET, tf_efficientnet_b5_ap)",
+             lambda: normalbae.NormalBaeDetector(paths["normal"], dev),
+             1 / 255 / min(normalbae.IMAGENET_STD), (("", {}, False),)),
+            ("openpose (body_pose_model)", lambda: openpose.OpenposeDetector(paths["openpose"], dev),
+             1 / 256, (("", {}, True),)))
+    for label, make, step, calls in nets:
+        est = make()
+        print(f"{label}: {sum(p.numel() for p in est.model.parameters()) / 1e6:.2f} M "
+              f"parameters as loaded, fp32")
+        cpu = _cpu_copy(est)
+        for suffix, kw, exact in calls:
+            extractor_check(label + suffix, lambda f, e=est, k=kw: e(f, **k),
+                            lambda f, c=cpu, k=kw: c(f, **k), frames, card, kernels,
+                            (est.model, cpu.model), step, exact=exact)
+        if isinstance(est, openpose.OpenposeDetector):
+            pose_report(est, frames)
+        del est, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
     mark("(1) the extractors done")
 
     # (2) the serving CLI extracting depth on the fly
@@ -4192,45 +4423,54 @@ def run_conditions(dev, card, kernels, serve_per_step, train_per_step, root):
     release, sd15 = os.path.join(root, "release"), os.path.join(root, "sd15")
     towers = ["--pretrained_model_path", release, "--controlnet_text_encoder_path", sd15,
               "--seed", str(SEED)]
-    with environ({"CTRL_ADAPTER_ANNOTATORS": json.dumps({"depth": dpt_dir})}):
+
+    def controlnets(types):
+        """One folder per type: phase 13's depth ControlNet, linked."""
+        out = []
+        for ctype in types:
+            link = os.path.join(root, f"controlnet_{ctype}")
+            if not os.path.exists(link):
+                os.symlink(os.path.join(release, "controlnet"), link)
+            out.append(link)
+        return out
+
+    annotators = {"depth": dpt_dir, "segmentation": seg_dir, **paths}
+    with environ({"CTRL_ADAPTER_ANNOTATORS": json.dumps(annotators)}):
         cfg, _ = data_config("svd_train_depth.yaml", root, os.path.join(root, "r_svd"), clips,
                              clip_csv)
         launches, validations, gib = real_train_run(
             "train CLI (e) svd depth, real data", [
-                "--yaml_file", cfg, *towers, "--max_train_steps", "3",
+                "--yaml_file", cfg, *towers, "--max_train_steps", "2",
                 "--controlnet_model_paths", os.path.join(release, "controlnet"),
-                "--run_validation", "--validate_every_steps", "3", "--num_inference_steps",
-                str(CLI_STEPS), "--save_starting_step", "4"],
+                "--run_validation", "--validate_every_steps", "2", "--num_inference_steps",
+                str(CLI_STEPS), "--save_starting_step", "3"],
             kernels, train_per_step, t_phase)
         counts["train_real_svd"] = launches
         left.append(("svd", gib))
-        gif = os.path.join(root, "r_svd", "validation", "step_3.gif")
+        gif = os.path.join(root, "r_svd", "validation", "step_2.gif")
         shapes = []
         for path in (gif, gif.replace(".gif", "_concat.gif")):
             with open(path, "rb") as fh:
                 shapes.append(decode_gif(fh.read()).shape)
-        print(f"train CLI (e): validation on the step's real batch: step_3.gif {shapes[0]}, "
-              f"step_3_concat.gif {shapes[1]}")
+        print(f"train CLI (e): validation on the step's real batch: step_2.gif {shapes[0]}, "
+              f"step_2_concat.gif {shapes[1]}")
         if validations != [gif] or shapes != [(FRAMES, SIZE, SIZE, 3),
                                               (FRAMES, SIZE, 2 * SIZE, 3)]:
             raise RuntimeError(f"train CLI (e): validation {validations}, {shapes}")
 
-        # a second per-type ControlNet: a copy of the depth one under its own folder
-        canny = os.path.join(root, "controlnet_canny")
-        shutil.copytree(os.path.join(release, "controlnet"), canny)
-        cfg, values = data_config(
-            "svd_train_mixed.yaml", root, os.path.join(root, "r_mixed"), clips, clip_csv,
-            edits=[("- depth\n- canny\n- normal\n- segmentation\n- softedge\n- lineart\n"
-                    "- openpose\n", "".join(f"- {t}\n" for t in REAL_TYPES))])
-        if values["mixed_control_types_training"] != list(REAL_TYPES):
+        # svd_train_mixed.yaml as it stands: seven types, one ControlNet folder each
+        cfg, values = data_config("svd_train_mixed.yaml", root, os.path.join(root, "r_mixed"),
+                                  clips, clip_csv)
+        types = values["mixed_control_types_training"]
+        if sorted(types) != sorted(ex.MULTI_CONDITION_EXPERT_ORDER):
             raise RuntimeError(f"svd_train_mixed.yaml copy: {values}")
         counts["train_real_mixed"], _, gib = real_train_run(
-            "train CLI (e) svd mixed depth/canny, real data", [
-                "--yaml_file", cfg, *towers, "--max_train_steps", "2",
-                "--save_starting_step", "3", "--controlnet_model_paths",
-                os.path.join(release, "controlnet"), canny], kernels, train_per_step, t_phase)
+            f"train CLI (e) svd mixed over the {len(types)} types of svd_train_mixed.yaml, "
+            f"real data", ["--yaml_file", cfg, *towers, "--max_train_steps", "2",
+                           "--save_starting_step", "3", "--controlnet_model_paths",
+                           *controlnets(types)], kernels, train_per_step, t_phase)
         left.append(("mixed", gib))
-        shutil.rmtree(canny)
+        mark("(3) the SVD runs done")
 
         t0 = time.perf_counter()
         sdxl_root = os.path.join(root, "sdxl")
@@ -4245,6 +4485,60 @@ def run_conditions(dev, card, kernels, serve_per_step, train_per_step, root):
                 "--save_starting_step", "3"], kernels, sdxl_train_launches(), t_phase)
         left.append(("sdxl", gib))
         shutil.rmtree(sdxl_root)
+        mark("(3) the SDXL run done")
+
+        # (4) I2VGen-XL multi-condition on real data: every clip's seven conditions
+        t0 = time.perf_counter()
+        i2v_root = os.path.join(root, "i2v")
+        write_i2v_release(dev, i2v_root)
+        print(f"train CLI (f) i2vgenxl: wrote the I2VGen-XL UNet, VAE, OpenCLIP-H text and "
+              f"CLIP-H vision towers in {time.perf_counter() - t0:.1f} s")
+        data_f = os.path.join(root, "r_multi")
+        cfg, values = data_config("i2vgenxl_train_multi_condition.yaml", root, data_f, clips,
+                                  clip_csv)
+        types = values["control_types"]
+        extracted = []
+        extract = ex.ConditionExtractor.extract
+
+        def counting(self, ctype, images):
+            extracted.append((ctype, len(images)))
+            return extract(self, ctype, images)
+
+        def multi_check(run):
+            n_on = []
+            for rec, mask in zip(run.records, run.expert_masks):
+                w, off = np.asarray(rec["down_block_weights"]), np.asarray(mask) == 0
+                n_on.append(int(sum(mask)))
+                if not (1 <= n_on[-1] <= values["max_num_multi_source_train"]
+                        and (w[:, off] == 0).all()):
+                    raise RuntimeError(f"train CLI (f): mask {mask}, router weights {w}")
+            per_type = {t: sum(1 for c, _ in extracted if c == t) for t in types}
+            router = torch.load(os.path.join(data_f, "checkpoint-2", "router_2",
+                                             checkpoints.WEIGHTS_NAME), weights_only=True)
+            same = (run.checkpoints == [os.path.join(data_f, "checkpoint-2")]
+                    and states_equal(router, run.trainer.router_state()))
+            print(f"train CLI (f) i2vgenxl: {len(run.trainer.experts)} ControlNets, {n_on} "
+                  f"experts active per step, the masked ones' router weights exactly 0; "
+                  f"extraction calls per type {per_type} of {sorted({n for _, n in extracted})} "
+                  f"frames; checkpoint-2/router_2 read back "
+                  f"{'equal to the bit' if same else 'DIFFERENT'}")
+            if min(per_type.values()) < len(run.records):
+                raise RuntimeError("train CLI (f): a type was extracted for fewer items than "
+                                   "steps")
+            if not same:
+                raise RuntimeError("train CLI (f): the router's checkpoint differs")
+
+        with swapped(ex.ConditionExtractor, "extract", lambda _: counting):
+            counts["train_real_i2vgenxl_multi"], _, gib = real_train_run(
+                "train CLI (f) i2vgenxl multi-condition, real data", [
+                    "--yaml_file", cfg, "--pretrained_model_path", i2v_root,
+                    "--controlnet_text_encoder_path", sd15, "--controlnet_model_paths",
+                    *controlnets(types), "--max_train_steps", "2", "--checkpointing_steps", "2",
+                    "--seed", str(SEED)],
+                kernels, i2v_train_launches(), t_phase, check=multi_check)
+        left.append(("i2vgenxl multi", gib))
+        shutil.rmtree(i2v_root)
+        shutil.rmtree(data_f)
     print(f"phase 15 on {card}: {time.perf_counter() - t_phase:.1f} s")
     leaks = [(what, gib) for what, gib in left if gib > 0.5]
     if leaks:
@@ -4345,6 +4639,9 @@ def main() -> int:
         phase_done("phase 15, condition extraction and real-data training")
     finally:
         shutil.rmtree(shared, ignore_errors=True)
+    print(f"torch.profiler: {PROFILER_COST['traces']} traces of device activity, "
+          f"{PROFILER_COST['traced_s']:.1f} s under the profiler, "
+          f"{PROFILER_COST['read_s']:.1f} s reading their device events")
 
     meta = {  # name: (source, replaces, the run its launches come from)
         "group_norm_silu": ("ctrl_adapter_tpu_torch/csrc/group_norm.cu",

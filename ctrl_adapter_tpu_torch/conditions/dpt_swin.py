@@ -10,8 +10,8 @@ next level's size, then a 1x1 ``out_conv``; the head conv, x2 upsample,
 conv, relu, 1x1 conv, relu), with the checkpoint's names.
 
 ``DepthDPTSwin`` preprocesses as the JAX class: a cubic resize (cv2's
-``INTER_CUBIC``, here ``utils/image.resize``'s arithmetic on the device,
-``ops/resize.py:cv2_resize``) to the model's size, ``(x / 255 - 0.5) / 0.5``;
+``INTER_CUBIC`` in OpenCV's arithmetic on the device,
+``ops/resize.py:resize_cubic``) to the model's size, ``(x / 255 - 0.5) / 0.5``;
 then the prediction is resized back with the same cubic, min-max normalised
 and cast to uint8 (truncated), gray in three channels. It returns uint8 (h,
 w, 3) arrays; the JAX class returns PIL images.
@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.resize import bilinear_resize_align_corners, cv2_resize
+from ..ops.resize import bilinear_resize_align_corners, resize_cubic
 from .swin2 import SWIN2_LARGE_384, SwinV2Backbone, SwinV2Config
 
 # checkpoint entries the model does not hold: the backbone's buffers (made
@@ -138,12 +138,12 @@ class DepthDPTSwin:
     @torch.no_grad()
     def __call__(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:
         size = self.model.config.img_size
-        pix = torch.stack([cv2_resize(torch.from_numpy(np.ascontiguousarray(im)).to(
-            self.device).permute(2, 0, 1), (size, size)) for im in images])
+        pix = torch.stack([resize_cubic(torch.from_numpy(np.ascontiguousarray(im)).to(
+            self.device), (size, size)) for im in images]).permute(0, 3, 1, 2)
         pred = self.model((pix.to(torch.float32) / 255.0 - 0.5) / 0.5)
         out = []
         for p, im in zip(pred, images):
-            up = cv2_resize(p, im.shape[:2]).cpu().numpy()
+            up = resize_cubic(p, im.shape[:2]).cpu().numpy()
             lo, hi = float(up.min()), float(up.max())
             norm = (up - lo) / (hi - lo) if hi > lo else np.zeros_like(up)
             gray = (255.0 * norm).astype(np.uint8)

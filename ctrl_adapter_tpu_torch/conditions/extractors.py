@@ -1,9 +1,7 @@
-"""Condition extraction: depth, canny, segmentation and shuffle, on the device.
+"""Condition extraction on the device: every control type and shuffle.
 
-Counterpart of ``ctrl_adapter_tpu/conditions/extractors.py`` for the types
-ported so far; normal, softedge, lineart, openpose and scribble raise
-``NotImplementedError`` (``NOT_PORTED``). Every map is (h, w, 3) uint8 RGB of
-the frame's size.
+Counterpart of ``ctrl_adapter_tpu/conditions/extractors.py``. Every map is
+(h, w, 3) uint8 RGB of the frame's size.
 
 - canny: ``cv2.Canny(image, 100, 200)`` on the RGB frame, in integer torch:
   3x3 Sobel with replicated borders per channel; per pixel the channel of the
@@ -21,12 +19,22 @@ the frame's size.
   ``config.json``, ``preprocessor_config.json``, ``model.safetensors``) or
   ``DepthDPTSwin`` (a MiDaS ``.pt``); segmentation: ``SegmentationSegformer``
   (a transformers SegFormer folder), its argmax coloured with the ADE palette.
-  The networks run in fp32. The JAX package falls back to transformers'
-  torch models when its own cannot load a path; the port has no fallback, so
-  such a path raises with its reason.
+  The JAX package falls back to transformers' torch models when its own
+  cannot load a path; the port has no fallback, so such a path raises with
+  its reason.
+- softedge (``pidinet.SoftEdgePidiNet``), scribble (``hed.ScribbleHED``,
+  ``scribble=True``), lineart (``lineart.LineartDetector``), normal
+  (``normalbae.NormalBaeDetector``) and openpose
+  (``openpose.OpenposeDetector``): each from a ``.pth`` / ``.pt`` path, as the
+  JAX class picks them (``ANNOTATORS`` names the released files). Without
+  such a path the JAX class falls back to controlnet_aux, which neither host
+  has; the port raises ``RuntimeError`` instead, before any network loads
+  (``check_control_types``).
 
-``ConditionExtractor`` picks the estimators as the JAX class does and runs
-them on its device: the card unless the caller names another.
+The networks run fp32, over all the frames of one shape at once
+(``imgproc.as_batches``; the JAX classes loop frame by frame).
+``ConditionExtractor`` runs them on its device: the card unless the caller
+names another.
 """
 
 from __future__ import annotations
@@ -48,7 +56,13 @@ from .dpt import DPTForDepthEstimation
 from .dpt import PROCESSOR_DEFAULTS as DPT_PROCESSOR
 from .dpt import config_from_json as dpt_config
 from .dpt_swin import DepthDPTSwin
+from .hed import ScribbleHED
+from .imgproc import as_batches
+from .lineart import LineartDetector
+from .normalbae import NormalBaeDetector
+from .openpose import OpenposeDetector
 from .palette import ADE_PALETTE
+from .pidinet import SoftEdgePidiNet
 from .processor import ImageProcessor
 from .segformer import PROCESSOR_DEFAULTS as SEGFORMER_PROCESSOR
 from .segformer import SegformerForSemanticSegmentation
@@ -64,10 +78,15 @@ MULTI_CONDITION_EXPERT_ORDER = (
     "depth", "canny", "normal", "softedge", "segmentation", "lineart", "openpose",
 )
 
-PORTED_TYPES = ("depth", "canny", "segmentation", "shuffle")
-NOT_PORTED = ("extraction of {!r} is not ported yet: its network (HED, PiDiNet, lineart, "
-              "NormalBAE or OpenPose) comes with ROADMAP Queue 1 item 5; pass pre-extracted "
-              "condition frames")
+# the five networks read from a checkpoint path: the class and the released file
+ANNOTATORS = {"softedge": ("PiDiNet", "table5_pidinet.pth"),
+              "scribble": ("HED", "ControlNetHED.pth"),
+              "lineart": ("the lineart generator", "sk_model.pth"),
+              "normal": ("NormalBAE (NNET)", "scannet.pt"),
+              "openpose": ("OpenPose body", "body_pose_model.pth")}
+# the other types: canny and shuffle need no checkpoint, depth and segmentation
+# fall back to DEFAULT_PATHS
+OTHER_TYPES = ("depth", "canny", "segmentation", "shuffle")
 
 DEFAULT_PATHS = {"depth": "Intel/dpt-large",
                  "segmentation": "nvidia/segformer-b5-finetuned-ade-640-640"}
@@ -76,16 +95,36 @@ _TG22 = 13573  # round(tan(22.5 degrees) * 2**15), cv2's canny.cpp
 _CANNY_SHIFT = 15
 
 
-def check_control_types(types: Sequence[str]) -> None:
-    """Raise before any work for a type the port cannot extract:
-    ``NotImplementedError`` for the types of ``NOT_PORTED``, ``ValueError``
-    for an unknown one."""
+def annotator_path(control_type: str, paths: Optional[Dict[str, str]]) -> str:
+    """The checkpoint of one of ``ANNOTATORS``' types from ``paths``; raises
+    ``RuntimeError`` when there is no ``.pth`` / ``.pt`` path (the JAX class
+    would fall back to controlnet_aux) or when it is a ``.safetensors`` HED
+    (the JAX class passes it to ``torch.load``, which cannot read it)."""
+    net, released = ANNOTATORS[control_type]
+    path = str((paths or {}).get(control_type, ""))
+    if control_type == "scribble" and path.endswith(".safetensors"):
+        raise RuntimeError(
+            f"scribble: {path!r} is a .safetensors HED checkpoint, which the JAX ScribbleHED "
+            f"hands to torch.load and cannot read either; give the released {released}")
+    if not path.endswith((".pth", ".pt")):
+        raise RuntimeError(
+            f"{control_type!r} extraction needs the {net} checkpoint (the released "
+            f"{released}, lllyasviel/Annotators) as a .pth/.pt path under {control_type!r} in "
+            f"CTRL_ADAPTER_ANNOTATORS (a JSON object the training CLI reads) or in "
+            f"ConditionExtractor's local_model_paths; got {path or 'none'}. The JAX package "
+            f"falls back to controlnet_aux here, which the port does not have")
+    return path
+
+
+def check_control_types(types: Sequence[str], paths: Optional[Dict[str, str]] = None) -> None:
+    """Raise before any work for a type the port cannot extract with
+    ``paths``: ``RuntimeError`` for one of ``ANNOTATORS`` without its
+    checkpoint (``annotator_path``), ``ValueError`` for an unknown type."""
     for ctype in types:
-        if ctype in PORTED_TYPES:
-            continue
-        if ctype in CONTROL_TYPES:
-            raise NotImplementedError(NOT_PORTED.format(ctype))
-        raise ValueError(f"unknown control type: {ctype}")
+        if ctype in ANNOTATORS:
+            annotator_path(ctype, paths)
+        elif ctype not in OTHER_TYPES:
+            raise ValueError(f"unknown control type: {ctype}")
 
 
 def _replicate_pad(x: torch.Tensor) -> torch.Tensor:
@@ -131,16 +170,6 @@ def canny_edges(images: torch.Tensor, low: int = 100, high: int = 200,
         if torch.equal(edges, before):
             break
     return (edges[:, 0] * 255).to(torch.uint8)
-
-
-def _as_batches(fn: Callable[[np.ndarray], List[np.ndarray]], images: Sequence[np.ndarray]
-                ) -> List[np.ndarray]:
-    """``fn`` over one stacked batch when the frames share a shape, else frame
-    by frame."""
-    images = [np.asarray(im) for im in images]
-    if len({im.shape for im in images}) == 1:
-        return fn(np.stack(images))
-    return [fn(im[None])[0] for im in images]
 
 
 def extract_canny(image: np.ndarray, low: int = 100, high: int = 200,
@@ -265,29 +294,42 @@ class ConditionExtractor:
         self._lock = threading.Lock()  # prefetch workers share one extractor
         self.device = resolve_device(device)
 
+    @property
+    def paths(self) -> Dict[str, str]:
+        """The checkpoint paths by type (``local_model_paths``)."""
+        return dict(self._paths)
+
     def _load(self, control_type: str, make: Callable, path: str):
         try:
             return make(path, device=self.device)
         except _LOAD_ERRORS as e:
             raise RuntimeError(
-                f"{control_type}: {path!r} loads in neither of the port's networks "
+                f"{control_type}: {path!r} does not load in the port's network "
                 f"({type(e).__name__}: {e}); the port has no transformers fallback") from e
 
     def add_estimator(self, control_type: str) -> None:
         with self._lock:
             if control_type not in self._estimators:
-                check_control_types([control_type])
+                check_control_types([control_type], self._paths)
                 self._estimators[control_type] = self._make(control_type)
 
     def _make(self, control_type: str) -> Callable:
         dev = self.device
         if control_type == "canny":
-            return lambda imgs: _as_batches(
+            return lambda imgs: as_batches(
                 lambda b: [np.repeat(e[:, :, None], 3, axis=2) for e in
                            canny_edges(torch.from_numpy(b).to(dev)).cpu().numpy()], imgs)
         if control_type == "shuffle":
             return lambda imgs: [extract_shuffle(im, seed=i, device=dev)
                                  for i, im in enumerate(imgs)]
+        if control_type in ANNOTATORS:
+            path = annotator_path(control_type, self._paths)
+            if control_type == "scribble":
+                hed = self._load(control_type, ScribbleHED, path)
+                return lambda imgs: hed(imgs, scribble=True)
+            return self._load(control_type, {
+                "softedge": SoftEdgePidiNet, "lineart": LineartDetector,
+                "normal": NormalBaeDetector, "openpose": OpenposeDetector}[control_type], path)
         path = str(self._paths.get(control_type, DEFAULT_PATHS[control_type]))
         if control_type == "segmentation":
             return self._load(control_type, SegmentationSegformer, path)

@@ -17,8 +17,9 @@ classes, on purpose:
   seeded, in worker order, from ``random.Random(seed)`` before any worker
   starts.
 
-A dataset checks its control types when it is made: an unported one raises
-there (``conditions/extractors.py:check_control_types``), not in a worker.
+A dataset checks its control types against its extractor's checkpoint paths
+when it is made: a type it cannot extract raises there
+(``conditions/extractors.py:check_control_types``), not in a worker.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ class VideoDataset:
         extractor: Optional[ConditionExtractor] = None,
         max_retries: int = 8,
     ):
-        check_control_types(control_types)
+        check_control_types(control_types, getattr(extractor, "paths", None))
         self.files = sorted(os.path.join(data_path, f) for f in os.listdir(data_path)
                             if _is_clip(os.path.join(data_path, f)))
         if not self.files:
@@ -130,7 +131,7 @@ class ImageDataset:
         extractor: Optional[ConditionExtractor] = None,
         max_retries: int = 8,
     ):
-        check_control_types(control_types)
+        check_control_types(control_types, getattr(extractor, "paths", None))
         self.files = sorted(
             os.path.join(data_path, f) for f in os.listdir(data_path)
             if f.lower().endswith((".jpg", ".jpeg", ".png", ".webp"))

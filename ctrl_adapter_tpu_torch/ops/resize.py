@@ -6,8 +6,9 @@ the adapter's nearest upsample to an arbitrary size (``nearest_resize``),
 SVD's CLIP image preprocessing (``antialiased_resize`` over
 ``bicubic_resize_align_corners``), and the condition extractors' resizes:
 ``bilinear_resize`` and ``bicubic_resize`` (``jax.image.resize``'s rules),
-``bilinear_resize_align_corners``, and ``cv2_resize`` (``utils/image.py:resize``
-on the tensor's device).
+``bilinear_resize_align_corners``, and ``resize_cubic``
+(``cv2.resize(..., INTER_CUBIC)`` in OpenCV's own arithmetic, which MiDaS,
+OpenPose and ``utils/image.py:resize`` share).
 """
 
 from __future__ import annotations
@@ -18,8 +19,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-from ..utils.image import resize_weights
 
 
 def nearest_resize(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -226,17 +225,86 @@ def apply_taps(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
     return (g * torch.from_numpy(w).to(x.device, x.dtype).reshape(shape)).sum(axis + 1)
 
 
-def cv2_resize(x: torch.Tensor, out_hw: Tuple[int, int], interpolation: str = "cubic"
-               ) -> torch.Tensor:
-    """``utils/image.py:resize`` (cv2's weights, float64, H then W) over the two
-    trailing axes of ``x`` on its device: uint8 in, rounded uint8 out; a float
-    tensor keeps its dtype."""
-    h, w = x.shape[-2:]
-    y = x.to(torch.float64)
-    if out_hw[0] != h:
-        y = apply_taps(y, resize_weights(h, out_hw[0], interpolation), -2)
-    if out_hw[1] != w:
-        y = apply_taps(y, resize_weights(w, out_hw[1], interpolation), -1)
-    if x.dtype == torch.uint8:
-        return torch.round(y).clamp(0, 255).to(torch.uint8)
-    return y.to(x.dtype)
+def cv_round(v: float) -> int:
+    """``cvRound``: to the nearest integer, halves to even."""
+    return int(np.rint(v))
+
+
+def _cubic_taps(n_in: int, n_out: int, scale: float) -> Tuple[np.ndarray, np.ndarray]:
+    """cv2's cubic taps for one axis: source index (clamped) and float32
+    weight, (n_out, 4) each; ``scale`` is source pixels per output pixel."""
+    f32 = np.float32
+    a = f32(-0.75)
+    fx = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(f32)
+    sx = np.floor(fx).astype(np.int64)
+    t = (fx - sx.astype(f32)).astype(f32)
+    one = f32(1)
+    c0 = ((a * (t + one) - f32(5) * a) * (t + one) + f32(8) * a) * (t + one) - f32(4) * a
+    c1 = ((a + f32(2)) * t - (a + f32(3))) * t * t + one
+    c2 = ((a + f32(2)) * (one - t) - (a + f32(3))) * (one - t) * (one - t) + one
+    c3 = one - c0 - c1 - c2
+    idx = np.clip(sx[:, None] + np.arange(-1, 3)[None, :], 0, n_in - 1)
+    return idx, np.stack([c0, c1, c2, c3], axis=1).astype(f32)
+
+
+def _dense(idx: np.ndarray, coef: np.ndarray, n_in: int) -> np.ndarray:
+    """The (n_out, n_in) matrix of the taps, clamped duplicates summed."""
+    out = np.zeros((len(idx), n_in), coef.dtype)
+    np.add.at(out, (np.repeat(np.arange(len(idx)), idx.shape[1]), idx.reshape(-1)),
+              coef.reshape(-1))
+    return out
+
+
+def resize_cubic(x: torch.Tensor, out_hw: Optional[Tuple[int, int]] = None,
+                 factor: Optional[float] = None) -> torch.Tensor:
+    """``cv2.resize(x, (w', h'), interpolation=INTER_CUBIC)`` of an (h, w, c)
+    or (h, w) uint8 or float tensor on its device, or with ``(0, 0),
+    fx=fy=factor`` (the size ``cvRound(n * factor)``, source coordinates
+    through ``1 / factor``, as cv2 maps them; the ratio of the rounded sizes
+    differs where ``n * factor`` is not whole).
+
+    OpenCV 5.0's own arithmetic: uint8 takes 11-bit taps along rows (integer
+    sums) and float32 products along columns, rounded half to even (the last
+    ``w c % 8`` values in integers, rounded half up); a float tensor takes the
+    float32 taps in float64 and keeps its dtype. cv2 5.0 hands uint8 cubic
+    resizes of images wider than a few pixels to its Intel IPP HAL by
+    default, whose arithmetic is not published: IPP's results lie one step
+    from these on about 5 % of the values (``cv2.ipp.setUseIPP(False)`` gives
+    these exactly)."""
+    h, w = x.shape[:2]
+    if factor is not None:
+        out_hw = (cv_round(h * factor), cv_round(w * factor))
+        scale_h = scale_w = 1.0 / factor
+    else:
+        scale_h, scale_w = 1.0 / (out_hw[0] / h), 1.0 / (out_hw[1] / w)
+    if tuple(out_hw) == (h, w):
+        return x.clone()
+    iy, cy = _cubic_taps(h, out_hw[0], scale_h)
+    ix, cx = _cubic_taps(w, out_hw[1], scale_w)
+    if x.is_floating_point():  # tap by tap: a float64 copy of x at a time, not four
+        out = x.double()
+        for axis, idx, coef in ((0, iy, cy), (1, ix, cx)):
+            shape = [1] * x.ndim
+            shape[axis] = -1
+            out = sum(out.index_select(axis, torch.from_numpy(idx[:, k]).to(x.device))
+                      * torch.from_numpy(coef[:, k]).to(x.device, torch.float64).reshape(shape)
+                      for k in range(4))
+        return out.to(x.dtype)
+    if x.dtype != torch.uint8:
+        raise TypeError(f"resize_cubic takes uint8 or a float dtype, not {x.dtype}")
+    ay = np.rint(cy * 2048).astype(np.int64)
+    hr = apply_taps(x.to(torch.int64), _dense(ix, np.rint(cx * 2048).astype(np.int64), w), 1)
+    hr = hr.reshape(h, -1)  # (h, w' c): the row buffer cv2's column pass reads
+    rows = [hr.index_select(0, torch.from_numpy(iy[:, k]).to(x.device)) for k in range(4)]
+    beta = [torch.from_numpy(ay[:, k].astype(np.float32) * np.float32(2.0 ** -22)
+                             ).to(x.device)[:, None] for k in range(4)]
+    v = rows[3].float() * beta[3]
+    for k in (2, 1, 0):
+        v = rows[k].float() * beta[k] + v
+    out = torch.round(v).clamp(0, 255)
+    tail = hr.shape[1] - hr.shape[1] % 8
+    if tail < hr.shape[1]:
+        vi = sum(rows[k][:, tail:] * torch.from_numpy(ay[:, k]).to(x.device)[:, None]
+                 for k in range(4))
+        out[:, tail:] = ((vi + (1 << 21)) >> 22).clamp(0, 255).float()
+    return out.to(torch.uint8).reshape(out_hw[0], out_hw[1], *x.shape[2:])

@@ -2,7 +2,7 @@
 
 Counterpart of ``ctrl_adapter_tpu/utils/image.py`` (the reference's gif/png
 writers, ``center_crop_and_resize`` and the [0, 1] convention) for a
-host that has numpy and zlib only:
+host that has numpy, zlib and torch only:
 
 - PNG: a decoder (8-bit gray, gray + alpha, RGB, RGBA and palette images; the
   five filter types; no interlace) and an encoder (RGB, RGBA or gray, filter
@@ -11,11 +11,12 @@ host that has numpy and zlib only:
   fixed palette of 6 x 7 x 6 levels, so a channel is off by at most
   ``GIF_MAX_ERROR``; imageio quantises through Pillow instead, so the bytes
   differ from the JAX package's;
-- the resizes of ``cv2.resize``: ``INTER_AREA`` (downscale), ``INTER_CUBIC``
-  (a = -0.75), bilinear and ``INTER_NEAREST`` (``src = floor(dst * in / out)``),
-  separable, on (h, w[, c]) uint8 or float arrays; uint8 results are rounded,
-  within one step of cv2's fixed-point arithmetic; an unchanged size returns
-  a copy;
+- the resizes of ``cv2.resize``: ``INTER_AREA`` (downscale), bilinear and
+  ``INTER_NEAREST`` (``src = floor(dst * in / out)``), separable, on (h, w[,
+  c]) uint8 or float arrays; uint8 results are rounded, within one step of
+  cv2's fixed-point arithmetic; ``INTER_CUBIC`` is OpenCV's own arithmetic
+  (``ops/resize.py:resize_cubic`` on the CPU); an unchanged size returns a
+  copy;
 - JPEG is read through cv2 where it is installed, and raises otherwise;
 - video clips (``load_video_frames``): mp4/avi/mov/webm files through cv2
   where it is installed, else a clip is a directory of PNG frames.
@@ -30,6 +31,9 @@ import zlib
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from ..ops.resize import resize_cubic
 
 # ----------------------------------------------------------------- conventions
 
@@ -67,21 +71,6 @@ def _linear_weights(n_in: int, n_out: int) -> np.ndarray:
     return w
 
 
-def _cubic_weights(n_in: int, n_out: int, a: float = -0.75) -> np.ndarray:
-    scale = n_in / n_out
-    w = np.zeros((n_out, n_in), np.float64)
-    for i in range(n_out):
-        src = (i + 0.5) * scale - 0.5
-        x0 = math.floor(src)
-        t = src - x0
-        c0 = ((a * (t + 1) - 5 * a) * (t + 1) + 8 * a) * (t + 1) - 4 * a
-        c1 = ((a + 2) * t - (a + 3)) * t * t + 1
-        c2 = ((a + 2) * (1 - t) - (a + 3)) * (1 - t) * (1 - t) + 1
-        for k, c in enumerate((c0, c1, c2, 1.0 - c0 - c1 - c2)):
-            w[i, min(max(x0 - 1 + k, 0), n_in - 1)] += c
-    return w
-
-
 def _area_weights(n_in: int, n_out: int) -> np.ndarray:
     """cv2's INTER_AREA table (``computeResizeAreaTab``) for n_in >= n_out."""
     scale = n_in / n_out
@@ -102,7 +91,7 @@ def _area_weights(n_in: int, n_out: int) -> np.ndarray:
     return w
 
 
-_WEIGHTS = {"linear": _linear_weights, "cubic": _cubic_weights, "area": _area_weights}
+_WEIGHTS = {"linear": _linear_weights, "area": _area_weights}
 
 
 def resize_weights(n_in: int, n_out: int, interpolation: str) -> np.ndarray:
@@ -123,6 +112,8 @@ def resize(image: np.ndarray, out_hw: Tuple[int, int], interpolation: str = "lin
         rows = np.arange(oh) * h // oh
         cols = np.arange(ow) * w // ow
         return image[rows][:, cols].copy()
+    if interpolation == "cubic":
+        return resize_cubic(torch.from_numpy(np.ascontiguousarray(image)), out_hw).numpy()
     x = image.astype(np.float64)
     if oh != h:
         x = np.tensordot(resize_weights(h, oh, interpolation), x, axes=(1, 0))

@@ -29,8 +29,10 @@ frames are read from ``{input_root}/{control_type}/{sample}/*.png``; with
 extracted from the frames on the same device (``conditions/extractors.py``:
 depth from ``Intel/dpt-large``, segmentation from
 ``nvidia/segformer-b5-finetuned-ade-640-640``, both folders read relative to
-the working directory; canny and shuffle need none). A type whose network is
-not ported yet raises ``NotImplementedError`` before any tower is built.
+the working directory; canny and shuffle need none). softedge, scribble,
+lineart, normal and openpose need a checkpoint path, which this CLI does not
+take (the JAX CLI passes none either): their extraction raises
+``RuntimeError`` before any tower is built.
 
     python inference_torch.py --model_name svd --control_types depth --fake_weights \\
         --evaluation_input_folder FRAMES_DIR --num_inference_steps 4 --n_sample_frames 14

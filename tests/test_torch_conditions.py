@@ -23,8 +23,12 @@
   ``remap`` does; the installed cv2 5.0 samples at the float coordinate, so
   a pixel may differ by (|dI/dx| + |dI/dy|) / 64, at most 8 steps (on these
   frames: 99.76 % within one step, 3 at most).
-- ``ConditionExtractor``'s choice of network by path, its refusals, and the
-  depth correlation of ``evaluate_video``.
+- ``ConditionExtractor``'s choice of network by path (PiDiNet from a
+  ``.pth`` among them; the five annotator networks are held to JAX in
+  ``tests/test_torch_annotators.py``), its refusals (a type of those five
+  without a checkpoint path: ``RuntimeError`` naming
+  ``CTRL_ADAPTER_ANNOTATORS``), and the depth correlation of
+  ``evaluate_video``.
 
 One JAX compile per network, at thin widths; torch at one thread.
 """
@@ -371,6 +375,7 @@ def test_shuffle_matches_jax():
 def test_condition_extractor_picks_and_refuses(dpt_dir, midas_pt, segformer_dir, tmp_path,
                                                monkeypatch):
     from ctrl_adapter_tpu_torch.conditions.dpt_swin import DepthDPTSwin
+    from ctrl_adapter_tpu_torch.conditions.pidinet import SoftEdgePidiNet
 
     def swin(path, device):
         return DepthDPTSwin(path, config=_swin_config(), device=device)
@@ -392,9 +397,14 @@ def test_condition_extractor_picks_and_refuses(dpt_dir, midas_pt, segformer_dir,
         with pytest.raises(RuntimeError, match="no transformers fallback") as err:
             tex.ConditionExtractor(device="cpu").add_estimator(ctype)
         assert default in str(err.value)
+    # the five annotator networks: from a .pth / .pt path, else refused before any load
+    pidinet_pth = chip_smoke.write_annotators(str(tmp_path / "annotators"), 23, "cpu")["softedge"]
+    ex = tex.ConditionExtractor({"softedge": pidinet_pth}, device="cpu")
+    assert [m.shape for m in ex.extract("softedge", imgs)] == [(40, 48, 3)] * 2
+    assert isinstance(ex._estimators["softedge"], SoftEdgePidiNet)
     for ctype in ("normal", "softedge", "lineart", "openpose", "scribble"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            ex.extract(ctype, imgs)
+        with pytest.raises(RuntimeError, match="CTRL_ADAPTER_ANNOTATORS"):
+            tex.ConditionExtractor(device="cpu").extract(ctype, imgs)
     with pytest.raises(ValueError, match="unknown control type"):
         tex.check_control_types(["depth", "sketch"])
     assert set(tex.MULTI_CONDITION_EXPERT_ORDER) < set(tex.CONTROL_TYPES)

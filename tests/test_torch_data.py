@@ -258,9 +258,15 @@ def test_only_read_errors_are_retried(tmp_path):
 
 
 def test_unported_type_raises_at_startup(clips):
+    """A type whose network needs a checkpoint path that the extractor lacks
+    (the five annotator networks) raises when the dataset is made, naming
+    ``CTRL_ADAPTER_ANNOTATORS``; with a path it passes the check."""
     root, csv_path = clips
     for ctype in ("normal", "softedge", "lineart", "openpose", "scribble"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(RuntimeError, match="CTRL_ADAPTER_ANNOTATORS"):
             tl.VideoDataset(root, csv_path, control_types=["depth", ctype])
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(RuntimeError, match="CTRL_ADAPTER_ANNOTATORS"):
             tl.ImageDataset(root, csv_path, control_types=[ctype])
+        ex = tex.ConditionExtractor({ctype: os.path.join(root, "weights.pth")}, device="cpu")
+        assert tl.VideoDataset(root, csv_path, control_types=["depth", ctype],
+                               extractor=ex).extractor is ex

@@ -399,10 +399,11 @@ def test_cli_lora_folds_like_jax(fixture_dir, thin_cli, tmp_path):
 
 def test_cli_needs_a_card_and_pre_extracted_conditions(fixture_dir, thin_cli, tmp_path,
                                                        monkeypatch):
-    """No card: refused. Extraction of a type whose network is not ported:
-    ``NotImplementedError`` before any tower is built. Depth extraction with no
-    ``Intel/dpt-large`` folder in the working directory: refused, naming the
-    missing fallback."""
+    """No card: refused. Extraction of a type whose network needs a
+    checkpoint path (the serving CLI passes none, as the JAX CLI): a
+    ``RuntimeError`` naming ``CTRL_ADAPTER_ANNOTATORS`` before any tower is
+    built. Depth extraction with no ``Intel/dpt-large`` folder in the
+    working directory: refused, naming the missing fallback."""
     argv = tc.cli_argv("svd", ["depth"], fixture_dir, str(tmp_path), "--fake_weights")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -411,7 +412,7 @@ def test_cli_needs_a_card_and_pre_extracted_conditions(fixture_dir, thin_cli, tm
     monkeypatch.setattr(thin_cli, "build_modules",
                         lambda *a, **k: built.append(1) or tc.thin_build_modules(*a, **k))
     for extra in (["--extract_control_conditions", "True"], []):  # scribble has no folder
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(RuntimeError, match="CTRL_ADAPTER_ANNOTATORS"):
             thin_cli.main(tc.cli_argv("svd", ["scribble"], fixture_dir, str(tmp_path),
                                       "--fake_weights", *extra), device="cpu")
     assert not built

@@ -815,34 +815,11 @@ def test_device_activity_takes_the_union_of_kernel_spans(monkeypatch):
     """``chip_smoke.device_activity`` (the idle share of ``port_step_probe.py``
     and ``tools/fused_block_steps.py``): overlapping kernels count once, gaps
     not at all, host events are left out."""
-    import types
-
     import chip_smoke
-    import torch.profiler
     from torch.autograd import DeviceType
 
-    def ev(name, start, end, kind=DeviceType.CUDA):
-        span = types.SimpleNamespace(start=start, end=end, elapsed_us=lambda: end - start)
-        return types.SimpleNamespace(name=name, device_type=kind, time_range=span)
-
-    events = [ev("a", 0, 10), ev("b", 5, 12), ev("a", 20, 25), ev("c", 30, 31),
-              ev("host", 0, 100, DeviceType.CPU)]
-
-    class Profile:
-        def __init__(self, **_):
-            pass
-
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *_):
-            return False
-
-        def events(self):
-            return events
-
-    monkeypatch.setattr(torch.profiler, "profile", Profile)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    _fake_traces(monkeypatch, [[("a", 0, 10), ("b", 5, 12), ("a", 20, 25), ("c", 30, 31),
+                                ("host", 0, 100, DeviceType.CPU)]])
     busy, span, per_name = chip_smoke.device_activity(lambda: None)
     assert (busy, span) == (12 + 5 + 1, 31)
     assert per_name == {"a": [15.0, 2], "b": [7.0, 1], "c": [1.0, 1]}
@@ -850,31 +827,33 @@ def test_device_activity_takes_the_union_of_kernel_spans(monkeypatch):
 
 def _fake_traces(monkeypatch, traces):
     """``torch.profiler.profile`` replaced by one that yields the next of
-    ``traces`` (lists of (device function name, start, end)) for each
-    profiled run."""
+    ``traces`` (lists of (device function name, start µs, end µs[, device
+    type])) for each profiled run, as the raw kineto events that
+    ``chip_smoke.device_activity`` reads (times in ns from a trace start of
+    7 µs)."""
     import types
 
     import torch.profiler
     from torch.autograd import DeviceType
 
-    def ev(name, start, end):
-        span = types.SimpleNamespace(start=start, end=end, elapsed_us=lambda: end - start)
-        return types.SimpleNamespace(name=name, device_type=DeviceType.CUDA, time_range=span)
+    def ev(name, start, end, kind=DeviceType.CUDA):
+        return types.SimpleNamespace(
+            name=lambda: name, device_type=lambda: kind, is_hidden_event=lambda: False,
+            start_ns=lambda: 7000 + 1000 * start, end_ns=lambda: 7000 + 1000 * end)
 
     runs = iter(traces)
 
     class Profile:
         def __init__(self, **_):
-            self.trace = [ev(*t) for t in next(runs)]
+            trace = [ev(*t) for t in next(runs)]
+            results = types.SimpleNamespace(events=lambda: trace, trace_start_ns=lambda: 7000)
+            self.profiler = types.SimpleNamespace(kineto_results=results)
 
         def __enter__(self):
             return self
 
         def __exit__(self, *_):
             return False
-
-        def events(self):
-            return self.trace
 
     monkeypatch.setattr(torch.profiler, "profile", Profile)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)

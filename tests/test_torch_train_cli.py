@@ -460,13 +460,15 @@ def test_cli_loads_diffusers_folders_with_mixed_type_towers(thin_train, tmp_path
 
 
 def test_cli_refuses_the_dataset_path_and_a_missing_card(thin_train, tmp_path, monkeypatch):
-    """The dataset path of a type whose network is not ported (here through
+    """The dataset path of a type whose network needs a checkpoint path that
+    ``CTRL_ADAPTER_ANNOTATORS`` does not give (here also through
     ``--mixed_control_types_training``) is refused before anything is built;
     no card: refused."""
     monkeypatch.setattr(thin_train, "build_trainer", lambda *a, **k: pytest.fail("built"))
+    monkeypatch.setenv("CTRL_ADAPTER_ANNOTATORS", json.dumps({"normal": "scannet.bin"}))
     for flags in (["--control_types", "normal"],
                   ["--mixed_control_types_training", "depth", "openpose"]):
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(RuntimeError, match="CTRL_ADAPTER_ANNOTATORS"):
             thin_train.main(_argv("svd", "--DATA_PATH", str(tmp_path), *flags), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -196,7 +196,9 @@ def test_port_and_chip_smoke_import_no_jax_optax_orbax():
     included), of ``chip_smoke.py``, ``inference_torch.py`` or
     ``train_torch.py`` names jax, flax, optax, orbax, the JAX package
     (``ctrl_adapter_tpu``) or yaml (the card's host has no PyYAML;
-    ``config.load_yaml`` reads the configs itself)."""
+    ``config.load_yaml`` reads the configs itself); none of the annotator
+    modules, ``conditions/imgproc.py`` or ``utils/profiling.py`` names cv2,
+    PIL, transformers or controlnet_aux either (the card's host has none)."""
     pkg = os.path.join(REPO, "ctrl_adapter_tpu_torch")
     files = [os.path.join(REPO, name) for name in
              ("chip_smoke.py", "inference_torch.py", "train_torch.py")] + [
@@ -206,6 +208,12 @@ def test_port_and_chip_smoke_import_no_jax_optax_orbax():
     banned = ("jax", "flax", "optax", "orbax", "ctrl_adapter_tpu", "yaml")
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in banned]
+    new = [os.path.join(pkg, "conditions", f"{n}.py") for n in
+           ("imgproc", "pidinet", "hed", "lineart", "normalbae", "openpose")] + [
+        os.path.join(pkg, "utils", "profiling.py")]
+    assert set(new) <= set(files)
+    bad += [(os.path.relpath(f, REPO), m) for f in new for m in _imports(f)
+            if m.split(".")[0] in ("cv2", "PIL", "transformers", "controlnet_aux")]
     assert not bad, bad
 
 

@@ -33,8 +33,10 @@ The port's counterpart of ``train.py``, with the same flags
   the CLIP towers of ``--pretrained_model_path`` and
   ``--controlnet_text_encoder_path``. Under ``--mixed_control_types_training``
   each batch has one type, and the resident ControlNet of that type is
-  swapped in for its step. A type whose network is not ported yet raises
-  ``NotImplementedError`` before anything is built.
+  swapped in for its step. softedge, scribble, lineart, normal and openpose
+  need their checkpoint's path under their type in
+  ``CTRL_ADAPTER_ANNOTATORS`` (``conditions/extractors.py:ANNOTATORS``);
+  without one the run raises ``RuntimeError`` before anything is built.
 - Step ``s`` takes its synthetic batch, expert mask, sparse frames and the
   seed of its noise draws from numpy's generator of ``(--seed, s)``: every
   process draws the same, and a resumed run continues at
@@ -462,7 +464,8 @@ def main(argv=None, device=None) -> TrainRun:
     args = parse_args(argv)
     if not (args.synthetic_data or args.fake_weights):
         check_control_types(list(args.control_types)
-                            + list(args.mixed_control_types_training or []))
+                            + list(args.mixed_control_types_training or []),
+                            json.loads(os.environ.get("CTRL_ADAPTER_ANNOTATORS", "{}")))
     device = resolve_device(device)
     if args.multihost and device.type == "cuda":
         device = torch.device("cuda", parallel.local_rank())
