@@ -126,8 +126,8 @@ Phases (any failure raises and the script exits non-zero before its last line):
    run of the plain path (``train_reference_check``), with faulty kernels
    as controls that must fail (``training_faults``);
 12. print the per-kernel JSON line (with each kernel's launches on the
-   I2VGen-XL, SDXL, training and both CLIs' runs and phase 15's), the card
-   line, and the result line;
+   I2VGen-XL, SDXL, training and both CLIs' runs and phase 15's, and the
+   fp32 kernels' from phase 16), the card line, and the result line;
 13. (run before 12) the serving CLI, ``inference_torch.main``, at the main
    path's full width (SVD, depth, skip_conv_in, 14 frames at 512x512, 4 steps
    cut from 25) on a fixture of 512^2 PNG frames written by the port's
@@ -193,6 +193,23 @@ Phases (any failure raises and the script exits non-zero before its last line):
    ``checkpoint-2/router_2`` read back equal to the router. Prints the
    prefetcher's waits, peak GiB, what each run left on the card and the
    phase's seconds.
+16. (run before 12, after 15) fp32 towers and data-parallel generation
+   (``run_phase16``): (1) K1 fp32, K2 fp32 and K2 bwd fp32 at the fp32
+   training path's shapes (1 x 14 x 512^2: K1 at the adapter norms JAX
+   admits at itemsize 4, K2 at (14, 5, 4096, 64) and (14, 10, 1024, 64))
+   against their plain versions with TF32 off (within 1e-5 of the norm),
+   the backward's dQ, dK and dV equal to the bit over two calls, timed
+   beside their fp32 bounds (67 TFLOP/s on the CUDA cores), ``F.group_norm``
+   in fp32 and SDPA's memory-efficient backend, forward and backward; (2)
+   ``train_torch.main --mixed_precision no`` at the full width of
+   ``configs/svd_train_depth.yaml``, 2 steps and a validation sample: finite
+   losses, K1 fp32, K2 fp32 and K2 bwd fp32 launched per step as the fp32
+   rules and phase 8's attention counts give them and no bf16 kernel, the
+   gif; ms per step, the validation's seconds and peak GiB; (3) SVD
+   ``generate(mesh=...)`` at full width under a one-rank NCCL group, batch
+   2, 2 steps, latents drawn from a seeded generator: equal to the bit to
+   the run without a mesh. The kernels line lists the fp32 kernels with
+   their launches in (2).
 
 Device busy times and idle shares come from ``device_activity``, which
 refuses a trace that holds fewer events of a port kernel than the kernel's
@@ -504,7 +521,7 @@ def hybrid_rows():
     return rows
 
 
-def k1_rows(frames: int = FRAMES, batch: int = 2):
+def k1_rows(frames: int = FRAMES, batch: int = 2, itemsize: int = 2):
     """K1's calls in one adapter call, by (shape, silu): per block the spatial
     ResNet's two norms (SiLU) on (batch f, c, h, h), the temporal ResNet's two
     (SiLU) on (batch, c, f, h, h) and the transformer's input norm (no SiLU) on
@@ -512,7 +529,8 @@ def k1_rows(frames: int = FRAMES, batch: int = 2):
     sample) admits them: 47 of the 65 at f = 14 (SVD) and at f = 16
     (I2VGen-XL), batch 2 (CFG) or 1 (training). The temporal ResNet's norms at
     16x16 to 64x64 exceed its 12 MiB budget and run plain, as in the JAX
-    package."""
+    package. ``itemsize`` 4: the fp32 towers' (K1 fp32), which the budget
+    admits fewer of."""
     from ctrl_adapter_tpu_torch.ops.group_norm import eligible
 
     rows = {}
@@ -520,7 +538,7 @@ def k1_rows(frames: int = FRAMES, batch: int = 2):
         for shape, silu, n in (((batch * frames, c, h, h), False, 1),
                                ((batch * frames, c, h, h), True, 2),
                                ((batch, c, frames, h, h), True, 2)):
-            if eligible(shape, 32, 2):
+            if eligible(shape, 32, itemsize):
                 rows[(shape, silu)] = rows.get((shape, silu), 0) + n
     return rows
 
@@ -4546,6 +4564,299 @@ def run_conditions(dev, card, kernels, serve_per_step, train_per_step, root):
     return counts
 
 
+
+# ------------------------------- phase 16, fp32 towers and data-parallel generation
+# Each fp32 kernel against its plain version (TF32 off for the plain
+# products): both compute in fp32, in other summation orders, so the outputs
+# agree to a few fp32 roundings; a wrong tile, row or head moves them by far
+# more than this share of their norm.
+FP32_TOL = 1e-5
+FP32_FRAMES = 14      # the fp32 training run at the width of svd_train_depth.yaml
+FP32_TRAIN_STEPS = 2
+MESH_BATCH = 2        # SVD generate(mesh=...) under a one-rank group: videos, steps
+MESH_STEPS = 2
+FP32_KERNELS = {  # name: (source, replaces)
+    "group_norm_silu_fp32": ("ctrl_adapter_tpu_torch/csrc/group_norm.cu",
+                             "ctrl_adapter_tpu/ops/group_norm.py:166 (fp32 input)"),
+    "flash_attention_fp32": ("ctrl_adapter_tpu_torch/csrc/flash_attention_fp32.cu",
+                             "ctrl_adapter_tpu/ops/flash_attention.py:97 (fp32 input)"),
+    "flash_attention_fp32_bwd": (
+        "ctrl_adapter_tpu_torch/csrc/flash_attention_fp32_bwd.cu",
+        "ctrl_adapter_tpu/ops/flash_attention.py:97 (the custom VJP's _flash_attention_bwd_dkv, "
+        "_flash_attention_bwd_dq; fp32 input)"),
+}
+
+
+def fp32_counters():
+    """The launch counter of each fp32 kernel (name: ``Kernel``)."""
+    from ctrl_adapter_tpu_torch.ops import flash_attention as fa
+    from ctrl_adapter_tpu_torch.ops import group_norm as gn
+
+    return {"group_norm_silu_fp32": gn.KERNEL_FP32, "flash_attention_fp32": fa.KERNEL_FP32,
+            "flash_attention_fp32_bwd": fa.KERNEL_FP32_BWD}
+
+
+def sdpa_fp32_times(q, k, v, do=None):
+    """``F.scaled_dot_product_attention`` on fp32 inputs: the default backend
+    named, and the memory-efficient one forced (the fused backend that takes
+    fp32; flash and cuDNN take 16-bit types only); with ``do``, their
+    backward (forward + backward, minus the forward). Yardsticks only."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    default = SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+    qg, kg, vg = (x.detach().requires_grad_(do is not None) for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qg, kg, vg)  # noqa: E731
+    times = {}
+    for name, backends in (("SDPA EFFICIENT_ATTENTION", [SDPBackend.EFFICIENT_ATTENTION]),
+                           (f"SDPA default ({default})", None)):
+        try:
+            with (sdpa_kernel(backends) if backends else contextlib.nullcontext()):
+                fwd = cuda_ms(sdpa, iters=3, reps=3)
+                if do is not None:
+                    both = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qg, kg, vg), do),
+                                   iters=3, reps=3)
+            times[name + (" backward" if do is not None else "")] = (
+                fwd if do is None else both - fwd)
+        except RuntimeError:
+            times[name] = None
+    return times
+
+
+def fp32_rel(name, got, want, atol=1e-4):
+    """An fp32 kernel's output against its plain version's: within FP32_TOL of
+    its norm (and ``atol`` + 1e-4 relative elementwise); returns the max abs."""
+    return compare(name, got, want, atol=atol, rtol=1e-4, rel_norm=FP32_TOL)
+
+
+def check_fp32_kernels(dev, card):
+    """Phase 16 (1): K1 fp32, K2 fp32 and K2 bwd fp32 at the fp32 training
+    path's shapes (batch 1, ``frames`` frames at 512^2: K1 at the adapter's
+    norms JAX admits at itemsize 4, K2 and its backward at the UNet's and the
+    adapter's spatial attentions) against their plain versions, TF32 off;
+    the backward's gradients equal to the bit over two calls; times beside
+    the bounds (``ops/roofline.py``, fp32 at 67 TFLOP/s on the CUDA cores:
+    TF32's one pass is not fp32), ``F.group_norm`` in fp32 and SDPA's
+    memory-efficient backend, forward and backward. Returns {name: [rows]}."""
+    import torch.nn.functional as F
+
+    from ctrl_adapter_tpu_torch.ops import flash_attention as fa
+    from ctrl_adapter_tpu_torch.ops import group_norm as gn
+    from ctrl_adapter_tpu_torch.ops import roofline as rl
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("phase 16: TF32 must be off for the fp32 plain versions")
+    g = torch.Generator(device=dev).manual_seed(SEED + 60)
+    rand = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
+    rows = {name: [] for name in FP32_KERNELS}
+    print(f"phase 16 (1): the fp32 kernels against their plain versions (fp32, TF32 off; "
+          f"tolerance ||err|| <= {FP32_TOL} ||plain||) on {card}")
+    frames = FP32_FRAMES
+    for (shape, silu), n in k1_rows(frames, 1, 4).items():
+        x, w, b = rand(*shape), 1.0 + rand(shape[1], scale=0.1), rand(shape[1], scale=0.1)
+        label = f"({','.join(map(str, shape))})" + (" silu" if silu else "")
+        err = fp32_rel(f"K1 fp32 {label} ({n} per adapter call)",
+                       gn.group_norm_silu(x, w, b, 32, 1e-6, silu),
+                       gn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu))
+        ms = cuda_ms(lambda: gn.group_norm_silu(x, w, b, 32, 1e-6, silu))
+        pms = cuda_ms(lambda: gn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu))
+        library = {"F.group_norm fp32": cuda_ms(lambda: F.group_norm(x, 32, w, b, 1e-6))}
+        if silu:
+            library["F.silu(F.group_norm) fp32"] = cuda_ms(
+                lambda: F.silu(F.group_norm(x, 32, w, b, 1e-6)))
+        row = report(label, err, ms, pms, rl.group_norm(shape, silu, 4), library, not silu)
+        rows["group_norm_silu_fp32"].append({**row, "per_adapter_call": n})
+    # the K1 fp32 rows with the one PyTorch call first: the JSON line takes row 0
+    rows["group_norm_silu_fp32"].sort(key=lambda r: r["library_ms"] is None)
+    for t, n_heads in ((4096, 5), (1024, 10)):
+        shape = (frames, n_heads, t, 64)
+        label = f"({','.join(map(str, shape))})"
+        q, k, v, do = (rand(frames, t, n_heads * 64).view(frames, t, n_heads, 64).transpose(1, 2)
+                       for _ in range(4))
+        out, lse = fa._forward(q, k, v, True)
+        want, want_lse = fa._torch_attention(q, k, v, True)
+        torch.cuda.synchronize()
+        err = fp32_rel(f"K2 fp32 {label} output", out, want)
+        compare(f"K2 fp32 {label} log-sum-exp", lse, want_lse, atol=1e-4, rtol=1e-5,
+                rel_norm=FP32_TOL)
+        del want, want_lse
+        ms = cuda_ms(lambda: fa.attention_bnth(q, k, v), iters=3, reps=5)
+        pms = cuda_ms(lambda: fa._torch_attention(q, k, v), iters=3, reps=3, warmup=1)
+        rows["flash_attention_fp32"].append(report(
+            label, err, ms, pms, rl.attention(*shape[:3], t, 64, itemsize=4),
+            sdpa_fp32_times(q, k, v)))
+        got = fa.attention_bnth_bwd(q, k, v, out, do, lse)
+        want = fa._torch_attention_bwd(q, k, v, out, do, lse)
+        torch.cuda.synchronize()
+        err = max(fp32_rel(f"K2 bwd fp32 {label} d{name}", x, y,
+                           atol=1e-4 * y.abs().max().item())
+                  for name, x, y in zip("qkv", got, want))
+        again = fa.attention_bnth_bwd(q, k, v, out, do, lse)
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(got, again)]
+        print(f"  K2 bwd fp32 {label}, two calls: dQ, dK, dV "
+              f"{'equal to the bit' if all(same) else f'DIFFER {same}'}")
+        if not all(same):
+            raise RuntimeError(f"K2 bwd fp32 {label}: the gradients differ between two calls")
+        del got, want, again
+        bwd = lambda: fa.attention_bnth_bwd(q, k, v, out, do, lse)  # noqa: E731
+        ms = cuda_ms(bwd, iters=3, reps=3)
+        pms = cuda_ms(lambda: fa._torch_attention_bwd(q, k, v, out, do, lse), iters=3, reps=3,
+                      warmup=1)
+        rows["flash_attention_fp32_bwd"].append(report(
+            label, err, ms, pms, rl.attention_bwd(*shape, itemsize=4),
+            sdpa_fp32_times(q, k, v, do)))
+        del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fp32_train_launches(bf16_per_step):
+    """The fp32 kernels' launches per step of the fp32 training run: K1 fp32
+    at the adapter norms of ``k1_rows(FP32_FRAMES, 1, 4)``, forward and
+    recompute; K2 fp32 and its backward as often as the bf16 step launches K2
+    and its backward (``bf16_per_step``, phase 8's: the attention dispatch
+    does not read the dtype); no bf16 kernel."""
+    return {"group_norm_silu_fp32": 2 * sum(k1_rows(FP32_FRAMES, 1, 4).values()),
+            "flash_attention_fp32": bf16_per_step["flash_attention"],
+            "flash_attention_fp32_bwd": bf16_per_step["flash_attention_bwd"]}
+
+
+def run_fp32_training(dev, card, root, bf16_per_step):
+    """Phase 16 (2): ``train_torch.main`` with ``--mixed_precision no`` at the
+    full width of ``configs/svd_train_depth.yaml`` (1 x 14 x 512^2, fp32
+    towers, ``--fake_weights``), 2 steps and a validation sample: finite
+    losses, the fp32 kernels launched per step (``fp32_train_launches``) and
+    no bf16 kernel, the gif; ms per step and peak GiB. Returns the fp32
+    kernels' launches in the run."""
+    frames = FP32_FRAMES
+    cfg, _ = config_copy("svd_train_depth.yaml", root, os.path.join(root, "fp32"))
+    counters = {**kernel_counters(), **fp32_counters()}
+    argv = ["--yaml_file", cfg, "--fake_weights", "--mixed_precision", "no",
+            "--max_train_steps", str(FP32_TRAIN_STEPS), "--run_validation",
+            "--validate_every_steps", str(FP32_TRAIN_STEPS), "--save_starting_step",
+            str(FP32_TRAIN_STEPS + 1), "--seed", str(SEED)]
+    import train_torch
+
+    val_s = []
+
+    def timed(validate):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = validate(*args, **kwargs)
+            torch.cuda.synchronize()
+            val_s.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    with swapped(train_torch, "run_validation", timed):
+        run, box = train_cli_run("phase 16 (2) train CLI svd --mixed_precision no", argv,
+                                 counters)
+    want = fp32_train_launches(bf16_per_step)
+    for i, step in enumerate(box["steps"]):
+        wrong = {n: (step[n], want.get(n, 0)) for n in counters if step[n] != want.get(n, 0)}
+        if wrong:
+            raise RuntimeError(f"phase 16 (2) step {i + 1}: launches (got, want) {wrong}")
+    if len(box["steps"]) != FP32_TRAIN_STEPS:
+        raise RuntimeError(f"phase 16 (2): {len(box['steps'])} steps, want {FP32_TRAIN_STEPS}")
+    masters = run.trainer.optimizer.masters
+    if any(m.dtype != torch.float32 for m in masters) or any(
+            p.dtype != torch.float32 for p in run.trainer.unet.parameters()):
+        raise RuntimeError("phase 16 (2): the towers or masters are not fp32")
+    with open(run.validations[0], "rb") as fh:
+        gif = decode_gif(fh.read())
+    if gif.shape != (frames, SIZE, SIZE, 3):
+        raise RuntimeError(f"phase 16 (2): validation gif {gif.shape}")
+    ms = [1000 * t for t in run.step_s]
+    print(f"phase 16 (2): K1 fp32, K2 fp32, K2 bwd fp32 per step "
+          f"{[want[n] for n in FP32_KERNELS]} in each of {len(box['steps'])} steps, no bf16 "
+          f"kernel; validation {os.path.basename(run.validations[0])} decodes to {gif.shape}")
+    print(f"phase 16 (2) on {card}: fp32 training 1x{frames}x{SIZE}x{SIZE}, fp32 towers and "
+          f"masters, gradient checkpointing: step 1 {ms[0]:.1f} ms, "
+          + (f"step 2 {ms[1]:.1f} ms" if len(ms) > 1 else "")
+          + f"; validation (4 steps and the decode) {sum(val_s):.2f} s; peak "
+          f"{box['peak_gb']:.2f} GiB")
+    launches = {n: box["launches"][n] for n in FP32_KERNELS}
+    before = box["before_gb"]
+    del run, box, masters
+    released("phase 16 (2)", before)
+    return launches, ms
+
+
+def mesh_inputs(dev, dtype, b, frames, size, seed):
+    """A global batch of ``b`` SVD videos from a seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, scale: (torch.randn(*s, generator=g, device=dev) * scale).to(dtype)  # noqa: E731
+    lat = size // 8
+    return dict(image_embeddings=r(b, 1, 1024, scale=0.1), image_latent=r(b, lat, lat, 4, scale=0.1),
+                controlnet_prompt_embeds=r(2 * b, 77, 768, scale=0.02),
+                control_images=torch.rand(b * frames, size, size, 3, generator=g,
+                                          device=dev).to(dtype))
+
+
+def run_mesh_generate(dev, card):
+    """Phase 16 (3): ``SVDControlNetAdapterPipeline.generate(mesh=...)`` at full
+    width under a one-rank NCCL group (torchrun's variables for a world of
+    one), batch 2, 2 steps, the latents drawn from a seeded generator, against
+    the same call without a mesh."""
+    from ctrl_adapter_tpu_torch.parallel import mesh as meshes
+
+    pipe, _ = build_pipeline(dev, torch.bfloat16)
+    x = mesh_inputs(dev, torch.bfloat16, MESH_BATCH, FRAMES, SIZE, SEED + 61)
+    kw = dict(num_frames=FRAMES, num_inference_steps=MESH_STEPS, skip_conv_in=True,
+              control_latent_size=SIZE // 8)
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED + 62)  # noqa: E731
+    torchrun = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    with environ(torchrun):
+        mesh = meshes.join(dev)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sharded = pipe.generate(**x, **kw, generator=gen(), mesh=mesh)
+            torch.cuda.synchronize()
+            t_mesh = time.perf_counter() - t0
+        finally:
+            meshes.leave(mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    alone = pipe.generate(**x, **kw, generator=gen())
+    torch.cuda.synchronize()
+    t_alone = time.perf_counter() - t0
+    if tuple(sharded.shape) != (MESH_BATCH, FRAMES, SIZE, SIZE, 3):
+        raise RuntimeError(f"phase 16 (3): output {tuple(sharded.shape)}")
+    same = torch.equal(sharded, alone)
+    err = (sharded.float() - alone.float()).abs().max().item()
+    print(f"phase 16 (3) on {card}: SVD generate(mesh=...) under a one-rank NCCL group, "
+          f"{MESH_BATCH} x {FRAMES} x {SIZE}^2, {MESH_STEPS} steps: output "
+          f"{tuple(sharded.shape)}, {'equal to the bit' if same else 'DIFFERENT'} to the run "
+          f"without a mesh (max abs {err:.3e}); {t_mesh:.2f} s with the mesh, {t_alone:.2f} s "
+          f"without (the decode included)")
+    if not same:
+        raise RuntimeError("phase 16 (3): the one-rank mesh changes the output")
+    del pipe, sharded, alone
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_phase16(dev, card, bf16_per_step):
+    """Phase 16: (1) the fp32 kernels, (2) fp32 training (``bf16_per_step``:
+    phase 8's launches per step), (3) generate(mesh=...). Returns (rows,
+    launches) of the fp32 kernels."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    rows = check_fp32_kernels(dev, card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_fp32_")
+    try:
+        launches, _ = run_fp32_training(dev, card, root, bf16_per_step)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    run_mesh_generate(dev, card)
+    print(f"phase 16 on {card}: {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches
+
 def free_port() -> int:
     """A TCP port on 127.0.0.1 that was free a moment ago."""
     import socket
@@ -4639,6 +4950,8 @@ def main() -> int:
         phase_done("phase 15, condition extraction and real-data training")
     finally:
         shutil.rmtree(shared, ignore_errors=True)
+    fp32_rows, fp32_launches = run_phase16(dev, card, train_per_step[0])
+    phase_done("phase 16, fp32 towers and generate(mesh=...)")
     print(f"torch.profiler: {PROFILER_COST['traces']} traces of device activity, "
           f"{PROFILER_COST['traced_s']:.1f} s under the profiler, "
           f"{PROFILER_COST['read_s']:.1f} s reading their device events")
@@ -4677,6 +4990,12 @@ def main() -> int:
          "launches_sdxl": launches_sdxl[name],
          **{f"launches_{run}": n[name] for run, n in launches_branches.items()}}
         for name in kernels]}
+    line["kernels"] += [  # the fp32 kernels: launches of phase 16's fp32 training run
+        {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+         "launches": fp32_launches[name], "path": "svd training, --mixed_precision no",
+         **{k: v for k, v in fp32_rows[name][0].items() if k != "per_adapter_call"},
+         "max_abs_err": max(r["max_abs_err"] for r in fp32_rows[name])}
+        for name, (src, replaces) in FP32_KERNELS.items()]
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,6 +29,7 @@ from ..nn.embeddings import (TimestepEmbedding, Timesteps, get_timestep_embeddin
 from ..nn.resnet import AlphaBlender, GroupNorm, ResnetBlock2D, TemporalResnetBlock
 from ..nn.unet_st_blocks import from_5d, to_5d
 from ..ops.resize import nearest_resize
+from ..parallel import mesh
 
 _LOCATION_ID_MAP = {
     "A": {3: [0, 1, 2], 2: [0, 2], 1: [2]},
@@ -163,10 +164,7 @@ class AdapterSpatioTemporal(nn.Module):
                     frame_emb = get_timestep_embedding(frame_idx, self.channels, True, 0.0)
                     frame_emb = self.transformer_time_embedding(frame_emb.to(dtype))[:, None]
                     # first-frame context broadcast over pixels, spatial-major rows
-                    d = ehs.shape[-1]
-                    tc = ehs.reshape(b, num_frames, -1, d)[:, 0]
-                    time_context = tc[None].expand(height * width, *tc.shape).reshape(
-                        height * width * b, -1, d)
+                    time_context = mesh.time_context(ehs, b, num_frames, height * width)
                 if spatial_tr:
                     proj = self.spatial_attentions[i](proj, ehs)
                     proj_mix = proj

@@ -13,6 +13,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..parallel import mesh
 from .attention import BasicTransformerBlock, TemporalBasicTransformerBlock
 from .embeddings import TimestepEmbedding, get_timestep_embedding
 from .resnet import (AlphaBlender, Downsample2D, GroupNorm, ResnetBlock2D,
@@ -91,11 +92,9 @@ class TransformerSpatioTemporalModel(nn.Module):
         num_frames = image_only_indicator.shape[-1]
         b = bf // num_frames
         residual = hidden_states
-        d = encoder_hidden_states.shape[-1]
         # time context: first-frame embedding broadcast over pixels, spatial-major
         # rows as in diffusers
-        tc_first = encoder_hidden_states.reshape(b, num_frames, -1, d)[:, 0]
-        time_context = tc_first[None].expand(h * w, *tc_first.shape).reshape(h * w * b, -1, d)
+        time_context = mesh.time_context(encoder_hidden_states, b, num_frames, h * w)
 
         x = self.norm(hidden_states).permute(0, 2, 3, 1).reshape(bf, h * w, c)
         x = self.proj_in(x)

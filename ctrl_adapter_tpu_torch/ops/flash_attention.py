@@ -20,6 +20,13 @@ log-sum-exp (fp32), and the backward is kernel K2 bwd
 (``csrc/flash_attention_bwd.cu``, planned by :func:`bwd_plan`) on a card and
 :func:`_torch_attention_bwd` on the CPU. Without grad the forward writes no
 log-sum-exp and saves nothing.
+
+The kernels are picked by dtype: bf16 inputs take the wgmma kernels above;
+fp32 inputs (fp32 towers, ``--mixed_precision no``) take K2 fp32
+(``csrc/flash_attention_fp32.cu``) and K2 bwd fp32
+(``csrc/flash_attention_fp32_bwd.cu``), fp32 FMAs throughout, planned by
+:func:`fp32_plan` and :func:`fp32_bwd_plan`; their gradients are sums in a
+fixed order, the same bits from call to call. Any other dtype raises on a card.
 """
 
 from __future__ import annotations
@@ -45,6 +52,15 @@ KERNEL_BWD = Kernel("cak_flash_attention_bwd", [
     *([ctypes.c_void_p] * 11), *([ctypes.c_int] * 6), ctypes.POINTER(ctypes.c_int64),
     ctypes.c_float, ctypes.c_void_p,
 ])
+KERNEL_FP32 = Kernel("cak_flash_attention_fp32", [
+    *([ctypes.c_void_p] * 5), *([ctypes.c_int] * 5), ctypes.POINTER(ctypes.c_int64),
+    ctypes.c_float, ctypes.c_void_p,
+])
+KERNEL_FP32_BWD = Kernel("cak_flash_attention_fp32_bwd", [
+    *([ctypes.c_void_p] * 10), *([ctypes.c_int] * 6), ctypes.POINTER(ctypes.c_int64),
+    ctypes.c_float, ctypes.c_void_p,
+])
+DTYPES = (torch.bfloat16, torch.float32)  # the types the kernels take
 
 
 BLOCK_Q = 128     # query rows per CTA: two consumer warpgroups of 64
@@ -107,6 +123,62 @@ def bwd_plan(b: int, n: int, t: int, h: int) -> FlashBwdPlan:
     assert smem <= SMEM_PER_BLOCK
     return FlashBwdPlan(grid=(t // BWD_KEYS, b * n), q_tile=q_tile, smem_bytes=smem,
                         scratch=(b, n, t, h))
+
+
+FP32_ROWS = 64    # fp32 kernels: rows of every tile (queries or keys), 256 threads a CTA
+_FP32_PAD = 68    # leading dimension of a transposed tile (csrc/fp32_tiles.cuh:kPad)
+
+
+def _t_bytes(h: int) -> int:  # a transposed tile of h rows: h x kPad fp32
+    return h * _FP32_PAD * 4
+
+
+def _n_bytes(h: int) -> int:  # a natural tile: 64 rows of h fp32
+    return FP32_ROWS * h * 4
+
+
+def _fp32_shape_error(b: int, n: int, t: int, h: int) -> Optional[str]:
+    if h not in (64, 128) or t % FP32_ROWS or t < FP32_ROWS or not 0 < b * n <= 65535:
+        return (f"needs H in (64, 128), T a multiple of {FP32_ROWS} and 0 < B*N <= 65535, "
+                f"got B*N={b * n} T={t} H={h}")
+    return None
+
+
+@dataclass(frozen=True)
+class Fp32Plan:
+    grid: tuple        # (T / 64 query blocks, B * N)
+    smem_bytes: int    # Q^T, K^T, V and P^T tiles (csrc/flash_attention_fp32.cu:Fp32Cfg)
+
+
+def fp32_plan(b: int, n: int, t: int, h: int) -> Fp32Plan:
+    """The launch of K2 fp32 for (b, n, t, h) inputs; raises where the tiling
+    does not fit. ``cak_flash_attention_fp32`` refuses other shared memory."""
+    why = _fp32_shape_error(b, n, t, h)
+    if why is not None:
+        raise ValueError(f"attention_bnth (fp32): {why}")
+    smem = 2 * _t_bytes(h) + _n_bytes(h) + _t_bytes(FP32_ROWS)
+    assert smem <= SMEM_PER_BLOCK
+    return Fp32Plan(grid=(t // FP32_ROWS, b * n), smem_bytes=smem)
+
+
+@dataclass(frozen=True)
+class Fp32BwdPlan:
+    grid: tuple        # each of the three launches: (T / 64 row blocks, B * N)
+    smem_dkv: int      # K^T, V^T, Q^T, Q, dO^T, dO, P / dS, L and D (DkvCfg)
+    smem_dq: int       # Q^T, dO^T, K^T, K, V^T, dS (DqCfg)
+
+
+def fp32_bwd_plan(b: int, n: int, t: int, h: int) -> Fp32BwdPlan:
+    """The launches of K2 bwd fp32 (D; dK and dV; dQ) for (b, n, t, h) inputs;
+    raises where the tiling does not fit. ``cak_flash_attention_fp32_bwd``
+    refuses other shared memory."""
+    why = _fp32_shape_error(b, n, t, h)
+    if why is not None:
+        raise ValueError(f"attention_bnth backward (fp32): {why}")
+    dkv = 4 * _t_bytes(h) + 2 * _n_bytes(h) + _t_bytes(FP32_ROWS) + 2 * FP32_ROWS * 4
+    dq = 4 * _t_bytes(h) + _n_bytes(h) + _t_bytes(FP32_ROWS)
+    assert max(dkv, dq) <= SMEM_PER_BLOCK
+    return Fp32BwdPlan(grid=(t // FP32_ROWS, b * n), smem_dkv=dkv, smem_dq=dq)
 
 
 def tma_view_error(shape, strides, data_ptr: int, itemsize: int = 2) -> Optional[str]:
@@ -185,17 +257,22 @@ def _torch_attention_bwd(q, k, v, o, do, lse):
     return tuple(g.reshape(b, n, -1, h) for g in grads)
 
 
-def _check(name: str, t: torch.Tensor) -> None:
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"attention_bnth: {name} must be bfloat16, got {t.dtype}")
-    why = tma_view_error(t.shape, t.stride(), t.data_ptr())
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    """``t`` is of ``dtype`` (bf16 or fp32) and a view the kernels can load:
+    the rules of a TMA tensor map (bf16), or of float4 loads (fp32), which are
+    the same 16-byte alignments."""
+    if dtype not in DTYPES or t.dtype != dtype:
+        raise TypeError(f"attention_bnth: {name} must be bfloat16 or float32 like q, got "
+                        f"{t.dtype} (q {dtype})")
+    why = tma_view_error(t.shape, t.stride(), t.data_ptr(), t.element_size())
     if why is not None:
         raise ValueError(f"attention_bnth: {name} {why}")
 
 
 def attention_bnth(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Self-attention over (B, N, T, H) views. Kernel K2 on a Hopper card, the
-    plain version on the CPU; under grad through :class:`FlashAttention`.
+    """Self-attention over (B, N, T, H) views. Kernel K2 on a Hopper card (K2
+    fp32 for float32 inputs), the plain version on the CPU; under grad through
+    :class:`FlashAttention`.
     Returns a (B, N, T, H) view of a (B, T, N, H) contiguous tensor."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v)
@@ -229,17 +306,23 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool):
         raise ValueError(f"attention_bnth: self-attention shapes differ: "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     b, n, t, h = q.shape
-    p = plan(b, n, t, h, sm_count(q.device))
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"attention_bnth: {name} on {x.device}, q on {q.device}")
-        _check(name, x)
+        _check(name, x, q.dtype)
     out = _bthn_empty(q)
     lse = (torch.empty((b, n, t), dtype=torch.float32, device=q.device) if with_lse
            else None)
     strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
-    KERNEL(ptr(q), ptr(k), ptr(v), ptr(out), None if lse is None else ptr(lse), b, n, t, h,
-           p.grid[0], p.smem_bytes, *strides, float(h ** -0.5), stream_of(q))
+    lse_ptr = None if lse is None else ptr(lse)
+    if q.dtype == torch.float32:
+        p32 = fp32_plan(b, n, t, h)
+        KERNEL_FP32(ptr(q), ptr(k), ptr(v), ptr(out), lse_ptr, b, n, t, h, p32.smem_bytes,
+                    (ctypes.c_int64 * 12)(*strides), float(h ** -0.5), stream_of(q))
+    else:
+        p = plan(b, n, t, h, sm_count(q.device))
+        KERNEL(ptr(q), ptr(k), ptr(v), ptr(out), lse_ptr, b, n, t, h, p.grid[0], p.smem_bytes,
+               *strides, float(h ** -0.5), stream_of(q))
     return (out, lse) if with_lse else out
 
 
@@ -251,24 +334,27 @@ def _bthn_empty(q: torch.Tensor) -> torch.Tensor:
 
 def attention_bnth_bwd(q, k, v, o, do, lse):
     """dQ, dK, dV of :func:`attention_bnth` from its output ``o``, log-sum-exp
-    ``lse`` and the output gradient ``do``: kernel K2 bwd on a Hopper card (one
-    call, three launches: D and the zeroed fp32 dQ scratch; dK, dV and dQ's
-    sums; dQ), the plain version on the CPU. The gradients are (B, N, T, H)
-    views of (B, T, N, H) contiguous tensors. dK and dV are the same bit for
-    bit from call to call; dQ's fp32 sums arrive in an order that is not."""
+    ``lse`` and the output gradient ``do``: on a Hopper card kernel K2 bwd for
+    bf16 (one call, three launches: D and the zeroed fp32 dQ scratch; dK, dV
+    and dQ's sums; dQ) or K2 bwd fp32 for float32 (one call, three launches:
+    D; dK and dV; dQ), the plain version on the CPU. The gradients are
+    (B, N, T, H) views of (B, T, N, H) contiguous tensors. dK and dV are the
+    same bit for bit from call to call; so is dQ in fp32, while bf16's dQ sums
+    arrive in an order that is not."""
     if q.device.type == "cpu":
         return _torch_attention_bwd(q, k, v, o, do, lse)
     if not is_hopper(q):
         raise RuntimeError(f"attention_bnth_bwd: kernel needs an sm_90 device, got {q.device}")
     b, n, t, h = q.shape
-    p = bwd_plan(b, n, t, h)
-    if tma_view_error(do.shape, do.stride(), do.data_ptr()) is not None:
+    fp32 = q.dtype == torch.float32
+    p = fp32_bwd_plan(b, n, t, h) if fp32 else bwd_plan(b, n, t, h)
+    if tma_view_error(do.shape, do.stride(), do.data_ptr(), do.element_size()) is not None:
         do = do.contiguous()
     for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         if x.shape != q.shape or x.device != q.device:
             raise ValueError(f"attention_bnth_bwd: {name} is {tuple(x.shape)} on {x.device}, "
                              f"q {tuple(q.shape)} on {q.device}")
-        _check(name, x)
+        _check(name, x, q.dtype)
     if (lse.shape != (b, n, t) or lse.dtype != torch.float32 or not lse.is_contiguous()
             or lse.device != q.device or lse.data_ptr() % 16):
         raise ValueError("attention_bnth_bwd: lse must be a contiguous, 16-byte aligned "
@@ -276,6 +362,13 @@ def attention_bnth_bwd(q, k, v, o, do, lse):
                          f"{lse.dtype}")
     dq, dk, dv = _bthn_empty(q), _bthn_empty(q), _bthn_empty(q)
     dvec = torch.empty((b, n, t), dtype=torch.float32, device=q.device)
+    if fp32:
+        strides = (ctypes.c_int64 * 24)(*(st for x in (q, k, v, o, do, dq, dk, dv)
+                                          for st in x.stride()[:3]))
+        KERNEL_FP32_BWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(dvec), ptr(dq),
+                        ptr(dk), ptr(dv), b, n, t, h, p.smem_dkv, p.smem_dq, strides,
+                        float(h ** -0.5), stream_of(q))
+        return dq, dk, dv
     dq_acc = torch.empty(p.scratch, dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 24)(*(st for x in (q, k, v, o, do, dq, dk, dv)
                                       for st in x.stride()[:3]))

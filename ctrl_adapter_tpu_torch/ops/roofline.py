@@ -4,8 +4,11 @@
 input read once, each output written once, whatever a kernel re-reads) over the
 card's memory rate, and the operations it does over the card's peak rate for
 their type. Peaks are NVIDIA's data sheet for one H100 SXM at its full 700 W
-(dense, no sparsity). The matrix kernels count only their tensor-core products
-(bf16); the normalisation counts its fp32 arithmetic outside the tensor cores.
+(dense, no sparsity). The bf16 matrix kernels count only their tensor-core
+products (bf16, 989 TFLOP/s); the normalisation counts its fp32 arithmetic
+outside the tensor cores (67 TFLOP/s). The fp32 attention kernels count their
+products against the same 67 TFLOP/s: the tensor cores take TF32 at most,
+whose one pass keeps ~3 decimal digits, not fp32's.
 
 Plain Python on shapes, so the CPU tests check the arithmetic and
 ``chip_smoke.py`` prints it beside each kernel's measured time.
@@ -20,6 +23,7 @@ H100_BF16_FLOPS = 989e12   # tensor cores, dense bf16
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12  # HBM3
 BF16 = 2                    # bytes per element
+FP32 = 4
 
 
 @dataclass(frozen=True)
@@ -45,25 +49,32 @@ class Cost:
         return "operations" if self.compute_ms >= self.memory_ms else "bytes"
 
 
-def group_norm(shape, silu: bool) -> Cost:
-    """K1 on a bf16 (N, C, *spatial) tensor: x read once, y written once, the
-    (C,) weight and bias; per element two fp32 ops for the statistics, three
-    for the affine, four more for SiLU."""
+def group_norm(shape, silu: bool, itemsize: int = BF16) -> Cost:
+    """K1 on an (N, C, *spatial) tensor of ``itemsize`` bytes an element (bf16
+    or fp32): x read once, y written once, the (C,) weight and bias; per
+    element two fp32 ops for the statistics, three for the affine, four more
+    for SiLU."""
     elems, c = prod(shape), shape[1]
-    return Cost(flops=elems * (5 + 4 * silu), bytes=BF16 * (2 * elems + 2 * c),
+    return Cost(flops=elems * (5 + 4 * silu), bytes=itemsize * (2 * elems + 2 * c),
                 peak_flops=H100_FP32_FLOPS)
 
 
-def attention(b: int, n: int, t: int, s: int, h: int) -> Cost:
-    """K2: Q K^T and P V over (b, n) pairs, T queries, S keys, head dim H."""
-    return Cost(flops=4 * b * n * t * s * h, bytes=BF16 * b * n * h * (2 * t + 2 * s))
+def attention(b: int, n: int, t: int, s: int, h: int, itemsize: int = BF16) -> Cost:
+    """K2: Q K^T and P V over (b, n) pairs, T queries, S keys, head dim H; bf16
+    on the tensor cores, or (``itemsize`` 4) fp32 on the CUDA cores."""
+    return Cost(flops=4 * b * n * t * s * h, bytes=itemsize * b * n * h * (2 * t + 2 * s),
+                peak_flops=H100_BF16_FLOPS if itemsize == BF16 else H100_FP32_FLOPS)
 
 
-def attention_bwd(b: int, n: int, t: int, h: int) -> Cost:
+def attention_bwd(b: int, n: int, t: int, h: int, itemsize: int = BF16) -> Cost:
     """K2's backward over (b, n) pairs of T x T self-attention, head dim H: the
     five products S, dP, dV, dQ, dK (2 T^2 H flop each) against Q, K, V, O, dO
-    read and dQ, dK, dV written (bf16) and the forward's fp32 log-sum-exp read."""
-    return Cost(flops=10 * b * n * t * t * h, bytes=BF16 * 8 * b * n * t * h + 4 * b * n * t)
+    read and dQ, dK, dV written (bf16, or fp32 for ``itemsize`` 4, on the CUDA
+    cores) and the forward's fp32 log-sum-exp read. The fp32 kernel's
+    recompute of S and dP is not counted: the bound is the function's."""
+    return Cost(flops=10 * b * n * t * t * h,
+                bytes=itemsize * 8 * b * n * t * h + 4 * b * n * t,
+                peak_flops=H100_BF16_FLOPS if itemsize == BF16 else H100_FP32_FLOPS)
 
 
 def _temporal_attention_flops(rows: int, b: int, s: int, f: int, c: int, ia: int) -> int:

@@ -21,6 +21,12 @@ and returns the JAX package's layouts: latents (b, f, h, w, 4), control images
 (E, b*f, H, W, 3), video (b, f, H, W, 3). Inside, tensors are NCHW /
 (b, f, c, h, w). Everything runs on the device of the UNet's weights, and the
 denoise loop makes no copy between the host and the device.
+
+``generate(..., mesh=...)`` is the JAX ``mesh=`` argument: the video batch
+splits over the processes of a ``parallel.mesh.Mesh`` (the control images on
+their axis 1), and the output equals the one-process run over the whole
+batch; a conditional router reads the global batch mean of the CLIP
+embeddings (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..models.router import ControlNetRouter, build_router_input, fuse_expert_re
 from ..models.unet_i2vgen import I2VGenXLUNet
 from ..models.vae import AutoencoderKL
 from ..ops.resize import adaptive_avg_pool2d
+from ..parallel import mesh as meshes
 from ..schedulers.ddim import DDIMConfig, DDIMScheduler
 from .common import classifier_free_guidance, control_window, normalize_control_latent_size
 
@@ -105,8 +112,10 @@ class I2VGenXLControlNetAdapterPipeline:
             adapter_frames = len(ctx["sparse_frames"])
             down = [d[idx] for d in down]
             mid = None if mid is None else mid[idx]
-        down, mid = self.adapter(down, mid if use_mid else None, num_frames=adapter_frames,
-                                 timestep=t, encoder_hidden_states=ctx["adapter_ehs"])
+        with meshes.global_rows(ctx["adapter_rows"]):
+            down, mid = self.adapter(down, mid if use_mid else None,
+                                     num_frames=adapter_frames, timestep=t,
+                                     encoder_hidden_states=ctx["adapter_ehs"])
         if idx is not None:
             def scatter(a):
                 dense = torch.zeros((2 * b * f,) + tuple(a.shape[1:]), dtype=a.dtype,
@@ -168,7 +177,8 @@ class I2VGenXLControlNetAdapterPipeline:
                  fixed_controlnet_timestep: int = -1, vae_scaling_factor: float = 0.18215,
                  control_latent_size=64, latents: Optional[torch.Tensor] = None,
                  output_type: str = "np", return_router_weights: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 mesh: Optional[meshes.Mesh] = None):
         """prompt_embeds (2b, 77, 1024) [negative; positive]; controlnet_prompt_embeds
         (2b, 77, 768); image_embeddings (b, 1, 1024), the positive CLIP image
         embedding; first_frame_latent (b, h/8, w/8, 4), the unscaled VAE sample;
@@ -177,13 +187,32 @@ class I2VGenXLControlNetAdapterPipeline:
         end take a value per expert or one for all. Returns the (b, f, H, W, 3)
         video (the latents for output_type="latent"), and with
         ``return_router_weights`` also the router's per-step (down, mid) weights
-        over the control window, as lists."""
+        over the control window, as lists. With ``mesh``, every rank passes
+        the whole batch and gets the whole result; it runs its own slice of
+        the videos (b must divide over the ranks), with the noise of the
+        one-process draw."""
         device = self.unet.conv_in.weight.device
         b = image_embeddings.shape[0]
-        if latents is None:
+        rows = meshes.batch_rows(mesh, b) if mesh is not None else slice(0, b)
+        if latents is None:  # the whole batch's draw on every rank, then its slice
             latents = torch.randn((b, num_frames, height // 8, width // 8, 4),
                                   generator=generator, device=device, dtype=torch.float32)
-        latents = latents.to(device, torch.float32).permute(0, 1, 4, 2, 3)
+        latents = latents[rows].to(device, torch.float32).permute(0, 1, 4, 2, 3)
+        image_embeddings = image_embeddings.to(device)
+        all_embeddings, adapter_rows = image_embeddings, None
+        control_images = control_images.to(device)
+        if control_images.dim() == 4:
+            control_images = control_images[None]
+        prompt_embeds = prompt_embeds.to(device)
+        controlnet_prompt_embeds = controlnet_prompt_embeds.to(device)
+        if mesh is not None:
+            adapter_rows = meshes.GlobalRows(image_embeddings.repeat(2, 1, 1),
+                                             meshes.cfg_index(mesh, b, device))
+            prompt_embeds = meshes.take_cfg(mesh, prompt_embeds, b)
+            controlnet_prompt_embeds = meshes.take_cfg(mesh, controlnet_prompt_embeds, b)
+            first_frame_latent, image_embeddings = first_frame_latent[rows], image_embeddings[rows]
+            control_images = control_images[:, rows.start * num_frames:rows.stop * num_frames]
+            b = rows.stop - rows.start
 
         # frame-position-mask image latents: frame 0 the scaled latent, frame i
         # the constant i / (f - 1); duplicated for CFG
@@ -191,12 +220,8 @@ class I2VGenXLControlNetAdapterPipeline:
         frames = [il] + [torch.full_like(il, i / (num_frames - 1))
                          for i in range(1, num_frames)]
         il_frames = torch.stack(frames, dim=1)
-        image_embeddings = image_embeddings.to(device)
         image_embeddings_cfg = torch.cat([torch.zeros_like(image_embeddings), image_embeddings])
 
-        control_images = control_images.to(device)
-        if control_images.dim() == 4:
-            control_images = control_images[None]
         num_experts = control_images.shape[0]
         control_images = control_images.permute(0, 1, 4, 2, 3)
         control_images = torch.cat([control_images, control_images], dim=1)
@@ -221,6 +246,10 @@ class I2VGenXLControlNetAdapterPipeline:
         active_idx = torch.tensor(active, device=device)
         use_router = self.router is not None and num_experts > 1
         conditional_router = use_router and self.router.conditional
+        clip_pos = image_embeddings_cfg[b:]
+        if mesh is not None and conditional_router:
+            # the router's batch mean over all the ranks' videos: (1, 1, D)
+            clip_pos = meshes.all_reduce_mean(mesh, clip_pos.float().mean(dim=1))[None, None]
         down_w = mid_w = None  # routerless: the experts' residuals summed
         if use_router and not conditional_router:  # weights constant over the steps
             down_w, mid_w = self._router_weights(None, None, mask, active_idx)
@@ -228,10 +257,10 @@ class I2VGenXLControlNetAdapterPipeline:
         sparse_idx = None if sparse is None else torch.tensor(
             [v * num_frames + p for v in range(2 * b) for p in sparse], device=device)
         ctx = dict(
-            prompt_embeds=prompt_embeds.to(device),
-            cn_prompt=controlnet_prompt_embeds.to(device).repeat_interleave(num_frames, dim=0),
-            image_embeddings=image_embeddings_cfg, clip_pos=image_embeddings_cfg[b:],
-            adapter_ehs=image_embeddings_cfg[b:].repeat(2, 1, 1),
+            prompt_embeds=prompt_embeds,
+            cn_prompt=controlnet_prompt_embeds.repeat_interleave(num_frames, dim=0),
+            image_embeddings=image_embeddings_cfg, clip_pos=clip_pos,
+            adapter_ehs=image_embeddings_cfg[b:].repeat(2, 1, 1), adapter_rows=adapter_rows,
             image_latents=torch.cat([il_frames, il_frames]), control_images=control_images,
             target_fps=target_fps, guidance_scale=float(guidance_scale), window=window,
             expert_windows=expert_windows, scales=scales, expert_mask=expert_mask,
@@ -243,6 +272,8 @@ class I2VGenXLControlNetAdapterPipeline:
         latents = self._sample(latents, num_inference_steps, ctx).permute(0, 1, 3, 4, 2)
         result = (latents if output_type == "latent"
                   else self._decode(latents, vae_scaling_factor))
+        if mesh is not None:
+            result = meshes.gather(mesh, result)
         if not (return_router_weights and self.router is not None):
             return result
         # one entry per step of the control window; equal and simple weights
@@ -254,7 +285,7 @@ class I2VGenXLControlNetAdapterPipeline:
             router_in = None
             if self.router.conditional:
                 router_in = build_router_input(self.router.router_type,
-                                               float(state.timesteps[i]), image_embeddings[-1:])
+                                               float(state.timesteps[i]), all_embeddings[-1:])
             dw, mw = self.router(router_in, sparse_mask=mask)
             trace_down.append(dw.cpu().numpy().tolist())
             trace_mid.append(None if mw is None else mw.cpu().numpy().tolist())

@@ -22,8 +22,12 @@ The JAX ``lax.scan`` over steps is a Python loop here and the control window a
 plain ``if``. :meth:`generate` takes and returns the JAX package's layouts:
 latents (b, h, w, 4), control image (b, H, W, 3), image (b, H, W, 3). Inside,
 tensors are NCHW. Everything runs on the device of the UNet's weights, and the
-denoise loop makes no copy between the host and the device. The JAX ``mesh=``
-argument (multi-device generation) is not ported.
+denoise loop makes no copy between the host and the device.
+
+``generate(..., mesh=...)`` is the JAX ``mesh=`` argument: the image batch
+splits over the processes of a ``parallel.mesh.Mesh`` (``timestep_cond`` and
+the IP-Adapter embeddings with it), and the output equals the one-process run
+over the whole batch (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..models.controlnet import ControlNetModel
 from ..models.unet_2d import UNet2DConditionModel
 from ..models.vae import AutoencoderKL
 from ..ops.resize import adaptive_avg_pool2d
+from ..parallel import mesh as meshes
 from ..schedulers.euler_discrete import EulerDiscreteConfig, EulerDiscreteScheduler
 from .common import (classifier_free_guidance_rescaled, control_window,
                      guidance_scale_embedding, normalize_control_latent_size, sdxl_add_time_ids)
@@ -107,44 +112,57 @@ class SDXLControlNetAdapterPipeline:
                  vae_scaling_factor: float = 0.13025, latents: Optional[torch.Tensor] = None,
                  control_latent_size=64, output_type: str = "np",
                  ip_adapter_image_embeds: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 mesh: Optional[meshes.Mesh] = None) -> torch.Tensor:
         """prompt_embeds (2b, 77, 2048) [negative; positive]; add_text_embeds
         (2b, 1280) pooled; controlnet_prompt_embeds (2b, 77, 768); control_image
         (b or 2b, 512, 512, 3) in [0, 1]; latents (b, h/8, w/8, 4) or None (drawn
         from ``generator``); ip_adapter_image_embeds (b, d) CLIP image
         embeddings. Returns the (b, H, W, 3) image, or the (b, h/8, w/8, 4)
-        latents for output_type="latent"."""
+        latents for output_type="latent". With ``mesh``, every rank passes the
+        whole batch and gets the whole result; it runs its own slice of the
+        images (b must divide over the ranks), with the noise of the
+        one-process draw."""
         device = self.unet.conv_in.weight.device
         batch = prompt_embeds.shape[0] // 2
+        rows = meshes.batch_rows(mesh, batch) if mesh is not None else slice(0, batch)
         time_cond_dim = self.unet.config.time_cond_proj_dim
         do_cfg = guidance_scale > 1.0 and time_cond_dim is None
+        prompt_embeds = prompt_embeds.to(device)
+        add_text_embeds = add_text_embeds.to(device)
+        cn_prompt = controlnet_prompt_embeds.to(device)
+        control_image = control_image.to(device)
+        if control_image.shape[0] != 2 * batch:  # [negative; positive] rows as the prompts'
+            control_image = torch.cat([control_image[:batch]] * 2)
+        state = self.scheduler.set_timesteps(num_inference_steps)
+        if latents is None:  # the whole batch's draw on every rank, then its slice
+            latents = torch.randn((batch, height // 8, width // 8, 4), generator=generator,
+                                  device=device, dtype=torch.float32)
+        latents = latents[rows].to(device, torch.float32).permute(0, 3, 1, 2)
+        latents = latents * float(state.init_noise_sigma)
+        if ip_adapter_image_embeds is not None:
+            ip_adapter_image_embeds = ip_adapter_image_embeds[:batch][rows]
+        if mesh is not None:
+            prompt_embeds, add_text_embeds, cn_prompt, control_image = (
+                meshes.take_cfg(mesh, x, batch)
+                for x in (prompt_embeds, add_text_embeds, cn_prompt, control_image))
+            batch = rows.stop - rows.start
         timestep_cond = None
         if time_cond_dim is not None:  # LCM: the guidance scale is an input, not CFG
             timestep_cond = guidance_scale_embedding(
                 torch.full((batch,), guidance_scale - 1.0, device=device), time_cond_dim)
-        prompt_embeds = prompt_embeds.to(device)
-        add_text_embeds = add_text_embeds.to(device)
-        cn_prompt = controlnet_prompt_embeds.to(device)
         if not do_cfg:
             prompt_embeds, add_text_embeds = prompt_embeds[batch:], add_text_embeds[batch:]
-            cn_prompt = cn_prompt[batch:]
+            # the first control rows, as JAX takes control_image[:batch]
+            cn_prompt, control_image = cn_prompt[batch:], control_image[:batch]
         model_batch = 2 * batch if do_cfg else batch
-        state = self.scheduler.set_timesteps(num_inference_steps)
-        if latents is None:
-            latents = torch.randn((batch, height // 8, width // 8, 4), generator=generator,
-                                  device=device, dtype=torch.float32)
-        latents = latents.to(device, torch.float32).permute(0, 3, 1, 2)
-        latents = latents * float(state.init_noise_sigma)
 
         add_time_ids = sdxl_add_time_ids(original_size or (height, width), (0, 0),
                                          (height, width), model_batch, prompt_embeds.dtype,
                                          device)
         added = {"text_embeds": add_text_embeds, "time_ids": add_time_ids}
-        control_image = control_image.to(device)
-        if control_image.shape[0] != model_batch:
-            control_image = torch.cat([control_image[:batch]] * (model_batch // batch))
         if ip_adapter_image_embeds is not None:
-            image_embeds = ip_adapter_image_embeds[:batch].to(device)
+            image_embeds = ip_adapter_image_embeds.to(device)
             if do_cfg:
                 image_embeds = torch.cat([torch.zeros_like(image_embeds), image_embeds])
             added["image_embeds"] = image_embeds
@@ -160,6 +178,6 @@ class SDXLControlNetAdapterPipeline:
                    skip_time_emb=bool(skip_time_emb), guess_mode=bool(guess_mode),
                    control_latent_size=control_latent_size)
         latents = self._sample(latents, num_inference_steps, ctx).permute(0, 2, 3, 1)
-        if output_type == "latent":
-            return latents
-        return self._decode(latents, vae_scaling_factor)
+        if output_type != "latent":
+            latents = self._decode(latents, vae_scaling_factor)
+        return latents if mesh is None else meshes.gather(mesh, latents)

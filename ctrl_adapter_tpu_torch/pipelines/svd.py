@@ -13,6 +13,11 @@ The JAX ``lax.scan`` over steps is a Python loop here and the control window a
 plain ``if``. The public :meth:`generate` and :meth:`_decode` take and return
 the JAX package's layouts: latents (b, f, h, w, 4), video (b, f, H, W, 3).
 Inside, tensors are NCHW / (b, f, c, h, w).
+
+``generate(..., mesh=...)`` is the JAX ``mesh=`` argument: the video batch
+splits over the processes of a ``parallel.mesh.Mesh`` (one card each), every
+rank holds the weights, and the output equals the one-process run over the
+whole batch (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from ..models.controlnet import ControlNetModel
 from ..models.unet_svd import UNetSpatioTemporalConditionModel
 from ..models.vae_temporal import AutoencoderKLTemporalDecoder
 from ..ops.resize import adaptive_avg_pool2d
+from ..parallel import mesh as meshes
 from ..schedulers.euler_discrete import (SVD_EULER_CONFIG, EulerDiscreteScheduler,
                                          EulerDiscreteState)
 from .common import control_window, normalize_control_latent_size
@@ -50,8 +56,10 @@ class SVDControlNetAdapterPipeline:
                    image_embeddings: torch.Tensor, cn_prompt: torch.Tensor,
                    control_images: torch.Tensor, sparse_frames: Optional[Tuple[int, ...]],
                    control_latent_size, conditioning_scale: float, skip_conv_in: bool,
-                   guess_mode: bool) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
-        """ControlNet tower + adapter -> dense (adapted_down, adapted_mid)."""
+                   guess_mode: bool, rows=None
+                   ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
+        """ControlNet tower + adapter -> dense (adapted_down, adapted_mid);
+        ``rows`` places the adapter's batch in the global one (``global_rows``)."""
         b, f, c, h, w = lat.shape
         lmi = self.scheduler.scale_model_input(state, torch.cat([lat, lat]), i)
         pooled = adaptive_avg_pool2d(lmi.reshape(2 * b * f, c, h, w),
@@ -70,8 +78,10 @@ class SVDControlNetAdapterPipeline:
             adapter_frames = len(sparse_frames)
             downs = [d[idx] for d in downs]
             mid = mid[idx]
-        down, mid = self.adapter(downs, mid if use_mid else None, num_frames=adapter_frames,
-                                 timestep=u, encoder_hidden_states=adapter_ehs)
+        with meshes.global_rows(rows):
+            down, mid = self.adapter(downs, mid if use_mid else None,
+                                     num_frames=adapter_frames, timestep=u,
+                                     encoder_hidden_states=adapter_ehs)
         if idx is not None:
             def scatter(a):
                 dense = torch.zeros((2 * b * f,) + tuple(a.shape[1:]), dtype=a.dtype,
@@ -89,8 +99,10 @@ class SVDControlNetAdapterPipeline:
                 num_inference_steps: int, window: Tuple[int, int],
                 sparse_frames: Optional[Tuple[int, ...]], skip_conv_in: bool,
                 control_latent_size, conditioning_scale: float, guidance: torch.Tensor,
-                guess_mode: bool = False) -> torch.Tensor:
-        """Denoise loop over (b, f, 4, h, w) float32 latents."""
+                guess_mode: bool = False, rows=(None, None)) -> torch.Tensor:
+        """Denoise loop over (b, f, 4, h, w) float32 latents; ``rows`` are the
+        UNet's and the adapter's places in the global batch (None: this is
+        the whole batch)."""
         state = self.scheduler.set_timesteps(num_inference_steps)
         cn_timesteps = controlnet_timestep_remap(num_inference_steps)
         b, f = latents.shape[:2]
@@ -103,13 +115,14 @@ class SVDControlNetAdapterPipeline:
                 down, mid = self._residuals(
                     state, latents, i, float(cn_timesteps[i]), image_embeddings, cn_prompt,
                     control_images, sparse_frames, control_latent_size, conditioning_scale,
-                    skip_conv_in, guess_mode)
+                    skip_conv_in, guess_mode, rows[1])
             lmi = self.scheduler.scale_model_input(state, torch.cat([latents, latents]), i)
             lmi = torch.cat([lmi, image_latents.to(lmi.dtype)], dim=2)
             t = state.timesteps[i].to(latents.device).expand(2 * b)
-            noise_pred = self.unet(lmi, t, image_embeddings, added_time_ids,
-                                   down_block_additional_residuals=down,
-                                   mid_block_additional_residual=mid).float()
+            with meshes.global_rows(rows[0]):
+                noise_pred = self.unet(lmi, t, image_embeddings, added_time_ids,
+                                       down_block_additional_residuals=down,
+                                       mid_block_additional_residual=mid).float()
             uncond, cond = noise_pred.chunk(2)
             noise_pred = uncond + guidance_b * (cond - uncond)
             latents = self.scheduler.step(state, noise_pred, i, latents)
@@ -146,24 +159,40 @@ class SVDControlNetAdapterPipeline:
                  guess_mode: bool = False, vae_scaling_factor: float = 0.18215,
                  control_latent_size=64, latents: Optional[torch.Tensor] = None,
                  output_type: str = "np", decode_chunk_size: Optional[int] = None,
-                 device=None, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 device=None, generator: Optional[torch.Generator] = None,
+                 mesh: Optional[meshes.Mesh] = None) -> torch.Tensor:
         """image_embeddings (b, 1, 1024); image_latent (b, h/8, w/8, 4);
         controlnet_prompt_embeds (2b, 77, 768); control_images (b*f, H, W, 3)
         in [0, 1]; latents (b, f, h/8, w/8, 4) or None (drawn from ``generator``).
-        Returns the (b, f, H, W, 3) video, or the latents for output_type="latent"."""
+        Returns the (b, f, H, W, 3) video, or the latents for output_type="latent".
+        With ``mesh``, every rank passes the whole batch and gets the whole
+        result; it runs its own slice of the videos (b must divide over the
+        ranks), with the noise of the one-process draw."""
         device = torch.device(device) if device is not None else self.unet.conv_in.weight.device
         b = image_embeddings.shape[0]
+        rows = meshes.batch_rows(mesh, b) if mesh is not None else slice(0, b)
         state = self.scheduler.set_timesteps(num_inference_steps)
-        if latents is None:
+        if latents is None:  # the whole batch's draw on every rank, then its slice
             latents = torch.randn((b, num_frames, height // 8, width // 8, 4),
                                   generator=generator, device=device, dtype=torch.float32)
-        latents = latents.to(device, torch.float32).permute(0, 1, 4, 2, 3)
+        latents = latents[rows].to(device, torch.float32).permute(0, 1, 4, 2, 3)
         latents = latents * state.init_noise_sigma.to(device)
 
+        image_embeddings = image_embeddings.to(device)
+        places = (None, None)  # the UNet's and the adapter's rows in the global batch
+        if mesh is not None:
+            index = meshes.cfg_index(mesh, b, device)
+            places = (  # the UNet's context [zeros; embeddings], the adapter's [pos; pos]
+                meshes.GlobalRows(torch.cat([torch.zeros_like(image_embeddings),
+                                             image_embeddings]), index),
+                meshes.GlobalRows(image_embeddings.repeat(2, 1, 1), index))
+            image_latent, image_embeddings = image_latent[rows], image_embeddings[rows]
+            controlnet_prompt_embeds = meshes.take_cfg(mesh, controlnet_prompt_embeds, b)
+            control_images = control_images[rows.start * num_frames:rows.stop * num_frames]
+            b = rows.stop - rows.start
         il = image_latent.to(device).permute(0, 3, 1, 2)[:, None]
         il = il.expand(b, num_frames, *il.shape[2:])
         image_latents = torch.cat([torch.zeros_like(il), il])
-        image_embeddings = image_embeddings.to(device)
         image_embeddings_cfg = torch.cat([torch.zeros_like(image_embeddings), image_embeddings])
         added_time_ids = torch.tensor(
             [[float(fps - 1), float(motion_bucket_id), float(noise_aug_strength)]],
@@ -179,8 +208,8 @@ class SVDControlNetAdapterPipeline:
             added_time_ids, control_images, num_inference_steps, window,
             tuple(int(i) for i in sparse_frames) if sparse_frames is not None else None,
             skip_conv_in, control_latent_size, float(controlnet_conditioning_scale), guidance,
-            bool(guess_mode))
+            bool(guess_mode), places)
         latents = latents.permute(0, 1, 3, 4, 2)
-        if output_type == "latent":
-            return latents
-        return self._decode(latents, vae_scaling_factor, decode_chunk_size)
+        if output_type != "latent":
+            latents = self._decode(latents, vae_scaling_factor, decode_chunk_size)
+        return latents if mesh is None else meshes.gather(mesh, latents)

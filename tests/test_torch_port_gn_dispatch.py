@@ -16,6 +16,10 @@ per call, with ``group_norm.eligible``.
   ControlNet, 2D VAE) at b*f = 32, and of the SDXL path (the SDXL adapter,
   UNet, ControlNet and VAE) at batch 2.
 - Each flag value under the switch, at shapes the rule takes and refuses.
+- The three paths again with fp32 towers (``--mixed_precision no``): K1 takes
+  fp32 input, and JAX's rule decides at itemsize 4 (a float32
+  ``ShapeDtypeStruct``), so a norm's 4 * S * C * 4 bytes count against the
+  12 MiB budget.
 """
 
 from collections import Counter
@@ -34,9 +38,9 @@ from ctrl_adapter_tpu_torch.ops import group_norm as gn
 META, BF = torch.device("meta"), torch.bfloat16
 
 
-def _jax_takes(flag, shape, groups=32):
+def _jax_takes(flag, shape, groups=32, dtype=jnp.bfloat16):
     """Whether JAX's group_norm_silu, on a TPU, would launch its kernel for an
-    (N, C, *spatial) bf16 tensor with this ``use_pallas`` flag."""
+    (N, C, *spatial) tensor of ``dtype`` with this ``use_pallas`` flag."""
     calls = []
 
     def spy(x, *args, **kwargs):
@@ -44,7 +48,7 @@ def _jax_takes(flag, shape, groups=32):
         return jnp.zeros(x.shape, x.dtype)
 
     c = shape[1]
-    sds = jax.ShapeDtypeStruct((shape[0], *shape[2:], c), jnp.bfloat16)
+    sds = jax.ShapeDtypeStruct((shape[0], *shape[2:], c), dtype)
     orig = jgn._pallas_group_norm_silu
     jgn._pallas_group_norm_silu = spy
     try:
@@ -277,3 +281,84 @@ def test_eligible_is_the_jax_rule_on_a_grid():
         for itemsize, jd in ((2, jnp.bfloat16), (4, jnp.float32)):
             want = jgn._eligible(jax.ShapeDtypeStruct((shape[0], *shape[2:], shape[1]), jd), 32)
             assert gn.eligible(shape, 32, itemsize) == want, (shape, itemsize)
+
+
+def _check_verdicts(seen, dtype):
+    verdicts = {}
+    for tower, flag, shape, taken in seen:
+        key = (flag, shape)
+        if key not in verdicts:
+            verdicts[key] = _jax_takes(flag, shape, dtype=dtype)
+        assert taken == verdicts[key], (tower, flag, shape, taken)
+    return Counter(tower for tower, _, _, taken in seen if taken)
+
+
+@pytest.mark.parametrize("env", [None, "1"], ids=["default", "fused-gn"])
+@pytest.mark.parametrize("path", ["svd", "i2vgenxl", "sdxl"])
+def test_k1_choice_matches_jax_at_every_norm_under_fp32(jax_on_tpu, env, path):
+    """Every norm of each path with fp32 towers: the adapter and the UNet as
+    the paths above run them (the training step runs these two towers and the
+    ControlNet under ``--mixed_precision no``), the port's choice against JAX's
+    rule at itemsize 4. The 12 MiB budget takes half the elements it takes in
+    bf16, so fewer adapter norms run K1 than the bf16 path's."""
+    import chip_smoke
+    from ctrl_adapter_tpu_torch.models.adapter import ControlNetAdapter
+    from ctrl_adapter_tpu_torch.models.controlnet import ControlNetModel
+
+    f32 = torch.float32
+    _set_env(jax_on_tpu, env)
+    seen, state, kernel = _record_norms(jax_on_tpu)
+    e = lambda *s: torch.empty(*s, device=META, dtype=f32)  # noqa: E731
+    with chip_smoke.plain_kernels(), torch.no_grad(), jax_on_tpu.context() as mp:
+        mp.setattr(gn, "group_norm_silu", kernel)
+        state["tower"] = "adapter"
+        if path == "sdxl":
+            from ctrl_adapter_tpu_torch.models.unet_2d import SDXL_CONFIG, UNet2DConditionModel
+
+            adapter = ControlNetAdapter(backbone_model_name="sdxl", cross_attention_dim=2048,
+                                        num_blocks=1, adapter_locations=("A", "B", "C"),
+                                        device=META, dtype=f32)
+            down, _ = adapter([e(1, c, h, h) for c, h in chip_smoke.adapter_blocks(64)[:-1]],
+                              None, num_frames=1, timestep=951.0,
+                              encoder_hidden_states=e(1, 77, 2048))
+            state["tower"] = "unet"
+            UNet2DConditionModel(SDXL_CONFIG, device=META, dtype=f32)(
+                e(1, 4, 128, 128), 951.0, e(1, 77, 2048),
+                {"text_embeds": e(1, 1280), "time_ids": e(1, 6)},
+                down_block_additional_residuals=down)
+            cn_batch, cn_t = 1, 951.0
+        else:
+            f = chip_smoke.FRAMES if path == "svd" else chip_smoke.I2V_FRAMES
+            adapter = ControlNetAdapter(cross_attention_dim=1024, num_blocks=1,
+                                        adapter_locations=("A", "B", "C", "D", "M"),
+                                        add_temporal_resnet=True, add_temporal_transformer=True,
+                                        device=META, dtype=f32)
+            res = [e(f, c, h, h) for c, h in chip_smoke.adapter_blocks()[:-1]]
+            adapter(res, e(f, 1280, 8, 8), num_frames=f, timestep=torch.ones(1, device=META),
+                    encoder_hidden_states=e(1, 1, 1024))
+            state["tower"] = "unet"
+            if path == "svd":
+                from ctrl_adapter_tpu_torch.models.unet_svd import (
+                    UNetSpatioTemporalConditionModel)
+
+                UNetSpatioTemporalConditionModel(device=META, dtype=f32)(
+                    e(1, f, 8, 64, 64), torch.ones(1, device=META), e(1, 1, 1024),
+                    torch.empty(1, 3, device=META))
+            else:
+                from ctrl_adapter_tpu_torch.models.unet_i2vgen import I2VGenXLUNet
+
+                I2VGenXLUNet(device=META, dtype=f32)(
+                    e(1, f, 4, 64, 64), 981.0, torch.full((1,), 16.0, device=META),
+                    e(1, f, 4, 64, 64), e(1, 1, 1024), e(1, 77, 1024))
+            cn_batch, cn_t = f, 981.0
+        state["tower"] = "controlnet"
+        ControlNetModel(device=META, dtype=f32)(e(cn_batch, 4, 64, 64), cn_t,
+                                                e(cn_batch, 77, 768), e(cn_batch, 3, 512, 512))
+
+    per_tower = _check_verdicts(seen, jnp.float32)
+    bf16_rule = sum(gn.eligible(shape, 32, 2) for tower, flag, shape, _ in seen
+                    if tower == "adapter")
+    assert 0 < per_tower["adapter"] < bf16_rule, (per_tower, bf16_rule)
+    if env is None:
+        assert set(per_tower) == {"adapter"}
+    assert not all(taken for *_, taken in seen)

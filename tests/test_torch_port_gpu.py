@@ -23,7 +23,11 @@ to a relative norm, ``||kernel - plain|| <= 1e-2 ||plain||``: its outputs are
 averages over T keys, small beside the elementwise atol, and a K/V tile that
 is skipped or read from the wrong ring slot moves them by far more than 1 %
 of their norm while staying inside the atol; so is K5 at c = 640, whose
-outputs (std ~0.1 at these inputs) sit far below its atol. Module
+outputs (std ~0.1 at these inputs) sit far below its atol. The fp32
+kernels (K1 fp32, K2 fp32 and its backward) compute in fp32 as their plain
+versions do, in another summation order: each output within 1e-5 of the
+plain version's norm (TF32 off for the plain version's products), and the
+elementwise check at 1e-4 absolute and relative. Module
 wiring tests compare a bf16 module on the
 card with the same bf16-rounded weights in fp32 on the CPU, within 5e-2 of the
 output's largest magnitude: a wrong head split or transpose gives errors of
@@ -245,6 +249,106 @@ def test_gpu_k2_backward_dk_dv_are_reproducible(h):
            rel_norm=2e-2)
 
 
+
+def _rel(got, want):
+    return (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
+
+
+@pytest.fixture
+def fp32_matmuls():
+    """The plain versions' fp32 products in full fp32 (no TF32)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,silu,branch", [
+    ((14, 320, 64, 64), True, "cluster"),
+    ((28, 320, 32, 32), True, "one_cta"),
+    ((28, 1280, 8, 8), False, "several_groups"),
+    ((2, 640, 16, 16), True, "cluster"),
+    ((2, 64, 3, 5, 7), False, "two_pass"),
+    ((2, 64, 1, 2, 6), True, "cluster"),
+    ((1, 32, 1, 1024, 1024), True, "two_pass"),
+], ids=["train-b14", "one-cta", "several-groups", "cluster4", "scalar-S105", "S12",
+        "two-pass-4MB-group"])
+def test_gpu_k1_fp32_kernel_matches_plain(shape, silu, branch):
+    """K1 on fp32 input (4 elements a vector) in every branch of its plan, one
+    launch per call (on K1 fp32's counter), within 1e-5 of the plain
+    version's norm; the same bits from call to call."""
+    dev = _dev()
+    assert tgn.plan(shape, 32, itemsize=4).branch == branch
+    g = torch.Generator(device=dev).manual_seed(20)
+    x = _rand(g, dev, *shape)
+    c = shape[1]
+    w = 1.0 + _rand(g, dev, c, scale=0.1)
+    b = _rand(g, dev, c, scale=0.1)
+    bf16 = tgn.KERNEL.launches
+    got = _launches(tgn.KERNEL_FP32, lambda: tgn.group_norm_silu(x, w, b, 32, 1e-6, silu))
+    assert tgn.KERNEL.launches == bf16  # counted apart from bf16's launches
+    want = tgn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu)
+    assert got.dtype == torch.float32
+    _check(got, want, atol=1e-4, rtol=1e-4, rel_norm=1e-5)
+    assert torch.equal(got, tgn.group_norm_silu(x, w, b, 32, 1e-6, silu))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1024, 4096])
+@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("layout", ["bnth", "btnh-view"])
+def test_gpu_k2_fp32_kernel_matches_plain(fp32_matmuls, t, h, layout):
+    """K2 fp32 on contiguous (B, N, T, H) tensors and on head-split views,
+    with and without the rows' log-sum-exp, against the plain version."""
+    dev = _dev()
+    g = torch.Generator(device=dev).manual_seed(21)
+    b, n = 2, 3
+    if layout == "bnth":
+        q, k, v = (_rand(g, dev, b, n, t, h) for _ in range(3))
+    else:
+        q, k, v = (_rand(g, dev, b, t, n * h).view(b, t, n, h).transpose(1, 2)
+                   for _ in range(3))
+    got = _launches(tfa.KERNEL_FP32, lambda: tfa.attention_bnth(q, k, v))
+    want, want_lse = tfa._torch_attention(q, k, v, True)
+    assert got.dtype == torch.float32
+    _check(got, want, atol=1e-4, rtol=1e-4, rel_norm=1e-5)
+    out, lse = tfa._forward(q, k, v, True)
+    assert torch.equal(out, got)
+    _check(lse, want_lse, atol=1e-4, rtol=1e-5, rel_norm=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,t,h", [(2, 3, 1024, 64), (1, 5, 4096, 64), (2, 2, 1024, 128),
+                                     (2, 3, 64, 64), (1, 2, 64, 128), (3, 7, 2048, 64)])
+def test_gpu_k2_fp32_backward_matches_plain_and_is_reproducible(fp32_matmuls, b, n, t, h):
+    """K2 fp32's forward with its log-sum-exp and K2 bwd fp32 (one call, one
+    count each) through ``FlashAttention`` on head-split views, against the
+    plain backward on the kernel's own output and lse, each gradient within
+    1e-5 of its norm; a second backward call gives the same bits (dQ, dK and
+    dV are each summed in a fixed order). T = 64 is one block."""
+    dev = _dev()
+    g = torch.Generator(device=dev).manual_seed(22)
+    q, k, v, do = (_rand(g, dev, b, t, n * h).view(b, t, n, h).transpose(1, 2)
+                   for _ in range(4))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    fwd, bwd = tfa.KERNEL_FP32.launches, tfa.KERNEL_FP32_BWD.launches
+    bf16 = tfa.KERNEL.launches, tfa.KERNEL_BWD.launches
+    out = tfa.attention_bnth(*leaves)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (tfa.KERNEL_FP32.launches - fwd, tfa.KERNEL_FP32_BWD.launches - bwd) == (1, 1)
+    assert (tfa.KERNEL.launches, tfa.KERNEL_BWD.launches) == bf16
+    o, lse = tfa._forward(q, k, v, True)
+    want = tfa._torch_attention_bwd(q, k, v, o, do, lse)
+    for x, y in zip(got, want):
+        assert x.dtype == torch.float32
+        _check(x, y, atol=1e-4 * y.abs().max().item(), rtol=1e-4, rel_norm=1e-5)
+    again = tfa.attention_bnth_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(tfa.attention_bnth_bwd(q, k, v, o, do, lse),
+                                                 again))
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["k1", "k3", "k3-full", "k4", "k5"])
 def test_gpu_kernel_gradients_are_the_plain_versions(name):
@@ -365,17 +469,26 @@ def _k3_hybrid_check(dev, f, s, c, heads, cross):
 @pytest.mark.gpu
 def test_gpu_wrappers_refuse_what_the_kernels_do_not_take():
     dev = _dev()
-    for dtype in (torch.float16, torch.float32):  # K1 takes bf16 only
+    for dtype in (torch.float16, torch.float64):  # K1 takes bf16 and fp32 only
         x_ = torch.zeros(2, 64, 4, 4, device=dev, dtype=dtype)
         w_ = torch.ones(64, device=dev, dtype=dtype)
         with pytest.raises(TypeError):
             tgn.group_norm_silu(x_, w_, w_, 32)
+    x32 = torch.zeros(2, 64, 4, 4, device=dev)
+    with pytest.raises(ValueError):  # weight and bias in x's type
+        tgn.group_norm_silu(x32, w_.to(BF), w_.to(BF), 32)
     xt = torch.zeros(2, 64, 4, 4, device=dev, dtype=BF).transpose(2, 3)
     w = torch.ones(64, device=dev, dtype=BF)
     with pytest.raises(ValueError):
         tgn.group_norm_silu(xt, w, w, 32)
+    q16 = torch.zeros(1, 2, 1024, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):  # K2 takes bf16 and fp32 only
+        tfa.attention_bnth(q16, q16, q16)
     q32 = torch.zeros(1, 2, 1024, 64, device=dev)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError):  # all three of one type
+        tfa.attention_bnth(q32, q32.to(BF), q32)
+    q32 = torch.zeros(1, 2, 1056, 64, device=dev)  # T % 64 != 0: off K2 fp32's tiling
+    with pytest.raises(ValueError):
         tfa.attention_bnth(q32, q32, q32)
     q = torch.zeros(1, 2, 1024, 96, device=dev, dtype=BF)
     with pytest.raises(ValueError):
@@ -664,12 +777,13 @@ def test_gpu_sdxl_denoise_loop_does_not_wait_for_the_card():
 @pytest.mark.gpu
 def test_gpu_modules_raise_where_the_kernels_refuse():
     """The modules dispatch on the JAX rule alone, so a card tensor the kernel
-    does not take reaches the wrapper and raises instead of running plain."""
+    does not take reaches the wrapper and raises instead of running plain:
+    K2 takes bf16 and fp32, so an fp16 self-attention raises."""
     dev = _dev()
     with torch.no_grad():
-        attn = Attention(128, 2, 64, device=dev)  # fp32, flash-eligible T = 1024
+        attn = Attention(128, 2, 64, device=dev, dtype=torch.float16)  # flash-eligible
         with pytest.raises(TypeError):
-            attn(torch.zeros(1, 1024, 128, device=dev))
+            attn(torch.zeros(1, 1024, 128, device=dev, dtype=torch.float16))
         block = TemporalBasicTransformerBlock(128, 128, 4, 32, device=dev, dtype=BF)
         with pytest.raises(ValueError):  # bf16 dispatches to K3, which takes head_dim 64
             block(torch.zeros(2 * 14, 8, 128, device=dev, dtype=BF), 14)

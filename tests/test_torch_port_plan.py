@@ -136,6 +136,79 @@ def test_flash_tma_check_takes_the_views_attention_passes():
     assert fa.tma_view_error(odd.shape, odd.stride(), odd.data_ptr()) is not None
 
 
+
+# ------------------------------------------------------- K2 fp32 (and bwd)
+# 256 threads a CTA on 64 rows; a transposed tile of R rows is R x 68 fp32
+# (64 columns + 4 of padding), a natural one 64 x H fp32.
+def _t(rows):
+    return rows * 68 * 4
+
+
+def _n(h):
+    return 64 * h * 4
+
+
+@pytest.mark.parametrize("b,n,t,h,grid,smem", [
+    # Q^T, K^T, V and P^T: 17,408 + 17,408 + 16,384 + 17,408 bytes
+    (14, 5, 4096, 64, (64, 70), 2 * _t(64) + _n(64) + _t(64)),
+    (14, 10, 1024, 64, (16, 140), 68_608),
+    (2, 3, 1024, 128, (16, 6), 2 * _t(128) + _n(128) + _t(64)),
+    (1, 1, 64, 64, (1, 1), 68_608),
+], ids=["unet-l0", "unet-l1", "h128", "one-tile"])
+def test_flash_fp32_plan_hand_worked(b, n, t, h, grid, smem):
+    p = fa.fp32_plan(b, n, t, h)
+    assert (p.grid, p.smem_bytes) == (grid, smem)
+    assert p.smem_bytes <= SMEM_PER_BLOCK
+    assert fa.fp32_plan(2, 3, 1024, 128).smem_bytes == 119_808
+
+
+@pytest.mark.parametrize("b,n,t,h,grid,dkv,dq", [
+    # dK/dV: K^T, V^T, Q^T, dO^T (transposed), Q, dO (natural), P / dS, L and D;
+    # dQ: Q^T, dO^T, K^T, V^T, K, dS
+    (14, 5, 4096, 64, (64, 70), 4 * _t(64) + 2 * _n(64) + _t(64) + 512,
+     4 * _t(64) + _n(64) + _t(64)),
+    (2, 4, 1024, 128, (16, 8), 4 * _t(128) + 2 * _n(128) + _t(64) + 512,
+     4 * _t(128) + _n(128) + _t(64)),
+    (65535, 1, 64, 64, (1, 65535), 120_320, 103_424),
+], ids=["unet-up-t4096", "h128", "largest-bn"])
+def test_flash_fp32_bwd_plan_hand_worked(b, n, t, h, grid, dkv, dq):
+    p = fa.fp32_bwd_plan(b, n, t, h)
+    assert (p.grid, p.smem_dkv, p.smem_dq) == (grid, dkv, dq)
+    assert max(p.smem_dkv, p.smem_dq) <= SMEM_PER_BLOCK
+    # H = 128's dK/dV kernel is the largest: 222,720 of the 232,448 bytes
+    assert fa.fp32_bwd_plan(1, 1, 64, 128).smem_dkv == 222_720
+
+
+@pytest.mark.parametrize("b,n,t,h", [(1, 1, 1024, 96), (1, 1, 1000, 64), (1, 1, 32, 64),
+                                     (65536, 1, 64, 64), (0, 1, 64, 64)])
+def test_flash_fp32_plans_refuse_what_the_tiling_does_not_fit(b, n, t, h):
+    with pytest.raises(ValueError, match="fp32"):
+        fa.fp32_plan(b, n, t, h)
+    with pytest.raises(ValueError, match="fp32"):
+        fa.fp32_bwd_plan(b, n, t, h)
+
+
+def test_flash_fp32_view_checks_count_fp32_bytes():
+    """The fp32 kernels load rows as float4: the views need 16-byte aligned
+    bases and row strides, counted at 4 bytes an element."""
+    x = torch.zeros(2, 1024, 3 * 64, dtype=torch.float32)
+    view = x.view(2, 1024, 3, 64).transpose(1, 2)
+    assert fa.tma_view_error(view.shape, view.stride(), view.data_ptr(), 4) is None
+    # a row stride of 66 elements: 264 bytes in fp32, not a multiple of 16
+    odd = torch.zeros(2, 1024, 1, 66)[..., :64].transpose(1, 2)
+    assert "multiple of 16" in fa.tma_view_error(odd.shape, odd.stride(), 0, 4)
+
+
+def test_flash_dispatch_refuses_other_dtypes_before_any_launch():
+    """``_check``: bf16 and fp32 pass, fp16 or a dtype other than q's raises."""
+    q = torch.zeros(1, 1, 64, 64)
+    fa._check("q", q, torch.float32)
+    fa._check("q", q.bfloat16(), torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        fa._check("q", q.half(), torch.float16)
+    with pytest.raises(TypeError, match="like q"):
+        fa._check("k", q.bfloat16(), torch.float32)
+
 # ----------------------------------------------------------- K3 full plan
 @pytest.mark.parametrize("args,ts,grid,smem", [
     # UNet level 0: 14 frames x 8 positions = 112 rows; the A tile and the
@@ -351,6 +424,28 @@ def test_group_norm_plan_two_pass_branch():
     p = gn.plan((28, 320, 64, 64), 32, aligned=False)
     assert (p.branch, p.vec) == ("two_pass", False)
 
+
+
+# fp32: the same byte budgets, 4 elements a 16-byte vector
+@pytest.mark.parametrize("shape,branch,cluster,gpc,elems,grid,smem", [
+    # 160 KiB groups: two CTAs of 80 KiB a group
+    ((28, 320, 64, 64), "cluster", 2, 1, 20480, 1792, 81920 + 256 + 16 * 7),
+    # the fp32 training path's adapter norm at b * f = 14
+    ((14, 320, 64, 64), "cluster", 2, 1, 20480, 896, 81920 + 256 + 16 * 7),
+    # 20 KiB groups: two a CTA would pass 32 KiB, so clusters of 4 fill 256 CTAs
+    ((2, 640, 16, 16), "cluster", 4, 1, 1280, 256, 5120 + 256 + 16 * 7),
+    # a spatial size of 12: a multiple of 4 (one launch), not of 8 (bf16: two passes)
+    ((2, 64, 1, 2, 6), "cluster", 2, 1, 12, 128, 48 + 256 + 16 * 3),
+], ids=["one-cta-pair", "train-b14", "cluster-fill", "s12"])
+def test_group_norm_plan_fp32_hand_worked(shape, branch, cluster, gpc, elems, grid, smem):
+    p = gn.plan(shape, 32, itemsize=4)
+    assert (p.branch, p.cluster, p.groups_per_cta, p.elems, p.grid, p.smem_bytes, p.vec) == (
+        branch, cluster, gpc, elems, grid, smem, True)
+    assert p.smem_bytes <= SMEM_PER_BLOCK
+    assert gn.plan((2, 64, 1, 2, 6), 32).branch == "two_pass"
+    # spatial 105 is no multiple of 4 either: scalar loads, one split of 210
+    p = gn.plan((2, 64, 3, 5, 7), 32, itemsize=4)
+    assert (p.branch, p.elems, p.grid, p.smem_bytes, p.vec) == ("two_pass", 210, 1, 0, False)
 
 def test_group_norm_plan_is_one_launch_on_every_adapter_shape():
     import chip_smoke
@@ -640,6 +735,20 @@ def test_roofline_attention_backward_hand_worked():
     small = rl.attention_bwd(14, 10, 1024, 64)
     assert small.flops == 93_952_409_600 and small.bound_ms == pytest.approx(0.095, abs=1e-3)
 
+
+
+def test_roofline_fp32_rows_use_the_cuda_core_peak():
+    """The fp32 kernels' bounds: 4-byte elements, and their products against
+    the 67 TFLOP/s of fp32 outside the tensor cores (TF32 is not fp32)."""
+    fwd = rl.attention(14, 5, 4096, 4096, 64, itemsize=4)
+    assert fwd.flops == 4 * 70 * 4096 * 4096 * 64 and fwd.peak_flops == rl.H100_FP32_FLOPS
+    assert fwd.bytes == 4 * 70 * 64 * 4 * 4096
+    assert fwd.bound_by == "operations" and fwd.bound_ms == pytest.approx(4.487, abs=1e-3)
+    bwd = rl.attention_bwd(14, 5, 4096, 64, itemsize=4)
+    assert bwd.bytes == 4 * 8 * 70 * 4096 * 64 + 4 * 70 * 4096
+    assert bwd.bound_ms == pytest.approx(751_619_276_800 / 67e9, rel=1e-12)
+    norm = rl.group_norm((14, 320, 64, 64), silu=True, itemsize=4)
+    assert norm.bytes == 4 * (2 * 14 * 320 * 64 * 64 + 2 * 320) and norm.bound_by == "bytes"
 
 def test_roofline_group_norm_counts_each_byte_once():
     cost = rl.group_norm((28, 320, 64, 64), silu=False)
