@@ -195,21 +195,25 @@ Phases (any failure raises and the script exits non-zero before its last line):
    phase's seconds.
 16. (run before 12, after 15) fp32 towers and data-parallel generation
    (``run_phase16``): (1) K1 fp32, K2 fp32 and K2 bwd fp32 at the fp32
-   training path's shapes (1 x 14 x 512^2: K1 at the adapter norms JAX
-   admits at itemsize 4, K2 at (14, 5, 4096, 64) and (14, 10, 1024, 64))
-   against their plain versions with TF32 off (within 1e-5 of the norm),
-   the backward's dQ, dK and dV equal to the bit over two calls, timed
-   beside their fp32 bounds (67 TFLOP/s on the CUDA cores), ``F.group_norm``
-   in fp32 and SDPA's memory-efficient backend, forward and backward; (2)
-   ``train_torch.main --mixed_precision no`` at the full width of
-   ``configs/svd_train_depth.yaml``, 2 steps and a validation sample: finite
-   losses, K1 fp32, K2 fp32 and K2 bwd fp32 launched per step as the fp32
-   rules and phase 8's attention counts give them and no bf16 kernel, the
-   gif; ms per step, the validation's seconds and peak GiB; (3) SVD
+   training paths' shapes (1 x 14 x 512^2: K1 at the adapter norms JAX
+   admits at itemsize 4, K2 at (14, 5, 4096, 64) and (14, 10, 1024, 64);
+   SDXL at 1 x 1024^2: K2 at ``SDXL_FP32_SHAPES``) against their plain
+   versions with TF32 off (within 1e-5 of the norm), the backward's dQ, dK
+   and dV equal to the bit over two calls, timed beside their bounds (K1 at
+   67 TFLOP/s on the CUDA cores, K2 at the 3xTF32 rate), each launch's
+   device ms, ``F.group_norm`` in fp32 and SDPA's memory-efficient backend,
+   forward and backward; (2) ``train_torch.main --mixed_precision no`` at
+   the full width of ``configs/svd_train_depth.yaml``, 2 steps and a
+   validation sample: finite losses, K1 fp32, K2 fp32 and K2 bwd fp32
+   launched per step as the fp32 rules and phase 8's attention counts give
+   them and no bf16 kernel, the gif; ms per step, the validation's seconds
+   and peak GiB; then on ``configs/sdxl_train_depth.yaml`` (1 x 1024^2), 2
+   steps, the fp32 kernels per step as ``sdxl_fp32_train_launches`` gives
+   them and no bf16 kernel, ms per step and peak GiB; (3) SVD
    ``generate(mesh=...)`` at full width under a one-rank NCCL group, batch
    2, 2 steps, latents drawn from a seeded generator: equal to the bit to
    the run without a mesh. The kernels line lists the fp32 kernels with
-   their launches in (2).
+   their launches in (2), the SVD run's and the SDXL run's.
 
 Device busy times and idle shares come from ``device_activity``, which
 refuses a trace that holds fewer events of a port kernel than the kernel's
@@ -612,20 +616,20 @@ def sdxl_adapter_blocks(control: int = SDXL_CONTROL):
     return adapter_blocks(control)[:9]
 
 
-def sdxl_k1_rows(control: int = SDXL_CONTROL, batch: int = 2):
+def sdxl_k1_rows(control: int = SDXL_CONTROL, batch: int = 2, itemsize: int = 2):
     """K1's calls in one SDXL adapter call (batch 2, the CFG pair; 1 in
     training), by (shape, silu): per block the spatial ResNet's norm1 (SiLU)
     at the input size, its norm2 (SiLU) and the transformer's input norm (no
     SiLU) after the x2 upsample, where the JAX rule admits them: 17 of the 27
     (at 128x128 and at 64x64 with 640 channels they exceed its 12 MiB
-    budget)."""
+    budget). ``itemsize`` 4: the fp32 towers' (K1 fp32)."""
     from ctrl_adapter_tpu_torch.ops.group_norm import eligible
 
     rows = {}
     for c, h in sdxl_adapter_blocks(control):
         for shape, silu in (((batch, c, h, h), True), ((batch, c, 2 * h, 2 * h), True),
                             ((batch, c, 2 * h, 2 * h), False)):
-            if eligible(shape, 32, 2):
+            if eligible(shape, 32, itemsize):
                 rows[(shape, silu)] = rows.get((shape, silu), 0) + 1
     return rows
 
@@ -4573,6 +4577,9 @@ def run_conditions(dev, card, kernels, serve_per_step, train_per_step, root):
 FP32_TOL = 1e-5
 FP32_FRAMES = 14      # the fp32 training run at the width of svd_train_depth.yaml
 FP32_TRAIN_STEPS = 2
+# K2 fp32 and its backward at SDXL's fp32 training shapes too (1 x 1024^2: the
+# adapter's A blocks at 128^2 tokens, the UNet's at 64^2 and 32^2)
+SDXL_FP32_SHAPES = ((1, 5, 16384, 64), (1, 10, 4096, 64), (1, 20, 1024, 64))
 MESH_BATCH = 2        # SVD generate(mesh=...) under a one-rank group: videos, steps
 MESH_STEPS = 2
 FP32_KERNELS = {  # name: (source, replaces)
@@ -4623,6 +4630,15 @@ def sdpa_fp32_times(q, k, v, do=None):
     return times
 
 
+def print_launch_times(label, fn):
+    """Each device kernel's ms in one call of ``fn`` (``kernel_times``): the
+    fp32 kernels' split prologue beside their main kernels."""
+    times = kernel_times(fn, iters=3)
+    print(f"    {label} launches (device ms, warm L2): " + (
+        "not measured" if times is None else
+        ", ".join(f"{name} {t:.3f}" for name, t in times.items())))
+
+
 def fp32_rel(name, got, want, atol=1e-4):
     """An fp32 kernel's output against its plain version's: within FP32_TOL of
     its norm (and ``atol`` + 1e-4 relative elementwise); returns the max abs."""
@@ -4631,13 +4647,15 @@ def fp32_rel(name, got, want, atol=1e-4):
 
 def check_fp32_kernels(dev, card):
     """Phase 16 (1): K1 fp32, K2 fp32 and K2 bwd fp32 at the fp32 training
-    path's shapes (batch 1, ``frames`` frames at 512^2: K1 at the adapter's
-    norms JAX admits at itemsize 4, K2 and its backward at the UNet's and the
-    adapter's spatial attentions) against their plain versions, TF32 off;
-    the backward's gradients equal to the bit over two calls; times beside
-    the bounds (``ops/roofline.py``, fp32 at 67 TFLOP/s on the CUDA cores:
-    TF32's one pass is not fp32), ``F.group_norm`` in fp32 and SDPA's
-    memory-efficient backend, forward and backward. Returns {name: [rows]}."""
+    paths' shapes (SVD: batch 1, ``frames`` frames at 512^2: K1 at the
+    adapter's norms JAX admits at itemsize 4, K2 and its backward at the
+    UNet's and the adapter's spatial attentions; SDXL at 1024^2:
+    ``SDXL_FP32_SHAPES``) against their plain versions, TF32 off; the
+    backward's gradients equal to the bit over two calls; times beside the
+    bounds (``ops/roofline.py``: K1 fp32 at 67 TFLOP/s on the CUDA cores, K2
+    fp32 and its backward at the 3xTF32 rate they run at), ``F.group_norm``
+    in fp32 and SDPA's memory-efficient backend, forward and backward.
+    Returns {name: [rows]}."""
     import torch.nn.functional as F
 
     from ctrl_adapter_tpu_torch.ops import flash_attention as fa
@@ -4668,10 +4686,10 @@ def check_fp32_kernels(dev, card):
         rows["group_norm_silu_fp32"].append({**row, "per_adapter_call": n})
     # the K1 fp32 rows with the one PyTorch call first: the JSON line takes row 0
     rows["group_norm_silu_fp32"].sort(key=lambda r: r["library_ms"] is None)
-    for t, n_heads in ((4096, 5), (1024, 10)):
-        shape = (frames, n_heads, t, 64)
+    for shape in ((frames, 5, 4096, 64), (frames, 10, 1024, 64), *SDXL_FP32_SHAPES):
+        b, n_heads, t, hd = shape
         label = f"({','.join(map(str, shape))})"
-        q, k, v, do = (rand(frames, t, n_heads * 64).view(frames, t, n_heads, 64).transpose(1, 2)
+        q, k, v, do = (rand(b, t, n_heads * hd).view(b, t, n_heads, hd).transpose(1, 2)
                        for _ in range(4))
         out, lse = fa._forward(q, k, v, True)
         want, want_lse = fa._torch_attention(q, k, v, True)
@@ -4681,9 +4699,10 @@ def check_fp32_kernels(dev, card):
                 rel_norm=FP32_TOL)
         del want, want_lse
         ms = cuda_ms(lambda: fa.attention_bnth(q, k, v), iters=3, reps=5)
+        print_launch_times(f"K2 fp32 {label}", lambda: fa.attention_bnth(q, k, v))
         pms = cuda_ms(lambda: fa._torch_attention(q, k, v), iters=3, reps=3, warmup=1)
         rows["flash_attention_fp32"].append(report(
-            label, err, ms, pms, rl.attention(*shape[:3], t, 64, itemsize=4),
+            label, err, ms, pms, rl.attention(*shape[:3], t, hd, itemsize=4),
             sdpa_fp32_times(q, k, v)))
         got = fa.attention_bnth_bwd(q, k, v, out, do, lse)
         want = fa._torch_attention_bwd(q, k, v, out, do, lse)
@@ -4701,6 +4720,7 @@ def check_fp32_kernels(dev, card):
         del got, want, again
         bwd = lambda: fa.attention_bnth_bwd(q, k, v, out, do, lse)  # noqa: E731
         ms = cuda_ms(bwd, iters=3, reps=3)
+        print_launch_times(f"K2 bwd fp32 {label}", bwd)
         pms = cuda_ms(lambda: fa._torch_attention_bwd(q, k, v, out, do, lse), iters=3, reps=3,
                       warmup=1)
         rows["flash_attention_fp32_bwd"].append(report(
@@ -4754,16 +4774,7 @@ def run_fp32_training(dev, card, root, bf16_per_step):
         run, box = train_cli_run("phase 16 (2) train CLI svd --mixed_precision no", argv,
                                  counters)
     want = fp32_train_launches(bf16_per_step)
-    for i, step in enumerate(box["steps"]):
-        wrong = {n: (step[n], want.get(n, 0)) for n in counters if step[n] != want.get(n, 0)}
-        if wrong:
-            raise RuntimeError(f"phase 16 (2) step {i + 1}: launches (got, want) {wrong}")
-    if len(box["steps"]) != FP32_TRAIN_STEPS:
-        raise RuntimeError(f"phase 16 (2): {len(box['steps'])} steps, want {FP32_TRAIN_STEPS}")
-    masters = run.trainer.optimizer.masters
-    if any(m.dtype != torch.float32 for m in masters) or any(
-            p.dtype != torch.float32 for p in run.trainer.unet.parameters()):
-        raise RuntimeError("phase 16 (2): the towers or masters are not fp32")
+    check_fp32_run("phase 16 (2) svd", run, box, counters, want)
     with open(run.validations[0], "rb") as fh:
         gif = decode_gif(fh.read())
     if gif.shape != (frames, SIZE, SIZE, 3):
@@ -4779,9 +4790,66 @@ def run_fp32_training(dev, card, root, bf16_per_step):
           f"{box['peak_gb']:.2f} GiB")
     launches = {n: box["launches"][n] for n in FP32_KERNELS}
     before = box["before_gb"]
-    del run, box, masters
+    del run, box
     released("phase 16 (2)", before)
     return launches, ms
+
+
+def check_fp32_run(label, run, box, counters, want):
+    """An fp32 training run: each step launched ``want`` of each counted
+    kernel (0 where ``want`` has no entry: no bf16 kernel), FP32_TRAIN_STEPS
+    steps, fp32 towers and masters."""
+    for i, step in enumerate(box["steps"]):
+        wrong = {n: (step[n], want.get(n, 0)) for n in counters if step[n] != want.get(n, 0)}
+        if wrong:
+            raise RuntimeError(f"{label} step {i + 1}: launches (got, want) {wrong}")
+    if len(box["steps"]) != FP32_TRAIN_STEPS:
+        raise RuntimeError(f"{label}: {len(box['steps'])} steps, want {FP32_TRAIN_STEPS}")
+    if any(m.dtype != torch.float32 for m in run.trainer.optimizer.masters) or any(
+            p.dtype != torch.float32 for p in run.trainer.unet.parameters()):
+        raise RuntimeError(f"{label}: the towers or masters are not fp32")
+
+
+def sdxl_fp32_train_launches():
+    """The fp32 kernels' launches per step of SDXL's fp32 training run at
+    1 x 1024^2: K1 fp32 at the SDXL adapter's norms JAX admits at itemsize 4,
+    forward and recompute; K2 fp32 and its backward as often as the bf16 SDXL
+    step launches K2 and its backward (``sdxl_train_launches``); no bf16
+    kernel."""
+    bf16 = sdxl_train_launches()
+    return {"group_norm_silu_fp32": 2 * sum(sdxl_k1_rows(batch=1, itemsize=4).values()),
+            "flash_attention_fp32": bf16["flash_attention"],
+            "flash_attention_fp32_bwd": bf16["flash_attention_bwd"]}
+
+
+def run_sdxl_fp32_training(card, root):
+    """Phase 16 (2), SDXL: ``train_torch.main`` with ``--mixed_precision no``
+    on ``configs/sdxl_train_depth.yaml`` (1 x 1024^2, fp32 towers,
+    ``--fake_weights``), FP32_TRAIN_STEPS steps: finite losses, the fp32
+    kernels launched per step (``sdxl_fp32_train_launches``) and no bf16
+    kernel, fp32 towers and masters; ms per step and peak GiB. Returns the
+    fp32 kernels' launches in the run."""
+    cfg, _ = config_copy("sdxl_train_depth.yaml", root, os.path.join(root, "fp32_sdxl"))
+    counters = {**kernel_counters(), **fp32_counters()}
+    argv = ["--yaml_file", cfg, "--fake_weights", "--mixed_precision", "no",
+            "--max_train_steps", str(FP32_TRAIN_STEPS), "--save_starting_step",
+            str(FP32_TRAIN_STEPS + 1), "--seed", str(SEED)]
+    run, box = train_cli_run("phase 16 (2) train CLI sdxl --mixed_precision no", argv, counters)
+    want = sdxl_fp32_train_launches()
+    check_fp32_run("phase 16 (2) sdxl", run, box, counters, want)
+    ms = [1000 * t for t in run.step_s]
+    print(f"phase 16 (2): SDXL K1 fp32, K2 fp32, K2 bwd fp32 per step "
+          f"{[want[n] for n in FP32_KERNELS]} in each of {len(box['steps'])} steps, no bf16 "
+          f"kernel")
+    print(f"phase 16 (2) on {card}: SDXL fp32 training 1x{SDXL_SIZE}x{SDXL_SIZE}, fp32 towers "
+          f"and masters, gradient checkpointing: "
+          + ", ".join(f"step {i + 1} {t:.1f} ms" for i, t in enumerate(ms))
+          + f"; peak {box['peak_gb']:.2f} GiB")
+    launches = {n: box["launches"][n] for n in FP32_KERNELS}
+    before = box["before_gb"]
+    del run, box
+    released("phase 16 (2) sdxl", before)
+    return launches
 
 
 def mesh_inputs(dev, dtype, b, frames, size, seed):
@@ -4841,9 +4909,10 @@ def run_mesh_generate(dev, card):
 
 
 def run_phase16(dev, card, bf16_per_step):
-    """Phase 16: (1) the fp32 kernels, (2) fp32 training (``bf16_per_step``:
-    phase 8's launches per step), (3) generate(mesh=...). Returns (rows,
-    launches) of the fp32 kernels."""
+    """Phase 16: (1) the fp32 kernels, (2) fp32 training, SVD
+    (``bf16_per_step``: phase 8's launches per step) then SDXL, (3)
+    generate(mesh=...). Returns the fp32 kernels' rows and their launches in
+    the SVD and the SDXL run."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -4851,11 +4920,12 @@ def run_phase16(dev, card, bf16_per_step):
     root = tempfile.mkdtemp(prefix="chip_smoke_fp32_")
     try:
         launches, _ = run_fp32_training(dev, card, root, bf16_per_step)
+        launches_sdxl = run_sdxl_fp32_training(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     run_mesh_generate(dev, card)
     print(f"phase 16 on {card}: {time.perf_counter() - t_phase:.1f} s")
-    return rows, launches
+    return rows, launches, launches_sdxl
 
 def free_port() -> int:
     """A TCP port on 127.0.0.1 that was free a moment ago."""
@@ -4950,7 +5020,7 @@ def main() -> int:
         phase_done("phase 15, condition extraction and real-data training")
     finally:
         shutil.rmtree(shared, ignore_errors=True)
-    fp32_rows, fp32_launches = run_phase16(dev, card, train_per_step[0])
+    fp32_rows, fp32_launches, fp32_launches_sdxl = run_phase16(dev, card, train_per_step[0])
     phase_done("phase 16, fp32 towers and generate(mesh=...)")
     print(f"torch.profiler: {PROFILER_COST['traces']} traces of device activity, "
           f"{PROFILER_COST['traced_s']:.1f} s under the profiler, "
@@ -4994,7 +5064,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": fp32_launches[name], "path": "svd training, --mixed_precision no",
          **{k: v for k, v in fp32_rows[name][0].items() if k != "per_adapter_call"},
-         "max_abs_err": max(r["max_abs_err"] for r in fp32_rows[name])}
+         "max_abs_err": max(r["max_abs_err"] for r in fp32_rows[name]),
+         "launches_sdxl_training_fp32": fp32_launches_sdxl[name]}
         for name, (src, replaces) in FP32_KERNELS.items()]
     print(json.dumps(line))
     print(card)

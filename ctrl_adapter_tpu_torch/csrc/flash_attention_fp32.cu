@@ -4,128 +4,226 @@
 // Replaces: ctrl_adapter_tpu/ops/flash_attention.py, attention_bnth -> the
 // Pallas TPU library kernel jax.experimental.pallas.ops.tpu.flash_attention,
 // for float32 inputs (fp32 towers: train.py --mixed_precision other than bf16).
-// The JAX rule sends fp32 self-attention to the same kernel as bf16; the bf16
-// kernel (flash_attention.cu) runs on wgmma, which takes TF32 at most, so fp32
-// has a kernel of its own.
 //
-// What bounds it on the H100: flops, on the CUDA cores. One (b, n) pair does
-// 4 T^2 H flops against 16 T H bytes of Q, K, V and O; at T = 4096, H = 64 that
-// is ~1000 flop per byte, far above the fp32 ridge (67 TFLOP/s over 3.35 TB/s,
-// 20 flop/byte). Every product is a plain fp32 FMA: a single TF32 pass would
-// carry ~1e-3 relative error where the reference computes in fp32.
+// What bounds it on the H100: flops. One (b, n) pair does 4 T^2 H flops
+// against 16 T H bytes of Q, K, V and O, ~1000 flop per byte at T = 4096,
+// H = 64. The products run on the tensor cores in 3xTF32 (csrc/tf32_tiles.cuh):
+// three tf32 passes at 494.5 TFLOP/s, ~164.8 TFLOP/s of fp32-accurate
+// products, against 67 TFLOP/s of fp32 FMAs on the CUDA cores. One tf32 pass
+// would carry ~4e-4 relative error where the reference computes in fp32.
 //
-// Design (simple first): one CTA of 256 threads per 64 query rows of one
-// (b, n) pair (grid (T / 64, B * N)). Q^T stays in shared memory; each 64-key
-// step loads K^T and V, computes S = Q K^T as 4 x 4 register tiles a thread
-// (csrc/fp32_tiles.cuh), takes the online softmax in registers (the running
-// max and sum of each row shared by its 16 threads through shuffles, expf),
-// stores P^T to shared memory and adds P V into 4 x (H / 16) accumulators a
-// thread. The T x T logits never reach device memory. Rows are normalised at
-// the end and stored through the (B, N, T, H) strides; with an LSE buffer each
-// row's m + log(l) of the scaled logits goes to it.
+// Two launches, one call:
+// 1. tf32_split_kernel: Q and K into hi / lo copies in their natural layout,
+//    V into hi / lo copies of V^T (keys contiguous, in the fragment order of
+//    tf32_tiles.cuh), in a workspace of 6 B N T H fp32 that the caller
+//    allocates (tf32 wgmma reads K-major operands only; P V needs V^T);
+// 2. flash_fp32_fwd_kernel, warp-specialised: warpgroup 0 is the producer (one
+//    thread issues TMA loads: the CTA's Q tiles once, then per 64-key step
+//    the K tiles and the V^T tiles into a ring of kStages slots, K and V^T
+//    each with a full and an empty mbarrier, so the next K loads while this
+//    step's P V runs); kC consumer warpgroups of 64 query rows each: per step
+//    S = Q K^T (3 x H / 8 wgmma m64n64k8, both operands in shared memory),
+//    online softmax in fp32 registers (exp2, running max and sum), P split
+//    into tf32 A fragments in registers (frag_of), P V (3 x 8 wgmma m64n64k8
+//    per 64 columns of O, A from registers) into a zeroed accumulator, then
+//    O = alpha O + P V in fp32 (product_rs_add). The two consumers run on their own: one's
+//    softmax overlaps the other's products. The T x T logits never reach
+//    device memory. Rows are normalised at the end and stored through the
+//    (B, N, T, H) strides; with an LSE buffer each row's log-sum-exp of the
+//    scaled logits goes to it.
+// H = 64: two consumers (128 query rows a CTA), two stages; H = 128: one
+// consumer, one stage (227 KB of shared memory holds no more). Grid
+// (ceil(T / (64 kC)), B N): where T % 128 == 64 the last CTA's second
+// consumer computes on rows of the next pair and stores nothing.
 // Shapes: T % 64 == 0, H in {64, 128}; 16-byte aligned bases and row strides
-// (float4 loads), which ops/flash_attention.py checks. The host plan
-// (ops/flash_attention.py:fp32_plan) gives the shared memory;
-// cak_flash_attention_fp32 refuses any other.
-#include "common.cuh"
-#include "fp32_tiles.cuh"
+// (float4 loads in the prologue), which ops/flash_attention.py checks. The
+// host plan (ops/flash_attention.py:fp32_plan) gives the shared memory and
+// the workspace; cak_flash_attention_fp32 refuses other shared memory.
+#include "tf32_tiles.cuh"
 
 namespace {
 
-using namespace f32t;
+using namespace tf32;
+
+constexpr int kKeys = 64;     // keys per step
+constexpr int kBufs = 6;      // workspace: Q hi, lo; K hi, lo; V^T hi, lo
 
 template <int H>
-struct Fp32Cfg {
-  static constexpr int kQt = 0;                      // Q^T: H x kPad
-  static constexpr int kKt = kQt + t_bytes(H);       // K^T of the step
-  static constexpr int kV = kKt + t_bytes(H);        // V of the step: 64 x H
-  static constexpr int kPt = kV + n_bytes(H);        // P^T: 64 x kPad
-  static constexpr int kSmem = kPt + t_bytes(kRows);
+struct FwdCfg {
+  static constexpr int kC = H == 64 ? 2 : 1;        // consumer warpgroups
+  static constexpr int kStages = H == 64 ? 2 : 1;
+  static constexpr int kThreads = 128 * (1 + kC);
+  static constexpr int kQ = kRows * H * 4;          // one consumer's Q tile, hi or lo
+  static constexpr int kKv = kKeys * H * 4;         // a K or a V^T tile, hi or lo
+  static constexpr int kStage0 = 2 * kC * kQ;       // Q hi, lo of consumer c at 2 c kQ
+  static constexpr int kStage = 4 * kKv;            // K hi, K lo, V^T hi, V^T lo
+  static constexpr int kBar = kStage0 + kStages * kStage;
+  static constexpr int kSmem = kBar + 8 * (1 + 4 * kStages) + 1024;  // + alignment slack
 };
 
 template <int H>
-__global__ void __launch_bounds__(kThreads)
-    flash_fp32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ o,
-                          float* __restrict__ lse, int n_heads, int T, int64_t sqb, int64_t sqn,
-                          int64_t sqt, int64_t skb, int64_t skn, int64_t skt, int64_t svb,
-                          int64_t svn, int64_t svt, int64_t sob, int64_t son, int64_t sot,
-                          float scale) {
-  using C = Fp32Cfg<H>;
-  constexpr int NC = H / 64;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qt = reinterpret_cast<float*>(smem + C::kQt);
-  float* kt = reinterpret_cast<float*>(smem + C::kKt);
-  float* vs = reinterpret_cast<float*>(smem + C::kV);
-  float* pt = reinterpret_cast<float*>(smem + C::kPt);
-  const int bn = blockIdx.y, b = bn / n_heads, n = bn % n_heads;
-  const int row0 = blockIdx.x * kRows;
-  const float* kb = k + b * skb + n * skn;
-  const float* vb = v + b * svb + n * svn;
-  load_t<H>(qt, q + b * sqb + n * sqn + row0 * sqt, sqt);
+__global__ void __launch_bounds__(FwdCfg<H>::kThreads, 1)
+    flash_fp32_fwd_kernel(const __grid_constant__ CUtensorMap tm_nat,
+                          const __grid_constant__ CUtensorMap tm_tr, float* __restrict__ o,
+                          float* __restrict__ lse, int n_heads, int T, int BN, int64_t osb,
+                          int64_t osn, int64_t ost, float scale_log2) {
+  using C = FwdCfg<H>;
+  constexpr int S = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  const uint32_t q_full = base + C::kBar;
+  auto k_full = [&](int s) { return q_full + 8 + 32 * s; };
+  auto k_empty = [&](int s) { return q_full + 16 + 32 * s; };
+  auto v_full = [&](int s) { return q_full + 24 + 32 * s; };
+  auto v_empty = [&](int s) { return q_full + 32 + 32 * s; };
+  auto stage = [&](int s) { return base + C::kStage0 + s * C::kStage; };
 
-  float m[4], l[4], acc[4][4 * NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4 * NC; ++j) acc[i][j] = 0.f;
-  }
-  for (int key0 = 0; key0 < T; key0 += kRows) {
-    __syncthreads();  // the last step's K^T, V and P^T are read
-    load_t<H>(kt, kb + key0 * skt, skt);
-    load_n<H>(vs, vb + key0 * svt, svt);
-    __syncthreads();
-    float s[4][4] = {};
-    mma<H, 1>(s, qt, kPad, kt, kPad);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = s[i][0] * scale;
-#pragma unroll
-      for (int j = 1; j < 4; ++j) mx = fmaxf(mx, s[i][j] * scale);
-      const float m_new = fmaxf(m[i], quad_max(mx));
-      const float alpha = expf(m[i] - m_new);  // 0 on the first step (m = -inf)
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] * scale - m_new);
-        rs += s[i][j];
-      }
-      l[i] = l[i] * alpha + quad_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4 * NC; ++j) acc[i][j] *= alpha;
+  const int bn = blockIdx.y, b = bn / n_heads, n = bn % n_heads;
+  const int q0 = blockIdx.x * C::kC * kRows;
+  const int n_steps = T / kKeys;
+  const int rows = BN * T;  // rows of one natural buffer
+  const int wg = warpgroup_index();
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(k_empty(s), 128 * C::kC);
+      mbar_init(v_full(s), 1);
+      mbar_init(v_empty(s), 128 * C::kC);
     }
-    store_t(pt, s);
-    __syncthreads();
-    mma<kRows, NC>(acc, pt, kPad, vs, H);
+    mbar_fence_init();
   }
-  const int r0 = row0 + 4 * ty(), c0 = 4 * tx();
-  float* ob = o + b * sob + n * son;
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    if constexpr (C::kC > 1) setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * C::kC * C::kQ);
+      for (int c = 0; c < C::kC; ++c)
+        for (int hl = 0; hl < 2; ++hl)
+          load_nat<H>(base + (2 * c + hl) * C::kQ, &tm_nat, q_full, hl, rows,
+                      bn * T + q0 + c * kRows, kRows);
+      for (int j = 0; j < n_steps; ++j) {
+        const int s = j % S;
+        const uint32_t parity = ((j / S) & 1) ^ 1;  // the slot's last use is done
+        const uint32_t st = stage(s);
+        if (j >= S) mbar_wait(k_empty(s), parity);
+        mbar_expect_tx(k_full(s), 2 * C::kKv);
+        load_nat<H>(st, &tm_nat, k_full(s), 2, rows, bn * T + j * kKeys, kKeys);
+        load_nat<H>(st + C::kKv, &tm_nat, k_full(s), 3, rows, bn * T + j * kKeys, kKeys);
+        if (j >= S) mbar_wait(v_empty(s), parity);
+        mbar_expect_tx(v_full(s), 2 * C::kKv);
+        load_tr<H, 128>(st + 2 * C::kKv, &tm_tr, v_full(s), 4, BN, bn, j * kKeys, kKeys);
+        load_tr<H, 128>(st + 3 * C::kKv, &tm_tr, v_full(s), 5, BN, bn, j * kKeys, kKeys);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    if constexpr (C::kC > 1) setmaxnreg_inc<240>();
+    const int wc = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g8 = lane >> 2, t4 = lane & 3;
+    const uint32_t qh = base + 2 * wc * C::kQ, ql = qh + C::kQ;
+
+    float o_acc[H / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float inv = 1.f / l[i];
+    for (int d = 0; d < H / 2; ++d) o_acc[d] = 0.f;
+    float s_acc[kKeys / 2], o_tmp[32];
+    uint32_t ph[kKeys / 8][4], pl[kKeys / 8][4];
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+
+    for (int j = 0; j < n_steps; ++j) {
+      const int s = j % S;
+      const uint32_t parity = (j / S) & 1;
+      const uint32_t kh = stage(s), kl = kh + C::kKv, vh = kl + C::kKv, vl = vh + C::kKv;
+      mbar_wait(k_full(s), parity);
+      wgmma_fence();
+      product_ss<kKeys, H>(s_acc, qh, ql, kh, kl, true);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s_acc);
+      mbar_arrive(k_empty(s));
+
+      // online softmax of the scores: rows g8 (h = 0) and g8 + 8 (h = 1)
+      float alpha[2];
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      *reinterpret_cast<float4*>(ob + (r0 + i) * sot + 64 * c + c0) =
-          make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv, acc[i][4 * c + 2] * inv,
-                      acc[i][4 * c + 3] * inv);
-    if (lse != nullptr && tx() == 0) lse[int64_t(bn) * T + r0 + i] = m[i] + logf(l[i]);
+      for (int h = 0; h < 2; ++h) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < kKeys / 8; ++i)
+          mx = fmaxf(mx, fmaxf(s_acc[4 * i + 2 * h], s_acc[4 * i + 2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[h], mx * scale_log2);
+        alpha[h] = exp2f(m_run[h] - m_new);  // 0 on the first step
+        float row_sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < kKeys / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(fmaf(s_acc[4 * i + 2 * h + e], scale_log2, -m_new));
+            s_acc[4 * i + 2 * h + e] = p;
+            row_sum += p;
+          }
+        }
+        l_run[h] = l_run[h] * alpha[h] + row_sum;
+        m_run[h] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < kKeys / 8; ++i) frag_of(s_acc, i, ph[i], pl[i]);
+
+      mbar_wait(v_full(s), parity);
+      fence_regs(ph);
+      fence_regs(pl);
+      product_rs_add<H, kKeys / 8, 128>(o_acc, ph, pl, vh, vl, alpha, o_tmp);  // O = alpha O + P V
+      mbar_arrive(v_empty(s));
+    }
+
+    if (q0 + wc * kRows < T) {
+      float* ob = o + b * osb + n * osn;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float l = l_run[h];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const float inv = 1.f / l;
+        const int row = q0 + wc * kRows + warp * 16 + g8 + 8 * h;
+        if (lse != nullptr && t4 == 0)
+          lse[int64_t(bn) * T + row] = (m_run[h] + log2f(l)) * 0.6931471805599453f;
+#pragma unroll
+        for (int d = 0; d < H / 8; ++d)
+          *reinterpret_cast<float2*>(ob + int64_t(row) * ost + 8 * d + 2 * t4) =
+              make_float2(o_acc[4 * d + 2 * h] * inv, o_acc[4 * d + 2 * h + 1] * inv);
+      }
+    }
   }
 }
 
 template <int H>
 cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse,
-                       int b, int n, int t, int smem, const int64_t* st, float scale,
+                       float* ws, int b, int n, int t, int smem, const int64_t* st, float scale,
                        cudaStream_t stream) {
-  if (smem != Fp32Cfg<H>::kSmem) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_fp32_fwd_kernel<H>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  using C = FwdCfg<H>;
+  if (smem != C::kSmem) return cudaErrorInvalidValue;
+  SplitJobs jobs{};
+  jobs.job[0] = SplitJob{q, st[0], st[1], st[2], 0, -1, nullptr, 0, 0, 0, nullptr};
+  jobs.job[1] = SplitJob{k, st[3], st[4], st[5], 2, -1, nullptr, 0, 0, 0, nullptr};
+  jobs.job[2] = SplitJob{v, st[6], st[7], st[8], -1, 4, nullptr, 0, 0, 0, nullptr};
+  cudaError_t e = launch_split<H>(jobs, 3, ws, b * n, n, t, stream);
   if (e != cudaSuccess) return e;
-  flash_fp32_fwd_kernel<H><<<dim3(t / kRows, b * n), kThreads, smem, stream>>>(
-      q, k, v, o, lse, n, t, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale);
+  CUtensorMap m_nat, m_tr;
+  if (!nat_map(&m_nat, ws, kBufs, b * n, t, H, kRows) ||
+      !tr_map(&m_tr, ws, kBufs, b * n, t, H, 32))
+    return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(flash_fp32_fwd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  const int rows = C::kC * kRows;
+  flash_fp32_fwd_kernel<H><<<dim3((t + rows - 1) / rows, b * n), C::kThreads, smem, stream>>>(
+      m_nat, m_tr, o, lse, n, t, b * n, st[9], st[10], st[11], scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -133,19 +231,23 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, float* o,
 
 // q, k, v, o: (B, N, T, H) fp32 views with unit last stride; strides: the
 // (b, n, t) element strides of q, k, v, o in that order. lse: (B, N, T) fp32
-// contiguous, or null. smem: the plan's shared memory (Fp32Cfg<H>::kSmem).
+// contiguous, or null. ws: the 6 B N T H fp32 workspace (16-byte aligned).
+// smem: the plan's shared memory (FwdCfg<H>::kSmem).
 extern "C" int cak_flash_attention_fp32(const void* q, const void* k, const void* v, void* o,
-                                        void* lse, int b, int n, int t, int h, int smem,
-                                        const int64_t* strides, float scale, void* stream) {
-  if (t % kRows || t < kRows || b * n < 1 || b * n > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+                                        void* lse, void* ws, int b, int n, int t, int h,
+                                        int smem, const int64_t* strides, float scale,
+                                        void* stream) {
+  if (!shape_ok(b * n, t, h, kBufs)) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
               *vf = static_cast<const float*>(v);
-  float *of = static_cast<float*>(o), *lf = static_cast<float*>(lse);
-  if (h == 64) return static_cast<int>(launch_fwd<64>(qf, kf, vf, of, lf, b, n, t, smem,
-                                                      strides, scale, st));
-  if (h == 128) return static_cast<int>(launch_fwd<128>(qf, kf, vf, of, lf, b, n, t, smem,
-                                                        strides, scale, st));
+  float *of = static_cast<float*>(o), *lf = static_cast<float*>(lse),
+        *wf = static_cast<float*>(ws);
+  if (h == 64)
+    return static_cast<int>(launch_fwd<64>(qf, kf, vf, of, lf, wf, b, n, t, smem, strides,
+                                           scale, st));
+  if (h == 128)
+    return static_cast<int>(launch_fwd<128>(qf, kf, vf, of, lf, wf, b, n, t, smem, strides,
+                                            scale, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

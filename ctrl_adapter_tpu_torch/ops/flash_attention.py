@@ -24,7 +24,9 @@ log-sum-exp and saves nothing.
 The kernels are picked by dtype: bf16 inputs take the wgmma kernels above;
 fp32 inputs (fp32 towers, ``--mixed_precision no``) take K2 fp32
 (``csrc/flash_attention_fp32.cu``) and K2 bwd fp32
-(``csrc/flash_attention_fp32_bwd.cu``), fp32 FMAs throughout, planned by
+(``csrc/flash_attention_fp32_bwd.cu``): 3xTF32 wgmma products (hi and lo tf32
+parts of each operand, three tensor-core passes, fp32's accuracy) on tiles that
+a prologue launch splits into a workspace the wrapper allocates, planned by
 :func:`fp32_plan` and :func:`fp32_bwd_plan`; their gradients are sums in a
 fixed order, the same bits from call to call. Any other dtype raises on a card.
 """
@@ -53,11 +55,11 @@ KERNEL_BWD = Kernel("cak_flash_attention_bwd", [
     ctypes.c_float, ctypes.c_void_p,
 ])
 KERNEL_FP32 = Kernel("cak_flash_attention_fp32", [
-    *([ctypes.c_void_p] * 5), *([ctypes.c_int] * 5), ctypes.POINTER(ctypes.c_int64),
+    *([ctypes.c_void_p] * 6), *([ctypes.c_int] * 5), ctypes.POINTER(ctypes.c_int64),
     ctypes.c_float, ctypes.c_void_p,
 ])
 KERNEL_FP32_BWD = Kernel("cak_flash_attention_fp32_bwd", [
-    *([ctypes.c_void_p] * 10), *([ctypes.c_int] * 6), ctypes.POINTER(ctypes.c_int64),
+    *([ctypes.c_void_p] * 11), *([ctypes.c_int] * 6), ctypes.POINTER(ctypes.c_int64),
     ctypes.c_float, ctypes.c_void_p,
 ])
 DTYPES = (torch.bfloat16, torch.float32)  # the types the kernels take
@@ -125,60 +127,86 @@ def bwd_plan(b: int, n: int, t: int, h: int) -> FlashBwdPlan:
                         scratch=(b, n, t, h))
 
 
-FP32_ROWS = 64    # fp32 kernels: rows of every tile (queries or keys), 256 threads a CTA
-_FP32_PAD = 68    # leading dimension of a transposed tile (csrc/fp32_tiles.cuh:kPad)
+FP32_ROWS = 64    # fp32 kernels: rows of a consumer warpgroup's tile (wgmma m64)
+FP32_KEYS = 64    # K2 fp32: keys per step
+FP32_FWD_BUFS = 6     # K2 fp32's workspace: Q, K (natural), V^T; hi and lo each
+FP32_BWD_BUFS = 14    # K2 bwd fp32's: Q, K, V, dO (natural), Q^T, K^T, dO^T; hi and lo
+_SLACK = 1024         # shared-memory alignment slack (1024-byte swizzle atoms)
 
 
-def _t_bytes(h: int) -> int:  # a transposed tile of h rows: h x kPad fp32
-    return h * _FP32_PAD * 4
+def _fp32_consumers(h: int) -> int:
+    """Consumer warpgroups of the fp32 kernels: two at H = 64 (128 rows a CTA),
+    one at H = 128 (the tiles of two would not fit in shared memory)."""
+    return 2 if h == 64 else 1
 
 
-def _n_bytes(h: int) -> int:  # a natural tile: 64 rows of h fp32
-    return FP32_ROWS * h * 4
+def _fp32_step(h: int) -> int:
+    """Rows a step streams in K2 bwd fp32's kernels: 32 at H = 64, 16 at H = 128."""
+    return 2048 // h
 
 
-def _fp32_shape_error(b: int, n: int, t: int, h: int) -> Optional[str]:
+def _fp32_shape_error(b: int, n: int, t: int, h: int, bufs: int) -> Optional[str]:
     if h not in (64, 128) or t % FP32_ROWS or t < FP32_ROWS or not 0 < b * n <= 65535:
         return (f"needs H in (64, 128), T a multiple of {FP32_ROWS} and 0 < B*N <= 65535, "
                 f"got B*N={b * n} T={t} H={h}")
+    if bufs * b * n * max(t, h) >= 2 ** 31:  # TMA's signed 32-bit row coordinates
+        return f"the workspace's {bufs} x B*N*T rows exceed 2^31, got B*N={b * n} T={t}"
     return None
+
+
+def _fp32_grid(b: int, n: int, t: int, h: int) -> tuple:
+    rows = FP32_ROWS * _fp32_consumers(h)
+    return (-(-t // rows), b * n)
 
 
 @dataclass(frozen=True)
 class Fp32Plan:
-    grid: tuple        # (T / 64 query blocks, B * N)
-    smem_bytes: int    # Q^T, K^T, V and P^T tiles (csrc/flash_attention_fp32.cu:Fp32Cfg)
+    grid: tuple        # (ceil(T / (64 consumers)) query blocks, B * N)
+    stages: int        # K / V^T ring slots
+    smem_bytes: int    # Q (hi, lo) per consumer, the ring of K and V^T (hi, lo),
+    #                    mbarriers, alignment slack (csrc/flash_attention_fp32.cu:FwdCfg)
+    workspace: int     # fp32 elements: FP32_FWD_BUFS buffers of B N T H
 
 
 def fp32_plan(b: int, n: int, t: int, h: int) -> Fp32Plan:
-    """The launch of K2 fp32 for (b, n, t, h) inputs; raises where the tiling
-    does not fit. ``cak_flash_attention_fp32`` refuses other shared memory."""
-    why = _fp32_shape_error(b, n, t, h)
+    """The launches of K2 fp32 (the split prologue and the main kernel) for
+    (b, n, t, h) inputs; raises where the tiling does not fit.
+    ``cak_flash_attention_fp32`` refuses other shared memory."""
+    why = _fp32_shape_error(b, n, t, h, FP32_FWD_BUFS)
     if why is not None:
         raise ValueError(f"attention_bnth (fp32): {why}")
-    smem = 2 * _t_bytes(h) + _n_bytes(h) + _t_bytes(FP32_ROWS)
+    c, stages = _fp32_consumers(h), 2 if h == 64 else 1
+    tile = FP32_ROWS * h * 4
+    smem = 2 * c * tile + stages * 4 * FP32_KEYS * h * 4 + 8 * (1 + 4 * stages) + _SLACK
     assert smem <= SMEM_PER_BLOCK
-    return Fp32Plan(grid=(t // FP32_ROWS, b * n), smem_bytes=smem)
+    return Fp32Plan(grid=_fp32_grid(b, n, t, h), stages=stages, smem_bytes=smem,
+                    workspace=FP32_FWD_BUFS * b * n * t * h)
 
 
 @dataclass(frozen=True)
 class Fp32BwdPlan:
-    grid: tuple        # each of the three launches: (T / 64 row blocks, B * N)
-    smem_dkv: int      # K^T, V^T, Q^T, Q, dO^T, dO, P / dS, L and D (DkvCfg)
-    smem_dq: int       # Q^T, dO^T, K^T, K, V^T, dS (DqCfg)
+    grid: tuple        # each main kernel: (ceil(T / (64 consumers)) row blocks, B * N)
+    step: int          # rows streamed a step
+    smem_dkv: int      # K, V (hi, lo) per consumer; one stage of Q, dO, Q^T, dO^T (hi, lo)
+    smem_dq: int       # Q, dO (hi, lo) per consumer; two stages of K, V, K^T (hi, lo)
+    workspace: int     # fp32 elements: FP32_BWD_BUFS buffers of B N T H
 
 
 def fp32_bwd_plan(b: int, n: int, t: int, h: int) -> Fp32BwdPlan:
-    """The launches of K2 bwd fp32 (D; dK and dV; dQ) for (b, n, t, h) inputs;
-    raises where the tiling does not fit. ``cak_flash_attention_fp32_bwd``
-    refuses other shared memory."""
-    why = _fp32_shape_error(b, n, t, h)
+    """The launches of K2 bwd fp32 (the split prologue with D; dK and dV; dQ)
+    for (b, n, t, h) inputs; raises where the tiling does not fit.
+    ``cak_flash_attention_fp32_bwd`` refuses other shared memory."""
+    why = _fp32_shape_error(b, n, t, h, FP32_BWD_BUFS)
     if why is not None:
         raise ValueError(f"attention_bnth backward (fp32): {why}")
-    dkv = 4 * _t_bytes(h) + 2 * _n_bytes(h) + _t_bytes(FP32_ROWS) + 2 * FP32_ROWS * 4
-    dq = 4 * _t_bytes(h) + _n_bytes(h) + _t_bytes(FP32_ROWS)
+    c, step = _fp32_consumers(h), _fp32_step(h)
+    fixed = 4 * c * FP32_ROWS * h * 4
+    tile = step * h * 4
+    dkv = fixed + 8 * tile + 8 * (1 + 4) + _SLACK
+    dq = fixed + 2 * 6 * tile + 8 * (1 + 4 * 2) + _SLACK
     assert max(dkv, dq) <= SMEM_PER_BLOCK
-    return Fp32BwdPlan(grid=(t // FP32_ROWS, b * n), smem_dkv=dkv, smem_dq=dq)
+    return Fp32BwdPlan(grid=_fp32_grid(b, n, t, h), step=step, smem_dkv=dkv, smem_dq=dq,
+                       workspace=FP32_BWD_BUFS * b * n * t * h)
 
 
 def tma_view_error(shape, strides, data_ptr: int, itemsize: int = 2) -> Optional[str]:
@@ -259,8 +287,8 @@ def _torch_attention_bwd(q, k, v, o, do, lse):
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
     """``t`` is of ``dtype`` (bf16 or fp32) and a view the kernels can load:
-    the rules of a TMA tensor map (bf16), or of float4 loads (fp32), which are
-    the same 16-byte alignments."""
+    the rules of a TMA tensor map (bf16), or of the fp32 prologue's float4
+    loads, which are the same 16-byte alignments."""
     if dtype not in DTYPES or t.dtype != dtype:
         raise TypeError(f"attention_bnth: {name} must be bfloat16 or float32 like q, got "
                         f"{t.dtype} (q {dtype})")
@@ -317,8 +345,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_lse: bool):
     lse_ptr = None if lse is None else ptr(lse)
     if q.dtype == torch.float32:
         p32 = fp32_plan(b, n, t, h)
-        KERNEL_FP32(ptr(q), ptr(k), ptr(v), ptr(out), lse_ptr, b, n, t, h, p32.smem_bytes,
-                    (ctypes.c_int64 * 12)(*strides), float(h ** -0.5), stream_of(q))
+        ws = torch.empty(p32.workspace, dtype=torch.float32, device=q.device)
+        KERNEL_FP32(ptr(q), ptr(k), ptr(v), ptr(out), lse_ptr, ptr(ws), b, n, t, h,
+                    p32.smem_bytes, (ctypes.c_int64 * 12)(*strides), float(h ** -0.5),
+                    stream_of(q))
     else:
         p = plan(b, n, t, h, sm_count(q.device))
         KERNEL(ptr(q), ptr(k), ptr(v), ptr(out), lse_ptr, b, n, t, h, p.grid[0], p.smem_bytes,
@@ -337,7 +367,7 @@ def attention_bnth_bwd(q, k, v, o, do, lse):
     ``lse`` and the output gradient ``do``: on a Hopper card kernel K2 bwd for
     bf16 (one call, three launches: D and the zeroed fp32 dQ scratch; dK, dV
     and dQ's sums; dQ) or K2 bwd fp32 for float32 (one call, three launches:
-    D; dK and dV; dQ), the plain version on the CPU. The gradients are
+    the split prologue with D; dK and dV; dQ), the plain version on the CPU. The gradients are
     (B, N, T, H) views of (B, T, N, H) contiguous tensors. dK and dV are the
     same bit for bit from call to call; so is dQ in fp32, while bf16's dQ sums
     arrive in an order that is not."""
@@ -365,8 +395,9 @@ def attention_bnth_bwd(q, k, v, o, do, lse):
     if fp32:
         strides = (ctypes.c_int64 * 24)(*(st for x in (q, k, v, o, do, dq, dk, dv)
                                           for st in x.stride()[:3]))
-        KERNEL_FP32_BWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(dvec), ptr(dq),
-                        ptr(dk), ptr(dv), b, n, t, h, p.smem_dkv, p.smem_dq, strides,
+        ws = torch.empty(p.workspace, dtype=torch.float32, device=q.device)
+        KERNEL_FP32_BWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(dvec), ptr(ws),
+                        ptr(dq), ptr(dk), ptr(dv), b, n, t, h, p.smem_dkv, p.smem_dq, strides,
                         float(h ** -0.5), stream_of(q))
         return dq, dk, dv
     dq_acc = torch.empty(p.scratch, dtype=torch.float32, device=q.device)

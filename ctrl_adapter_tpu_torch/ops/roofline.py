@@ -7,8 +7,9 @@ their type. Peaks are NVIDIA's data sheet for one H100 SXM at its full 700 W
 (dense, no sparsity). The bf16 matrix kernels count only their tensor-core
 products (bf16, 989 TFLOP/s); the normalisation counts its fp32 arithmetic
 outside the tensor cores (67 TFLOP/s). The fp32 attention kernels count their
-products against the same 67 TFLOP/s: the tensor cores take TF32 at most,
-whose one pass keeps ~3 decimal digits, not fp32's.
+products at the 3xTF32 rate they run at: three tf32 tensor-core passes a
+product (494.5 TFLOP/s each, ~164.8 TFLOP/s of fp32-accurate products); one
+pass alone keeps ~3 decimal digits, not fp32's. K1 in fp32 stays at 67 TFLOP/s.
 
 Plain Python on shapes, so the CPU tests check the arithmetic and
 ``chip_smoke.py`` prints it beside each kernel's measured time.
@@ -21,6 +22,8 @@ from math import prod
 
 H100_BF16_FLOPS = 989e12   # tensor cores, dense bf16
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores
+H100_TF32_FLOPS = 494.5e12  # tensor cores, dense tf32
+TF32X3_FLOPS = H100_TF32_FLOPS / 3  # fp32 products as three tf32 passes
 H100_BYTES_PER_S = 3.35e12  # HBM3
 BF16 = 2                    # bytes per element
 FP32 = 4
@@ -61,20 +64,20 @@ def group_norm(shape, silu: bool, itemsize: int = BF16) -> Cost:
 
 def attention(b: int, n: int, t: int, s: int, h: int, itemsize: int = BF16) -> Cost:
     """K2: Q K^T and P V over (b, n) pairs, T queries, S keys, head dim H; bf16
-    on the tensor cores, or (``itemsize`` 4) fp32 on the CUDA cores."""
+    on the tensor cores, or (``itemsize`` 4) fp32 in 3xTF32."""
     return Cost(flops=4 * b * n * t * s * h, bytes=itemsize * b * n * h * (2 * t + 2 * s),
-                peak_flops=H100_BF16_FLOPS if itemsize == BF16 else H100_FP32_FLOPS)
+                peak_flops=H100_BF16_FLOPS if itemsize == BF16 else TF32X3_FLOPS)
 
 
 def attention_bwd(b: int, n: int, t: int, h: int, itemsize: int = BF16) -> Cost:
     """K2's backward over (b, n) pairs of T x T self-attention, head dim H: the
     five products S, dP, dV, dQ, dK (2 T^2 H flop each) against Q, K, V, O, dO
-    read and dQ, dK, dV written (bf16, or fp32 for ``itemsize`` 4, on the CUDA
-    cores) and the forward's fp32 log-sum-exp read. The fp32 kernel's
-    recompute of S and dP is not counted: the bound is the function's."""
+    read and dQ, dK, dV written (bf16, or fp32 for ``itemsize`` 4, in 3xTF32)
+    and the forward's fp32 log-sum-exp read. The fp32 kernel's recompute of S
+    and dP is not counted: the bound is the function's."""
     return Cost(flops=10 * b * n * t * t * h,
                 bytes=itemsize * 8 * b * n * t * h + 4 * b * n * t,
-                peak_flops=H100_BF16_FLOPS if itemsize == BF16 else H100_FP32_FLOPS)
+                peak_flops=H100_BF16_FLOPS if itemsize == BF16 else TF32X3_FLOPS)
 
 
 def _temporal_attention_flops(rows: int, b: int, s: int, f: int, c: int, ia: int) -> int:

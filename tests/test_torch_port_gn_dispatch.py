@@ -359,6 +359,8 @@ def test_k1_choice_matches_jax_at_every_norm_under_fp32(jax_on_tpu, env, path):
     bf16_rule = sum(gn.eligible(shape, 32, 2) for tower, flag, shape, _ in seen
                     if tower == "adapter")
     assert 0 < per_tower["adapter"] < bf16_rule, (per_tower, bf16_rule)
+    if path == "sdxl":  # chip_smoke's count of SDXL's fp32 training run (phase 16 (2))
+        assert per_tower["adapter"] == sum(chip_smoke.sdxl_k1_rows(batch=1, itemsize=4).values())
     if env is None:
         assert set(per_tower) == {"adapter"}
     assert not all(taken for *_, taken in seen)

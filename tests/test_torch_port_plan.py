@@ -138,49 +138,56 @@ def test_flash_tma_check_takes_the_views_attention_passes():
 
 
 # ------------------------------------------------------- K2 fp32 (and bwd)
-# 256 threads a CTA on 64 rows; a transposed tile of R rows is R x 68 fp32
-# (64 columns + 4 of padding), a natural one 64 x H fp32.
-def _t(rows):
-    return rows * 68 * 4
-
-
-def _n(h):
-    return 64 * h * 4
+# 3xTF32 wgmma on TMA-loaded tiles: every fp32 tile is held as hi and lo tf32
+# copies. A consumer warpgroup owns 64 rows; H = 64 runs two consumers a CTA,
+# H = 128 one. 8 bytes a mbarrier and 1 KiB of alignment slack.
+def _tile(rows, h):  # one fp32 tile, hi or lo
+    return rows * h * 4
 
 
 @pytest.mark.parametrize("b,n,t,h,grid,smem", [
-    # Q^T, K^T, V and P^T: 17,408 + 17,408 + 16,384 + 17,408 bytes
-    (14, 5, 4096, 64, (64, 70), 2 * _t(64) + _n(64) + _t(64)),
-    (14, 10, 1024, 64, (16, 140), 68_608),
-    (2, 3, 1024, 128, (16, 6), 2 * _t(128) + _n(128) + _t(64)),
-    (1, 1, 64, 64, (1, 1), 68_608),
+    # Q (hi, lo) of two consumers 65,536 + two stages of K, V^T (hi, lo) 131,072
+    # + 9 mbarriers + slack
+    (14, 5, 4096, 64, (32, 70), 2 * 2 * _tile(64, 64) + 2 * 4 * _tile(64, 64) + 72 + 1024),
+    (14, 10, 1024, 64, (8, 140), 197_704),
+    # one consumer: Q 65,536 + one stage 131,072 + 5 mbarriers + slack
+    (2, 3, 1024, 128, (16, 6), 2 * _tile(64, 128) + 4 * _tile(64, 128) + 40 + 1024),
+    # half a CTA's rows: its second consumer stores nothing
+    (1, 1, 64, 64, (1, 1), 197_704),
 ], ids=["unet-l0", "unet-l1", "h128", "one-tile"])
 def test_flash_fp32_plan_hand_worked(b, n, t, h, grid, smem):
     p = fa.fp32_plan(b, n, t, h)
     assert (p.grid, p.smem_bytes) == (grid, smem)
     assert p.smem_bytes <= SMEM_PER_BLOCK
-    assert fa.fp32_plan(2, 3, 1024, 128).smem_bytes == 119_808
+    assert p.stages == (2 if h == 64 else 1)
+    assert p.workspace == 6 * b * n * t * h  # Q, K, V^T, hi and lo
+    assert fa.fp32_plan(2, 3, 1024, 128).smem_bytes == 197_672
 
 
-@pytest.mark.parametrize("b,n,t,h,grid,dkv,dq", [
-    # dK/dV: K^T, V^T, Q^T, dO^T (transposed), Q, dO (natural), P / dS, L and D;
-    # dQ: Q^T, dO^T, K^T, V^T, K, dS
-    (14, 5, 4096, 64, (64, 70), 4 * _t(64) + 2 * _n(64) + _t(64) + 512,
-     4 * _t(64) + _n(64) + _t(64)),
-    (2, 4, 1024, 128, (16, 8), 4 * _t(128) + 2 * _n(128) + _t(64) + 512,
-     4 * _t(128) + _n(128) + _t(64)),
-    (65535, 1, 64, 64, (1, 65535), 120_320, 103_424),
+@pytest.mark.parametrize("b,n,t,h,grid,step,dkv,dq", [
+    # dK/dV: K, V (hi, lo) of two consumers 131,072 + one stage of Q, dO, Q^T, dO^T
+    # (hi, lo) at 32 queries 65,536 + 5 mbarriers + slack; dQ: Q, dO 131,072 + two
+    # stages of K, V, K^T (hi, lo) at 32 keys 98,304 + 9 mbarriers + slack
+    (14, 5, 4096, 64, (32, 70), 32, 4 * 2 * _tile(64, 64) + 8 * _tile(32, 64) + 40 + 1024,
+     4 * 2 * _tile(64, 64) + 2 * 6 * _tile(32, 64) + 72 + 1024),
+    # one consumer, 16-row steps: the same bytes
+    (2, 4, 1024, 128, (16, 8), 16, 4 * _tile(64, 128) + 8 * _tile(16, 128) + 40 + 1024,
+     4 * _tile(64, 128) + 2 * 6 * _tile(16, 128) + 72 + 1024),
+    (65535, 1, 64, 64, (1, 65535), 32, 197_672, 230_472),
 ], ids=["unet-up-t4096", "h128", "largest-bn"])
-def test_flash_fp32_bwd_plan_hand_worked(b, n, t, h, grid, dkv, dq):
+def test_flash_fp32_bwd_plan_hand_worked(b, n, t, h, grid, step, dkv, dq):
     p = fa.fp32_bwd_plan(b, n, t, h)
-    assert (p.grid, p.smem_dkv, p.smem_dq) == (grid, dkv, dq)
+    assert (p.grid, p.step, p.smem_dkv, p.smem_dq) == (grid, step, dkv, dq)
     assert max(p.smem_dkv, p.smem_dq) <= SMEM_PER_BLOCK
-    # H = 128's dK/dV kernel is the largest: 222,720 of the 232,448 bytes
-    assert fa.fp32_bwd_plan(1, 1, 64, 128).smem_dkv == 222_720
+    assert p.workspace == 14 * b * n * t * h  # Q, K, V, dO, Q^T, K^T, dO^T, hi and lo
+    # the dQ kernel is the largest: 230,472 of the 232,448 bytes
+    assert fa.fp32_bwd_plan(1, 1, 64, 128).smem_dq == 230_472
 
 
 @pytest.mark.parametrize("b,n,t,h", [(1, 1, 1024, 96), (1, 1, 1000, 64), (1, 1, 32, 64),
-                                     (65536, 1, 64, 64), (0, 1, 64, 64)])
+                                     (65536, 1, 64, 64), (0, 1, 64, 64),
+                                     # 6 x B*N*T workspace rows past TMA's 2^31
+                                     (65535, 1, 8192, 64)])
 def test_flash_fp32_plans_refuse_what_the_tiling_does_not_fit(b, n, t, h):
     with pytest.raises(ValueError, match="fp32"):
         fa.fp32_plan(b, n, t, h)
@@ -738,16 +745,21 @@ def test_roofline_attention_backward_hand_worked():
 
 
 def test_roofline_fp32_rows_use_the_cuda_core_peak():
-    """The fp32 kernels' bounds: 4-byte elements, and their products against
-    the 67 TFLOP/s of fp32 outside the tensor cores (TF32 is not fp32)."""
+    """The fp32 kernels' bounds: 4-byte elements; K1 fp32's arithmetic against
+    the 67 TFLOP/s of fp32 on the CUDA cores, K2 fp32's and its backward's
+    products against the 3xTF32 rate they run at (494.5 TFLOP/s of tf32 over
+    three passes): 1.824 ms and 4.560 ms at (14, 5, 4096, 64)."""
+    assert rl.TF32X3_FLOPS == pytest.approx(494.5e12 / 3, rel=1e-12)
     fwd = rl.attention(14, 5, 4096, 4096, 64, itemsize=4)
-    assert fwd.flops == 4 * 70 * 4096 * 4096 * 64 and fwd.peak_flops == rl.H100_FP32_FLOPS
+    assert fwd.flops == 4 * 70 * 4096 * 4096 * 64 and fwd.peak_flops == rl.TF32X3_FLOPS
     assert fwd.bytes == 4 * 70 * 64 * 4 * 4096
-    assert fwd.bound_by == "operations" and fwd.bound_ms == pytest.approx(4.487, abs=1e-3)
+    assert fwd.bound_by == "operations" and fwd.bound_ms == pytest.approx(1.824, abs=1e-3)
     bwd = rl.attention_bwd(14, 5, 4096, 64, itemsize=4)
     assert bwd.bytes == 4 * 8 * 70 * 4096 * 64 + 4 * 70 * 4096
-    assert bwd.bound_ms == pytest.approx(751_619_276_800 / 67e9, rel=1e-12)
+    assert bwd.bound_ms == pytest.approx(751_619_276_800 / (494.5e9 / 3), rel=1e-12)
+    assert bwd.bound_ms == pytest.approx(4.560, abs=1e-3)
     norm = rl.group_norm((14, 320, 64, 64), silu=True, itemsize=4)
+    assert norm.peak_flops == rl.H100_FP32_FLOPS
     assert norm.bytes == 4 * (2 * 14 * 320 * 64 * 64 + 2 * 320) and norm.bound_by == "bytes"
 
 def test_roofline_group_norm_counts_each_byte_once():
