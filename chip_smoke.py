@@ -195,30 +195,41 @@ Phases (any failure raises and the script exits non-zero before its last line):
    phase's seconds.
 16. (run before 12, after 15) fp32 towers and data-parallel generation
    (``run_phase16``): (1) K1 fp32, K2 fp32 and K2 bwd fp32 at the fp32
-   training paths' shapes (1 x 14 x 512^2: K1 at the adapter norms JAX
-   admits at itemsize 4, K2 at (14, 5, 4096, 64) and (14, 10, 1024, 64);
-   SDXL at 1 x 1024^2: K2 at ``SDXL_FP32_SHAPES``) against their plain
-   versions with TF32 off (within 1e-5 of the norm), the backward's dQ, dK
-   and dV equal to the bit over two calls, timed beside their bounds (K1 at
-   67 TFLOP/s on the CUDA cores, K2 at the 3xTF32 rate), each launch's
-   device ms, ``F.group_norm`` in fp32 and SDPA's memory-efficient backend,
-   forward and backward; (2) ``train_torch.main --mixed_precision no`` at
-   the full width of ``configs/svd_train_depth.yaml``, 2 steps and a
-   validation sample: finite losses, K1 fp32, K2 fp32 and K2 bwd fp32
-   launched per step as the fp32 rules and phase 8's attention counts give
-   them and no bf16 kernel, the gif; ms per step, the validation's seconds
-   and peak GiB; then on ``configs/sdxl_train_depth.yaml`` (1 x 1024^2), 2
-   steps, the fp32 kernels per step as ``sdxl_fp32_train_launches`` gives
-   them and no bf16 kernel, ms per step and peak GiB; (3) SVD
-   ``generate(mesh=...)`` at full width under a one-rank NCCL group, batch
-   2, 2 steps, latents drawn from a seeded generator: equal to the bit to
-   the run without a mesh. The kernels line lists the fp32 kernels with
-   their launches in (2), the SVD run's and the SDXL run's.
+   training paths' shapes (K1 at the adapter norms JAX admits at itemsize 4
+   for SVD at 1 x 14 x 512^2, I2VGen-XL at 1 x 16 x 512^2 and SDXL at 1 x
+   1024^2, ``k1_fp32_row``, one launch each on K1 fp32's counter and the same
+   bits over two calls, with each model's sums over one adapter call; K2 at
+   (14, 5, 4096, 64), (14, 10, 1024, 64) and ``SDXL_FP32_SHAPES``) against
+   their plain versions with TF32 off (within 1e-5 of the norm), the
+   backward's dQ, dK and dV equal to the bit over two calls, timed beside
+   their bounds (K1 at 67 TFLOP/s on the CUDA cores, K2 at the 3xTF32 rate)
+   on the host clock and on the card's (``warm_ms``: back-to-back calls
+   behind a sleep, no profiler; ``cold_ms``), beside ``F.group_norm`` in
+   fp32 and SDPA's memory-efficient backend, forward and backward, on the
+   same clocks, and each K2 launch's device ms; (2)
+   ``train_torch.main --mixed_precision no`` at the full width of
+   ``configs/svd_train_depth.yaml``, 2 steps and a validation sample: finite
+   losses, K1 fp32, K2 fp32 and K2 bwd fp32 launched per step as the fp32
+   rules and phase 8's attention counts give them and no bf16 kernel, the
+   gif; ms per step, the validation's seconds and peak GiB; then on
+   ``configs/sdxl_train_depth.yaml`` (1 x 1024^2) and
+   ``configs/i2vgenxl_train_depth.yaml`` (1 x 16 x 512^2), 2 steps each, the
+   fp32 kernels per step as ``sdxl_fp32_train_launches`` and
+   ``i2v_fp32_train_launches`` give them and no bf16 kernel, ms per step and
+   peak GiB (``run_fp32_branch``); (3) SVD ``generate(mesh=...)`` at full
+   width under a one-rank NCCL group, batch 2, 2 steps, latents drawn from a
+   seeded generator: equal to the bit to the run without a mesh. The kernels
+   line lists the fp32 kernels with their launches in (2), the SVD run's,
+   the SDXL run's and the I2VGen-XL run's.
 
 Device busy times and idle shares come from ``device_activity``, which
 refuses a trace that holds fewer events of a port kernel than the kernel's
 counter saw launched (the profiler was seen to drop events late in a long
-run): it traces again, up to three times, then prints "not measured".
+run): it traces again, up to three times, then prints "not measured". A
+call's warm device time comes from ``torch.profiler`` (``kernel_times``), or
+where it keeps too few events, and throughout phase 16, from ``warm_ms``:
+CUDA events around back-to-back calls enqueued behind ``torch.cuda._sleep``,
+so that they read the card's clock, not the host's.
 
 Imports nothing of JAX.
 """
@@ -230,6 +241,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -299,28 +311,94 @@ def cold_ms(fn, flush, iters: int = 20, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_times(fn, flush):
+@functools.lru_cache(maxsize=None)
+def sleep_cycles_per_ms() -> float:
+    """The cycles ``torch.cuda._sleep`` spins for a millisecond on this card:
+    the median of three 2-million-cycle sleeps timed with CUDA events,
+    measured once."""
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(2_000_000)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return 2_000_000 / statistics.median(times)
+
+
+def warm_ms(fn, reps: int = 20, iters: int = 5, warmup: int = 2) -> float:
+    """Device time per call of ``fn()`` in ms, inputs left in L2, without the
+    profiler: the median over ``iters`` runs of ``reps`` calls back to back,
+    CUDA events around each run, every run enqueued behind a
+    ``torch.cuda._sleep`` that lasts twice the host's enqueue of the run
+    (measured in the warm-up) plus 0.2 ms. The card starts the first call
+    only once the host has enqueued the last, so the events read the card's
+    time, not the host's. A run whose start event had passed before the last
+    call was enqueued is made again with twice the sleep."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sleep_ms = 2000 * (time.perf_counter() - t0) + 0.2
+    torch.cuda.synchronize()
+    times = []
+    while len(times) < iters:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
+        start.record()
+        for _ in range(reps):
+            fn()
+        covered = not start.query()
+        end.record()
+        end.synchronize()
+        if covered:
+            times.append(start.elapsed_time(end) / reps)
+        elif sleep_ms > 1000:
+            raise RuntimeError(f"warm_ms: the host took over {sleep_ms:.0f} ms to enqueue "
+                               f"{reps} calls")
+        else:
+            sleep_ms *= 2
+    return statistics.median(times)
+
+
+def device_times(fn, flush, profiler=True, heavy=False):
     """(warm, cold) device ms per call of ``fn()``: the sum of its kernels'
     device times under ``torch.profiler`` (back-to-back calls, inputs left in
-    L2; None where the profiler records no device time), and ``cold_ms``."""
-    split = kernel_times(fn)
-    return (None if split is None else sum(split.values())), cold_ms(fn, flush)
+    L2), or without ``profiler``, or where the profiler keeps too few events,
+    ``warm_ms`` (the same calls timed with CUDA events behind a sleep); and
+    ``cold_ms``. ``heavy``: fewer calls, for calls of milliseconds."""
+    split = kernel_times(fn) if profiler else None
+    runs = dict(reps=3, iters=3, warmup=1) if heavy else {}
+    warm = warm_ms(fn, **runs) if split is None else sum(split.values())
+    return warm, cold_ms(fn, flush, **(dict(iters=5, warmup=1) if heavy else {}))
 
 
 def fmt_ms(t) -> str:
     return "not measured" if t is None else f"{t:.4f} ms"
 
 
-def device_line(row, fn, flush) -> None:
+def device_line(row, fn, flush, library=None, profiler=True, heavy=False) -> None:
     """Time ``fn()`` on device, warm and cold L2 (``device_times``), print both
-    beside the row's bound and its share of them, and add them to the row."""
-    warm, cold = device_times(fn, flush)
+    beside the row's bound and its share of them, and add them to the row;
+    with ``library`` (name, fn), that call's device times too
+    (``library_device_ms``, ``library_cold_ms``; ``warm_ms``, ``cold_ms``)."""
+    warm, cold = device_times(fn, flush, profiler, heavy)
     bound = row["bound_ms"]
     shares = ", ".join(f"{what} {100 * bound / t:.1f} %" for what, t in (("warm", warm),
                                                                          ("cold", cold)) if t)
     print(f"    device: kernel {fmt_ms(warm)} warm L2, {fmt_ms(cold)} cold L2; bound "
           f"{bound:.4f} ms, kernel at {shares} of it")
     row.update(device_ms=warm, cold_ms=cold)
+    if library is not None:  # the yardstick on the profiler-free clocks
+        name, lib = library
+        lwarm, lcold = device_times(lib, flush, False, heavy)
+        print(f"    device: {name} {fmt_ms(lwarm)} warm L2, {fmt_ms(lcold)} cold L2")
+        row.update(library_device_ms=lwarm, library_cold_ms=lcold)
 
 
 def compare(name, got, want, atol, rtol, rel_norm=None):
@@ -729,7 +807,7 @@ def per_step_total(name, rows, key):
               f"of kernel against {bound:.3f} ms of bound ({100 * bound / ms:.1f} %)")
 
 
-def kernel_times(fn, iters: int = 5):
+def kernel_times(fn, iters: int = 5, attempts: int = 3):
     """Device ms per call of each CUDA kernel ``fn()`` launches, from
     ``torch.profiler``. One profiled call gives each kernel's launches per
     call; a run of ``iters`` calls counts only if the profiler recorded
@@ -737,7 +815,7 @@ def kernel_times(fn, iters: int = 5):
     kernel's time per call is then its total over ``iters``. The profiler was
     seen to record no device time for a short run, and late in a long one to
     keep the events of only some of the calls: such a run is made again, up
-    to three times, then None."""
+    to ``attempts`` times in all, then None."""
     from torch.profiler import ProfilerActivity, profile
 
     def profiled(n):
@@ -757,7 +835,7 @@ def kernel_times(fn, iters: int = 5):
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(attempts):
         once, run = profiled(1), profiled(iters)
         if once and run.keys() == once.keys() and all(
                 run[name][1] == iters * once[name][1] for name in run):
@@ -1143,11 +1221,12 @@ def k1_row(rand, flush, shape, silu, n, flat=False):
     return row
 
 
-def k2_row(rand, shape, flush=None):
+def k2_row(rand, shape, flush=None, library_device=False):
     """K2 against its plain version at (B, N, T, 64) on head-split views of
     (B, T, N*H) projections, as the Attention module passes them, timed beside
     its bound, its plain version and SDPA; with ``flush``, also on device
-    time, warm and with L2 cold."""
+    time, warm and with L2 cold, and with ``library_device`` SDPA's default
+    backend on the same clocks."""
     from ctrl_adapter_tpu_torch.ops import flash_attention as fa
     from ctrl_adapter_tpu_torch.ops import roofline as rl
 
@@ -1164,9 +1243,14 @@ def k2_row(rand, shape, flush=None):
     err = compare(f"K2 {label}", got, want, atol=1e-2, rtol=2e-2, rel_norm=1e-2)
     ms = cuda_ms(lambda: fa.attention_bnth(q, k, v))
     pms = cuda_ms(lambda: fa._torch_attention(q, k, v), iters=3, reps=3, warmup=1)
-    row = report(label, err, ms, pms, rl.attention(b_, n_, t_, t_, h_), sdpa_times(q, k, v))
-    if flush is not None:
-        device_line(row, lambda: fa.attention_bnth(q, k, v), flush)
+    library = sdpa_times(q, k, v)
+    row = report(label, err, ms, pms, rl.attention(b_, n_, t_, t_, h_), library)
+    if flush is not None:  # the yardstick: the first library call, SDPA's default backend
+        import torch.nn.functional as F
+
+        device_line(row, lambda: fa.attention_bnth(q, k, v), flush,
+                    (next(iter(library)), lambda: F.scaled_dot_product_attention(q, k, v))
+                    if library_device else None)
     return row
 
 
@@ -1343,7 +1427,8 @@ def check_kernels(dev, card):
     # K2: self-attention of the UNet and adapter spatial blocks, H = 64, on
     # head-split views of (B, T, N*H) projections as the Attention module passes.
     print(f"K2 flash attention (bf16, fp32 softmax) on {card}")
-    k2 = [k2_row(rand, (b_, n_, t_, 64)) for b_, n_, t_ in ((28, 5, 4096), (28, 10, 1024))]
+    k2 = [k2_row(rand, (b_, n_, t_, 64), flush, True)
+          for b_, n_, t_ in ((28, 5, 4096), (28, 10, 1024))]
     results["flash_attention"] = k2
     results["flash_attention_bwd"] = check_flash_bwd(dev, card, rand, flush)
     check_kernel_grads(dev, card, rand)
@@ -4631,9 +4716,11 @@ def sdpa_fp32_times(q, k, v, do=None):
 
 
 def print_launch_times(label, fn):
-    """Each device kernel's ms in one call of ``fn`` (``kernel_times``): the
-    fp32 kernels' split prologue beside their main kernels."""
-    times = kernel_times(fn, iters=3)
+    """Each device kernel's ms in one call of ``fn`` (``kernel_times``, one
+    attempt: late in the script the profiler mostly keeps too few events, and
+    the call's own device time comes from ``warm_ms``): the fp32 kernels'
+    split prologue beside their main kernels."""
+    times = kernel_times(fn, iters=3, attempts=1)
     print(f"    {label} launches (device ms, warm L2): " + (
         "not measured" if times is None else
         ", ".join(f"{name} {t:.3f}" for name, t in times.items())))
@@ -4645,45 +4732,91 @@ def fp32_rel(name, got, want, atol=1e-4):
     return compare(name, got, want, atol=atol, rtol=1e-4, rel_norm=FP32_TOL)
 
 
-def check_fp32_kernels(dev, card):
-    """Phase 16 (1): K1 fp32, K2 fp32 and K2 bwd fp32 at the fp32 training
-    paths' shapes (SVD: batch 1, ``frames`` frames at 512^2: K1 at the
-    adapter's norms JAX admits at itemsize 4, K2 and its backward at the
-    UNet's and the adapter's spatial attentions; SDXL at 1024^2:
-    ``SDXL_FP32_SHAPES``) against their plain versions, TF32 off; the
-    backward's gradients equal to the bit over two calls; times beside the
-    bounds (``ops/roofline.py``: K1 fp32 at 67 TFLOP/s on the CUDA cores, K2
-    fp32 and its backward at the 3xTF32 rate they run at), ``F.group_norm``
-    in fp32 and SDPA's memory-efficient backend, forward and backward.
-    Returns {name: [rows]}."""
+def k1_fp32_row(rand, flush, shape, silu, n):
+    """K1 fp32 at ``shape`` (G = 32, eps 1e-6): one launch on K1 fp32's
+    counter, within FP32_TOL of the plain version's norm, the same bits over
+    two calls; timed on the host clock beside its bound, its plain version
+    and ``F.group_norm`` (with SiLU also ``F.silu(F.group_norm)``), then on
+    the card's clock (``warm_ms``, ``cold_ms``) beside ``F.group_norm`` fp32
+    on the same clocks; ``n`` launches per adapter call."""
     import torch.nn.functional as F
 
-    from ctrl_adapter_tpu_torch.ops import flash_attention as fa
     from ctrl_adapter_tpu_torch.ops import group_norm as gn
+    from ctrl_adapter_tpu_torch.ops import roofline as rl
+
+    x, w, b = rand(*shape), 1.0 + rand(shape[1], scale=0.1), rand(shape[1], scale=0.1)
+    label = f"({','.join(map(str, shape))})" + (" silu" if silu else "")
+    kernel = lambda: gn.group_norm_silu(x, w, b, 32, 1e-6, silu)  # noqa: E731
+    before = gn.KERNEL_FP32.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    if gn.KERNEL_FP32.launches != before + 1:
+        raise RuntimeError(f"K1 fp32 {label}: {gn.KERNEL_FP32.launches - before} launches")
+    err = fp32_rel(f"K1 fp32 {label} ({n} per adapter call)", got,
+                   gn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu))
+    if not torch.equal(got, kernel()):
+        raise RuntimeError(f"K1 fp32 {label}: two calls differ")
+    del got
+    ms = cuda_ms(kernel)
+    pms = cuda_ms(lambda: gn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu))
+    yard = lambda: F.group_norm(x, 32, w, b, 1e-6)  # noqa: E731
+    library = {"F.group_norm fp32": cuda_ms(yard)}
+    if silu:
+        library["F.silu(F.group_norm) fp32"] = cuda_ms(lambda: F.silu(yard()))
+    row = report(label, err, ms, pms, rl.group_norm(shape, silu, 4), library, not silu)
+    warm, cold = warm_ms(kernel), cold_ms(kernel, flush)
+    ywarm, ycold = warm_ms(yard), cold_ms(yard, flush)
+    bound = row["bound_ms"]
+    branch = gn.plan(shape, 32, itemsize=4,
+                     sms=torch.cuda.get_device_properties(0).multi_processor_count).branch
+    print(f"    device ({branch}): kernel {warm:.4f} ms warm L2 ({100 * bound / warm:.1f} % of "
+          f"the bound), {cold:.4f} ms cold L2 ({100 * bound / cold:.1f} %); F.group_norm fp32 "
+          f"{ywarm:.4f} warm, {ycold:.4f} cold; faster than it: "
+          + ("met" if cold < ycold and warm < ywarm else "NOT met"))
+    row.update(per_adapter_call=n, plan=branch, device_ms=warm, cold_ms=cold,
+               library_device_ms=ywarm, library_cold_ms=ycold)
+    return row
+
+
+def check_fp32_kernels(dev, card):
+    """Phase 16 (1): K1 fp32, K2 fp32 and K2 bwd fp32 at the fp32 training
+    paths' shapes against their plain versions, TF32 off: K1 at the adapter
+    norms JAX admits at itemsize 4 for SVD (``k1_rows(FP32_FRAMES, 1, 4)``),
+    I2VGen-XL (``k1_rows(I2V_FRAMES, 1, 4)``) and SDXL
+    (``sdxl_k1_rows(batch=1, itemsize=4)``), ``k1_fp32_row``, with each
+    model's sums over one adapter call; K2 and its backward at SVD's UNet and
+    adapter spatial attentions and ``SDXL_FP32_SHAPES``, the backward's
+    gradients equal to the bit over two calls. Times beside the bounds
+    (``ops/roofline.py``: K1 fp32 at 67 TFLOP/s on the CUDA cores, K2 fp32
+    and its backward at the 3xTF32 rate they run at) and SDPA's
+    memory-efficient backend, forward and backward, on the host clock and on
+    the card's (``warm_ms``, ``cold_ms``). Returns {name: [rows]}."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from ctrl_adapter_tpu_torch.ops import flash_attention as fa
     from ctrl_adapter_tpu_torch.ops import roofline as rl
 
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise RuntimeError("phase 16: TF32 must be off for the fp32 plain versions")
     g = torch.Generator(device=dev).manual_seed(SEED + 60)
     rand = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale  # noqa: E731
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = {name: [] for name in FP32_KERNELS}
     print(f"phase 16 (1): the fp32 kernels against their plain versions (fp32, TF32 off; "
           f"tolerance ||err|| <= {FP32_TOL} ||plain||) on {card}")
     frames = FP32_FRAMES
-    for (shape, silu), n in k1_rows(frames, 1, 4).items():
-        x, w, b = rand(*shape), 1.0 + rand(shape[1], scale=0.1), rand(shape[1], scale=0.1)
-        label = f"({','.join(map(str, shape))})" + (" silu" if silu else "")
-        err = fp32_rel(f"K1 fp32 {label} ({n} per adapter call)",
-                       gn.group_norm_silu(x, w, b, 32, 1e-6, silu),
-                       gn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu))
-        ms = cuda_ms(lambda: gn.group_norm_silu(x, w, b, 32, 1e-6, silu))
-        pms = cuda_ms(lambda: gn._torch_group_norm_silu(x, w, b, 32, 1e-6, silu))
-        library = {"F.group_norm fp32": cuda_ms(lambda: F.group_norm(x, 32, w, b, 1e-6))}
-        if silu:
-            library["F.silu(F.group_norm) fp32"] = cuda_ms(
-                lambda: F.silu(F.group_norm(x, 32, w, b, 1e-6)))
-        row = report(label, err, ms, pms, rl.group_norm(shape, silu, 4), library, not silu)
-        rows["group_norm_silu_fp32"].append({**row, "per_adapter_call": n})
+    for model, k1 in (("SVD", k1_rows(frames, 1, 4)), ("I2VGen-XL", k1_rows(I2V_FRAMES, 1, 4)),
+                      ("SDXL", sdxl_k1_rows(batch=1, itemsize=4))):
+        model_rows = [k1_fp32_row(rand, flush, shape, silu, n) for (shape, silu), n in k1.items()]
+        launches = sum(r["per_adapter_call"] for r in model_rows)
+        bound = sum(r["per_adapter_call"] * r["bound_ms"] for r in model_rows)
+        for field, what in (("device_ms", "warm L2"), ("cold_ms", "cold L2"),
+                            ("library_cold_ms", "cold L2, F.group_norm fp32")):
+            t = sum(r["per_adapter_call"] * r[field] for r in model_rows)
+            print(f"  K1 fp32 per {model} adapter call (device, {what}): {launches} launches, "
+                  f"{t:.4f} ms against {bound:.4f} ms of bound ({100 * bound / t:.1f} %)")
+        rows["group_norm_silu_fp32"] += model_rows
     # the K1 fp32 rows with the one PyTorch call first: the JSON line takes row 0
     rows["group_norm_silu_fp32"].sort(key=lambda r: r["library_ms"] is None)
     for shape in ((frames, 5, 4096, 64), (frames, 10, 1024, 64), *SDXL_FP32_SHAPES):
@@ -4698,12 +4831,23 @@ def check_fp32_kernels(dev, card):
         compare(f"K2 fp32 {label} log-sum-exp", lse, want_lse, atol=1e-4, rtol=1e-5,
                 rel_norm=FP32_TOL)
         del want, want_lse
-        ms = cuda_ms(lambda: fa.attention_bnth(q, k, v), iters=3, reps=5)
-        print_launch_times(f"K2 fp32 {label}", lambda: fa.attention_bnth(q, k, v))
+        fwd = lambda: fa.attention_bnth(q, k, v)  # noqa: E731
+        ms = cuda_ms(fwd, iters=3, reps=5)
+        print_launch_times(f"K2 fp32 {label}", fwd)
         pms = cuda_ms(lambda: fa._torch_attention(q, k, v), iters=3, reps=3, warmup=1)
-        rows["flash_attention_fp32"].append(report(
-            label, err, ms, pms, rl.attention(*shape[:3], t, hd, itemsize=4),
-            sdpa_fp32_times(q, k, v)))
+        row = report(label, err, ms, pms, rl.attention(*shape[:3], t, hd, itemsize=4),
+                     sdpa_fp32_times(q, k, v))
+
+        def efficient(run):
+            def call():
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                    return run()
+            return call
+
+        sdpa = efficient(lambda: F.scaled_dot_product_attention(q, k, v))
+        device_line(row, fwd, flush, ("SDPA EFFICIENT_ATTENTION", sdpa), profiler=False,
+                    heavy=True)
+        rows["flash_attention_fp32"].append(row)
         got = fa.attention_bnth_bwd(q, k, v, out, do, lse)
         want = fa._torch_attention_bwd(q, k, v, out, do, lse)
         torch.cuda.synchronize()
@@ -4723,10 +4867,21 @@ def check_fp32_kernels(dev, card):
         print_launch_times(f"K2 bwd fp32 {label}", bwd)
         pms = cuda_ms(lambda: fa._torch_attention_bwd(q, k, v, out, do, lse), iters=3, reps=3,
                       warmup=1)
-        rows["flash_attention_fp32_bwd"].append(report(
-            label, err, ms, pms, rl.attention_bwd(*shape, itemsize=4),
-            sdpa_fp32_times(q, k, v, do)))
-        del q, k, v, do, out, lse
+        row = report(label, err, ms, pms, rl.attention_bwd(*shape, itemsize=4),
+                     sdpa_fp32_times(q, k, v, do))
+        # SDPA's backward alone: its forward and backward on the card's clocks, less the forward
+        qg, kg, vg = (z.detach().requires_grad_() for z in (q, k, v))
+        both = efficient(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do))
+        device_line(row, bwd, flush, ("SDPA EFFICIENT_ATTENTION forward + backward", both),
+                    profiler=False, heavy=True)
+        fwd_warm, fwd_cold = device_times(sdpa, flush, profiler=False, heavy=True)
+        row.update(library_device_ms=row["library_device_ms"] - fwd_warm,
+                   library_cold_ms=row["library_cold_ms"] - fwd_cold)
+        print(f"    device: SDPA EFFICIENT_ATTENTION backward {row['library_device_ms']:.4f} ms "
+              f"warm L2, {row['library_cold_ms']:.4f} ms cold L2 (less its forward)")
+        rows["flash_attention_fp32_bwd"].append(row)
+        del q, k, v, do, out, lse, qg, kg, vg
     torch.cuda.empty_cache()
     return rows
 
@@ -4822,33 +4977,45 @@ def sdxl_fp32_train_launches():
             "flash_attention_fp32_bwd": bf16["flash_attention_bwd"]}
 
 
-def run_sdxl_fp32_training(card, root):
-    """Phase 16 (2), SDXL: ``train_torch.main`` with ``--mixed_precision no``
-    on ``configs/sdxl_train_depth.yaml`` (1 x 1024^2, fp32 towers,
+def i2v_fp32_train_launches():
+    """The fp32 kernels' launches per step of I2VGen-XL's fp32 training run
+    at 1 x 16 x 512^2: K1 fp32 at the adapter norms JAX admits at itemsize 4
+    (``k1_rows(I2V_FRAMES, 1, 4)``), forward and recompute; K2 fp32 and its
+    backward as often as the bf16 I2VGen-XL step launches K2 and its backward
+    (``i2v_train_launches``); no bf16 kernel."""
+    bf16 = i2v_train_launches()
+    return {"group_norm_silu_fp32": 2 * sum(k1_rows(I2V_FRAMES, 1, 4).values()),
+            "flash_attention_fp32": bf16["flash_attention"],
+            "flash_attention_fp32_bwd": bf16["flash_attention_bwd"]}
+
+
+def run_fp32_branch(card, root, model, config, want, cell):
+    """Phase 16 (2), a training branch: ``train_torch.main`` with
+    ``--mixed_precision no`` on ``configs/{config}`` (fp32 towers,
     ``--fake_weights``), FP32_TRAIN_STEPS steps: finite losses, the fp32
-    kernels launched per step (``sdxl_fp32_train_launches``) and no bf16
-    kernel, fp32 towers and masters; ms per step and peak GiB. Returns the
-    fp32 kernels' launches in the run."""
-    cfg, _ = config_copy("sdxl_train_depth.yaml", root, os.path.join(root, "fp32_sdxl"))
+    kernels launched per step as ``want`` and no bf16 kernel, fp32 towers and
+    masters; ms per step and peak GiB. Returns the fp32 kernels' launches in
+    the run."""
+    cfg, _ = config_copy(config, root, os.path.join(root, f"fp32_{model}"))
     counters = {**kernel_counters(), **fp32_counters()}
     argv = ["--yaml_file", cfg, "--fake_weights", "--mixed_precision", "no",
             "--max_train_steps", str(FP32_TRAIN_STEPS), "--save_starting_step",
             str(FP32_TRAIN_STEPS + 1), "--seed", str(SEED)]
-    run, box = train_cli_run("phase 16 (2) train CLI sdxl --mixed_precision no", argv, counters)
-    want = sdxl_fp32_train_launches()
-    check_fp32_run("phase 16 (2) sdxl", run, box, counters, want)
+    run, box = train_cli_run(f"phase 16 (2) train CLI {model} --mixed_precision no", argv,
+                             counters)
+    check_fp32_run(f"phase 16 (2) {model}", run, box, counters, want)
     ms = [1000 * t for t in run.step_s]
-    print(f"phase 16 (2): SDXL K1 fp32, K2 fp32, K2 bwd fp32 per step "
+    print(f"phase 16 (2): {model} K1 fp32, K2 fp32, K2 bwd fp32 per step "
           f"{[want[n] for n in FP32_KERNELS]} in each of {len(box['steps'])} steps, no bf16 "
           f"kernel")
-    print(f"phase 16 (2) on {card}: SDXL fp32 training 1x{SDXL_SIZE}x{SDXL_SIZE}, fp32 towers "
-          f"and masters, gradient checkpointing: "
+    print(f"phase 16 (2) on {card}: {model} fp32 training {cell}, fp32 towers and masters, "
+          f"gradient checkpointing: "
           + ", ".join(f"step {i + 1} {t:.1f} ms" for i, t in enumerate(ms))
           + f"; peak {box['peak_gb']:.2f} GiB")
     launches = {n: box["launches"][n] for n in FP32_KERNELS}
     before = box["before_gb"]
     del run, box
-    released("phase 16 (2) sdxl", before)
+    released(f"phase 16 (2) {model}", before)
     return launches
 
 
@@ -4910,9 +5077,9 @@ def run_mesh_generate(dev, card):
 
 def run_phase16(dev, card, bf16_per_step):
     """Phase 16: (1) the fp32 kernels, (2) fp32 training, SVD
-    (``bf16_per_step``: phase 8's launches per step) then SDXL, (3)
+    (``bf16_per_step``: phase 8's launches per step), SDXL and I2VGen-XL, (3)
     generate(mesh=...). Returns the fp32 kernels' rows and their launches in
-    the SVD and the SDXL run."""
+    the SVD run and ({run: launches}) in the others."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -4920,12 +5087,19 @@ def run_phase16(dev, card, bf16_per_step):
     root = tempfile.mkdtemp(prefix="chip_smoke_fp32_")
     try:
         launches, _ = run_fp32_training(dev, card, root, bf16_per_step)
-        launches_sdxl = run_sdxl_fp32_training(card, root)
+        launches_sdxl = run_fp32_branch(card, root, "sdxl", "sdxl_train_depth.yaml",
+                                        sdxl_fp32_train_launches(),
+                                        f"1x{SDXL_SIZE}x{SDXL_SIZE}")
+        launches_i2v = run_fp32_branch(card, root, "i2vgenxl", "i2vgenxl_train_depth.yaml",
+                                       i2v_fp32_train_launches(),
+                                       f"1x{I2V_FRAMES}x{SIZE}x{SIZE}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     run_mesh_generate(dev, card)
     print(f"phase 16 on {card}: {time.perf_counter() - t_phase:.1f} s")
-    return rows, launches, launches_sdxl
+    return rows, launches, {"sdxl_training_fp32": launches_sdxl,
+                            "i2vgenxl_training_fp32": launches_i2v}
+
 
 def free_port() -> int:
     """A TCP port on 127.0.0.1 that was free a moment ago."""
@@ -5020,7 +5194,8 @@ def main() -> int:
         phase_done("phase 15, condition extraction and real-data training")
     finally:
         shutil.rmtree(shared, ignore_errors=True)
-    fp32_rows, fp32_launches, fp32_launches_sdxl = run_phase16(dev, card, train_per_step[0])
+    fp32_rows, fp32_launches, fp32_launches_branches = run_phase16(dev, card,
+                                                                   train_per_step[0])
     phase_done("phase 16, fp32 towers and generate(mesh=...)")
     print(f"torch.profiler: {PROFILER_COST['traces']} traces of device activity, "
           f"{PROFILER_COST['traced_s']:.1f} s under the profiler, "
@@ -5065,7 +5240,7 @@ def main() -> int:
          "launches": fp32_launches[name], "path": "svd training, --mixed_precision no",
          **{k: v for k, v in fp32_rows[name][0].items() if k != "per_adapter_call"},
          "max_abs_err": max(r["max_abs_err"] for r in fp32_rows[name]),
-         "launches_sdxl_training_fp32": fp32_launches_sdxl[name]}
+         **{f"launches_{run}": n[name] for run, n in fp32_launches_branches.items()}}
         for name, (src, replaces) in FP32_KERNELS.items()]
     print(json.dumps(line))
     print(card)

@@ -3,11 +3,13 @@
 Counterpart of ``ctrl_adapter_tpu/ops/group_norm.py:group_norm_silu``. The CUDA
 kernel (``csrc/group_norm.cu``) reads x once where a group fits in shared memory
 (one launch: a group a CTA, several small groups a CTA, or a group over a
-thread-block cluster) and keeps a two-pass reduction for the rest; see its
-header for the design. :func:`plan` picks the branch, the CTAs and the shared
-memory in plain Python, so the CPU tests check it; the C side refuses a plan
-that differs from the one it derives. The plan counts bytes of the input's
-type: bf16 and fp32 run the same branches, fp32 with 4 elements a 16-byte
+thread-block cluster; in fp32, where there are enough groups of at most 96 KB,
+the "ring": a few persistent CTAs an SM walking the groups, see
+:func:`ring_plan`) and keeps a two-pass reduction for the rest; see its header
+for the design. :func:`plan` picks the branch, the CTAs and the shared memory
+in plain Python, so the CPU tests check it; the C side refuses a plan that
+differs from the one it derives. The plan counts bytes of the input's type:
+bf16 and fp32 run the same one-launch branches, fp32 with 4 elements a 16-byte
 vector where bf16 has 8. CUDA rather than Triton: the kernel
 shares the single ``nvcc`` build of the other kernels, so the port needs no
 second toolchain at run time.
@@ -37,7 +39,7 @@ from .backend import is_hopper, sm_count
 
 KERNEL = Kernel("cak_group_norm_silu", [
     *([ctypes.c_void_p] * 5), *([ctypes.c_int64] * 3), *([ctypes.c_int] * 4),
-    *([ctypes.c_int64] * 3), ctypes.c_float, *([ctypes.c_int] * 3), ctypes.c_void_p,
+    *([ctypes.c_int64] * 3), ctypes.c_float, *([ctypes.c_int] * 4), ctypes.c_void_p,
 ])
 # fp32 input launches the same entry, counted apart: K1 fp32 (fp32 towers)
 KERNEL_FP32 = Kernel(KERNEL.symbol, KERNEL.argtypes)
@@ -110,7 +112,7 @@ def _split(groups: int, span: int, vec_width: int):
     return -(-span // chunk), chunk
 
 
-BRANCHES = ("two_pass", "one_cta", "several_groups", "cluster")
+BRANCHES = ("two_pass", "one_cta", "several_groups", "cluster", "ring")
 _PIECE = 16384          # bytes per bulk copy (and mbarrier) of the one-launch branches
 _MAX_PIECES = 16
 _CTA_BYTES = 96 * 1024  # x bytes a CTA holds by preference: two CTAs an SM
@@ -119,6 +121,13 @@ _PACK_BYTES = 32 * 1024  # several groups a CTA: at most this many bytes in all
 _MAX_PACK = 8
 _AUX = 2 * 8 * _MAX_PACK + 8 * _MAX_PIECES  # per-group sums and statistics, mbarriers
 _MAX_SPAN = 1 << 22     # one launch: float channel indexing is exact below 2^22 vectors
+_FUSED_THREADS, _TWO_PASS_THREADS = 512, 256
+# "ring" (fp32): persistent CTAs, a few an SM, walk whole groups through one slot
+_RING_MAX_UNIT = 96 * 1024   # bytes of a group, the slot
+_RING_CTAS = 4               # CTAs an SM at most
+_SMEM_MAX = 232448 - 1024    # dynamic shared memory a CTA may ask for (csrc kSmemMax)
+_SM_SMEM = 233472            # shared memory of an SM; each resident CTA reserves 1 KB of it
+_SM_THREADS = 2048
 
 
 def _fused_smem(elems: int, s: int, itemsize: int = 2) -> int:
@@ -136,6 +145,7 @@ class GroupNormPlan:
     grid: int            # CTAs ("two_pass": splits per group)
     smem_bytes: int      # dynamic shared memory (0 for "two_pass")
     vec: bool            # 16-byte loads
+    threads: int = _FUSED_THREADS  # a CTA's ("two_pass": 256)
 
 
 @lru_cache(maxsize=None)
@@ -146,6 +156,9 @@ def plan(shape: tuple, num_groups: int, aligned: bool = True, sms: int = 132,
 
     One launch where the spatial size is a multiple of a 16-byte vector
     (8 bf16, 4 fp32 elements) and ``aligned`` (a 16-byte aligned base):
+    - "ring" (fp32 only): at least ``sms`` groups of at most 96 KB; 128
+      threads a CTA up to 16 KB a group, 256 above, and as many CTAs an SM as
+      fit (at most 4; :func:`ring_plan`);
     - "several_groups": groups of at most 16 KB, packed 2, 4 or 8 to a CTA
       (at most 32 KB) while at least 2 * sms CTAs remain;
     - else "one_cta" / "cluster": the fewest CTAs per group (1, 2, 4, 8) such
@@ -160,6 +173,11 @@ def plan(shape: tuple, num_groups: int, aligned: bool = True, sms: int = 132,
     gbytes = itemsize * span
     if s % vec or not aligned or span > _MAX_SPAN:
         return _two_pass(groups, span, vec if s % vec == 0 and aligned else 1, vec)
+    if itemsize == 4 and groups >= sms and gbytes <= _RING_MAX_UNIT:
+        threads = 128 if gbytes <= _PIECE else 256  # at most 8 vectors a thread, then over 4
+        ctas = next(k for k in range(_RING_CTAS, 0, -1)
+                    if ring_fits(ring_plan(shape, num_groups, threads, k, sms), k))
+        return ring_plan(shape, num_groups, threads, ctas, sms)
     gpc = 1
     while (gpc < _MAX_PACK and groups % (2 * gpc) == 0 and 2 * gpc * gbytes <= _PACK_BYTES
            and groups // (2 * gpc) >= 2 * sms):
@@ -179,9 +197,39 @@ def plan(shape: tuple, num_groups: int, aligned: bool = True, sms: int = 132,
                          _fused_smem(elems, s, itemsize), True)
 
 
+def _ring_smem(span: int, cg: int) -> int:
+    """The slot (a group of fp32 x, rounded up to 128 bytes), one 8-byte
+    mbarrier a 16 KB piece of it, and (gamma, beta) of the group's cg
+    channels."""
+    gbytes = 4 * span
+    return -(-gbytes // 128) * 128 + 8 * -(-gbytes // _PIECE) + 8 * cg
+
+
+def ring_plan(shape: tuple, num_groups: int, threads: int, ctas_per_sm: int,
+              sms: int = 132) -> GroupNormPlan:
+    """The "ring" branch for an fp32 (N, C, *spatial) tensor: ``ctas_per_sm``
+    persistent CTAs of ``threads`` threads an SM (at most one a group) walk
+    the N * G groups, group u to CTA u mod grid. :func:`plan` takes 128
+    threads up to 16 KB a group, 256 above, and as many CTAs as fit, at most
+    4; ``tools/k1_fp32_times.py --sweep`` times the others."""
+    n, c = shape[0], shape[1]
+    groups, cg = n * num_groups, c // num_groups
+    span = cg * prod(shape[2:])
+    grid = min(groups, ctas_per_sm * sms)
+    return GroupNormPlan("ring", 1, -(-groups // grid), span, grid, _ring_smem(span, cg), True,
+                         threads)
+
+
+def ring_fits(p: GroupNormPlan, ctas_per_sm: int) -> bool:
+    """Whether ``ctas_per_sm`` CTAs of ring plan ``p`` fit on one SM."""
+    return (p.smem_bytes <= _SMEM_MAX and ctas_per_sm * (p.smem_bytes + 1024) <= _SM_SMEM
+            and ctas_per_sm * p.threads <= _SM_THREADS)
+
+
 def _two_pass(groups: int, span: int, vec_width: int, vec: int) -> GroupNormPlan:
     splits, chunk = _split(groups, span, vec_width)
-    return GroupNormPlan("two_pass", 1, 1, chunk, splits, 0, vec_width == vec)
+    return GroupNormPlan("two_pass", 1, 1, chunk, splits, 0, vec_width == vec,
+                         _TWO_PASS_THREADS)
 
 
 def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -212,11 +260,17 @@ def _group_norm_kernel(x, weight, bias, num_groups, eps, silu):
                              f"{x.dtype} tensor on {x.device}")
     if not x.is_contiguous():
         raise ValueError("group_norm_silu: x must be contiguous")
-    n = x.shape[0]
-    cg = c // num_groups
-    s = prod(x.shape[2:])
     p = plan(tuple(x.shape), num_groups, x.data_ptr() % 16 == 0, sm_count(x.device),
              x.element_size())
+    return launch(x, weight, bias, num_groups, eps, silu, p)
+
+
+def launch(x, weight, bias, num_groups, eps, silu, p: GroupNormPlan) -> torch.Tensor:
+    """K1 on checked card tensors with the launch ``p`` (the C side refuses a
+    plan that is not one of its branches' own)."""
+    n, c = x.shape[0], x.shape[1]
+    cg = c // num_groups
+    s = prod(x.shape[2:])
     y = torch.empty_like(x)
     partial = (torch.empty(2 * n * num_groups * p.grid, dtype=torch.float32, device=x.device)
                if p.branch == "two_pass" else None)
@@ -224,6 +278,6 @@ def _group_norm_kernel(x, weight, bias, num_groups, eps, silu):
     kernel(ptr(x), ptr(weight), ptr(bias), ptr(y), None if partial is None else ptr(partial),
            n * num_groups, cg, s, num_groups, BRANCHES.index(p.branch), p.cluster,
            p.groups_per_cta, p.elems, p.grid, p.smem_bytes, float(eps), int(silu), int(p.vec),
-           x.element_size(), stream_of(x))
+           p.threads, x.element_size(), stream_of(x))
     return y
 

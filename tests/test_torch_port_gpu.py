@@ -267,20 +267,41 @@ def fp32_matmuls():
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,silu,branch", [
     ((14, 320, 64, 64), True, "cluster"),
-    ((28, 320, 32, 32), True, "one_cta"),
-    ((28, 1280, 8, 8), False, "several_groups"),
+    # the bf16 plan's one_cta and several_groups shapes: fp32 takes the ring
+    ((28, 320, 32, 32), True, "ring"),
+    ((28, 1280, 8, 8), False, "ring"),
     ((2, 640, 16, 16), True, "cluster"),
     ((2, 64, 3, 5, 7), False, "two_pass"),
     ((2, 64, 1, 2, 6), True, "cluster"),
     ((1, 32, 1, 1024, 1024), True, "two_pass"),
+    # the fp32 training rows of SVD (b f = 14) and I2VGen-XL (16)
+    ((14, 320, 32, 32), True, "ring"),
+    ((14, 640, 32, 32), False, "ring"),
+    ((14, 640, 16, 16), True, "ring"),
+    ((14, 1280, 16, 16), False, "ring"),
+    ((14, 1280, 8, 8), True, "ring"),
+    ((16, 640, 32, 32), True, "ring"),
+    ((16, 1280, 8, 8), False, "ring"),
+    # 1,792 groups of 20 KB: CTAs walk three or four groups (the slot's pieces
+    # refilled), as the groups do not divide evenly among the CTAs
+    ((56, 640, 16, 16), True, "ring"),
 ], ids=["train-b14", "one-cta", "several-groups", "cluster4", "scalar-S105", "S12",
-        "two-pass-4MB-group"])
+        "two-pass-4MB-group", "ring-svd-320x32", "ring-svd-640x32", "ring-svd-640x16",
+        "ring-svd-1280x16", "ring-svd-1280x8", "ring-i2v-640x32", "ring-i2v-1280x8",
+        "ring-refills-uneven"])
 def test_gpu_k1_fp32_kernel_matches_plain(shape, silu, branch):
     """K1 on fp32 input (4 elements a vector) in every branch of its plan, one
     launch per call (on K1 fp32's counter), within 1e-5 of the plain
-    version's norm; the same bits from call to call."""
+    version's norm; the same bits from call to call. The ring at the fp32
+    training rows, and where CTAs refill their slots and walk unequal
+    numbers of groups."""
     dev = _dev()
-    assert tgn.plan(shape, 32, itemsize=4).branch == branch
+    p = tgn.plan(shape, 32, itemsize=4,
+                 sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert p.branch == branch
+    if shape == (56, 640, 16, 16):
+        groups = shape[0] * 32
+        assert p.groups_per_cta >= 3 and groups % p.grid
     g = torch.Generator(device=dev).manual_seed(20)
     x = _rand(g, dev, *shape)
     c = shape[1]
@@ -293,6 +314,40 @@ def test_gpu_k1_fp32_kernel_matches_plain(shape, silu, branch):
     assert got.dtype == torch.float32
     _check(got, want, atol=1e-4, rtol=1e-4, rel_norm=1e-5)
     assert torch.equal(got, tgn.group_norm_silu(x, w, b, 32, 1e-6, silu))
+
+
+@pytest.mark.gpu
+def test_gpu_k1_ring_refuses_a_plan_it_does_not_derive():
+    """The C side derives the ring's groups a CTA walks, elements, shared
+    memory and limits from its threads, slots and CTAs, and refuses a plan
+    that differs (no launch, no count), as it does for the other branches;
+    the ring takes fp32 only."""
+    import dataclasses
+
+    dev = _dev()
+    shape = (14, 640, 16, 16)
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = _rand(g, dev, *shape)
+    w = 1.0 + _rand(g, dev, shape[1], scale=0.1)
+    b = _rand(g, dev, shape[1], scale=0.1)
+    p = tgn.plan(shape, 32, itemsize=4,
+                 sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert p.branch == "ring"
+    _launches(tgn.KERNEL_FP32, lambda: tgn.launch(x, w, b, 32, 1e-6, True, p))
+    groups = shape[0] * 32
+    wrong = [dict(smem_bytes=p.smem_bytes + 128), dict(groups_per_cta=p.groups_per_cta + 1),
+             dict(elems=p.elems - 4), dict(threads=512), dict(threads=64),
+             dict(grid=groups + 1, groups_per_cta=1), dict(cluster=2), dict(vec=False)]
+    for change in wrong:
+        before = tgn.KERNEL_FP32.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tgn.launch(x, w, b, 32, 1e-6, True, dataclasses.replace(p, **change))
+        assert tgn.KERNEL_FP32.launches == before, change
+    xb, wb, bb = x.to(BF), w.to(BF), b.to(BF)
+    before = tgn.KERNEL.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tgn.launch(xb, wb, bb, 32, 1e-6, True, p)
+    assert tgn.KERNEL.launches == before
 
 
 @pytest.mark.gpu

@@ -433,26 +433,70 @@ def test_group_norm_plan_two_pass_branch():
 
 
 
-# fp32: the same byte budgets, 4 elements a 16-byte vector
-@pytest.mark.parametrize("shape,branch,cluster,gpc,elems,grid,smem", [
+# fp32: the same byte budgets, 4 elements a 16-byte vector; where there are at
+# least as many groups as SMs and a group is at most 96 KiB, the ring. A ring
+# CTA's shared memory: its slot (a group, rounded up to 128 bytes), one
+# 8-byte mbarrier a 16 KiB piece of it, and (gamma, beta) of the group's cg
+# channels (8 bytes each); as many CTAs an SM as fit in its 228 KiB (1 KiB
+# reserved a CTA), at most 4, each walking groups u, u + grid, ...; 128
+# threads up to 16 KiB a group, 256 above.
+@pytest.mark.parametrize("shape,branch,cluster,gpc,elems,grid,smem,threads", [
     # 160 KiB groups: two CTAs of 80 KiB a group
-    ((28, 320, 64, 64), "cluster", 2, 1, 20480, 1792, 81920 + 256 + 16 * 7),
+    ((28, 320, 64, 64), "cluster", 2, 1, 20480, 1792, 81920 + 256 + 16 * 7, 512),
     # the fp32 training path's adapter norm at b * f = 14
-    ((14, 320, 64, 64), "cluster", 2, 1, 20480, 896, 81920 + 256 + 16 * 7),
+    ((14, 320, 64, 64), "cluster", 2, 1, 20480, 896, 81920 + 256 + 16 * 7, 512),
     # 20 KiB groups: two a CTA would pass 32 KiB, so clusters of 4 fill 256 CTAs
-    ((2, 640, 16, 16), "cluster", 4, 1, 1280, 256, 5120 + 256 + 16 * 7),
+    ((2, 640, 16, 16), "cluster", 4, 1, 1280, 256, 5120 + 256 + 16 * 7, 512),
     # a spatial size of 12: a multiple of 4 (one launch), not of 8 (bf16: two passes)
-    ((2, 64, 1, 2, 6), "cluster", 2, 1, 12, 128, 48 + 256 + 16 * 3),
-], ids=["one-cta-pair", "train-b14", "cluster-fill", "s12"])
-def test_group_norm_plan_fp32_hand_worked(shape, branch, cluster, gpc, elems, grid, smem):
+    ((2, 64, 1, 2, 6), "cluster", 2, 1, 12, 128, 48 + 256 + 16 * 3, 512),
+    # SVD's fp32 training rows (b f = 14: 448 groups). 40 KiB: three pieces,
+    # cg 10; four CTAs an SM (4 x 41,064 + 4 KiB), 528 >= 448: one group each
+    ((14, 320, 32, 32), "ring", 1, 1, 10240, 448, 40960 + 8 * 3 + 8 * 10, 256),
+    # 80 KiB: five pieces, cg 20; two CTAs an SM fit, 264 CTAs walk 1 or 2 groups
+    ((14, 640, 32, 32), "ring", 1, 2, 20480, 264, 81920 + 8 * 5 + 8 * 20, 256),
+    ((14, 640, 16, 16), "ring", 1, 1, 5120, 448, 20480 + 8 * 2 + 8 * 20, 256),
+    ((14, 1280, 16, 16), "ring", 1, 1, 10240, 448, 40960 + 8 * 3 + 8 * 40, 256),
+    # 10 KiB: one piece, 128 threads (5 vectors a thread)
+    ((14, 1280, 8, 8), "ring", 1, 1, 2560, 448, 10240 + 8 * 1 + 8 * 40, 128),
+    # I2VGen-XL's (16 frames: 512 groups; four CTAs an SM still hold all)
+    ((16, 320, 32, 32), "ring", 1, 1, 10240, 512, 40960 + 8 * 3 + 8 * 10, 256),
+    ((16, 640, 32, 32), "ring", 1, 2, 20480, 264, 81920 + 8 * 5 + 8 * 20, 256),
+    ((16, 1280, 8, 8), "ring", 1, 1, 2560, 512, 10240 + 8 * 1 + 8 * 40, 128),
+    # 1,792 groups over 528 CTAs: 208 walk 4 groups, 320 walk 3
+    ((56, 640, 16, 16), "ring", 1, 4, 5120, 528, 20480 + 8 * 2 + 8 * 20, 256),
+], ids=["one-cta-pair", "train-b14", "cluster-fill", "s12", "ring-svd-320x32",
+        "ring-svd-640x32", "ring-svd-640x16", "ring-svd-1280x16", "ring-svd-1280x8",
+        "ring-i2v-320x32", "ring-i2v-640x32", "ring-i2v-1280x8", "ring-uneven"])
+def test_group_norm_plan_fp32_hand_worked(shape, branch, cluster, gpc, elems, grid, smem,
+                                          threads):
     p = gn.plan(shape, 32, itemsize=4)
-    assert (p.branch, p.cluster, p.groups_per_cta, p.elems, p.grid, p.smem_bytes, p.vec) == (
-        branch, cluster, gpc, elems, grid, smem, True)
+    assert (p.branch, p.cluster, p.groups_per_cta, p.elems, p.grid, p.smem_bytes, p.vec,
+            p.threads) == (branch, cluster, gpc, elems, grid, smem, True, threads)
     assert p.smem_bytes <= SMEM_PER_BLOCK
     assert gn.plan((2, 64, 1, 2, 6), 32).branch == "two_pass"
     # spatial 105 is no multiple of 4 either: scalar loads, one split of 210
     p = gn.plan((2, 64, 3, 5, 7), 32, itemsize=4)
     assert (p.branch, p.elems, p.grid, p.smem_bytes, p.vec) == ("two_pass", 210, 1, 0, False)
+
+def test_group_norm_plan_fp32_takes_the_ring_at_the_training_rows():
+    """Every fp32 training row of SVD and I2VGen-XL goes to the ring, within
+    an SM's shared memory and threads at the CTAs an SM the plan counts;
+    SDXL's (32 groups) keep their clusters of 8; bf16 never takes the ring."""
+    import chip_smoke
+
+    for (shape, _), _n in [*chip_smoke.k1_rows(14, 1, 4).items(),
+                           *chip_smoke.k1_rows(16, 1, 4).items()]:
+        p = gn.plan(shape, 32, itemsize=4)
+        ctas = -(-p.grid // 132)
+        assert p.branch == "ring" and gn.ring_fits(p, ctas), (shape, p)
+        assert (shape[0] * 32 - 1) // p.grid + 1 == p.groups_per_cta
+        assert gn.plan(shape, 32).branch != "ring"
+    for (shape, _), _n in chip_smoke.sdxl_k1_rows(batch=1, itemsize=4).items():
+        assert gn.plan(shape, 32, itemsize=4).cluster == 8
+    # a base that is not 16-byte aligned, or a spatial size not a multiple of 4
+    assert gn.plan((14, 320, 32, 32), 32, aligned=False, itemsize=4).branch == "two_pass"
+    assert gn.plan((14, 320, 3, 5, 7), 32, itemsize=4).branch == "two_pass"
+
 
 def test_group_norm_plan_is_one_launch_on_every_adapter_shape():
     import chip_smoke
