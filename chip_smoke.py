@@ -24,8 +24,8 @@ Phases (any failure raises and the script exits non-zero before its last line):
    also with exact (erf) gelu; K3 full, K4 and K5 on inputs that tell the two
    gelu forms apart (``gelu_form_check``); K2's forward with the rows'
    log-sum-exp and K2's backward at the training path's shapes and at H = 128
-   (``check_flash_bwd``: dK and dV equal to the bit over two calls and dQ's
-   run-to-run difference; time, device time warm and cold, each of its three
+   (``check_flash_bwd``: dQ, dK and dV equal to the bit over two calls and
+   dQ's run-to-run max difference printed; time, device time warm and cold, each of its three
    launches, bound, SDPA's backward, the per-training-step sums; the forward
    with and without the log-sum-exp, in turns), and the gradients of K1, K3 hybrid, K3
    full, K4 and K5 under grad against plain autograd (``check_kernel_grads``);
@@ -150,8 +150,12 @@ Phases (any failure raises and the script exits non-zero before its last line):
    the gif's 14 frames, checkpoint-3 read back bit for bit, each step's
    all-reduce returning its gradient unchanged and the 3 updates replayed
    without a group from the same gradients equal to the bit; then the same
-   3 steps without a group (step 1's loss equal to the bit; the updates
-   apart by K2 backward's run-to-run dQ only); (b) a resume from
+   3 steps without a group (step 1's loss equal to the bit; the gap between
+   the two runs' updates printed and held to 0, as every gradient of the
+   step repeats its bits; where it is not 0, the ungrouped steps run once
+   more under ``torch.use_deterministic_algorithms(True, warn_only=True)``,
+   which prints the ops PyTorch names as not repeatable, before the phase
+   fails); (b) a resume from
    checkpoint-2 for step 3: masters and optimizer state restored bit for
    bit, step 3's loss (a)'s; (c) ``inference_torch.main`` serving (a)'s
    ``adapter_3`` (the other towers drawn on the card), 2 steps (one
@@ -1036,8 +1040,8 @@ def sdpa_bwd_times(q, k, v, do):
 def k2_bwd_row(rand, flush, shape):
     """K2's forward with its log-sum-exp and K2's backward against their
     plain versions at ``shape`` = (B, N, T, H), in bf16; two backward calls on
-    the same inputs (dK and dV equal to the bit, dQ's run-to-run difference
-    printed); the backward timed beside its bound and SDPA's backward, on
+    the same inputs (dQ, dK and dV equal to the bit, dQ's run-to-run max
+    difference printed); the backward timed beside its bound and SDPA's backward, on
     device time (warm and cold L2) and per launch of its three
     (``kernel_times``)."""
     from ctrl_adapter_tpu_torch.ops import flash_attention as fa
@@ -1062,17 +1066,17 @@ def k2_bwd_row(rand, flush, shape):
     err = max(compare(f"K2 backward {label} d{name}", g, w, atol=5e-2 * w.abs().max().item(),
                       rtol=5e-2, rel_norm=2e-2)
               for name, g, w in zip("qkv", got, want))
-    # dK and dV: each CTA owns its keys; dQ: fp32 sums added across key
-    # blocks in an order that changes from run to run
+    # dK and dV: each CTA owns its keys; dQ: each query tile's partials added
+    # across the key blocks in a turn order fixed by the indices
     again = fa.attention_bnth_bwd(q, k, v, out, do, lse)
     torch.cuda.synchronize()
-    same = [torch.equal(x, y) for x, y in zip(got[1:], again[1:])]
+    same = [torch.equal(x, y) for x, y in zip(got, again)]
     ddq = (got[0].float() - again[0].float()).abs().max().item()
-    print(f"  K2 backward {label}, two calls: dK {'equal' if same[0] else 'DIFFER'}, "
-          f"dV {'equal' if same[1] else 'DIFFER'} to the bit; run-to-run max |dQ1 - dQ2| "
-          f"{ddq:.3e}")
+    print(f"  K2 backward {label}, two calls: " + ", ".join(
+        f"d{name} {'equal' if ok else 'DIFFER'}" for name, ok in zip("QKV", same))
+        + f" to the bit; run-to-run max |dQ1 - dQ2| {ddq:.3e}")
     if not all(same):
-        raise RuntimeError(f"K2 backward {label}: dK or dV differs between two calls")
+        raise RuntimeError(f"K2 backward {label}: dQ, dK or dV differs between two calls")
     del got, want, again, want_out, want_lse
     bwd = lambda: fa.attention_bnth_bwd(q, k, v, out, do, lse)  # noqa: E731
     ms = cuda_ms(bwd)
@@ -3873,6 +3877,27 @@ def update_gap(start, a, b, dev):
     return math.sqrt(num / den)
 
 
+def nondeterministic_ops(run):
+    """``run()`` under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: returns its result and the first line of each warning
+    that names an op without a deterministic implementation, once each."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            out = run()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    named = []
+    for w in caught:
+        text = str(w.message).strip().splitlines()[0]
+        if "determinis" in text and text not in named:
+            named.append(text)
+    return out, named
+
+
 def run_train_cli(dev, card, kernels, svd_per_step, serve_per_step):
     """Phase 14: ``train_torch.main`` on the card at full width. (a) SVD depth
     (``configs/svd_train_depth.yaml``: 1 x 14 x 512^2, skip_conv_in,
@@ -3993,13 +4018,28 @@ def run_train_cli(dev, card, kernels, svd_per_step, serve_per_step):
               f"{'equal to the bit' if first_equal else 'DIFFERENT'}"
               f" (the forward is deterministic); losses of steps 2-3 "
               f"{[r['loss'] - x for r, x in zip(run.records[1:], losses_a[1:])]} from the "
-              f"grouped run's; the two runs' updates differ by {gap:.3e} of their norm (K2 "
-              f"backward's dQ sums in the order its CTAs finish; tolerance 1e-2)")
-        if not first_equal or gap > 1e-2 or run.mesh.group is not None:
+              f"grouped run's; the grouped and ungrouped runs' updates differ by {gap!r} of "
+              f"their norm (held to 0: every gradient of the step repeats its bits)")
+        if not first_equal or run.mesh.group is not None:
             raise RuntimeError("train CLI (a): the run without a group differs")
         before = box["before_gb"]
         del run, run_f, box
         released("train CLI (a) no group", before)
+        if gap != 0:
+            # before failing: the ops of the step PyTorch itself calls not repeatable
+            data_d = os.path.join(root, "d")
+            cfg_d, _ = config_copy("svd_train_depth.yaml", root, data_d)
+            (run, box), named = nondeterministic_ops(lambda: train_cli_run(
+                "train CLI (a) no group, deterministic algorithms (warn only)",
+                ["--yaml_file", cfg_d] + common[2:] + ["--save_starting_step", "4"], kernels))
+            print("train CLI (a) no group under torch.use_deterministic_algorithms(True, "
+                  f"warn_only=True): {len(named)} ops named" + "".join(
+                      f"\n    {text}" for text in named))
+            before = box["before_gb"]
+            del run, box
+            released("train CLI (a) no group, deterministic algorithms", before)
+            raise RuntimeError(f"train CLI (a): the run without a group moved {gap!r} from "
+                               "the grouped run's updates")
 
         # (b) resume from checkpoint-2 for step 3
         data_b = os.path.join(root, "b")

@@ -18,15 +18,19 @@
 // (FlashAttention-3's backward), warp-specialised on wgmma and TMA. Three
 // launches on the stream:
 // 1. pre-pass: D = rowsum(dO o O) in fp32 (H/8 threads a row, 16-byte loads),
-//    and the fp32 dQ scratch (B, N, T, H) zeroed;
-// 2. main kernel, grid (T / 128 key blocks, B * N), key blocks fastest so the
-//    CTAs of one (b, n) pair run together and its dQ scratch stays in L2.
-//    A CTA holds 128 keys (K and V loaded once by TMA, 128-byte swizzle) and
-//    streams all T queries in tiles of QT (128 at H = 64, 64 at H = 128);
-//    384 threads:
+//    the fp32 dQ scratch (B, N, T, H), the turn counters and the ticket
+//    zeroed;
+// 2. main kernel, T / 128 x B * N CTAs. Each takes its work item, (b, n, key
+//    block), from a ticket (an atomic add) as it starts, key blocks fastest,
+//    so the CTAs of one (b, n) pair run together and its dQ scratch stays in
+//    L2. A CTA holds 128 keys (K and V loaded once by TMA, 128-byte swizzle)
+//    and streams all T queries in tiles of QT (128 at H = 64, 64 at H =
+//    128), starting at a tile of its own (below); 384 threads:
 //    - warpgroup 0, the producer, gives up registers; one thread loads each
 //      Q and dO tile by TMA (4-D maps over the strided views) and its L and D
 //      by 1-D bulk copies into a two-slot ring (full / empty mbarriers);
+//      another, the dQ writer, adds the consumers' dQ partials into the
+//      scratch in turn (below);
 //    - warpgroups 1 and 2, the consumers, own 64 keys each. Per tile:
 //      S^T = K Q^T and dP^T = V dO^T (SS wgmma, K-major), P^T = exp2(s log2e
 //      S^T - L log2e) and dS^T = P^T o (dP^T - D) in fp32 registers, packed
@@ -36,19 +40,57 @@
 //      between the consumers, dQ_partial = dS K over all 128 keys (SS wgmma,
 //      A = dS^T read MN-major with the transpose-A immediate, B = K
 //      MN-major): each consumer takes 64 queries at H = 64, 64 columns of H
-//      at H = 128. The partial (fp32, 64 x 64) is staged in shared memory
-//      and added into the scratch by TMA's reduce-add, issued by one thread
-//      and left to run while the next tile is computed;
+//      at H = 128. The partial (fp32, 64 x 64) is staged in shared memory and
+//      handed to the writer (stg_full / stg_empty mbarriers). One slot a
+//      consumer: a second would put the layout 80 bytes over the 232,448 a
+//      block may have, so a consumer waits at the stage until the writer has
+//      read its last partial;
 //    - dK (x s) and dV leave as bf16 through their (B, N, T, H) strides; each
 //      CTA owns its keys, so they need no atomics and are the same bit for
-//      bit from run to run. dQ's fp32 sums arrive in an order that changes
-//      from run to run;
+//      bit from run to run;
 // 3. convert: dQ = s * scratch, rounded to bf16, into the (B, N, T, H) view.
+//
+// dQ in a fixed order. Every query tile of a (b, n) pair gets the partials of
+// its T / 128 key blocks added in one order, set by the indices alone, so two
+// calls give the same bits (as the TPU kernel, whose dQ kernel owns a block of
+// queries and sums over the key blocks in grid order). The key blocks are cut
+// into groups of G consecutive ones (the host plan: the largest divisor of T /
+// 128 that is not above the SM count; all of them up to T = 16384 on an H100).
+// Key block j, member l = j % G of group c = j / G, walks the nq = T / QT
+// query tiles from tile l span, span = nq / G, round to the start. At tile i
+// its step is s = (i - l span) mod nq, and its turn there is c G + s / span:
+// the groups in order, and within a group member i / span first (integer
+// division), then the member before it, and so on round the group. The writer,
+// at step s, spins with an acquire load until the tile's int32 counter reads
+// its turn, issues the two consumers' reduce-adds, waits for their completion
+// (not only for the read of the staging slots), fences the async proxy and
+// adds 1 to the counter with release semantics. So the adds to one tile never
+// overlap and come in turn order; with the start rotated, the CTAs of a group
+// reach each tile one after the other and, at step s, wait only for their
+// neighbour's step s - span, done span steps earlier.
+//
+// No deadlock. A CTA takes the next ticket as it starts, so the items with
+// lower tickets (all earlier pairs, and the earlier groups and members of its
+// own pair) belong to CTAs that have started. A CTA waits only on its group
+// and on the earlier groups of its pair. By induction over the tickets'
+// groups: once the groups before one have finished, the CTAs still running are
+// that group's members that have started, fewer than G, which is at most the
+// SM count, and one CTA fits an SM (the shared memory allows one), so the next
+// CTA starts and takes the group's next ticket, until the whole group is
+// resident. Inside a resident group, by induction over the steps: the writer
+// at step s waits for its neighbour's step s - span, which needs only steps
+// below s; the producer and the consumers wait on nothing outside their CTA,
+// and on their writer only for its last step. The argument needs the card's
+// SMs for this kernel alone up to G CTAs; another kernel running beside it on
+// the card delays it until that kernel ends, and no kernel of the port waits
+// on this one. A wait that outlasts ~2^34 cycles traps instead of hanging the
+// card.
+//
 // Shapes: T % 128 == 0, H in {64, 128}; Q, K, V, dO need 16-byte aligned
 // bases and byte strides that are multiples of 16 (TMA), O and the outputs
 // 16-byte aligned rows, which ops/flash_attention.py checks. L and D are
 // contiguous (B, N, T) fp32. The host plan (ops/flash_attention.py:bwd_plan)
-// gives the query tile and the shared memory; cak_flash_attention_bwd
+// gives the query tile, the shared memory and G; cak_flash_attention_bwd
 // refuses a plan that does not match BwdCfg.
 #include <type_traits>
 
@@ -79,8 +121,10 @@ struct BwdCfg {
   static constexpr int kSt = kDS + 2 * kDSBuf;     // [consumer][32-col half][64 rows][128 B]
   static constexpr int kL = kSt + 2 * kStg;        // [slot][kQT] fp32
   static constexpr int kD = kL + 2 * kQT * 4;      // [slot][kQT] fp32
-  static constexpr int kBar = kD + 2 * kQT * 4;    // kv_full, full[2], empty[2]
-  static constexpr int kSmem = kBar + 8 * 5 + 1024;  // + alignment slack
+  // kv_full, full[2], empty[2], stg_full[2], stg_empty[2]
+  static constexpr int kBar = kD + 2 * kQT * 4;
+  static constexpr int kTicket = kBar + 8 * 9;     // this CTA's work item (int32)
+  static constexpr int kSmem = kTicket + 8 + 1024;  // + alignment slack
 };
 
 struct View {
@@ -114,13 +158,14 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int rows, int kk
 }
 
 // Pre-pass: D = rowsum(dO o O) of every (b, n, t) row, H/8 threads a row, and
-// that row of the fp32 dQ scratch zeroed.
+// that row of the fp32 dQ scratch zeroed; the counter of each query tile
+// (rows / QT of them, then the ticket) zeroed.
 template <int HD>
 __global__ void __launch_bounds__(kPrepThreads)
     flash_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout, View vo,
-                          View vdo, float* __restrict__ dvec, float* __restrict__ dq_acc, int N,
-                          int T, int rows) {
-  constexpr int kTpr = HD / 8;
+                          View vdo, float* __restrict__ dvec, float* __restrict__ dq_acc,
+                          int* __restrict__ counters, int N, int T, int rows) {
+  constexpr int kTpr = HD / 8, kQT = BwdCfg<HD>::kQT;
   const int gid = blockIdx.x * kPrepThreads + threadIdx.x;
   const int row = gid / kTpr, part = gid % kTpr;
   float acc = 0.f;
@@ -136,7 +181,9 @@ __global__ void __launch_bounds__(kPrepThreads)
     float4* z = reinterpret_cast<float4*>(dq_acc + int64_t(row) * HD + part * 8);
     z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
     z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (part == 0 && row % kQT == 0) counters[row / kQT] = 0;
   }
+  if (gid == 0) counters[rows / kQT] = 0;  // the ticket
 #pragma unroll
   for (int off = kTpr / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (row < rows && part == 0) dvec[row] = acc;
@@ -166,12 +213,21 @@ struct MainArgs {
   const float* dvec;
   bf16 *dk, *dv;
   View vdk, vdv;
-  int N, T;
+  int* counters;  // one per (b, n, query tile), then the ticket
+  int N, T, group;
   float scale, scale_log2;
 };
 
-// dK, dV of 128 keys of one (b, n) pair, and their share of dQ: grid
-// (T / 128, B * N).
+// Spin until the counter reads at least `turn` (acquire, GPU scope); a wait
+// that outlasts ~2^34 cycles traps instead of hanging the card.
+__device__ __forceinline__ void wait_turn(const int* counter, int turn) {
+  const long long deadline = clock64() + (1ll << 34);
+  while (ld_acquire_gpu(counter) < turn)
+    if (clock64() > deadline) __trap();
+}
+
+// dK, dV of 128 keys of one (b, n) pair, and their share of dQ: T / 128 x
+// B * N CTAs, each taking its (b, n, key block) from the ticket.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -189,20 +245,30 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t kv_full = base + C::kBar;
   auto full = [&](int s) { return kv_full + 8 + 8 * s; };
   auto empty = [&](int s) { return kv_full + 24 + 8 * s; };
-
-  const int bn = blockIdx.y, b = bn / a.N, n = bn % a.N, key0 = blockIdx.x * kKeys;
-  const int nq = a.T / QT;
-  const int wg = warpgroup_index();
+  auto stg_full = [&](int w) { return kv_full + 40 + 8 * w; };
+  auto stg_empty = [&](int w) { return kv_full + 56 + 8 * w; };
+  int* ticket = reinterpret_cast<int*>(gbase + C::kTicket);
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < 2; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), 256);
+      mbar_init(stg_full(s), 128);
+      mbar_init(stg_empty(s), 1);
     }
     mbar_fence_init();
+    *ticket = atomicAdd(a.counters + int64_t(gridDim.y) * (a.T / QT), 1);
   }
   __syncthreads();
+
+  const int nk = a.T / kKeys, item = *ticket;
+  const int bn = item / nk, kb = item % nk, b = bn / a.N, n = bn % a.N, key0 = kb * kKeys;
+  const int nq = a.T / QT;
+  // this key block's walk: from tile `first`, its turn at step i turn0 + i / span
+  const int span = nq / a.group, first = (kb % a.group) * span, turn0 = kb - kb % a.group;
+  auto tile = [&](int i) { return first + i < nq ? first + i : first + i - nq; };
+  const int wg = warpgroup_index();
 
   if (wg == 0) {
     // ---------------------------------------------------------- producer
@@ -216,17 +282,42 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* lse = a.lse + int64_t(bn) * a.T;
       const float* dvec = a.dvec + int64_t(bn) * a.T;
       for (int i = 0; i < nq; ++i) {
-        const int s = i & 1;
+        const int s = i & 1, q0 = tile(i) * QT;
         if (i >= 2) mbar_wait(empty(s), ((i >> 1) - 1) & 1);
         mbar_expect_tx(full(s), 2 * C::kQTile + 2 * QT * 4);
         for (int cb = 0; cb < C::kCols; ++cb) {
-          tma_load_4d(sQ + s * C::kQTile + cb * QT * kRowBytes, &tm_q, full(s), cb * 64, i * QT,
+          tma_load_4d(sQ + s * C::kQTile + cb * QT * kRowBytes, &tm_q, full(s), cb * 64, q0, n,
+                      b);
+          tma_load_4d(sdO + s * C::kQTile + cb * QT * kRowBytes, &tm_do, full(s), cb * 64, q0,
                       n, b);
-          tma_load_4d(sdO + s * C::kQTile + cb * QT * kRowBytes, &tm_do, full(s), cb * 64,
-                      i * QT, n, b);
         }
-        bulk_load(base + C::kL + s * QT * 4, lse + i * QT, QT * 4, full(s));
-        bulk_load(base + C::kD + s * QT * 4, dvec + i * QT, QT * 4, full(s));
+        bulk_load(base + C::kL + s * QT * 4, lse + q0, QT * 4, full(s));
+        bulk_load(base + C::kD + s * QT * 4, dvec + q0, QT * 4, full(s));
+      }
+    } else if (threadIdx.x == 32) {
+      // the dQ writer: both consumers' partials of step i, in the tile's turn
+      int* counter = a.counters + int64_t(bn) * nq;
+      for (int i = 0; i < nq; ++i) {
+        const int t = tile(i);
+        wait_turn(counter + t, turn0 + i / span);
+        fence_async_global();
+        for (int w = 0; w < 2; ++w) {
+          mbar_wait(stg_full(w), i & 1);
+          // H = 64: the consumer's 64 queries, all columns; H = 128: all 64
+          // queries, its 64 columns
+          const int row0 = bn * a.T + t * QT + (HD == 64 ? 64 * w : 0);
+          const int col0 = HD == 64 ? 0 : 64 * w;
+          const uint32_t src = base + C::kSt + w * C::kStg;
+          tma_reduce_add_2d(&tm_dq, src, col0, row0);
+          tma_reduce_add_2d(&tm_dq, src + 64 * kRowBytes, col0 + 32, row0);
+        }
+        bulk_commit();
+        bulk_wait_read<0>();
+        mbar_arrive(stg_empty(0));
+        mbar_arrive(stg_empty(1));
+        bulk_wait<0>();  // the adds are done in L2, not only read from shared memory
+        fence_async_global();
+        red_release_gpu_add(counter + t, 1);
       }
     }
   } else {
@@ -240,7 +331,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     // (query block wc of dS^T) over all H; at H = 128 all 64 queries over
     // columns 64*wc .. +64 of H (column block wc of K)
     const int qb = HD == 64 ? wc : 0, hb = HD == 64 ? 0 : wc;
-    const uint32_t sStg = base + C::kSt + wc * C::kStg;
     unsigned char* stg = gbase + C::kSt + wc * C::kStg;
 
     float dk[HD / 2], dv[HD / 2];
@@ -370,9 +460,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(dq);
 
       // stage the partial (fp32, two 32-column halves, 128-byte swizzle) once
-      // the last reduce-add has read the buffer, then add it into the scratch
-      if (tid == 0) bulk_wait_read<0>();
-      named_bar_sync(2 + wc, 128);
+      // the writer's reduce-adds of the last one have read the slot, and hand
+      // it to the writer
+      if (i > 0) mbar_wait(stg_empty(wc), (i - 1) & 1);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = 16 * warp + g8 + 8 * h;
@@ -385,15 +475,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       fence_async_smem();
-      named_bar_sync(2 + wc, 128);
-      if (tid == 0) {
-        const int row0 = bn * a.T + i * QT + 64 * qb;
-        tma_reduce_add_2d(&tm_dq, sStg, 64 * hb, row0);
-        tma_reduce_add_2d(&tm_dq, sStg + 64 * kRowBytes, 64 * hb + 32, row0);
-        bulk_commit();
-      }
+      mbar_arrive(stg_full(wc));
     }
-    if (tid == 0) bulk_wait<0>();
 
     bf16* dkb = a.dk + b * a.vdk.sb + n * a.vdk.sn;
     bf16* dvb = a.dv + b * a.vdv.sb + n * a.vdv.sn;
@@ -424,11 +507,12 @@ bool make_map(CUtensorMap* map, const void* p, int B, int N, int T, int H, const
 // views: q, k, v, o, dout, dq, dk, dv.
 template <int HD>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
-                   const float* lse, float* dvec, float* dq_acc, bf16* dq, bf16* dk, bf16* dv,
-                   const View* views, int B, int N, int T, int q_tile, int smem, float scale,
-                   cudaStream_t stream) {
+                   const float* lse, float* dvec, float* dq_acc, int* counters, bf16* dq,
+                   bf16* dk, bf16* dv, const View* views, int B, int N, int T, int q_tile,
+                   int smem, int group, float scale, cudaStream_t stream) {
   using C = BwdCfg<HD>;
-  if (q_tile != C::kQT || smem != C::kSmem) return cudaErrorInvalidValue;
+  if (q_tile != C::kQT || smem != C::kSmem || group < 1 || (T / kKeys) % group)
+    return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mdo, mdq;
   const int rows = B * N * T;
   const uint64_t acc_dims[2] = {uint64_t(HD), uint64_t(rows)};
@@ -443,8 +527,8 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
     return cudaErrorInvalidValue;
 
   const int prep_blocks = (rows * (HD / 8) + kPrepThreads - 1) / kPrepThreads;
-  flash_bwd_prep_kernel<HD><<<prep_blocks, kPrepThreads, 0, stream>>>(o, dout, views[3], views[4],
-                                                                      dvec, dq_acc, N, T, rows);
+  flash_bwd_prep_kernel<HD><<<prep_blocks, kPrepThreads, 0, stream>>>(
+      o, dout, views[3], views[4], dvec, dq_acc, counters, N, T, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(flash_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -457,8 +541,10 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
   m.dv = dv;
   m.vdk = views[6];
   m.vdv = views[7];
+  m.counters = counters;
   m.N = N;
   m.T = T;
+  m.group = group;
   m.scale = scale;
   m.scale_log2 = scale * kLog2e;
   flash_bwd_kernel<HD><<<dim3(T / kKeys, B * N), kThreads, smem, stream>>>(mq, mk, mv, mdo, mdq,
@@ -475,14 +561,16 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
 // q, k, v, o, dout, dq, dk, dv: (B, N, T, H) bf16 views with unit last stride;
 // st: their b, n, t element strides in that order (24 values); lse: the
 // forward's (B, N, T) fp32 row log-sum-exp; dvec: (B, N, T) fp32 scratch for
-// D; dq_acc: contiguous (B, N, T, H) fp32 scratch for dQ's sums. q_tile,
-// smem: the plan of ops/flash_attention.py:bwd_plan. Three launches (D and
-// the zeroed scratch; dK, dV and dQ's sums; dQ) on `stream`.
+// D; dq_acc: contiguous (B, N, T, H) fp32 scratch for dQ's sums; counters:
+// B * N * T / q_tile + 1 int32 (the turn counters, the ticket). q_tile, smem,
+// group: the plan of ops/flash_attention.py:bwd_plan. Three launches (D and
+// the zeroed scratch and counters; dK, dV and dQ's sums; dQ) on `stream`.
 extern "C" int cak_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
-                                       void* dvec, void* dq_acc, void* dq, void* dk, void* dv,
-                                       int B, int N, int T, int H, int q_tile, int smem,
-                                       const int64_t* st, float scale, void* stream) {
+                                       void* dvec, void* dq_acc, void* counters, void* dq,
+                                       void* dk, void* dv, int B, int N, int T, int H,
+                                       int q_tile, int smem, int group, const int64_t* st,
+                                       float scale, void* stream) {
   if (T % kKeys || T < kKeys || B * N > 65535) return static_cast<int>(cudaErrorInvalidValue);
   View views[8];
   for (int i = 0; i < 8; ++i) views[i] = View{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
@@ -491,8 +579,9 @@ extern "C" int cak_flash_attention_bwd(const void* q, const void* k, const void*
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
         static_cast<const float*>(lse), static_cast<float*>(dvec), static_cast<float*>(dq_acc),
-        static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), views, B, N, T,
-        q_tile, smem, scale, static_cast<cudaStream_t>(stream));
+        static_cast<int*>(counters), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), views, B, N, T, q_tile, smem, group, scale,
+        static_cast<cudaStream_t>(stream));
   };
   cudaError_t e = cudaErrorInvalidValue;
   if (H == 64) e = run(std::integral_constant<int, 64>{});

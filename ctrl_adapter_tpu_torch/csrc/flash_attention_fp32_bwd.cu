@@ -8,8 +8,9 @@
 // of keys and sums dK and dV over all queries, the other owns a block of
 // queries and sums dQ over all keys. So every gradient is a sum in a fixed
 // order, and two calls give the same bits (the bf16 kernel,
-// flash_attention_bwd.cu, adds dQ's partials by TMA reduce-add in the order
-// its CTAs finish).
+// flash_attention_bwd.cu, gets there in one pass instead: its key blocks add
+// their dQ partials into each query tile by TMA reduce-add, in turns a
+// counter per tile orders).
 //
 // What bounds it on the H100: flops. The five products of the backward (S,
 // dP, dV, dQ, dK; 2 T^2 H flop each per (b, n) pair) are far above the ridge.

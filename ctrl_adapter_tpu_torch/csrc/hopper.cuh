@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the kernels that
 // are warp-specialised: mbarriers, TMA tensor loads, stores and reduce-adds,
 // 1-D bulk copies, wgmma
-// descriptors and ordering, setmaxnreg, named barriers; and, on the host,
-// tensor-map encoding.
+// descriptors and ordering, setmaxnreg, named barriers, acquire / release
+// flags between CTAs; and, on the host, tensor-map encoding.
 //
 // Tensor maps are encoded through cuTensorMapEncodeTiled, a CUDA driver entry
 // point, fetched at run time with cudaGetDriverEntryPoint(ByVersion): the
@@ -177,6 +177,23 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 // Generic-proxy writes to shared memory become visible to wgmma and TMA.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Order this thread's async-proxy (TMA) accesses of global memory with its
+// generic-proxy ones, both ways.
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// ------------------------------------------------- flags between CTAs (GPU scope)
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_gpu_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
 }
 
 // ---------------------------------------------------- warp specialisation

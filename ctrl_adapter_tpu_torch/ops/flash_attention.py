@@ -18,8 +18,11 @@ Under grad, :func:`attention_bnth` goes through :class:`FlashAttention`, the
 port of the Pallas kernel's custom VJP: the forward also writes each row's
 log-sum-exp (fp32), and the backward is kernel K2 bwd
 (``csrc/flash_attention_bwd.cu``, planned by :func:`bwd_plan`) on a card and
-:func:`_torch_attention_bwd` on the CPU. Without grad the forward writes no
-log-sum-exp and saves nothing.
+:func:`_torch_attention_bwd` on the CPU. K2 bwd adds the key blocks' dQ
+partials into each query tile in a turn order fixed by the indices (a
+counter per tile), so its gradients are the same bits from call to call, as
+the Pallas kernel's are. Without grad the forward writes no log-sum-exp and
+saves nothing.
 
 The kernels are picked by dtype: bf16 inputs take the wgmma kernels above;
 fp32 inputs (fp32 towers, ``--mixed_precision no``) take K2 fp32
@@ -51,7 +54,7 @@ KERNEL = Kernel("cak_flash_attention", [
     *([ctypes.c_int64] * 12), ctypes.c_float, ctypes.c_void_p,
 ])
 KERNEL_BWD = Kernel("cak_flash_attention_bwd", [
-    *([ctypes.c_void_p] * 11), *([ctypes.c_int] * 6), ctypes.POINTER(ctypes.c_int64),
+    *([ctypes.c_void_p] * 12), *([ctypes.c_int] * 7), ctypes.POINTER(ctypes.c_int64),
     ctypes.c_float, ctypes.c_void_p,
 ])
 KERNEL_FP32 = Kernel("cak_flash_attention_fp32", [
@@ -67,6 +70,7 @@ DTYPES = (torch.bfloat16, torch.float32)  # the types the kernels take
 
 BLOCK_Q = 128     # query rows per CTA: two consumer warpgroups of 64
 BLOCK_K = 128     # keys per K/V tile
+_SLACK = 1024     # shared-memory alignment slack (1024-byte swizzle atoms)
 
 
 @dataclass(frozen=True)
@@ -97,18 +101,32 @@ BWD_KEYS = 128     # backward: keys per CTA, two consumer warpgroups of 64
 
 @dataclass(frozen=True)
 class FlashBwdPlan:
-    grid: tuple        # (T / 128 key blocks, B * N): key blocks the fastest axis
+    grid: tuple        # (T / 128 key blocks, B * N) CTAs; each takes its (b, n, key
+    #                    block) from a ticket as it starts, key blocks the fastest
     q_tile: int        # queries per streamed Q / dO tile: 128 at H = 64, 64 at H = 128
     smem_bytes: int    # K, V; two slots of Q, dO, L, D; two dS^T buffers; the two
-    #                    consumers' fp32 dQ partials; 5 mbarriers; 1 KiB alignment slack
+    #                    consumers' fp32 dQ partials; 9 mbarriers and the ticket's
+    #                    8 bytes; 1 KiB alignment slack
     scratch: tuple     # the fp32 dQ scratch, (B, N, T, H) contiguous
+    counters: int      # dQ's turn counters, one int32 per (b, n, query tile)
+    sync_bytes: int    # the int32 buffer of the counters and the ticket
+    group: int         # key blocks that take their turns round a cycle (``bwd_group``)
 
 
-def bwd_plan(b: int, n: int, t: int, h: int) -> FlashBwdPlan:
-    """The launches of K2's backward for (b, n, t, h) inputs; raises where the
-    tiling does not fit. ``csrc/flash_attention_bwd.cu`` refuses a query tile
-    or shared memory other than its ``BwdCfg``'s, and adds dQ's sums into the
-    scratch through a 2-D TMA map of (B * N * T) rows of H fp32 values."""
+def bwd_group(key_blocks: int, sms: int) -> int:
+    """The key blocks of a (b, n) pair that take their dQ turns round one
+    cycle: the largest divisor of ``key_blocks`` not above ``sms``. Each
+    cycle must be resident at once (one CTA an SM), and the cycles of a pair
+    follow one another (``csrc/flash_attention_bwd.cu``, "No deadlock")."""
+    return max(g for g in range(1, min(key_blocks, sms) + 1) if key_blocks % g == 0)
+
+
+def bwd_plan(b: int, n: int, t: int, h: int, sms: int) -> FlashBwdPlan:
+    """The launches of K2's backward for (b, n, t, h) inputs on a card of
+    ``sms`` SMs; raises where the tiling does not fit. ``csrc/flash_attention_bwd.cu``
+    refuses a query tile or shared memory other than its ``BwdCfg``'s, and
+    adds dQ's partials into the scratch through a 2-D TMA map of (B * N * T)
+    rows of H fp32 values, each query tile's in the turns of its counter."""
     if h not in (64, 128) or t % BWD_KEYS or t < BWD_KEYS or b * n > 65535:
         raise ValueError(f"attention_bnth backward: needs H in (64, 128), T a multiple of "
                          f"{BWD_KEYS} and B*N <= 65535, got B*N={b * n} T={t} H={h}")
@@ -121,17 +139,20 @@ def bwd_plan(b: int, n: int, t: int, h: int) -> FlashBwdPlan:
     ds = 2 * BWD_KEYS * q_tile * 2
     dq_partials = 2 * 64 * 64 * 4
     l_d = 2 * 2 * q_tile * 4
-    smem = kv + q_do + ds + dq_partials + l_d + 8 * 5 + 1024
-    assert smem <= SMEM_PER_BLOCK
+    smem = kv + q_do + ds + dq_partials + l_d + 8 * 9 + 8 + _SLACK
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"attention_bnth backward: {smem} bytes of shared memory at H={h}, "
+                         f"over the {SMEM_PER_BLOCK} a block may have")
+    counters = b * n * t // q_tile
     return FlashBwdPlan(grid=(t // BWD_KEYS, b * n), q_tile=q_tile, smem_bytes=smem,
-                        scratch=(b, n, t, h))
+                        scratch=(b, n, t, h), counters=counters, sync_bytes=4 * (counters + 1),
+                        group=bwd_group(t // BWD_KEYS, sms))
 
 
 FP32_ROWS = 64    # fp32 kernels: rows of a consumer warpgroup's tile (wgmma m64)
 FP32_KEYS = 64    # K2 fp32: keys per step
 FP32_FWD_BUFS = 6     # K2 fp32's workspace: Q, K (natural), V^T; hi and lo each
 FP32_BWD_BUFS = 14    # K2 bwd fp32's: Q, K, V, dO (natural), Q^T, K^T, dO^T; hi and lo
-_SLACK = 1024         # shared-memory alignment slack (1024-byte swizzle atoms)
 
 
 def _fp32_consumers(h: int) -> int:
@@ -365,19 +386,19 @@ def _bthn_empty(q: torch.Tensor) -> torch.Tensor:
 def attention_bnth_bwd(q, k, v, o, do, lse):
     """dQ, dK, dV of :func:`attention_bnth` from its output ``o``, log-sum-exp
     ``lse`` and the output gradient ``do``: on a Hopper card kernel K2 bwd for
-    bf16 (one call, three launches: D and the zeroed fp32 dQ scratch; dK, dV
-    and dQ's sums; dQ) or K2 bwd fp32 for float32 (one call, three launches:
-    the split prologue with D; dK and dV; dQ), the plain version on the CPU. The gradients are
-    (B, N, T, H) views of (B, T, N, H) contiguous tensors. dK and dV are the
-    same bit for bit from call to call; so is dQ in fp32, while bf16's dQ sums
-    arrive in an order that is not."""
+    bf16 (one call, three launches: D with the zeroed fp32 dQ scratch and turn
+    counters; dK, dV and dQ's sums, each query tile's in a fixed turn order;
+    dQ) or K2 bwd fp32 for float32 (one call, three launches: the split
+    prologue with D; dK and dV; dQ), the plain version on the CPU. The
+    gradients are (B, N, T, H) views of (B, T, N, H) contiguous tensors, the
+    same bit for bit from call to call in both types."""
     if q.device.type == "cpu":
         return _torch_attention_bwd(q, k, v, o, do, lse)
     if not is_hopper(q):
         raise RuntimeError(f"attention_bnth_bwd: kernel needs an sm_90 device, got {q.device}")
     b, n, t, h = q.shape
     fp32 = q.dtype == torch.float32
-    p = fp32_bwd_plan(b, n, t, h) if fp32 else bwd_plan(b, n, t, h)
+    p = fp32_bwd_plan(b, n, t, h) if fp32 else bwd_plan(b, n, t, h, sm_count(q.device))
     if tma_view_error(do.shape, do.stride(), do.data_ptr(), do.element_size()) is not None:
         do = do.contiguous()
     for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
@@ -401,11 +422,12 @@ def attention_bnth_bwd(q, k, v, o, do, lse):
                         float(h ** -0.5), stream_of(q))
         return dq, dk, dv
     dq_acc = torch.empty(p.scratch, dtype=torch.float32, device=q.device)
+    sync = torch.empty(p.sync_bytes // 4, dtype=torch.int32, device=q.device)  # zeroed in-kernel
     strides = (ctypes.c_int64 * 24)(*(st for x in (q, k, v, o, do, dq, dk, dv)
                                       for st in x.stride()[:3]))
     KERNEL_BWD(ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(dvec), ptr(dq_acc),
-               ptr(dq), ptr(dk), ptr(dv), b, n, t, h, p.q_tile, p.smem_bytes, strides,
-               float(h ** -0.5), stream_of(q))
+               ptr(sync), ptr(dq), ptr(dk), ptr(dv), b, n, t, h, p.q_tile, p.smem_bytes,
+               p.group, strides, float(h ** -0.5), stream_of(q))
     return dq, dk, dv
 
 

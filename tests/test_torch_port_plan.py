@@ -4,8 +4,9 @@ shapes: runs on the CPU.
 
 - K2 (``ops/flash_attention.py``): :func:`plan` (128-row Q tiles, the K/V ring,
   grid, shared memory), :func:`bwd_plan` (the backward's grid, query tile,
-  shared memory and fp32 dQ scratch) and :func:`tma_view_error` (what a TMA
-  tensor map needs of a strided view, bf16 or fp32).
+  shared memory, fp32 dQ scratch and dQ's turn counters, with a model of the
+  turns: a fixed order and no deadlock) and :func:`tma_view_error` (what a
+  TMA tensor map needs of a strided view, bf16 or fp32).
 - K3 full (``ops/fused_temporal.py``): :func:`full_plan` (tile of ts
   positions, grid, shared memory).
 - K3 hybrid (``ops/fused_temporal.py``): :func:`hybrid_plan` (tile, A-tile
@@ -72,30 +73,121 @@ def test_flash_plan_refuses_what_the_tiling_does_not_fit(t, h):
 
 # one pass: a CTA holds 128 keys (K, V) and streams Q, dO tiles of q_tile
 # queries with their L, D (fp32) through two slots; dS^T (bf16, 128 keys x
-# q_tile) in two buffers; each consumer's 64 x 64 fp32 dQ partial; 5 mbarriers
-# and 1 KiB of alignment slack. Grid: key blocks fastest.
-_BWD_SMEM_H64 = 2 * 16384 + 4 * 16384 + 2 * 32768 + 2 * 16384 + 4 * 128 * 4 + 40 + 1024
-_BWD_SMEM_H128 = 2 * 32768 + 4 * 16384 + 2 * 16384 + 2 * 16384 + 4 * 64 * 4 + 40 + 1024
+# q_tile) in two buffers; each consumer's 64 x 64 fp32 dQ partial; 9 mbarriers
+# (K/V, the Q/dO ring's full and empty, the staging slots' full and empty),
+# the ticket's 8 bytes and 1 KiB of alignment slack. Grid: key blocks fastest.
+_BWD_SMEM_H64 = 2 * 16384 + 4 * 16384 + 2 * 32768 + 2 * 16384 + 4 * 128 * 4 + 72 + 8 + 1024
+_BWD_SMEM_H128 = 2 * 32768 + 4 * 16384 + 2 * 16384 + 2 * 16384 + 4 * 64 * 4 + 72 + 8 + 1024
 
 
-@pytest.mark.parametrize("b,n,t,h,grid,q_tile,smem,scratch", [
-    (14, 5, 4096, 64, (32, 70), 128, _BWD_SMEM_H64, (14, 5, 4096, 64)),
-    (14, 10, 1024, 64, (8, 140), 128, _BWD_SMEM_H64, (14, 10, 1024, 64)),
-    (2, 4, 1024, 128, (8, 8), 64, _BWD_SMEM_H128, (2, 4, 1024, 128)),
-    (65535, 1, 128, 64, (1, 65535), 128, _BWD_SMEM_H64, (65535, 1, 128, 64)),
-], ids=["unet-up-t4096", "adapter-t1024", "h128", "largest-bn"])
-def test_flash_bwd_plan_hand_worked(b, n, t, h, grid, q_tile, smem, scratch):
-    p = fa.bwd_plan(b, n, t, h)
+# counters: one int32 per (b, n, query tile), B*N*T/q_tile; group: the key
+# blocks of a pair that take their dQ turns round one cycle on 132 SMs
+@pytest.mark.parametrize("b,n,t,h,grid,q_tile,smem,scratch,counters,group", [
+    (14, 5, 4096, 64, (32, 70), 128, _BWD_SMEM_H64, (14, 5, 4096, 64), 2240, 32),
+    (14, 10, 1024, 64, (8, 140), 128, _BWD_SMEM_H64, (14, 10, 1024, 64), 1120, 8),
+    (2, 4, 1024, 128, (8, 8), 64, _BWD_SMEM_H128, (2, 4, 1024, 128), 128, 8),
+    (65535, 1, 128, 64, (1, 65535), 128, _BWD_SMEM_H64, (65535, 1, 128, 64), 65535, 1),
+    (1, 5, 16384, 64, (128, 5), 128, _BWD_SMEM_H64, (1, 5, 16384, 64), 640, 128),
+], ids=["unet-up-t4096", "adapter-t1024", "h128", "largest-bn", "sdxl-t16384"])
+def test_flash_bwd_plan_hand_worked(b, n, t, h, grid, q_tile, smem, scratch, counters, group):
+    p = fa.bwd_plan(b, n, t, h, sms=132)
     assert (p.grid, p.q_tile, p.smem_bytes, p.scratch) == (grid, q_tile, smem, scratch)
-    assert (_BWD_SMEM_H64, _BWD_SMEM_H128) == (199720, 198696)
+    assert (p.counters, p.sync_bytes, p.group) == (counters, 4 * (counters + 1), group)
+    assert p.counters == b * n * t // q_tile
+    assert (_BWD_SMEM_H64, _BWD_SMEM_H128) == (199760, 198736)
     assert p.smem_bytes <= SMEM_PER_BLOCK == 232448
+    # a second 32 KiB dQ staging slot (two consumers' 64 x 64 fp32) and its
+    # two mbarriers would not fit
+    assert _BWD_SMEM_H64 + 2 * 64 * 64 * 4 + 16 == SMEM_PER_BLOCK + 96
+
+
+@pytest.mark.parametrize("h,smem", [(64, _BWD_SMEM_H64), (128, _BWD_SMEM_H128)])
+def test_flash_bwd_plan_refuses_shared_memory_over_the_limit(monkeypatch, h, smem):
+    """On a card that gave a block one byte less, the plan raises."""
+    monkeypatch.setattr(fa, "SMEM_PER_BLOCK", smem)
+    assert fa.bwd_plan(2, 3, 1024, h, sms=132).smem_bytes == smem
+    monkeypatch.setattr(fa, "SMEM_PER_BLOCK", smem - 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.bwd_plan(2, 3, 1024, h, sms=132)
 
 
 @pytest.mark.parametrize("b,n,t,h", [(1, 1, 1024, 80), (1, 1, 1000, 64), (1, 1, 64, 64),
                                      (65536, 1, 128, 64)])
 def test_flash_bwd_plan_refuses_what_the_tiling_does_not_fit(b, n, t, h):
     with pytest.raises(ValueError):
-        fa.bwd_plan(b, n, t, h)
+        fa.bwd_plan(b, n, t, h, sms=132)
+
+
+@pytest.mark.parametrize("key_blocks,sms,group", [
+    (32, 132, 32), (8, 132, 8), (128, 132, 128), (256, 132, 128), (136, 132, 68),
+    (128, 114, 64), (137, 132, 1), (1, 132, 1)])
+def test_flash_bwd_group_hand_worked(key_blocks, sms, group):
+    """The largest divisor of the key blocks not above the SM count: all of
+    them up to T = 16384 on 132 SMs; cycles of 64 on a card of 114."""
+    assert fa.bwd_group(key_blocks, sms) == group
+
+
+def _bwd_turns(pairs, nk, nq, group, sms):
+    """A model of K2 bwd's dQ writer (``csrc/flash_attention_bwd.cu``, "dQ in
+    a fixed order" and "No deadlock"): CTAs start in ticket order on ``sms``
+    slots, one a slot; a CTA's consumers stage step i once its writer has
+    read step i - 1; its writer adds step i's partial to tile (first + i) mod
+    nq when the tile's counter reads turn0 + i / span, then adds 1 to the
+    counter. Returns each tile's key blocks in the order they added, or None
+    where no CTA can move and some are not done (a deadlock)."""
+    span = nq // group
+    counters = [[0] * nq for _ in range(pairs)]
+    order = [[[] for _ in range(nq)] for _ in range(pairs)]
+    ticket, running, done = 0, [], 0
+    while done < pairs * nk:
+        while len(running) < sms and ticket < pairs * nk:
+            bn, kb = divmod(ticket, nk)
+            running.append({"bn": bn, "kb": kb, "first": (kb % group) * span,
+                             "turn0": kb - kb % group, "staged": 0, "written": 0})
+            ticket += 1
+        moved = False
+        for c in list(running):
+            if c["staged"] < nq and c["staged"] <= c["written"]:  # one staging slot
+                c["staged"] += 1
+                moved = True
+            i = c["written"]
+            if i < c["staged"]:
+                t = (c["first"] + i) % nq
+                if counters[c["bn"]][t] >= c["turn0"] + i // span:
+                    order[c["bn"]][t].append(c["kb"])
+                    counters[c["bn"]][t] += 1
+                    c["written"] += 1
+                    moved = True
+            if c["written"] == nq:
+                running.remove(c)
+                done += 1
+        if not moved:
+            return None
+    return order
+
+
+@pytest.mark.parametrize("pairs,t,h,sms", [
+    (3, 4096, 64, 132), (5, 4096, 64, 40), (4, 1024, 128, 12), (2, 16384, 64, 132),
+    (2, 16384, 64, 114), (2, 4096, 64, 12), (3, 1024, 64, 7), (1, 17408, 64, 132)],
+    ids=["t4096", "t4096-few-sms", "h128", "t16384", "t16384-114-sms", "cycles-of-4",
+         "7-sms", "t17408"])
+def test_flash_bwd_turns_are_fixed_and_never_deadlock(pairs, t, h, sms):
+    """In the model, every CTA finishes however few SMs there are (down to
+    fewer than one pair's key blocks), and each tile's partials come in one
+    order set by the indices alone: the cycles in order, and within a cycle
+    member i / span first, then the member before it, round the cycle."""
+    p = fa.bwd_plan(pairs, 1, t, h, sms=sms)
+    nk, nq, group = t // 128, t // p.q_tile, p.group
+    order = _bwd_turns(pairs, nk, nq, group, sms)
+    assert order is not None, "deadlock"
+    span = nq // group
+    for i in range(nq):
+        want = [c * group + (i // span - k) % group for c in range(nk // group)
+                for k in range(group)]
+        assert sorted(want) == list(range(nk))
+        assert all(order[bn][i] == want for bn in range(pairs))
+    # with one cycle per pair resident at once, a cycle of 33 would deadlock
+    assert _bwd_turns(1, 33, 33, 33, 32) is None
 
 
 def test_flash_bwd_scratch_tma_check_counts_fp32_bytes():
@@ -108,7 +200,7 @@ def test_flash_bwd_scratch_tma_check_counts_fp32_bytes():
     assert "multiple of 16" in fa.tma_view_error((1024, 2), (2, 1), 0, itemsize=4)
     assert "2^32" in fa.tma_view_error((2 ** 32, 64), (64, 1), 0, itemsize=4)
     with pytest.raises(ValueError, match="scratch"):
-        fa.bwd_plan(32768, 1, 2 ** 17, 64)
+        fa.bwd_plan(32768, 1, 2 ** 17, 64, sms=132)
 
 
 def test_flash_tma_checks_hand_worked():
@@ -1057,3 +1149,24 @@ def test_device_activity_refuses_a_partial_trace(monkeypatch, capsys):
         "group_norm_silu": 1, "flash_attention_bwd": 1, "flash_attention": 0}
     fa.KERNEL.reset()
     gn.KERNEL.reset()
+
+
+def test_nondeterministic_ops_names_what_pytorch_flags():
+    """Phase 14's diagnostic (``chip_smoke.nondeterministic_ops``): under
+    ``use_deterministic_algorithms(True, warn_only=True)`` an op without a
+    deterministic implementation still runs, is named once however often it
+    runs, and the mode is off again afterwards; deterministic ops name
+    nothing."""
+    import chip_smoke
+
+    def run():
+        x = torch.zeros(4)
+        for _ in range(3):
+            x.put_(torch.tensor([0, 1]), torch.tensor([1.0, 2.0]), accumulate=False)
+        return x
+
+    out, named = chip_smoke.nondeterministic_ops(run)
+    assert out.tolist() == [1.0, 2.0, 0.0, 0.0]
+    assert len(named) == 1 and named[0].startswith("put_ does not have a deterministic")
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert chip_smoke.nondeterministic_ops(lambda: torch.ones(3).sum())[1] == []

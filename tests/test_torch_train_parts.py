@@ -193,8 +193,8 @@ def _imports(path):
 
 def test_port_and_chip_smoke_import_no_jax_optax_orbax():
     """No import statement of the port's package (its ``parallel/`` package
-    included), of ``chip_smoke.py``, ``inference_torch.py``, ``train_torch.py``
-    or ``tools/generate_dp_check.py`` names jax, flax, optax, orbax, the JAX package
+    included), of ``chip_smoke.py``, ``inference_torch.py``, ``train_torch.py``,
+    ``tools/generate_dp_check.py`` or ``tools/k2_bwd_times.py`` names jax, flax, optax, orbax, the JAX package
     (``ctrl_adapter_tpu``) or yaml (the card's host has no PyYAML;
     ``config.load_yaml`` reads the configs itself); none of the annotator
     modules, ``conditions/imgproc.py`` or ``utils/profiling.py`` names cv2,
@@ -202,7 +202,8 @@ def test_port_and_chip_smoke_import_no_jax_optax_orbax():
     pkg = os.path.join(REPO, "ctrl_adapter_tpu_torch")
     files = [os.path.join(REPO, name) for name in
              ("chip_smoke.py", "inference_torch.py", "train_torch.py",
-              os.path.join("tools", "generate_dp_check.py"))] + [
+              os.path.join("tools", "generate_dp_check.py"),
+              os.path.join("tools", "k2_bwd_times.py"))] + [
         os.path.join(d, f) for d, _, names in os.walk(pkg) for f in names if f.endswith(".py")]
     assert len(files) > 30
     assert os.path.join(pkg, "parallel", "mesh.py") in files

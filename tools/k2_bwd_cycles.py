@@ -12,8 +12,10 @@ inside the kernel, in copies of the package under ``build/k2_bwd_cycles/``
   each consumer warpgroup adds its sums into a device array that a C entry
   (``cak_bwd_cycles``) reads and clears. Printed per phase as cycles per CTA
   and as a share of the consumer's time from the wait for K and V to the end;
-- ``no-reduce``: the dQ partial is staged but not added into the scratch
-  (no TMA reduce-add);
+  beside them the dQ writer's cycles per CTA waiting for its turn, for the
+  consumers' partials and for its reduce-adds to complete;
+- ``no-reduce``: the dQ partial is staged and handed to the writer, which
+  takes its turns but adds nothing into the scratch (no TMA reduce-add);
 - ``no-dq``: neither the dQ product nor its reduce-add;
 - ``intact``: the kernel as it is.
 
@@ -46,8 +48,9 @@ SHAPES = ((14, 5, 4096, 64), (14, 10, 1024, 64))
 PHASES = ("wait for K, V", "wait for Q, dO (producer)", "S^T product", "P^T (exp2)",
           "dP^T product", "dS^T, pack to bf16, dS^T to shared memory", "issue dV, dK",
           "barrier between the consumers", "dV, dK products", "dQ product",
-          "wait for the staging buffer", "stage dQ, issue the reduce-add",
-          "final bulk wait, dK and dV stores")
+          "wait for the staging slot (the dQ writer)", "stage dQ, hand it to the writer",
+          "dK and dV stores")
+WRITER = ("wait for the turn", "wait for the partials", "wait for the adds to complete")
 _MARK = "{{ const unsigned now_ = unsigned(clock64()); cyc_[{k}] += now_ - last_; last_ = now_; }}"
 
 
@@ -57,16 +60,14 @@ def _mark(k: int) -> str:
 
 def _edits(variant: str):
     """(anchor, replacement) pairs for the copy ``variant`` of the source."""
+    reduce = ("          tma_reduce_add_2d(&tm_dq, src, col0, row0);\n"
+              "          tma_reduce_add_2d(&tm_dq, src + 64 * kRowBytes, col0 + 32, row0);\n")
     if variant == "no-reduce":
-        return [("        tma_reduce_add_2d(&tm_dq, sStg, 64 * hb, row0);\n"
-                 "        tma_reduce_add_2d(&tm_dq, sStg + 64 * kRowBytes, 64 * hb + 32, row0);\n",
-                 "")]
+        return [(reduce, "")]
     if variant == "no-dq":
         return [("      for (int kk = 0; kk < kKeys / 16; ++kk)\n        wgmma_ss_n64<1, 1>(dq,",
                  "      for (int kk = 0; kk < 0; ++kk)\n        wgmma_ss_n64<1, 1>(dq,"),
-                ("        tma_reduce_add_2d(&tm_dq, sStg, 64 * hb, row0);\n"
-                 "        tma_reduce_add_2d(&tm_dq, sStg + 64 * kRowBytes, 64 * hb + 32, row0);\n",
-                 "")]
+                (reduce, "")]
     if variant != "marks":
         return []
     n = len(PHASES)
@@ -74,8 +75,26 @@ def _edits(variant: str):
     def after(anchor, k):
         return anchor, anchor + _mark(k) + "\n"
 
+    w = len(WRITER)
+    clock = "unsigned(clock64())"
     return [
-        ("namespace {\n", f"namespace {{\n\n__device__ unsigned long long g_cyc[2][{n}];\n"),
+        ("namespace {\n", f"namespace {{\n\n__device__ unsigned long long g_cyc[2 * {n} + {w}];"
+                          "\n"),
+        ("      int* counter = a.counters + int64_t(bn) * nq;\n",
+         "      int* counter = a.counters + int64_t(bn) * nq;\n"
+         f"      unsigned wcyc_[{w}] = {{}};\n      unsigned wt_ = 0;\n"),
+        ("        wait_turn(counter + t, turn0 + i / span);\n",
+         f"        wt_ = {clock};\n        wait_turn(counter + t, turn0 + i / span);\n"
+         f"        wcyc_[0] += {clock} - wt_;\n"),
+        ("          mbar_wait(stg_full(w), i & 1);\n",
+         f"          wt_ = {clock};\n          mbar_wait(stg_full(w), i & 1);\n"
+         f"          wcyc_[1] += {clock} - wt_;\n"),
+        ("        bulk_wait<0>();  // the adds are done in L2, not only read from shared memory\n",
+         f"        wt_ = {clock};\n        bulk_wait<0>();\n        wcyc_[2] += {clock} - wt_;\n"),
+        ("        red_release_gpu_add(counter + t, 1);\n      }\n",
+         "        red_release_gpu_add(counter + t, 1);\n      }\n"
+         f"      for (int k = 0; k < {w}; ++k) atomicAdd(&g_cyc[2 * {n} + k], "
+         "(unsigned long long)wcyc_[k]);\n"),
         ("    mbar_wait(kv_full, 0);\n",
          f"    unsigned cyc_[{n}] = {{}};\n    unsigned last_ = unsigned(clock64());\n"
          "    mbar_wait(kv_full, 0);\n" + _mark(0) + "\n"),
@@ -90,17 +109,17 @@ def _edits(variant: str):
         after("      named_bar_sync(1, 256);\n", 7),
         after("      mbar_arrive(empty(s));  // Q and dO of this slot read for the last time\n", 8),
         after("      wgmma_wait<0>();\n      fence_regs(dq);\n", 9),
-        after("      if (tid == 0) bulk_wait_read<0>();\n      named_bar_sync(2 + wc, 128);\n", 10),
-        after("        bulk_commit();\n      }\n", 11),
+        after("      if (i > 0) mbar_wait(stg_empty(wc), (i - 1) & 1);\n", 10),
+        after("      mbar_arrive(stg_full(wc));\n", 11),
         ("            pack_bf16(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);\n      }\n    }\n",
          "            pack_bf16(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);\n      }\n    }\n"
          + _mark(n - 1) + "\n"
-         f"    if (tid == 0)\n      for (int k = 0; k < {n}; ++k) atomicAdd(&g_cyc[wc][k], "
+         f"    if (tid == 0)\n      for (int k = 0; k < {n}; ++k) atomicAdd(&g_cyc[wc * {n} + k], "
          "(unsigned long long)cyc_[k]);\n"),
         ("", f"""
 extern "C" int cak_bwd_cycles(unsigned long long* out) {{
   cudaError_t e = cudaMemcpyFromSymbol(out, g_cyc, sizeof(g_cyc));
-  static const unsigned long long zero[2 * {n}] = {{}};
+  static const unsigned long long zero[2 * {n} + {w}] = {{}};
   if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_cyc, zero, sizeof(g_cyc));
   return static_cast<int>(e);
 }}
@@ -170,18 +189,21 @@ def run(root: str, variant: str) -> None:
         line = {"variant": variant, "shape": [b, n, t, h], "main_kernel_ms": main_ms,
                 "launches_ms": split, "ptxas": regs, "card": card}
         if variant == "marks":
-            out = (ctypes.c_ulonglong * (2 * len(PHASES)))()
+            n = len(PHASES)
+            out = (ctypes.c_ulonglong * (2 * n + len(WRITER)))()
             lib.cak_bwd_cycles(out)  # clear what the timing runs added
             bwd()
             torch.cuda.synchronize()
             if lib.cak_bwd_cycles(out) != 0:
                 raise SystemExit("k2_bwd_cycles: reading the cycle counts failed")
             ctas = (t // 128) * b * n
-            per = [(out[i] + out[len(PHASES) + i]) / 2 / ctas for i in range(len(PHASES))]
+            per = [(out[i] + out[n + i]) / 2 / ctas for i in range(n)]
             total = sum(per)
             line["cycles_per_cta"] = total
             line["phases"] = {p: [round(c), round(100 * c / total, 1)]
                               for p, c in zip(PHASES, per)}
+            line["writer_cycles_per_cta"] = {p: round(out[2 * n + k] / ctas)
+                                             for k, p in enumerate(WRITER)}
         print(json.dumps(line), flush=True)
 
 
