@@ -1,0 +1,15 @@
+"""Tests of the benchmark itself, on the CPU at thin sizes:
+
+    python -m pytest benchmark/tests -q
+
+They put ``benchmark/`` and the repository root on ``sys.path``, as
+``benchmark/run.py`` does."""
+
+import os
+import sys
+
+BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(BENCH_DIR)
+for path in (ROOT, BENCH_DIR):
+    if path not in sys.path:
+        sys.path.insert(0, path)
