@@ -30,6 +30,7 @@ from ..nn.resnet import AlphaBlender, GroupNorm, ResnetBlock2D, TemporalResnetBl
 from ..nn.unet_st_blocks import from_5d, to_5d
 from ..ops.resize import nearest_resize
 from ..parallel import mesh
+from ..utils import profiling
 
 _LOCATION_ID_MAP = {
     "A": {3: [0, 1, 2], 2: [0, 2], 1: [2]},
@@ -226,39 +227,40 @@ class ControlNetAdapter(nn.Module):
                 mid_block_res_sample: Optional[torch.Tensor] = None, num_frames: int = 1,
                 timestep=None, encoder_hidden_states: Optional[torch.Tensor] = None
                 ) -> Tuple[List[torch.Tensor], Optional[torch.Tensor]]:
-        dtype = next(self.parameters()).dtype
-        n_slots = len(down_block_res_samples)
-        num_active = len([i for i in self.down_block_ids if i < n_slots])
-        out: List[torch.Tensor] = []  # num_repeats x n_slots
-        for r in range(self.num_repeats):
-            k = 0
-            for i, ref in enumerate(down_block_res_samples):
-                if i in self.down_block_ids:
-                    out.append(self.down_blocks_adapter[k + r * num_active](
-                        ref.to(dtype), num_frames, timestep, encoder_hidden_states))
-                    k += 1
-                elif self.up_scale > 1:
-                    n, c, h, w = ref.shape
-                    out.append(torch.zeros((n, c, 2 * h, 2 * w), dtype=ref.dtype,
-                                           device=ref.device))
-                else:
-                    out.append(torch.zeros_like(ref))
-        mid = None
-        if mid_block_res_sample is not None and self.mid_block_adapter is not None:
-            mid = self.mid_block_adapter(
-                mid_block_res_sample.to(dtype),
-                num_frames, timestep, encoder_hidden_states)
-        if self.zero_convs is None:
-            return out, mid
-        aggregated = []
-        for r in range(self.num_repeats):
-            acc = 0.0
-            for k in range(num_active):
-                conv = self.zero_convs[k + r * num_active]
-                x = out[k + n_slots * r]
-                if x.shape[1] != conv.in_channels:
-                    raise ValueError(f"zero_convs.{k + r * num_active} reads slot {k} of "
-                                     f"width {x.shape[1]}, built for {conv.in_channels}")
-                acc = acc + conv(x.to(dtype))
-            aggregated.append(acc)
-        return aggregated, None
+        with profiling.span("tower.adapter"):
+            dtype = next(self.parameters()).dtype
+            n_slots = len(down_block_res_samples)
+            num_active = len([i for i in self.down_block_ids if i < n_slots])
+            out: List[torch.Tensor] = []  # num_repeats x n_slots
+            for r in range(self.num_repeats):
+                k = 0
+                for i, ref in enumerate(down_block_res_samples):
+                    if i in self.down_block_ids:
+                        out.append(self.down_blocks_adapter[k + r * num_active](
+                            ref.to(dtype), num_frames, timestep, encoder_hidden_states))
+                        k += 1
+                    elif self.up_scale > 1:
+                        n, c, h, w = ref.shape
+                        out.append(torch.zeros((n, c, 2 * h, 2 * w), dtype=ref.dtype,
+                                               device=ref.device))
+                    else:
+                        out.append(torch.zeros_like(ref))
+            mid = None
+            if mid_block_res_sample is not None and self.mid_block_adapter is not None:
+                mid = self.mid_block_adapter(
+                    mid_block_res_sample.to(dtype),
+                    num_frames, timestep, encoder_hidden_states)
+            if self.zero_convs is None:
+                return out, mid
+            aggregated = []
+            for r in range(self.num_repeats):
+                acc = 0.0
+                for k in range(num_active):
+                    conv = self.zero_convs[k + r * num_active]
+                    x = out[k + n_slots * r]
+                    if x.shape[1] != conv.in_channels:
+                        raise ValueError(f"zero_convs.{k + r * num_active} reads slot {k} of "
+                                         f"width {x.shape[1]}, built for {conv.in_channels}")
+                    acc = acc + conv(x.to(dtype))
+                aggregated.append(acc)
+            return aggregated, None

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ..nn.embeddings import TimestepEmbedding, Timesteps, timestep_tensor
 from ..nn.unet_blocks import CrossAttnDownBlock2D, DownBlock2D, UNetMidBlock2DCrossAttn
+from ..utils import profiling
 
 
 @dataclass(frozen=True)
@@ -124,37 +125,40 @@ class ControlNetModel(nn.Module):
         (n, 77, 768). Returns the 12 down residuals and the mid residual.
         ``skip_time_emb`` zeroes the time embedding (an experimental flag of the
         reference)."""
-        dtype = self.dtype
-        n = sample.shape[0]
-        timesteps = timestep_tensor(timestep, sample.device).reshape(-1).expand(n)
-        emb = self.time_embedding(self.time_proj(timesteps).to(dtype))
-        if skip_time_emb:
-            emb = torch.zeros_like(emb)
-        if skip_conv_in:
-            # latents skipping: the conv_in path is zeroed, only the condition counts
-            ch0 = self.conv_in.out_channels
-            sample = torch.zeros((n, ch0, *sample.shape[-2:]), dtype=dtype,
-                                 device=sample.device)
-        else:
-            sample = self.conv_in(sample.to(dtype))
-        sample = sample + self.controlnet_cond_embedding(controlnet_cond.to(dtype))
-        ehs = encoder_hidden_states.to(dtype)
-
-        down_res: Tuple[torch.Tensor, ...] = (sample,)
-        for block in self.down_blocks:
-            if isinstance(block, CrossAttnDownBlock2D):
-                sample, res = block(sample, emb, ehs)
+        with profiling.span("tower.controlnet"):
+            dtype = self.dtype
+            n = sample.shape[0]
+            timesteps = timestep_tensor(timestep, sample.device).reshape(-1).expand(n)
+            emb = self.time_embedding(self.time_proj(timesteps).to(dtype))
+            if skip_time_emb:
+                emb = torch.zeros_like(emb)
+            if skip_conv_in:
+                # latents skipping: the conv_in path is zeroed, only the condition counts
+                ch0 = self.conv_in.out_channels
+                sample = torch.zeros((n, ch0, *sample.shape[-2:]), dtype=dtype,
+                                     device=sample.device)
             else:
-                sample, res = block(sample, emb)
-            down_res += res
-        sample = self.mid_block(sample, emb, ehs)
+                sample = self.conv_in(sample.to(dtype))
+            sample = sample + self.controlnet_cond_embedding(controlnet_cond.to(dtype))
+            ehs = encoder_hidden_states.to(dtype)
 
-        n_res = len(down_res)
-        if guess_mode:
-            scales = [float(s) for s in 10.0 ** np.linspace(-1.0, 0.0, n_res + 1)]
-        else:
-            scales = [1.0] * (n_res + 1)
-        downs = [conv(r) * conditioning_scale * scales[k]
-                 for k, (conv, r) in enumerate(zip(self.controlnet_down_blocks, down_res))]
-        mid = self.controlnet_mid_block(sample) * conditioning_scale * scales[-1]
-        return downs, mid
+            down_res: Tuple[torch.Tensor, ...] = (sample,)
+            for i, block in enumerate(self.down_blocks):
+                with profiling.span(profiling.BLOCK_DOWN[i]):
+                    if isinstance(block, CrossAttnDownBlock2D):
+                        sample, res = block(sample, emb, ehs)
+                    else:
+                        sample, res = block(sample, emb)
+                down_res += res
+            with profiling.span("block.mid"):
+                sample = self.mid_block(sample, emb, ehs)
+
+            n_res = len(down_res)
+            if guess_mode:
+                scales = [float(s) for s in 10.0 ** np.linspace(-1.0, 0.0, n_res + 1)]
+            else:
+                scales = [1.0] * (n_res + 1)
+            downs = [conv(r) * conditioning_scale * scales[k]
+                     for k, (conv, r) in enumerate(zip(self.controlnet_down_blocks, down_res))]
+            mid = self.controlnet_mid_block(sample) * conditioning_scale * scales[-1]
+            return downs, mid

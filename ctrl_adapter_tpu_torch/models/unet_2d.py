@@ -31,6 +31,7 @@ from ..nn.embeddings import (MultiIPAdapterImageProjection, TimestepEmbedding, T
 from ..nn.resnet import GroupNorm
 from ..nn.unet_blocks import (CrossAttnDownBlock2D, CrossAttnUpBlock2D, DownBlock2D,
                               UNetMidBlock2DCrossAttn, UpBlock2D)
+from ..utils import profiling
 
 
 @dataclass(frozen=True)
@@ -155,49 +156,54 @@ class UNet2DConditionModel(nn.Module):
         (n, seq, cross); added_cond_kwargs {"text_embeds" (n, d), "time_ids" (n, 6)}
         for SDXL, and "image_embeds" (n, d) with IP-Adapter; timestep_cond
         (n, time_cond_proj_dim) for LCM."""
-        cfg = self.config
-        dtype = self.dtype
-        n = sample.shape[0]
-        timesteps = timestep_tensor(timestep, sample.device).reshape(-1).expand(n)
-        emb = self.time_embedding(self.time_proj(timesteps).to(dtype), timestep_cond)
-        if self.add_embedding is not None:
-            if added_cond_kwargs is None:
-                raise ValueError("the text_time add-embedding needs text_embeds and time_ids")
-            text_embeds = added_cond_kwargs["text_embeds"]
-            time_ids = added_cond_kwargs["time_ids"]
-            time_embeds = self.add_time_proj(time_ids.reshape(-1)).reshape(text_embeds.shape[0],
-                                                                           -1)
-            add_embeds = torch.cat([text_embeds, time_embeds.to(text_embeds.dtype)], dim=-1)
-            emb = emb + self.add_embedding(add_embeds.to(dtype))
-        ip_hidden_states = None
-        if self.encoder_hid_proj is not None:
-            if added_cond_kwargs is None or "image_embeds" not in added_cond_kwargs:
-                raise ValueError("ip_image_proj needs added_cond_kwargs['image_embeds']")
-            ip_hidden_states = self.encoder_hid_proj(added_cond_kwargs["image_embeds"].to(dtype))
-        ehs = encoder_hidden_states.to(dtype)
-        ip_scale = cfg.ip_scale
+        with profiling.span("tower.unet"):
+            cfg = self.config
+            dtype = self.dtype
+            n = sample.shape[0]
+            timesteps = timestep_tensor(timestep, sample.device).reshape(-1).expand(n)
+            emb = self.time_embedding(self.time_proj(timesteps).to(dtype), timestep_cond)
+            if self.add_embedding is not None:
+                if added_cond_kwargs is None:
+                    raise ValueError("the text_time add-embedding needs text_embeds and time_ids")
+                text_embeds = added_cond_kwargs["text_embeds"]
+                time_ids = added_cond_kwargs["time_ids"]
+                time_embeds = self.add_time_proj(time_ids.reshape(-1)).reshape(text_embeds.shape[0],
+                                                                               -1)
+                add_embeds = torch.cat([text_embeds, time_embeds.to(text_embeds.dtype)], dim=-1)
+                emb = emb + self.add_embedding(add_embeds.to(dtype))
+            ip_hidden_states = None
+            if self.encoder_hid_proj is not None:
+                if added_cond_kwargs is None or "image_embeds" not in added_cond_kwargs:
+                    raise ValueError("ip_image_proj needs added_cond_kwargs['image_embeds']")
+                ip_hidden_states = self.encoder_hid_proj(
+                    added_cond_kwargs["image_embeds"].to(dtype))
+            ehs = encoder_hidden_states.to(dtype)
+            ip_scale = cfg.ip_scale
 
-        sample = self.conv_in(sample.to(dtype))
-        down_res: Tuple[torch.Tensor, ...] = (sample,)
-        for block in self.down_blocks:
-            if isinstance(block, CrossAttnDownBlock2D):
-                sample, res = block(sample, emb, ehs, ip_hidden_states, ip_scale)
-            else:
-                sample, res = block(sample, emb)
-            down_res += res
-        if down_block_additional_residuals is not None:
-            down_res = tuple(skip + r.to(skip.dtype)
-                             for skip, r in zip(down_res, down_block_additional_residuals))
+            sample = self.conv_in(sample.to(dtype))
+            down_res: Tuple[torch.Tensor, ...] = (sample,)
+            for i, block in enumerate(self.down_blocks):
+                with profiling.span(profiling.BLOCK_DOWN[i]):
+                    if isinstance(block, CrossAttnDownBlock2D):
+                        sample, res = block(sample, emb, ehs, ip_hidden_states, ip_scale)
+                    else:
+                        sample, res = block(sample, emb)
+                down_res += res
+            if down_block_additional_residuals is not None:
+                down_res = tuple(skip + r.to(skip.dtype)
+                                 for skip, r in zip(down_res, down_block_additional_residuals))
 
-        sample = self.mid_block(sample, emb, ehs, ip_hidden_states, ip_scale)
-        if mid_block_additional_residual is not None:
-            sample = sample + mid_block_additional_residual.to(sample.dtype)
+            with profiling.span("block.mid"):
+                sample = self.mid_block(sample, emb, ehs, ip_hidden_states, ip_scale)
+            if mid_block_additional_residual is not None:
+                sample = sample + mid_block_additional_residual.to(sample.dtype)
 
-        for block in self.up_blocks:
-            k = len(block.resnets)
-            res, down_res = down_res[-k:], down_res[:-k]
-            if isinstance(block, CrossAttnUpBlock2D):
-                sample = block(sample, res, emb, ehs, ip_hidden_states, ip_scale)
-            else:
-                sample = block(sample, res, emb)
-        return self.conv_out(self.conv_norm_out(sample, silu=True))
+            for i, block in enumerate(self.up_blocks):
+                k = len(block.resnets)
+                res, down_res = down_res[-k:], down_res[:-k]
+                with profiling.span(profiling.BLOCK_UP[i]):
+                    if isinstance(block, CrossAttnUpBlock2D):
+                        sample = block(sample, res, emb, ehs, ip_hidden_states, ip_scale)
+                    else:
+                        sample = block(sample, res, emb)
+            return self.conv_out(self.conv_norm_out(sample, silu=True))

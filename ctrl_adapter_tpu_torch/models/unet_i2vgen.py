@@ -33,6 +33,7 @@ from ..nn.resnet import GroupNorm
 from ..nn.unet_3d_blocks import (CrossAttnDownBlock3D, CrossAttnUpBlock3D, DownBlock3D,
                                  TransformerTemporalModel, UNetMidBlock3DCrossAttn, UpBlock3D)
 from ..ops.resize import adaptive_avg_pool2d
+from ..utils import profiling
 
 
 @dataclass(frozen=True)
@@ -182,48 +183,52 @@ class I2VGenXLUNet(nn.Module):
         """sample, image_latents (b, f, 4, h, w); timestep scalar or (b,); fps
         scalar or (b,); image_embeddings (b, 1, cross) CLIP image embedding;
         encoder_hidden_states (b, 77, cross) text embedding."""
-        dtype = self.dtype
-        b, num_frames, c, height, width = sample.shape
-        device = sample.device
-        timesteps = timestep_tensor(timestep, device).reshape(-1).expand(b)
-        emb = self.time_embedding(self.time_proj(timesteps).to(dtype))
-        fps = timestep_tensor(fps, device).reshape(-1).expand(b)
-        fe = self.fps_embedding
-        emb = emb + fe[2](F.silu(fe[0](self.time_proj(fps).to(dtype))))
-        emb = emb.repeat_interleave(num_frames, dim=0)
+        with profiling.span("tower.unet"):
+            dtype = self.dtype
+            b, num_frames, c, height, width = sample.shape
+            device = sample.device
+            timesteps = timestep_tensor(timestep, device).reshape(-1).expand(b)
+            emb = self.time_embedding(self.time_proj(timesteps).to(dtype))
+            fps = timestep_tensor(fps, device).reshape(-1).expand(b)
+            fe = self.fps_embedding
+            emb = emb + fe[2](F.silu(fe[0](self.time_proj(fps).to(dtype))))
+            emb = emb.repeat_interleave(num_frames, dim=0)
 
-        image_latents = image_latents.to(dtype)
-        context = self._context(encoder_hidden_states.to(dtype), image_latents,
-                                image_embeddings.to(dtype))
-        context = context.repeat_interleave(num_frames, dim=0)
+            image_latents = image_latents.to(dtype)
+            context = self._context(encoder_hidden_states.to(dtype), image_latents,
+                                    image_embeddings.to(dtype))
+            context = context.repeat_interleave(num_frames, dim=0)
 
-        il = self._encode_image_latents(image_latents)
-        sample = torch.cat([sample.to(dtype), il], dim=2)
-        sample = sample.reshape(b * num_frames, 2 * c, height, width)
-        sample = self.transformer_in(self.conv_in(sample), num_frames)
+            il = self._encode_image_latents(image_latents)
+            sample = torch.cat([sample.to(dtype), il], dim=2)
+            sample = sample.reshape(b * num_frames, 2 * c, height, width)
+            sample = self.transformer_in(self.conv_in(sample), num_frames)
 
-        down_res: Tuple[torch.Tensor, ...] = (sample,)
-        for block in self.down_blocks:
-            if isinstance(block, CrossAttnDownBlock3D):
-                sample, res = block(sample, emb, context, num_frames)
-            else:
-                sample, res = block(sample, emb, num_frames)
-            down_res += res
-        if down_block_additional_residuals is not None:
-            down_res = tuple(skip + r.to(skip.dtype)
-                             for skip, r in zip(down_res, down_block_additional_residuals))
+            down_res: Tuple[torch.Tensor, ...] = (sample,)
+            for i, block in enumerate(self.down_blocks):
+                with profiling.span(profiling.BLOCK_DOWN[i]):
+                    if isinstance(block, CrossAttnDownBlock3D):
+                        sample, res = block(sample, emb, context, num_frames)
+                    else:
+                        sample, res = block(sample, emb, num_frames)
+                down_res += res
+            if down_block_additional_residuals is not None:
+                down_res = tuple(skip + r.to(skip.dtype)
+                                 for skip, r in zip(down_res, down_block_additional_residuals))
 
-        sample = self.mid_block(sample, emb, context, num_frames)
-        if mid_block_additional_residual is not None:
-            sample = sample + mid_block_additional_residual.to(sample.dtype)
+            with profiling.span("block.mid"):
+                sample = self.mid_block(sample, emb, context, num_frames)
+            if mid_block_additional_residual is not None:
+                sample = sample + mid_block_additional_residual.to(sample.dtype)
 
-        for block in self.up_blocks:
-            n = len(block.resnets)
-            res, down_res = down_res[-n:], down_res[:-n]
-            if isinstance(block, CrossAttnUpBlock3D):
-                sample = block(sample, res, emb, context, num_frames)
-            else:
-                sample = block(sample, res, emb, num_frames)
+            for i, block in enumerate(self.up_blocks):
+                n = len(block.resnets)
+                res, down_res = down_res[-n:], down_res[:-n]
+                with profiling.span(profiling.BLOCK_UP[i]):
+                    if isinstance(block, CrossAttnUpBlock3D):
+                        sample = block(sample, res, emb, context, num_frames)
+                    else:
+                        sample = block(sample, res, emb, num_frames)
 
-        sample = self.conv_out(self.conv_norm_out(sample, silu=True))
-        return sample.reshape(b, num_frames, -1, height, width)
+            sample = self.conv_out(self.conv_norm_out(sample, silu=True))
+            return sample.reshape(b, num_frames, -1, height, width)

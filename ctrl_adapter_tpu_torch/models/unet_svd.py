@@ -21,6 +21,7 @@ from ..nn.resnet import GroupNorm
 from ..nn.unet_st_blocks import (CrossAttnDownBlockSpatioTemporal,
                                  CrossAttnUpBlockSpatioTemporal, DownBlockSpatioTemporal,
                                  UNetMidBlockSpatioTemporal, UpBlockSpatioTemporal)
+from ..utils import profiling
 
 
 @dataclass(frozen=True)
@@ -109,42 +110,46 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         """sample (b, f, c, h, w); timestep scalar or (b,) (EDM t = 0.25 log sigma);
         encoder_hidden_states (b, 1, 1024); added_time_ids (b, 3); residuals
         (b*f, c, h, w)."""
-        dtype = self.dtype
-        b, num_frames, c, height, width = sample.shape
-        device = sample.device
-        timesteps = timestep_tensor(timestep, device).reshape(-1).expand(b)
-        emb = self.time_embedding(self.time_proj(timesteps).to(dtype))
-        time_embeds = self.add_time_proj(added_time_ids.reshape(-1)).reshape(b, -1)
-        emb = emb + self.add_embedding(time_embeds.to(emb.dtype))
+        with profiling.span("tower.unet"):
+            dtype = self.dtype
+            b, num_frames, c, height, width = sample.shape
+            device = sample.device
+            timesteps = timestep_tensor(timestep, device).reshape(-1).expand(b)
+            emb = self.time_embedding(self.time_proj(timesteps).to(dtype))
+            time_embeds = self.add_time_proj(added_time_ids.reshape(-1)).reshape(b, -1)
+            emb = emb + self.add_embedding(time_embeds.to(emb.dtype))
 
-        sample = sample.reshape(b * num_frames, c, height, width).to(dtype)
-        emb = emb.repeat_interleave(num_frames, dim=0)
-        ehs = encoder_hidden_states.repeat_interleave(num_frames, dim=0).to(dtype)
-        indicator = torch.zeros((b, num_frames), dtype=torch.float32, device=device)
+            sample = sample.reshape(b * num_frames, c, height, width).to(dtype)
+            emb = emb.repeat_interleave(num_frames, dim=0)
+            ehs = encoder_hidden_states.repeat_interleave(num_frames, dim=0).to(dtype)
+            indicator = torch.zeros((b, num_frames), dtype=torch.float32, device=device)
 
-        sample = self.conv_in(sample)
-        down_res: Tuple[torch.Tensor, ...] = (sample,)
-        for block in self.down_blocks:
-            if isinstance(block, CrossAttnDownBlockSpatioTemporal):
-                sample, res = block(sample, emb, ehs, indicator)
-            else:
-                sample, res = block(sample, emb, indicator)
-            down_res += res
-        if down_block_additional_residuals is not None:
-            down_res = tuple(skip + r.to(skip.dtype)
-                             for skip, r in zip(down_res, down_block_additional_residuals))
+            sample = self.conv_in(sample)
+            down_res: Tuple[torch.Tensor, ...] = (sample,)
+            for i, block in enumerate(self.down_blocks):
+                with profiling.span(profiling.BLOCK_DOWN[i]):
+                    if isinstance(block, CrossAttnDownBlockSpatioTemporal):
+                        sample, res = block(sample, emb, ehs, indicator)
+                    else:
+                        sample, res = block(sample, emb, indicator)
+                down_res += res
+            if down_block_additional_residuals is not None:
+                down_res = tuple(skip + r.to(skip.dtype)
+                                 for skip, r in zip(down_res, down_block_additional_residuals))
 
-        sample = self.mid_block(sample, emb, ehs, indicator)
-        if mid_block_additional_residual is not None:
-            sample = sample + mid_block_additional_residual.to(sample.dtype)
+            with profiling.span("block.mid"):
+                sample = self.mid_block(sample, emb, ehs, indicator)
+            if mid_block_additional_residual is not None:
+                sample = sample + mid_block_additional_residual.to(sample.dtype)
 
-        for block in self.up_blocks:
-            n = len(block.resnets)
-            res, down_res = down_res[-n:], down_res[:-n]
-            if isinstance(block, CrossAttnUpBlockSpatioTemporal):
-                sample = block(sample, res, emb, ehs, indicator)
-            else:
-                sample = block(sample, res, emb, indicator)
+            for i, block in enumerate(self.up_blocks):
+                n = len(block.resnets)
+                res, down_res = down_res[-n:], down_res[:-n]
+                with profiling.span(profiling.BLOCK_UP[i]):
+                    if isinstance(block, CrossAttnUpBlockSpatioTemporal):
+                        sample = block(sample, res, emb, ehs, indicator)
+                    else:
+                        sample = block(sample, res, emb, indicator)
 
-        sample = self.conv_out(self.conv_norm_out(sample, silu=True))
-        return sample.reshape(b, num_frames, -1, height, width)
+            sample = self.conv_out(self.conv_norm_out(sample, silu=True))
+            return sample.reshape(b, num_frames, -1, height, width)

@@ -17,6 +17,7 @@ import torch.nn as nn
 
 from ..nn.resnet import Downsample2D, GroupNorm, ResnetBlock2D, Upsample2D
 from ..ops.flash_attention import _torch_attention
+from ..utils import profiling
 
 
 @dataclass(frozen=True)
@@ -45,7 +46,8 @@ class VAEAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
         hidden = self.group_norm(x).permute(0, 2, 3, 1).reshape(n, 1, h * w, c)
-        out = _torch_attention(self.to_q(hidden), self.to_k(hidden), self.to_v(hidden))
+        with profiling.span("op.attention.plain"):
+            out = _torch_attention(self.to_q(hidden), self.to_k(hidden), self.to_v(hidden))
         out = self.to_out[0](out.reshape(n, h * w, c))
         return out.reshape(n, h, w, c).permute(0, 3, 1, 2) + x
 
@@ -177,8 +179,9 @@ class AutoencoderKL(nn.Module):
     def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mean, logvar) of the latent distribution of x (n, 3, H, W) in [-1, 1],
         logvar clipped to [-30, 20]; not yet scaled."""
-        mean, logvar = self.quant_conv(self.encoder(x.to(self.dtype))).chunk(2, dim=1)
-        return mean, logvar.clamp(-30.0, 20.0)
+        with profiling.span("tower.vae_encode"):
+            mean, logvar = self.quant_conv(self.encoder(x.to(self.dtype))).chunk(2, dim=1)
+            return mean, logvar.clamp(-30.0, 20.0)
 
     def encode(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Latent mean (or a sample, given noise), not yet scaled; x in [-1, 1]."""
@@ -189,4 +192,5 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """z (n, 4, h, w) unscaled latents -> (n, 3, 8h, 8w)."""
-        return self.decoder(self.post_quant_conv(z.to(self.dtype)))
+        with profiling.span("tower.vae_decode"):
+            return self.decoder(self.post_quant_conv(z.to(self.dtype)))

@@ -15,6 +15,7 @@ import torch.nn as nn
 
 from ..nn.resnet import GroupNorm, Upsample2D
 from ..nn.unet_st_blocks import SpatioTemporalResBlock, from_5d, to_5d
+from ..utils import profiling
 from .vae import Encoder, VAEAttention, VAEConfig
 
 
@@ -110,8 +111,9 @@ class AutoencoderKLTemporalDecoder(nn.Module):
     def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mean, logvar) of the latent distribution of x (n, 3, H, W) in [-1, 1],
         logvar clipped to [-30, 20]; not yet scaled."""
-        mean, logvar = self.quant_conv(self.encoder(x.to(self.dtype))).chunk(2, dim=1)
-        return mean, logvar.clamp(-30.0, 20.0)
+        with profiling.span("tower.vae_encode"):
+            mean, logvar = self.quant_conv(self.encoder(x.to(self.dtype))).chunk(2, dim=1)
+            return mean, logvar.clamp(-30.0, 20.0)
 
     def encode(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Latent mean (or a sample, given noise), not yet scaled; x in [-1, 1]."""
@@ -122,4 +124,5 @@ class AutoencoderKLTemporalDecoder(nn.Module):
 
     def decode(self, z: torch.Tensor, num_frames: int = 1) -> torch.Tensor:
         """z (b*f, 4, h, w) unscaled latents -> (b*f, 3, 8h, 8w)."""
-        return self.decoder(z.to(self.dtype), num_frames)
+        with profiling.span("tower.vae_decode"):
+            return self.decoder(z.to(self.dtype), num_frames)

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from ..ops import group_norm as gn
 from ..ops.resize import nearest_resize
+from ..utils import profiling
 
 
 class GroupNorm(nn.Module):
@@ -37,7 +38,9 @@ class GroupNorm(nn.Module):
         if gn.use_kernel(self.kernel, x.shape, self.num_groups, x.element_size()):
             return gn.group_norm_silu(x.contiguous(), self.weight, self.bias, self.num_groups,
                                       self.eps, silu)
-        return gn._torch_group_norm_silu(x, self.weight, self.bias, self.num_groups, self.eps, silu)
+        with profiling.span("op.group_norm.plain"):
+            return gn._torch_group_norm_silu(x, self.weight, self.bias, self.num_groups, self.eps,
+                                             silu)
 
 
 class Upsample2D(nn.Module):

@@ -42,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import profiling
 from ._build import Kernel, ptr, stream_of
 from .backend import SMEM_PER_BLOCK, is_hopper, sm_count
 
@@ -433,17 +434,18 @@ def attention_bnth_bwd(q, k, v, o, do, lse):
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(B, T, N, H) attention: the single-key, tiny-sequence and plain paths of
-    the JAX dispatcher."""
-    tk = k.shape[1]
-    if tk == 1:
-        # softmax over one key is 1: the output is V broadcast over the queries
-        return v.expand(q.shape[0], q.shape[1], *v.shape[2:]).to(v.dtype)
-    if q.shape[1] <= 32 and tk <= 32:
-        # tiny (frame) sequences: logits in the input dtype, softmax in fp32
-        s = torch.einsum("btnh,bsnh->bnts", q, k) * q.shape[-1] ** -0.5
-        p = torch.softmax(s.float(), dim=-1).to(v.dtype)
-        return torch.einsum("bnts,bsnh->btnh", p, v)
-    # flash-eligible self-attention never gets here: ``Attention`` sends it to
-    # attention_bnth on head-split views of its projections
-    return _torch_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2)).transpose(1, 2)
+    the JAX dispatcher (span ``op.attention.plain``)."""
+    with profiling.span("op.attention.plain"):
+        tk = k.shape[1]
+        if tk == 1:
+            # softmax over one key is 1: the output is V broadcast over the queries
+            return v.expand(q.shape[0], q.shape[1], *v.shape[2:]).to(v.dtype)
+        if q.shape[1] <= 32 and tk <= 32:
+            # tiny (frame) sequences: logits in the input dtype, softmax in fp32
+            s = torch.einsum("btnh,bsnh->bnts", q, k) * q.shape[-1] ** -0.5
+            p = torch.softmax(s.float(), dim=-1).to(v.dtype)
+            return torch.einsum("bnts,bsnh->btnh", p, v)
+        # flash-eligible self-attention never gets here: ``Attention`` sends it to
+        # attention_bnth on head-split views of its projections
+        return _torch_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2)).transpose(1, 2)

@@ -45,6 +45,7 @@ from ..models.vae import AutoencoderKL
 from ..ops.resize import adaptive_avg_pool2d
 from ..parallel import mesh as meshes
 from ..schedulers.ddim import DDIMConfig, DDIMScheduler
+from ..utils import profiling
 from .common import classifier_free_guidance, control_window, normalize_control_latent_size
 
 
@@ -68,6 +69,7 @@ class I2VGenXLControlNetAdapterPipeline:
         self.unet, self.controlnet, self.adapter, self.vae = unet, controlnet, adapter, vae
         self.router = router
         self.scheduler = scheduler or DDIMScheduler(DDIMConfig())
+        self._clips = 0  # generate calls so far: the id of the pipeline's spans
 
     def _router_weights(self, t: Optional[float], clip_embeddings: Optional[torch.Tensor],
                         mask: torch.Tensor, active: torch.Tensor):
@@ -84,7 +86,8 @@ class I2VGenXLControlNetAdapterPipeline:
     def _residuals(self, lat: torch.Tensor, i: int, t: float, ctx) -> Tuple[list, Any]:
         """ControlNet experts -> router fusion -> adapter -> dense (down, mid)."""
         b, f, c, h, w = lat.shape
-        lmi = torch.cat([lat, lat])
+        with profiling.span("pipeline.guidance", step=i):
+            lmi = torch.cat([lat, lat])
         pooled = adaptive_avg_pool2d(lmi.reshape(2 * b * f, c, h, w),
                                      normalize_control_latent_size(ctx["control_latent_size"]))
         cn_t = (float(ctx["fixed_controlnet_timestep"]) if ctx["fixed_controlnet_timestep"] >= 0
@@ -135,16 +138,19 @@ class I2VGenXLControlNetAdapterPipeline:
         fps = torch.full((2 * b,), float(ctx["target_fps"]), dtype=torch.float32,
                          device=latents.device)
         for i in range(num_inference_steps):
-            t = float(state.timesteps[i])
-            down = mid = None
-            if lo <= i < hi:
-                down, mid = self._residuals(latents, i, t, ctx)
-            noise_pred = self.unet(torch.cat([latents, latents]), t, fps, ctx["image_latents"],
-                                   ctx["image_embeddings"], ctx["prompt_embeds"],
-                                   down_block_additional_residuals=down,
-                                   mid_block_additional_residual=mid).float()
-            noise_pred = classifier_free_guidance(noise_pred, ctx["guidance_scale"])
-            latents = self.scheduler.step(state, noise_pred, i, latents)
+            with profiling.span("pipeline.step", step=i, controlled=lo <= i < hi):
+                t = float(state.timesteps[i])
+                down = mid = None
+                if lo <= i < hi:
+                    down, mid = self._residuals(latents, i, t, ctx)
+                noise_pred = self.unet(torch.cat([latents, latents]), t, fps,
+                                       ctx["image_latents"], ctx["image_embeddings"],
+                                       ctx["prompt_embeds"],
+                                       down_block_additional_residuals=down,
+                                       mid_block_additional_residual=mid).float()
+                with profiling.span("pipeline.guidance", step=i):
+                    noise_pred = classifier_free_guidance(noise_pred, ctx["guidance_scale"])
+                    latents = self.scheduler.step(state, noise_pred, i, latents)
         return latents
 
     @torch.no_grad()
@@ -152,17 +158,18 @@ class I2VGenXLControlNetAdapterPipeline:
                 decode_chunk_size: int = 2) -> torch.Tensor:
         """Frame-chunked 2D VAE decode of (b, f, h, w, 4) latents into a
         (b, f, H, W, 3) video in [0, 1]."""
-        b, f, h, w, c = latents.shape
-        flat = latents.reshape(b * f, h, w, c).permute(0, 3, 1, 2) / scaling_factor
-        n = flat.shape[0]
-        chunk = min(decode_chunk_size, n)
-        pad = (-n) % chunk
-        if pad:
-            flat = torch.cat([flat, torch.zeros((pad, c, h, w), dtype=flat.dtype,
-                                                device=flat.device)])
-        video = torch.cat([self.vae.decode(z) for z in flat.split(chunk)])[:n]
-        video = torch.clamp(video / 2 + 0.5, 0.0, 1.0)
-        return video.permute(0, 2, 3, 1).reshape(b, f, *video.shape[2:], video.shape[1])
+        with profiling.span("pipeline.decode", clip=self._clips - 1):
+            b, f, h, w, c = latents.shape
+            flat = latents.reshape(b * f, h, w, c).permute(0, 3, 1, 2) / scaling_factor
+            n = flat.shape[0]
+            chunk = min(decode_chunk_size, n)
+            pad = (-n) % chunk
+            if pad:
+                flat = torch.cat([flat, torch.zeros((pad, c, h, w), dtype=flat.dtype,
+                                                    device=flat.device)])
+            video = torch.cat([self.vae.decode(z) for z in flat.split(chunk)])[:n]
+            video = torch.clamp(video / 2 + 0.5, 0.0, 1.0)
+            return video.permute(0, 2, 3, 1).reshape(b, f, *video.shape[2:], video.shape[1])
 
     @torch.no_grad()
     def generate(self, prompt_embeds: torch.Tensor, controlnet_prompt_embeds: torch.Tensor,
@@ -191,105 +198,109 @@ class I2VGenXLControlNetAdapterPipeline:
         the whole batch and gets the whole result; it runs its own slice of
         the videos (b must divide over the ranks), with the noise of the
         one-process draw."""
-        device = self.unet.conv_in.weight.device
-        b = image_embeddings.shape[0]
-        rows = meshes.batch_rows(mesh, b) if mesh is not None else slice(0, b)
-        if latents is None:  # the whole batch's draw on every rank, then its slice
-            latents = torch.randn((b, num_frames, height // 8, width // 8, 4),
-                                  generator=generator, device=device, dtype=torch.float32)
-        latents = latents[rows].to(device, torch.float32).permute(0, 1, 4, 2, 3)
-        image_embeddings = image_embeddings.to(device)
-        all_embeddings, adapter_rows = image_embeddings, None
-        control_images = control_images.to(device)
-        if control_images.dim() == 4:
-            control_images = control_images[None]
-        prompt_embeds = prompt_embeds.to(device)
-        controlnet_prompt_embeds = controlnet_prompt_embeds.to(device)
-        if mesh is not None:
-            adapter_rows = meshes.GlobalRows(image_embeddings.repeat(2, 1, 1),
-                                             meshes.cfg_index(mesh, b, device))
-            prompt_embeds = meshes.take_cfg(mesh, prompt_embeds, b)
-            controlnet_prompt_embeds = meshes.take_cfg(mesh, controlnet_prompt_embeds, b)
-            first_frame_latent, image_embeddings = first_frame_latent[rows], image_embeddings[rows]
-            control_images = control_images[:, rows.start * num_frames:rows.stop * num_frames]
-            b = rows.stop - rows.start
+        clip, self._clips = self._clips, self._clips + 1
+        with profiling.span("pipeline.generate", clip=clip):
+            device = self.unet.conv_in.weight.device
+            b = image_embeddings.shape[0]
+            rows = meshes.batch_rows(mesh, b) if mesh is not None else slice(0, b)
+            if latents is None:  # the whole batch's draw on every rank, then its slice
+                latents = torch.randn((b, num_frames, height // 8, width // 8, 4),
+                                      generator=generator, device=device, dtype=torch.float32)
+            latents = latents[rows].to(device, torch.float32).permute(0, 1, 4, 2, 3)
+            image_embeddings = image_embeddings.to(device)
+            all_embeddings, adapter_rows = image_embeddings, None
+            control_images = control_images.to(device)
+            if control_images.dim() == 4:
+                control_images = control_images[None]
+            prompt_embeds = prompt_embeds.to(device)
+            controlnet_prompt_embeds = controlnet_prompt_embeds.to(device)
+            if mesh is not None:
+                adapter_rows = meshes.GlobalRows(image_embeddings.repeat(2, 1, 1),
+                                                 meshes.cfg_index(mesh, b, device))
+                prompt_embeds = meshes.take_cfg(mesh, prompt_embeds, b)
+                controlnet_prompt_embeds = meshes.take_cfg(mesh, controlnet_prompt_embeds, b)
+                first_frame_latent = first_frame_latent[rows]
+                image_embeddings = image_embeddings[rows]
+                control_images = control_images[:, rows.start * num_frames:rows.stop * num_frames]
+                b = rows.stop - rows.start
 
-        # frame-position-mask image latents: frame 0 the scaled latent, frame i
-        # the constant i / (f - 1); duplicated for CFG
-        il = first_frame_latent.to(device, torch.float32).permute(0, 3, 1, 2) * vae_scaling_factor
-        frames = [il] + [torch.full_like(il, i / (num_frames - 1))
-                         for i in range(1, num_frames)]
-        il_frames = torch.stack(frames, dim=1)
-        image_embeddings_cfg = torch.cat([torch.zeros_like(image_embeddings), image_embeddings])
+            # frame-position-mask image latents: frame 0 the scaled latent, frame i
+            # the constant i / (f - 1); duplicated for CFG
+            il = (first_frame_latent.to(device, torch.float32).permute(0, 3, 1, 2)
+                  * vae_scaling_factor)
+            frames = [il] + [torch.full_like(il, i / (num_frames - 1))
+                             for i in range(1, num_frames)]
+            il_frames = torch.stack(frames, dim=1)
+            image_embeddings_cfg = torch.cat([torch.zeros_like(image_embeddings), image_embeddings])
 
-        num_experts = control_images.shape[0]
-        control_images = control_images.permute(0, 1, 4, 2, 3)
-        control_images = torch.cat([control_images, control_images], dim=1)
-        expert_mask = tuple(bool(m) for m in (inference_expert_masks or [True] * num_experts))
-        active = [e for e in range(num_experts) if expert_mask[e]]
+            num_experts = control_images.shape[0]
+            control_images = control_images.permute(0, 1, 4, 2, 3)
+            control_images = torch.cat([control_images, control_images], dim=1)
+            expert_mask = tuple(bool(m) for m in (inference_expert_masks or [True] * num_experts))
+            active = [e for e in range(num_experts) if expert_mask[e]]
 
-        scales = _per_expert(controlnet_conditioning_scale, num_experts,
-                             "controlnet_conditioning_scale")
-        starts = _per_expert(control_guidance_start, num_experts, "control_guidance_start")
-        ends = _per_expert(control_guidance_end, num_experts, "control_guidance_end")
-        expert_windows = [control_window(num_inference_steps, s, e)
-                          for s, e in zip(starts, ends)]
-        # the loop's control window: the union of the active experts' windows
-        active_windows = [w_ for w_, m in zip(expert_windows, expert_mask) if m]
-        if active_windows and any(hi > lo for lo, hi in active_windows):
-            window = (min(lo for lo, hi in active_windows if hi > lo),
-                      max(hi for _, hi in active_windows))
-        else:
-            window = (0, 0)
+            scales = _per_expert(controlnet_conditioning_scale, num_experts,
+                                 "controlnet_conditioning_scale")
+            starts = _per_expert(control_guidance_start, num_experts, "control_guidance_start")
+            ends = _per_expert(control_guidance_end, num_experts, "control_guidance_end")
+            expert_windows = [control_window(num_inference_steps, s, e)
+                              for s, e in zip(starts, ends)]
+            # the loop's control window: the union of the active experts' windows
+            active_windows = [w_ for w_, m in zip(expert_windows, expert_mask) if m]
+            if active_windows and any(hi > lo for lo, hi in active_windows):
+                window = (min(lo for lo, hi in active_windows if hi > lo),
+                          max(hi for _, hi in active_windows))
+            else:
+                window = (0, 0)
 
-        mask = torch.tensor([1.0 if m else 0.0 for m in expert_mask], device=device)
-        active_idx = torch.tensor(active, device=device)
-        use_router = self.router is not None and num_experts > 1
-        conditional_router = use_router and self.router.conditional
-        clip_pos = image_embeddings_cfg[b:]
-        if mesh is not None and conditional_router:
-            # the router's batch mean over all the ranks' videos: (1, 1, D)
-            clip_pos = meshes.all_reduce_mean(mesh, clip_pos.float().mean(dim=1))[None, None]
-        down_w = mid_w = None  # routerless: the experts' residuals summed
-        if use_router and not conditional_router:  # weights constant over the steps
-            down_w, mid_w = self._router_weights(None, None, mask, active_idx)
-        sparse = tuple(int(p) for p in sparse_frames) if sparse_frames is not None else None
-        sparse_idx = None if sparse is None else torch.tensor(
-            [v * num_frames + p for v in range(2 * b) for p in sparse], device=device)
-        ctx = dict(
-            prompt_embeds=prompt_embeds,
-            cn_prompt=controlnet_prompt_embeds.repeat_interleave(num_frames, dim=0),
-            image_embeddings=image_embeddings_cfg, clip_pos=clip_pos,
-            adapter_ehs=image_embeddings_cfg[b:].repeat(2, 1, 1), adapter_rows=adapter_rows,
-            image_latents=torch.cat([il_frames, il_frames]), control_images=control_images,
-            target_fps=target_fps, guidance_scale=float(guidance_scale), window=window,
-            expert_windows=expert_windows, scales=scales, expert_mask=expert_mask,
-            active_idx=active_idx, mask=mask, conditional_router=conditional_router, down_w=down_w,
-            mid_w=mid_w, sparse_frames=sparse, sparse_idx=sparse_idx,
-            skip_conv_in=bool(skip_conv_in), guess_mode=bool(guess_mode),
-            fixed_controlnet_timestep=int(fixed_controlnet_timestep),
-            control_latent_size=control_latent_size)
-        latents = self._sample(latents, num_inference_steps, ctx).permute(0, 1, 3, 4, 2)
-        result = (latents if output_type == "latent"
-                  else self._decode(latents, vae_scaling_factor))
-        if mesh is not None:
-            result = meshes.gather(mesh, result)
-        if not (return_router_weights and self.router is not None):
-            return result
-        # one entry per step of the control window; equal and simple weights
-        # are the same at every step
-        state = self.scheduler.set_timesteps(num_inference_steps)
-        lo, hi = window
-        trace_down, trace_mid = [], []
-        for i in range(lo, hi):
-            router_in = None
-            if self.router.conditional:
-                router_in = build_router_input(self.router.router_type,
-                                               float(state.timesteps[i]), all_embeddings[-1:])
-            dw, mw = self.router(router_in, sparse_mask=mask)
-            trace_down.append(dw.cpu().numpy().tolist())
-            trace_mid.append(None if mw is None else mw.cpu().numpy().tolist())
-            if not self.router.conditional:
-                trace_down, trace_mid = trace_down * (hi - lo), trace_mid * (hi - lo)
-                break
-        return result, trace_down, trace_mid
+            mask = torch.tensor([1.0 if m else 0.0 for m in expert_mask], device=device)
+            active_idx = torch.tensor(active, device=device)
+            use_router = self.router is not None and num_experts > 1
+            conditional_router = use_router and self.router.conditional
+            clip_pos = image_embeddings_cfg[b:]
+            if mesh is not None and conditional_router:
+                # the router's batch mean over all the ranks' videos: (1, 1, D)
+                clip_pos = meshes.all_reduce_mean(mesh, clip_pos.float().mean(dim=1))[None, None]
+            down_w = mid_w = None  # routerless: the experts' residuals summed
+            if use_router and not conditional_router:  # weights constant over the steps
+                down_w, mid_w = self._router_weights(None, None, mask, active_idx)
+            sparse = tuple(int(p) for p in sparse_frames) if sparse_frames is not None else None
+            sparse_idx = None if sparse is None else torch.tensor(
+                [v * num_frames + p for v in range(2 * b) for p in sparse], device=device)
+            ctx = dict(
+                prompt_embeds=prompt_embeds,
+                cn_prompt=controlnet_prompt_embeds.repeat_interleave(num_frames, dim=0),
+                image_embeddings=image_embeddings_cfg, clip_pos=clip_pos,
+                adapter_ehs=image_embeddings_cfg[b:].repeat(2, 1, 1), adapter_rows=adapter_rows,
+                image_latents=torch.cat([il_frames, il_frames]), control_images=control_images,
+                target_fps=target_fps, guidance_scale=float(guidance_scale), window=window,
+                expert_windows=expert_windows, scales=scales, expert_mask=expert_mask,
+                active_idx=active_idx, mask=mask, conditional_router=conditional_router,
+                down_w=down_w, mid_w=mid_w, sparse_frames=sparse, sparse_idx=sparse_idx,
+                skip_conv_in=bool(skip_conv_in), guess_mode=bool(guess_mode),
+                fixed_controlnet_timestep=int(fixed_controlnet_timestep),
+                control_latent_size=control_latent_size)
+            latents = self._sample(latents, num_inference_steps, ctx).permute(0, 1, 3, 4, 2)
+            result = (latents if output_type == "latent"
+                      else self._decode(latents, vae_scaling_factor))
+            if mesh is not None:
+                result = meshes.gather(mesh, result)
+            if not (return_router_weights and self.router is not None):
+                return result
+            # one entry per step of the control window; equal and simple weights
+            # are the same at every step
+            state = self.scheduler.set_timesteps(num_inference_steps)
+            lo, hi = window
+            trace_down, trace_mid = [], []
+            for i in range(lo, hi):
+                router_in = None
+                if self.router.conditional:
+                    router_in = build_router_input(self.router.router_type,
+                                                   float(state.timesteps[i]), all_embeddings[-1:])
+                dw, mw = self.router(router_in, sparse_mask=mask)
+                trace_down.append(dw.cpu().numpy().tolist())
+                trace_mid.append(None if mw is None else mw.cpu().numpy().tolist())
+                if not self.router.conditional:
+                    trace_down, trace_mid = trace_down * (hi - lo), trace_mid * (hi - lo)
+                    break
+            return result, trace_down, trace_mid

@@ -43,6 +43,7 @@ from ..models.vae import AutoencoderKL
 from ..ops.resize import adaptive_avg_pool2d
 from ..parallel import mesh as meshes
 from ..schedulers.euler_discrete import EulerDiscreteConfig, EulerDiscreteScheduler
+from ..utils import profiling
 from .common import (classifier_free_guidance_rescaled, control_window,
                      guidance_scale_embedding, normalize_control_latent_size, sdxl_add_time_ids)
 from .svd import controlnet_timestep_remap
@@ -54,6 +55,7 @@ class SDXLControlNetAdapterPipeline:
                  scheduler: Optional[EulerDiscreteScheduler] = None):
         self.unet, self.controlnet, self.adapter, self.vae = unet, controlnet, adapter, vae
         self.scheduler = scheduler or EulerDiscreteScheduler(EulerDiscreteConfig())
+        self._clips = 0  # generate calls so far: the id of the pipeline's spans
 
     def _residuals(self, lmi: torch.Tensor, cn_t: float, ctx) -> list:
         """ControlNet on the pooled model input, then the adapter: the adapted
@@ -79,26 +81,30 @@ class SDXLControlNetAdapterPipeline:
         lo, hi = ctx["window"]
         zero_mid = torch.zeros((), dtype=latents.dtype, device=latents.device)
         for i in range(num_inference_steps):
-            lmi = torch.cat([latents, latents]) if ctx["do_cfg"] else latents
-            lmi = sched.scale_model_input(state, lmi, i)
-            down = mid = None
-            if lo <= i < hi:
-                down, mid = self._residuals(lmi, float(cn_timesteps[i]), ctx), zero_mid
-            noise_pred = self.unet(lmi, float(state.timesteps[i]), ctx["prompt_embeds"],
-                                   ctx["added"], down_block_additional_residuals=down,
-                                   mid_block_additional_residual=mid,
-                                   timestep_cond=ctx["timestep_cond"]).float()
-            if ctx["do_cfg"]:
-                noise_pred = classifier_free_guidance_rescaled(
-                    noise_pred, ctx["guidance_scale"], ctx["guidance_rescale"])
-            latents = sched.step(state, noise_pred, i, latents)
+            with profiling.span("pipeline.step", step=i, controlled=lo <= i < hi):
+                with profiling.span("pipeline.guidance", step=i):
+                    lmi = torch.cat([latents, latents]) if ctx["do_cfg"] else latents
+                    lmi = sched.scale_model_input(state, lmi, i)
+                down = mid = None
+                if lo <= i < hi:
+                    down, mid = self._residuals(lmi, float(cn_timesteps[i]), ctx), zero_mid
+                noise_pred = self.unet(lmi, float(state.timesteps[i]), ctx["prompt_embeds"],
+                                       ctx["added"], down_block_additional_residuals=down,
+                                       mid_block_additional_residual=mid,
+                                       timestep_cond=ctx["timestep_cond"]).float()
+                with profiling.span("pipeline.guidance", step=i):
+                    if ctx["do_cfg"]:
+                        noise_pred = classifier_free_guidance_rescaled(
+                            noise_pred, ctx["guidance_scale"], ctx["guidance_rescale"])
+                    latents = sched.step(state, noise_pred, i, latents)
         return latents
 
     @torch.no_grad()
     def _decode(self, latents: torch.Tensor, scaling_factor: float) -> torch.Tensor:
         """(b, h, w, 4) latents -> the (b, H, W, 3) image in [0, 1]."""
-        image = self.vae.decode(latents.permute(0, 3, 1, 2) / scaling_factor)
-        return torch.clamp(image / 2 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
+        with profiling.span("pipeline.decode", clip=self._clips - 1):
+            image = self.vae.decode(latents.permute(0, 3, 1, 2) / scaling_factor)
+            return torch.clamp(image / 2 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
 
     @torch.no_grad()
     def generate(self, prompt_embeds: torch.Tensor, add_text_embeds: torch.Tensor,
@@ -123,61 +129,63 @@ class SDXLControlNetAdapterPipeline:
         whole batch and gets the whole result; it runs its own slice of the
         images (b must divide over the ranks), with the noise of the
         one-process draw."""
-        device = self.unet.conv_in.weight.device
-        batch = prompt_embeds.shape[0] // 2
-        rows = meshes.batch_rows(mesh, batch) if mesh is not None else slice(0, batch)
-        time_cond_dim = self.unet.config.time_cond_proj_dim
-        do_cfg = guidance_scale > 1.0 and time_cond_dim is None
-        prompt_embeds = prompt_embeds.to(device)
-        add_text_embeds = add_text_embeds.to(device)
-        cn_prompt = controlnet_prompt_embeds.to(device)
-        control_image = control_image.to(device)
-        if control_image.shape[0] != 2 * batch:  # [negative; positive] rows as the prompts'
-            control_image = torch.cat([control_image[:batch]] * 2)
-        state = self.scheduler.set_timesteps(num_inference_steps)
-        if latents is None:  # the whole batch's draw on every rank, then its slice
-            latents = torch.randn((batch, height // 8, width // 8, 4), generator=generator,
-                                  device=device, dtype=torch.float32)
-        latents = latents[rows].to(device, torch.float32).permute(0, 3, 1, 2)
-        latents = latents * float(state.init_noise_sigma)
-        if ip_adapter_image_embeds is not None:
-            ip_adapter_image_embeds = ip_adapter_image_embeds[:batch][rows]
-        if mesh is not None:
-            prompt_embeds, add_text_embeds, cn_prompt, control_image = (
-                meshes.take_cfg(mesh, x, batch)
-                for x in (prompt_embeds, add_text_embeds, cn_prompt, control_image))
-            batch = rows.stop - rows.start
-        timestep_cond = None
-        if time_cond_dim is not None:  # LCM: the guidance scale is an input, not CFG
-            timestep_cond = guidance_scale_embedding(
-                torch.full((batch,), guidance_scale - 1.0, device=device), time_cond_dim)
-        if not do_cfg:
-            prompt_embeds, add_text_embeds = prompt_embeds[batch:], add_text_embeds[batch:]
-            # the first control rows, as JAX takes control_image[:batch]
-            cn_prompt, control_image = cn_prompt[batch:], control_image[:batch]
-        model_batch = 2 * batch if do_cfg else batch
+        clip, self._clips = self._clips, self._clips + 1
+        with profiling.span("pipeline.generate", clip=clip):
+            device = self.unet.conv_in.weight.device
+            batch = prompt_embeds.shape[0] // 2
+            rows = meshes.batch_rows(mesh, batch) if mesh is not None else slice(0, batch)
+            time_cond_dim = self.unet.config.time_cond_proj_dim
+            do_cfg = guidance_scale > 1.0 and time_cond_dim is None
+            prompt_embeds = prompt_embeds.to(device)
+            add_text_embeds = add_text_embeds.to(device)
+            cn_prompt = controlnet_prompt_embeds.to(device)
+            control_image = control_image.to(device)
+            if control_image.shape[0] != 2 * batch:  # [negative; positive] rows as the prompts'
+                control_image = torch.cat([control_image[:batch]] * 2)
+            state = self.scheduler.set_timesteps(num_inference_steps)
+            if latents is None:  # the whole batch's draw on every rank, then its slice
+                latents = torch.randn((batch, height // 8, width // 8, 4), generator=generator,
+                                      device=device, dtype=torch.float32)
+            latents = latents[rows].to(device, torch.float32).permute(0, 3, 1, 2)
+            latents = latents * float(state.init_noise_sigma)
+            if ip_adapter_image_embeds is not None:
+                ip_adapter_image_embeds = ip_adapter_image_embeds[:batch][rows]
+            if mesh is not None:
+                prompt_embeds, add_text_embeds, cn_prompt, control_image = (
+                    meshes.take_cfg(mesh, x, batch)
+                    for x in (prompt_embeds, add_text_embeds, cn_prompt, control_image))
+                batch = rows.stop - rows.start
+            timestep_cond = None
+            if time_cond_dim is not None:  # LCM: the guidance scale is an input, not CFG
+                timestep_cond = guidance_scale_embedding(
+                    torch.full((batch,), guidance_scale - 1.0, device=device), time_cond_dim)
+            if not do_cfg:
+                prompt_embeds, add_text_embeds = prompt_embeds[batch:], add_text_embeds[batch:]
+                # the first control rows, as JAX takes control_image[:batch]
+                cn_prompt, control_image = cn_prompt[batch:], control_image[:batch]
+            model_batch = 2 * batch if do_cfg else batch
 
-        add_time_ids = sdxl_add_time_ids(original_size or (height, width), (0, 0),
-                                         (height, width), model_batch, prompt_embeds.dtype,
-                                         device)
-        added = {"text_embeds": add_text_embeds, "time_ids": add_time_ids}
-        if ip_adapter_image_embeds is not None:
-            image_embeds = ip_adapter_image_embeds.to(device)
-            if do_cfg:
-                image_embeds = torch.cat([torch.zeros_like(image_embeds), image_embeds])
-            added["image_embeds"] = image_embeds
+            add_time_ids = sdxl_add_time_ids(original_size or (height, width), (0, 0),
+                                             (height, width), model_batch, prompt_embeds.dtype,
+                                             device)
+            added = {"text_embeds": add_text_embeds, "time_ids": add_time_ids}
+            if ip_adapter_image_embeds is not None:
+                image_embeds = ip_adapter_image_embeds.to(device)
+                if do_cfg:
+                    image_embeds = torch.cat([torch.zeros_like(image_embeds), image_embeds])
+                added["image_embeds"] = image_embeds
 
-        ctx = dict(prompt_embeds=prompt_embeds, added=added, cn_prompt=cn_prompt,
-                   control_image=control_image.permute(0, 3, 1, 2),
-                   window=control_window(num_inference_steps, control_guidance_start,
-                                         control_guidance_end),
-                   conditioning_scale=float(controlnet_conditioning_scale),
-                   guidance_scale=float(guidance_scale),
-                   guidance_rescale=float(guidance_rescale), do_cfg=do_cfg,
-                   timestep_cond=timestep_cond, skip_conv_in=bool(skip_conv_in),
-                   skip_time_emb=bool(skip_time_emb), guess_mode=bool(guess_mode),
-                   control_latent_size=control_latent_size)
-        latents = self._sample(latents, num_inference_steps, ctx).permute(0, 2, 3, 1)
-        if output_type != "latent":
-            latents = self._decode(latents, vae_scaling_factor)
-        return latents if mesh is None else meshes.gather(mesh, latents)
+            ctx = dict(prompt_embeds=prompt_embeds, added=added, cn_prompt=cn_prompt,
+                       control_image=control_image.permute(0, 3, 1, 2),
+                       window=control_window(num_inference_steps, control_guidance_start,
+                                             control_guidance_end),
+                       conditioning_scale=float(controlnet_conditioning_scale),
+                       guidance_scale=float(guidance_scale),
+                       guidance_rescale=float(guidance_rescale), do_cfg=do_cfg,
+                       timestep_cond=timestep_cond, skip_conv_in=bool(skip_conv_in),
+                       skip_time_emb=bool(skip_time_emb), guess_mode=bool(guess_mode),
+                       control_latent_size=control_latent_size)
+            latents = self._sample(latents, num_inference_steps, ctx).permute(0, 2, 3, 1)
+            if output_type != "latent":
+                latents = self._decode(latents, vae_scaling_factor)
+            return latents if mesh is None else meshes.gather(mesh, latents)

@@ -35,6 +35,7 @@ from ..ops.resize import adaptive_avg_pool2d
 from ..parallel import mesh as meshes
 from ..schedulers.euler_discrete import (SVD_EULER_CONFIG, EulerDiscreteScheduler,
                                          EulerDiscreteState)
+from ..utils import profiling
 from .common import control_window, normalize_control_latent_size
 
 
@@ -51,6 +52,7 @@ class SVDControlNetAdapterPipeline:
                  scheduler: Optional[EulerDiscreteScheduler] = None):
         self.unet, self.controlnet, self.adapter, self.vae = unet, controlnet, adapter, vae
         self.scheduler = scheduler or EulerDiscreteScheduler(SVD_EULER_CONFIG)
+        self._clips = 0  # generate calls so far: the id of the pipeline's spans
 
     def _residuals(self, state: EulerDiscreteState, lat: torch.Tensor, i: int, u: float,
                    image_embeddings: torch.Tensor, cn_prompt: torch.Tensor,
@@ -61,7 +63,8 @@ class SVDControlNetAdapterPipeline:
         """ControlNet tower + adapter -> dense (adapted_down, adapted_mid);
         ``rows`` places the adapter's batch in the global one (``global_rows``)."""
         b, f, c, h, w = lat.shape
-        lmi = self.scheduler.scale_model_input(state, torch.cat([lat, lat]), i)
+        with profiling.span("pipeline.guidance", step=i):
+            lmi = self.scheduler.scale_model_input(state, torch.cat([lat, lat]), i)
         pooled = adaptive_avg_pool2d(lmi.reshape(2 * b * f, c, h, w),
                                      normalize_control_latent_size(control_latent_size))
         downs, mid = self.controlnet(pooled, u, cn_prompt, control_images,
@@ -110,22 +113,25 @@ class SVDControlNetAdapterPipeline:
         guidance_b = guidance[None, :, None, None, None]
         lo, hi = window
         for i in range(num_inference_steps):
-            down = mid = None
-            if lo <= i < hi:
-                down, mid = self._residuals(
-                    state, latents, i, float(cn_timesteps[i]), image_embeddings, cn_prompt,
-                    control_images, sparse_frames, control_latent_size, conditioning_scale,
-                    skip_conv_in, guess_mode, rows[1])
-            lmi = self.scheduler.scale_model_input(state, torch.cat([latents, latents]), i)
-            lmi = torch.cat([lmi, image_latents.to(lmi.dtype)], dim=2)
-            t = state.timesteps[i].to(latents.device).expand(2 * b)
-            with meshes.global_rows(rows[0]):
-                noise_pred = self.unet(lmi, t, image_embeddings, added_time_ids,
-                                       down_block_additional_residuals=down,
-                                       mid_block_additional_residual=mid).float()
-            uncond, cond = noise_pred.chunk(2)
-            noise_pred = uncond + guidance_b * (cond - uncond)
-            latents = self.scheduler.step(state, noise_pred, i, latents)
+            with profiling.span("pipeline.step", step=i, controlled=lo <= i < hi):
+                down = mid = None
+                if lo <= i < hi:
+                    down, mid = self._residuals(
+                        state, latents, i, float(cn_timesteps[i]), image_embeddings, cn_prompt,
+                        control_images, sparse_frames, control_latent_size, conditioning_scale,
+                        skip_conv_in, guess_mode, rows[1])
+                with profiling.span("pipeline.guidance", step=i):
+                    lmi = self.scheduler.scale_model_input(state, torch.cat([latents, latents]), i)
+                    lmi = torch.cat([lmi, image_latents.to(lmi.dtype)], dim=2)
+                    t = state.timesteps[i].to(latents.device).expand(2 * b)
+                with meshes.global_rows(rows[0]):
+                    noise_pred = self.unet(lmi, t, image_embeddings, added_time_ids,
+                                           down_block_additional_residuals=down,
+                                           mid_block_additional_residual=mid).float()
+                with profiling.span("pipeline.guidance", step=i):
+                    uncond, cond = noise_pred.chunk(2)
+                    noise_pred = uncond + guidance_b * (cond - uncond)
+                    latents = self.scheduler.step(state, noise_pred, i, latents)
         return latents
 
     @torch.no_grad()
@@ -135,17 +141,18 @@ class SVDControlNetAdapterPipeline:
         (b, f, H, W, 3) video in [0, 1]. The chunk size changes the numbers (the
         decoder's (3,1,1) convs mix only frames inside one chunk); None decodes
         one whole video per chunk, as the reference does."""
-        b, f, h, w, c = latents.shape
-        z = latents.permute(0, 1, 4, 2, 3) / scaling_factor
-        chunk = f if decode_chunk_size is None else min(decode_chunk_size, f)
-        pad = (-f) % chunk
-        if pad:
-            z = torch.cat([z, torch.zeros((b, pad, c, h, w), dtype=z.dtype, device=z.device)],
-                          dim=1)
-        chunks = z.reshape(b * (f + pad) // chunk, chunk, c, h, w)
-        video = torch.stack([self.vae.decode(zc, chunk) for zc in chunks])
-        video = video.reshape(b, f + pad, *video.shape[2:])[:, :f]
-        return torch.clamp(video / 2 + 0.5, 0.0, 1.0).permute(0, 1, 3, 4, 2)
+        with profiling.span("pipeline.decode", clip=self._clips - 1):
+            b, f, h, w, c = latents.shape
+            z = latents.permute(0, 1, 4, 2, 3) / scaling_factor
+            chunk = f if decode_chunk_size is None else min(decode_chunk_size, f)
+            pad = (-f) % chunk
+            if pad:
+                z = torch.cat([z, torch.zeros((b, pad, c, h, w), dtype=z.dtype, device=z.device)],
+                              dim=1)
+            chunks = z.reshape(b * (f + pad) // chunk, chunk, c, h, w)
+            video = torch.stack([self.vae.decode(zc, chunk) for zc in chunks])
+            video = video.reshape(b, f + pad, *video.shape[2:])[:, :f]
+            return torch.clamp(video / 2 + 0.5, 0.0, 1.0).permute(0, 1, 3, 4, 2)
 
     @torch.no_grad()
     def generate(self, image_embeddings: torch.Tensor, image_latent: torch.Tensor,
@@ -168,48 +175,50 @@ class SVDControlNetAdapterPipeline:
         With ``mesh``, every rank passes the whole batch and gets the whole
         result; it runs its own slice of the videos (b must divide over the
         ranks), with the noise of the one-process draw."""
-        device = torch.device(device) if device is not None else self.unet.conv_in.weight.device
-        b = image_embeddings.shape[0]
-        rows = meshes.batch_rows(mesh, b) if mesh is not None else slice(0, b)
-        state = self.scheduler.set_timesteps(num_inference_steps)
-        if latents is None:  # the whole batch's draw on every rank, then its slice
-            latents = torch.randn((b, num_frames, height // 8, width // 8, 4),
-                                  generator=generator, device=device, dtype=torch.float32)
-        latents = latents[rows].to(device, torch.float32).permute(0, 1, 4, 2, 3)
-        latents = latents * state.init_noise_sigma.to(device)
+        clip, self._clips = self._clips, self._clips + 1
+        with profiling.span("pipeline.generate", clip=clip):
+            device = torch.device(device) if device is not None else self.unet.conv_in.weight.device
+            b = image_embeddings.shape[0]
+            rows = meshes.batch_rows(mesh, b) if mesh is not None else slice(0, b)
+            state = self.scheduler.set_timesteps(num_inference_steps)
+            if latents is None:  # the whole batch's draw on every rank, then its slice
+                latents = torch.randn((b, num_frames, height // 8, width // 8, 4),
+                                      generator=generator, device=device, dtype=torch.float32)
+            latents = latents[rows].to(device, torch.float32).permute(0, 1, 4, 2, 3)
+            latents = latents * state.init_noise_sigma.to(device)
 
-        image_embeddings = image_embeddings.to(device)
-        places = (None, None)  # the UNet's and the adapter's rows in the global batch
-        if mesh is not None:
-            index = meshes.cfg_index(mesh, b, device)
-            places = (  # the UNet's context [zeros; embeddings], the adapter's [pos; pos]
-                meshes.GlobalRows(torch.cat([torch.zeros_like(image_embeddings),
-                                             image_embeddings]), index),
-                meshes.GlobalRows(image_embeddings.repeat(2, 1, 1), index))
-            image_latent, image_embeddings = image_latent[rows], image_embeddings[rows]
-            controlnet_prompt_embeds = meshes.take_cfg(mesh, controlnet_prompt_embeds, b)
-            control_images = control_images[rows.start * num_frames:rows.stop * num_frames]
-            b = rows.stop - rows.start
-        il = image_latent.to(device).permute(0, 3, 1, 2)[:, None]
-        il = il.expand(b, num_frames, *il.shape[2:])
-        image_latents = torch.cat([torch.zeros_like(il), il])
-        image_embeddings_cfg = torch.cat([torch.zeros_like(image_embeddings), image_embeddings])
-        added_time_ids = torch.tensor(
-            [[float(fps - 1), float(motion_bucket_id), float(noise_aug_strength)]],
-            dtype=torch.float32, device=device).repeat(2 * b, 1)
-        control_images = control_images.to(device).permute(0, 3, 1, 2)
-        control_images = torch.cat([control_images, control_images])
-        guidance = torch.from_numpy(np.linspace(min_guidance_scale, max_guidance_scale,
-                                                num_frames).astype(np.float32)).to(device)
-        window = control_window(num_inference_steps, control_guidance_start,
-                                control_guidance_end)
-        latents = self._sample(
-            latents, image_latents, image_embeddings_cfg, controlnet_prompt_embeds.to(device),
-            added_time_ids, control_images, num_inference_steps, window,
-            tuple(int(i) for i in sparse_frames) if sparse_frames is not None else None,
-            skip_conv_in, control_latent_size, float(controlnet_conditioning_scale), guidance,
-            bool(guess_mode), places)
-        latents = latents.permute(0, 1, 3, 4, 2)
-        if output_type != "latent":
-            latents = self._decode(latents, vae_scaling_factor, decode_chunk_size)
-        return latents if mesh is None else meshes.gather(mesh, latents)
+            image_embeddings = image_embeddings.to(device)
+            places = (None, None)  # the UNet's and the adapter's rows in the global batch
+            if mesh is not None:
+                index = meshes.cfg_index(mesh, b, device)
+                places = (  # the UNet's context [zeros; embeddings], the adapter's [pos; pos]
+                    meshes.GlobalRows(torch.cat([torch.zeros_like(image_embeddings),
+                                                 image_embeddings]), index),
+                    meshes.GlobalRows(image_embeddings.repeat(2, 1, 1), index))
+                image_latent, image_embeddings = image_latent[rows], image_embeddings[rows]
+                controlnet_prompt_embeds = meshes.take_cfg(mesh, controlnet_prompt_embeds, b)
+                control_images = control_images[rows.start * num_frames:rows.stop * num_frames]
+                b = rows.stop - rows.start
+            il = image_latent.to(device).permute(0, 3, 1, 2)[:, None]
+            il = il.expand(b, num_frames, *il.shape[2:])
+            image_latents = torch.cat([torch.zeros_like(il), il])
+            image_embeddings_cfg = torch.cat([torch.zeros_like(image_embeddings), image_embeddings])
+            added_time_ids = torch.tensor(
+                [[float(fps - 1), float(motion_bucket_id), float(noise_aug_strength)]],
+                dtype=torch.float32, device=device).repeat(2 * b, 1)
+            control_images = control_images.to(device).permute(0, 3, 1, 2)
+            control_images = torch.cat([control_images, control_images])
+            guidance = torch.from_numpy(np.linspace(min_guidance_scale, max_guidance_scale,
+                                                    num_frames).astype(np.float32)).to(device)
+            window = control_window(num_inference_steps, control_guidance_start,
+                                    control_guidance_end)
+            latents = self._sample(
+                latents, image_latents, image_embeddings_cfg, controlnet_prompt_embeds.to(device),
+                added_time_ids, control_images, num_inference_steps, window,
+                tuple(int(i) for i in sparse_frames) if sparse_frames is not None else None,
+                skip_conv_in, control_latent_size, float(controlnet_conditioning_scale), guidance,
+                bool(guess_mode), places)
+            latents = latents.permute(0, 1, 3, 4, 2)
+            if output_type != "latent":
+                latents = self._decode(latents, vae_scaling_factor, decode_chunk_size)
+            return latents if mesh is None else meshes.gather(mesh, latents)

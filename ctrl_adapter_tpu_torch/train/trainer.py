@@ -49,6 +49,7 @@ from ..ops.resize import adaptive_avg_pool2d
 from ..parallel.mesh import all_reduce_mean_
 from ..schedulers.ddim import DDIMConfig, DDIMScheduler
 from ..schedulers.euler_discrete import karras_sigmas, sample_training_sigmas_timesteps
+from ..utils import profiling
 from .losses import edm_loss, min_snr_loss, mse_loss
 
 MODEL_NAMES = ("svd", "i2vgenxl", "sdxl")
@@ -228,6 +229,7 @@ class CtrlAdapterTrainer:
                                "on the CPU")
         self.config = config
         self.process_group = process_group
+        self.steps = 0  # train_step calls so far: the id of the step's spans
         self.unet, self.controlnet, self.adapter, self.vae = unet, controlnet, adapter, vae
         self.experts, self.router = experts, router
         for tower in (unet, vae, *experts):
@@ -482,20 +484,27 @@ class CtrlAdapterTrainer:
         if draws is None:
             b, f, h, w, _ = batch["frames"].shape
             draws = self.draw(generator, b, f, h // self.latent_factor, w // self.latent_factor)
-        params = self.optimizer.params
-        for p in params:
-            p.grad = None
-        loss, weights = self.loss_and_weights(batch, draws, sparse_frames)
-        loss.backward()
-        grads = [torch.zeros_like(m) if p.grad is None else p.grad.float()
-                 for p, m in zip(params, self.optimizer.masters)]
-        if self.process_group is not None:
-            flat = all_reduce_mean_(torch.cat([g.reshape(-1) for g in grads]),
-                                    self.process_group)
-            grads = [g.view_as(m) for g, m in
-                     zip(flat.split([m.numel() for m in self.optimizer.masters]),
-                         self.optimizer.masters)]
-        grad_norm = global_norm(grads)
-        self.optimizer.step(grads)
+        step, self.steps = self.steps, self.steps + 1
+        with profiling.span("trainer.step", step=step):
+            params = self.optimizer.params
+            for p in params:
+                p.grad = None
+            with profiling.span("trainer.forward", step=step):
+                loss, weights = self.loss_and_weights(batch, draws, sparse_frames)
+            with profiling.span("trainer.backward", step=step):
+                loss.backward()
+            with profiling.span("trainer.grads", step=step):
+                grads = [torch.zeros_like(m) if p.grad is None else p.grad.float()
+                         for p, m in zip(params, self.optimizer.masters)]
+            if self.process_group is not None:
+                with profiling.span("trainer.allreduce", step=step):
+                    flat = all_reduce_mean_(torch.cat([g.reshape(-1) for g in grads]),
+                                            self.process_group)
+                    grads = [g.view_as(m) for g, m in
+                             zip(flat.split([m.numel() for m in self.optimizer.masters]),
+                                 self.optimizer.masters)]
+            with profiling.span("trainer.optimizer", step=step):
+                grad_norm = global_norm(grads)
+                self.optimizer.step(grads)
         return {"loss": loss.detach(), "grad_norm": grad_norm,
                 **{k: v.detach() for k, v in weights.items()}}

@@ -1,31 +1,147 @@
-"""Tracing and step timing over ``torch.profiler``.
+"""Spans at the port's layer boundaries, and a Chrome trace of a block.
 
-Counterpart of ``ctrl_adapter_tpu/utils/profiling.py``:
+- ``span(name, **ids)``: ``with span("tower.unet"):`` marks a layer
+  boundary. While no recording is open (the default) it returns one shared
+  no-op object: no allocation, no clock read, no profiler range.
+- ``recording()``: ``with recording() as rec:`` records every span opened in
+  the block, on any thread, in ``rec.spans``; each recorded span also opens a
+  profiler range of its name (as ``torch.profiler.record_function`` does), so
+  a profiler running over the block shows it. Nothing is written anywhere.
+- ``trace(log_dir)``: ``with trace(dir): run()`` profiles the host and,
+  where there is a card, the device, and writes ``dir/trace.json``, a Chrome
+  trace (Perfetto, ``chrome://tracing``) that holds the spans of a recording
+  open around it.
 
-- ``trace(log_dir)``: ``with trace(dir): run()`` profiles the host and, where
-  there is a card, the device, and writes ``dir/trace.json``, a Chrome trace
-  (Perfetto, ``chrome://tracing``);
-- ``annotate(name)``: a named range in that trace
-  (``torch.profiler.record_function``);
-- ``StepTimer``: host-clock step times; ``block_and_stop(result)`` waits for
-  the devices of the result's tensors first; ``stats()`` gives the mean,
-  p50, p95, min and count, as the JAX class;
-- ``device_memory_stats()``: ``bytes_in_use`` and ``peak_bytes_in_use`` per
-  CUDA device from ``torch.cuda.memory_stats``, and ``{}`` without one (the
-  JAX function's result where no device reports its memory).
+A recorded span is ``(name, parent, thread, start_ns, end_ns, ids)``: the
+index in ``rec.spans`` of the innermost span open on the same thread when it
+opened (None for a thread's outermost span), the thread's native id
+(``threading.get_native_id``), and its times on the clock of
+``time.time_ns``, which is the host clock of the profiler's (Kineto's)
+events, so that a span can be set beside the device events launched inside
+it. Each thread keeps its own stack: the autograd engine runs the backward
+of card tensors, and the recompute of checkpointed towers, on a thread of
+its own, and the spans opened there have their outermost span on that
+thread. Spans are listed in the order they opened.
+
+Names are fixed strings at each call site (``tower.unet``, ``block.down.0``,
+``op.group_norm.plain``, ...; ``PERF.md`` lists them with the metrics they
+feed); counts at a boundary are the number of its spans.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import List, NamedTuple, Optional
 
-import numpy as np
 import torch
 
-annotate = torch.profiler.record_function
+
+class SpanRecord(NamedTuple):
+    name: str
+    parent: Optional[int]   # index of the enclosing span on the same thread
+    thread: int             # threading.get_native_id() of the opening thread
+    start_ns: int
+    end_ns: Optional[int]   # None while the span is still open
+    ids: dict
+
+
+class _NoSpan:
+    """The span while nothing records: enters and exits and does nothing else."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("rec", "name", "parent", "thread", "start_ns", "end_ns", "ids", "index",
+                 "_range")
+
+    def __init__(self, rec: "Recording", name: str, ids: dict):
+        self.rec, self.name, self.ids = rec, name, ids
+        self.end_ns = None
+
+    def __enter__(self):
+        rec = self.rec
+        stack = rec._stack()
+        self.parent = stack[-1] if stack else None
+        self.thread = threading.get_native_id()
+        with rec._lock:
+            self.index = len(rec._open)
+            rec._open.append(self)
+        stack.append(self)
+        self.start_ns = time.time_ns()
+        # record_function's C++ range: its Python wrapper costs ten times more
+        self._range = torch._C._profiler._RecordFunctionFast(self.name)
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        self.end_ns = time.time_ns()
+        self.rec._stack().pop()
+        return False
+
+
+class Recording:
+    """The spans opened while a :func:`recording` is open."""
+
+    def __init__(self):
+        self._open: List[_Span] = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _stack(self) -> List[_Span]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    @property
+    def spans(self) -> List[SpanRecord]:
+        """Every span opened so far, in the order they opened."""
+        return [SpanRecord(s.name, None if s.parent is None else s.parent.index, s.thread,
+                           s.start_ns, s.end_ns, s.ids) for s in list(self._open)]
+
+
+_recording: Optional[Recording] = None
+
+# the block spans' names, built once: BLOCK_DOWN[i] == "block.down.<i>"
+BLOCK_DOWN = tuple(f"block.down.{i}" for i in range(16))
+BLOCK_UP = tuple(f"block.up.{i}" for i in range(16))
+
+
+def span(name: str, **ids):
+    """A span named ``name`` (its ``ids``: step, clip, ... numbers kept with
+    it) around a ``with`` block; a no-op unless a :func:`recording` is open."""
+    rec = _recording
+    if rec is None:
+        return _NO_SPAN
+    return _Span(rec, name, ids)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every span opened in the block (module doc); yields the
+    :class:`Recording`. Recordings do not nest."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("a span recording is already open")
+    rec = _recording = Recording()
+    try:
+        yield rec
+    finally:
+        _recording = None
 
 
 @contextlib.contextmanager
@@ -39,67 +155,3 @@ def trace(log_dir: str):
         yield prof
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def _sync(result) -> None:
-    """Wait for every CUDA device holding a tensor of ``result`` (nested
-    lists, tuples and dicts walked)."""
-    devices = set()
-
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                devices.add(x.device)
-        elif isinstance(x, dict):
-            for v in x.values():
-                walk(v)
-        elif isinstance(x, (list, tuple)):
-            for v in x:
-                walk(v)
-
-    walk(result)
-    for dev in devices:
-        torch.cuda.synchronize(dev)
-
-
-class StepTimer:
-    """Host-clock step times: ``with timer:`` times a block;
-    ``block_and_stop(result)`` ends the step begun at ``__enter__`` once the
-    result's devices are done."""
-
-    def __init__(self):
-        self.times: List[float] = []
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.times.append(time.perf_counter() - self._t0)
-
-    def block_and_stop(self, result):
-        _sync(result)
-        self.times.append(time.perf_counter() - self._t0)
-        return result
-
-    def stats(self) -> Dict[str, float]:
-        arr = np.asarray(self.times)
-        if arr.size == 0:
-            return {}
-        return {"mean_s": float(arr.mean()), "p50_s": float(np.percentile(arr, 50)),
-                "p95_s": float(np.percentile(arr, 95)), "min_s": float(arr.min()),
-                "steps": int(arr.size)}
-
-
-def device_memory_stats() -> Dict[str, Dict[str, int]]:
-    """{"cuda:i": {"bytes_in_use", "peak_bytes_in_use"}} of PyTorch's
-    allocator on each CUDA device; {} without one."""
-    if not torch.cuda.is_available():
-        return {}
-    out = {}
-    for i in range(torch.cuda.device_count()):
-        stats = torch.cuda.memory_stats(i)
-        out[f"cuda:{i}"] = {"bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
-                            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0))}
-    return out

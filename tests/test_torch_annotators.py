@@ -31,9 +31,10 @@ JAX class reads the same file through its converter.
   ``.safetensors`` HED) before any network loads.
 - ``train_torch.main`` on a PNG-frame clip with softedge and openpose
   extracted through ``CTRL_ADAPTER_ANNOTATORS`` (thin towers, one step).
-- ``utils/profiling.py``: ``StepTimer.stats`` equal to JAX's on the same
-  times, ``trace`` writes a Chrome trace holding an ``annotate`` range,
-  ``device_memory_stats`` is ``{}`` without a card.
+- ``utils/profiling.py``: ``trace`` writes a Chrome trace, as the JAX
+  module's ``trace`` writes its profile, holding a span recorded inside it;
+  the recording holds it too, and outside a recording a span is the shared
+  no-op.
 
 One JAX compile per network (the JAX detector's own jitted apply serves the
 network check); torch at one thread.
@@ -459,24 +460,15 @@ def test_train_cli_extracts_softedge_and_openpose(ckpts, tmp_path, monkeypatch):
 
 # --------------------------------------------------------------- profiling
 def test_profiling_matches_jax(tmp_path):
-    from ctrl_adapter_tpu.utils import profiling as jprof
     from ctrl_adapter_tpu_torch.utils import profiling as tprof
 
-    times = [0.5, 0.25, 1.0, 0.125, 0.75, 0.375]
-    port, ref = tprof.StepTimer(), jprof.StepTimer()
-    port.times, ref.times = list(times), list(times)
-    assert port.stats() == ref.stats() and port.stats()["steps"] == 6
-    assert tprof.StepTimer().stats() == {} == jprof.StepTimer().stats()
-    with port:
-        pass
-    port.__enter__()
-    x = torch.ones(3)
-    assert port.block_and_stop({"a": [x, (x,)]}) == {"a": [x, (x,)]}
-    assert len(port.times) == 8 and min(port.times[-2:]) >= 0
-    with tprof.trace(str(tmp_path / "trace")):
-        with tprof.annotate("annotator_profiling_span"):
-            torch.ones(8) @ torch.ones(8)
+    assert tprof.span("annotator_profiling_span") is tprof.span("another")
+    with tprof.recording() as rec:
+        with tprof.trace(str(tmp_path / "trace")):
+            with tprof.span("annotator_profiling_span", clip=2):
+                torch.ones(8) @ torch.ones(8)
     with open(tmp_path / "trace" / "trace.json") as fh:
         assert "annotator_profiling_span" in fh.read()
-    if not torch.cuda.is_available():
-        assert tprof.device_memory_stats() == {}
+    (only,) = rec.spans
+    assert only.name == "annotator_profiling_span" and only.ids == {"clip": 2}
+    assert only.parent is None and only.start_ns <= only.end_ns
