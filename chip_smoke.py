@@ -1226,36 +1226,54 @@ def k1_row(rand, flush, shape, silu, n, flat=False):
 
 
 def k2_row(rand, shape, flush=None, library_device=False):
-    """K2 against its plain version at (B, N, T, 64) on head-split views of
+    """K2 against its plain version at (B, N, T, H) on head-split views of
     (B, T, N*H) projections, as the Attention module passes them, timed beside
     its bound, its plain version and SDPA; with ``flush``, also on device
     time, warm and with L2 cold, and with ``library_device`` SDPA's default
-    backend on the same clocks."""
+    backend on the same clocks. At H = 40 or 80 the entry is K2 narrow
+    (``attention_narrow``; bound ``roofline.attention_narrow``: the tensor
+    cores at the true H or the SFU's exponentials, the larger), which must
+    not launch K2's own entry."""
     from ctrl_adapter_tpu_torch.ops import flash_attention as fa
     from ctrl_adapter_tpu_torch.ops import roofline as rl
 
     b_, n_, t_, h_ = shape
+    narrow = h_ in fa.NARROW_HEADS
+    entry = fa.attention_narrow if narrow else fa.attention_bnth
     q, k, v = (rand(b_, t_, n_ * h_).to(torch.bfloat16).view(b_, t_, n_, h_).transpose(1, 2)
                for _ in range(3))
-    got = fa.attention_bnth(q, k, v)
+    before = fa.KERNEL.launches
+    got = entry(q, k, v)
     # the plain version runs the batch in chunks of ~1 GiB of fp32 logits
     want = fa._torch_attention(q, k, v)
     torch.cuda.synchronize()
+    if narrow and fa.KERNEL.launches != before:
+        raise RuntimeError("K2 narrow launched K2's own entry")
     # the outputs average T keys (std ~0.03 here), far below atol: the norm
     # check catches a K/V tile that is skipped or read from the wrong slot
     label = f"({b_},{n_},{t_},{h_})"
-    err = compare(f"K2 {label}", got, want, atol=1e-2, rtol=2e-2, rel_norm=1e-2)
-    ms = cuda_ms(lambda: fa.attention_bnth(q, k, v))
+    err = compare(f"K2{' narrow' if narrow else ''} {label}", got, want, atol=1e-2, rtol=2e-2,
+                  rel_norm=1e-2)
+    ms = cuda_ms(lambda: entry(q, k, v))
     pms = cuda_ms(lambda: fa._torch_attention(q, k, v), iters=3, reps=3, warmup=1)
     library = sdpa_times(q, k, v)
-    row = report(label, err, ms, pms, rl.attention(b_, n_, t_, t_, h_), library)
+    cost = (rl.attention_narrow if narrow else rl.attention)(b_, n_, t_, t_, h_)
+    row = report(label, err, ms, pms, cost, library)
     if flush is not None:  # the yardstick: the first library call, SDPA's default backend
         import torch.nn.functional as F
 
-        device_line(row, lambda: fa.attention_bnth(q, k, v), flush,
+        device_line(row, lambda: entry(q, k, v), flush,
                     (next(iter(library)), lambda: F.scaled_dot_product_attention(q, k, v))
                     if library_device else None)
     return row
+
+
+# K2 narrow: the SD-v1.5 ControlNet's self-attentions at a 64^2 latent, down.0
+# (T = 4096, 8 heads of 40) and down.1 (T = 1024, 8 heads of 80), at the SVD
+# clip's CFG batch (28), I2VGen-XL's (32) and SVD training's (14); 4 launches
+# per ControlNet forward (two of each level)
+K2_NARROW_SHAPES = ((28, 8, 4096, 40), (32, 8, 4096, 40), (14, 8, 4096, 40), (28, 8, 1024, 80),
+                    (32, 8, 1024, 80))
 
 
 def hybrid_row(rand, flush, label, dims, n_ctrl, n_unet):
@@ -1434,6 +1452,11 @@ def check_kernels(dev, card):
     k2 = [k2_row(rand, (b_, n_, t_, 64), flush, True)
           for b_, n_, t_ in ((28, 5, 4096), (28, 10, 1024))]
     results["flash_attention"] = k2
+    # K2 narrow: the ControlNet's head dims 40 and 80 on K2's 64- and
+    # 128-column tiles (printed only: no kernel counter of the slice's checks)
+    print(f"K2 narrow (bf16, H = 40 and 80 on K2's 64- and 128-column tiles) on {card}")
+    for shape in K2_NARROW_SHAPES:
+        k2_row(rand, shape, flush, True)
     results["flash_attention_bwd"] = check_flash_bwd(dev, card, rand, flush)
     check_kernel_grads(dev, card, rand)
 
@@ -1610,6 +1633,7 @@ def plain_kernels():
 
     swaps = [(gn, "group_norm_silu", gn._torch_group_norm_silu),
              (fa, "attention_bnth", fa._torch_attention),
+             (fa, "attention_narrow", fa._torch_attention),
              (ft, "temporal_block", ft._torch_temporal_block),
              (ft, "temporal_block_full", ft._torch_temporal_block),
              (fb, "ln_ff_kernel", fb._torch_ln_ff_residual),

@@ -33,7 +33,13 @@
 //   (training), each row's log-sum-exp of the scaled logits, (m + log2 l) ln 2,
 //   goes to it in fp32 for the backward (csrc/flash_attention_bwd.cu); with a
 //   null pointer nothing more is written.
-// Shapes: T % 128 == 0, H in {64, 128}; the views need 16-byte aligned bases
+// Head dims 40 and 80 run the same code at HD = 64 and 128
+// (flash_fwd_narrow_kernel): the tensor maps declare the true H columns and
+// keep 64-column boxes, so TMA fills the columns past H with zeros (it reads
+// nothing of the next head's), Q K^T over them is exact, P V gives zero
+// columns there, and the epilogue stores H / 8 column groups; the padded
+// products cost about as long as the exp2 work, which bounds these shapes.
+// Shapes: T % 128 == 0, H in {40, 64, 80, 128}; the views need 16-byte aligned bases
 // and byte strides that are multiples of 16 (TMA), which ops/flash_attention.py
 // checks. The host plan (ops/flash_attention.py:plan) chooses the grid and the
 // shared memory; cak_flash_attention refuses a plan that does not match Cfg.
@@ -74,13 +80,15 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows, int kk)
   return wgmma_desc(addr, 16, 1024, 1);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
-                     const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int N, int T, int n_work, int64_t osb,
-                     int64_t osn, int64_t ost, float scale_log2) {
+// The kernel at Cfg<HD> for a true head dim HT <= HD (the header's "Head dims
+// 40 and 80"): only HT columns are stored.
+template <int HD, int HT>
+__device__ __forceinline__ void flash_fwd(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                          const CUtensorMap& tm_v, bf16* __restrict__ o,
+                                          float* __restrict__ lse, int N, int T, int n_work,
+                                          int64_t osb, int64_t osn, int64_t ost,
+                                          float scale_log2) {
+  static_assert(HT % 8 == 0 && HT <= HD, "stores whole 8-column groups of the tile");
   using C = Cfg<HD>;
   constexpr int S = C::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -304,13 +312,36 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (lse != nullptr && t4 == 0)
           lse[(int64_t(b) * N + n) * T + row] = (m_run[h] + __log2f(l)) * 0.6931471805599453f;
 #pragma unroll
-        for (int d = 0; d < HD / 8; ++d) {
+        for (int d = 0; d < HT / 8; ++d) {
           *reinterpret_cast<uint32_t*>(ob + int64_t(row) * ost + d * 8 + 2 * t4) =
               pack_bf16(o_acc[4 * d + 2 * h] * inv, o_acc[4 * d + 2 * h + 1] * inv);
         }
       }
     }
   }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int N, int T, int n_work, int64_t osb,
+                     int64_t osn, int64_t ost, float scale_log2) {
+  flash_fwd<HD, HD>(tm_q, tm_k, tm_v, o, lse, N, T, n_work, osb, osn, ost, scale_log2);
+}
+
+// Head dims 40 and 80 (the SD-v1.5 ControlNet's 8 heads at 320 and 640
+// channels) on the tiles of HD = 64 and 128; a name of its own, so that a
+// trace tells it from the kernel above.
+template <int HD, int HT>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_narrow_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                            float* __restrict__ lse, int N, int T, int n_work, int64_t osb,
+                            int64_t osn, int64_t ost, float scale_log2) {
+  flash_fwd<HD, HT>(tm_q, tm_k, tm_v, o, lse, N, T, n_work, osb, osn, ost, scale_log2);
 }
 
 // The (B, N, T, H) view at `p` with element strides sb, sn, st as a 4-D map
@@ -324,24 +355,32 @@ bool make_map(CUtensorMap* map, const void* p, int B, int N, int T, int H, int64
 }
 
 // Launches the plan's grid of persistent CTAs (1 .. n_work) with its shared
-// memory, which must be Cfg<HD>'s.
-template <int HD>
+// memory, which must be Cfg<HD>'s; head dim HT, maps of HT columns.
+template <int HD, int HT = HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int N, int T, int grid, int smem, const int64_t* st, float scale,
                    cudaStream_t stream) {
   const int n_work = (T / kBM) * B * N;  // Q tiles over all (b, n) pairs
   if (smem != Cfg<HD>::kSmem || grid < 1 || grid > n_work) return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, B, N, T, HD, st[0], st[1], st[2]) ||
-      !make_map(&mk, k, B, N, T, HD, st[3], st[4], st[5]) ||
-      !make_map(&mv, v, B, N, T, HD, st[6], st[7], st[8]))
+  if (!make_map(&mq, q, B, N, T, HT, st[0], st[1], st[2]) ||
+      !make_map(&mk, k, B, N, T, HT, st[3], st[4], st[5]) ||
+      !make_map(&mv, v, B, N, T, HT, st[6], st[7], st[8]))
     return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
   const float scale_log2 = scale * 1.4426950408889634f;
-  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(o), lse, N, T, n_work, st[9], st[10], st[11], scale_log2);
+  if constexpr (HT == HD) {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
+        mq, mk, mv, static_cast<bf16*>(o), lse, N, T, n_work, st[9], st[10], st[11], scale_log2);
+  } else {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_narrow_kernel<HD, HT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    flash_fwd_narrow_kernel<HD, HT><<<grid, kThreads, smem, stream>>>(
+        mq, mk, mv, static_cast<bf16*>(o), lse, N, T, n_work, st[9], st[10], st[11], scale_log2);
+  }
   return cudaGetLastError();
 }
 
@@ -365,6 +404,10 @@ extern "C" int cak_flash_attention(const void* q, const void* k, const void* v, 
     e = launch<64>(q, k, v, o, static_cast<float*>(lse), B, N, T, grid, smem, st, scale, s);
   } else if (H == 128) {
     e = launch<128>(q, k, v, o, static_cast<float*>(lse), B, N, T, grid, smem, st, scale, s);
+  } else if (H == 40) {
+    e = launch<64, 40>(q, k, v, o, static_cast<float*>(lse), B, N, T, grid, smem, st, scale, s);
+  } else if (H == 80) {
+    e = launch<128, 80>(q, k, v, o, static_cast<float*>(lse), B, N, T, grid, smem, st, scale, s);
   } else {
     e = cudaErrorInvalidValue;
   }

@@ -32,6 +32,15 @@ parts of each operand, three tensor-core passes, fp32's accuracy) on tiles that
 a prologue launch splits into a workspace the wrapper allocates, planned by
 :func:`fp32_plan` and :func:`fp32_bwd_plan`; their gradients are sums in a
 fixed order, the same bits from call to call. Any other dtype raises on a card.
+
+Head dims 40 and 80 (the SD-v1.5 ControlNet's 8 heads at 320 and 640
+channels) are outside the JAX rule, so ``Attention`` sends them to
+:func:`dot_product_attention`. There, bf16 self-attention at T >= 1024 on a
+Hopper card without grad (:func:`narrow_eligible`) takes :func:`attention_narrow`:
+K2's forward at the padded head dim, 64 or 128 (:data:`NARROW_HEADS`), whose
+tensor maps declare the true H columns so that TMA fills the rest of each tile
+with zeros (``csrc/flash_attention.cu``, ``flash_fwd_narrow_kernel``), counted
+by :data:`KERNEL_NARROW` apart from K2's own launches.
 """
 
 from __future__ import annotations
@@ -66,7 +75,9 @@ KERNEL_FP32_BWD = Kernel("cak_flash_attention_fp32_bwd", [
     *([ctypes.c_void_p] * 11), *([ctypes.c_int] * 6), ctypes.POINTER(ctypes.c_int64),
     ctypes.c_float, ctypes.c_void_p,
 ])
+KERNEL_NARROW = Kernel(KERNEL.symbol, KERNEL.argtypes)  # K2 at H = 40 or 80 (bf16)
 DTYPES = (torch.bfloat16, torch.float32)  # the types the kernels take
+NARROW_HEADS = {40: 64, 80: 128}  # head dim -> the tile width K2 runs it at
 
 
 BLOCK_Q = 128     # query rows per CTA: two consumer warpgroups of 64
@@ -95,6 +106,14 @@ def plan(b: int, n: int, t: int, h: int, sms: int) -> FlashPlan:
     assert smem <= SMEM_PER_BLOCK
     work = (t // BLOCK_Q) * b * n
     return FlashPlan(work=work, grid=(min(work, sms),), stages=stages, smem_bytes=smem)
+
+
+def narrow_plan(b: int, n: int, t: int, h: int, sms: int) -> FlashPlan:
+    """The launch of K2 for (b, n, t, h) inputs at H = 40 or 80: :func:`plan`
+    at the padded head dim, whose ``Cfg`` the C side runs it with."""
+    if h not in NARROW_HEADS:
+        raise ValueError(f"attention_narrow: needs H in {tuple(NARROW_HEADS)}, got H={h}")
+    return plan(b, n, t, NARROW_HEADS[h], sms)
 
 
 BWD_KEYS = 128     # backward: keys per CTA, two consumer warpgroups of 64
@@ -250,6 +269,16 @@ def tma_view_error(shape, strides, data_ptr: int, itemsize: int = 2) -> Optional
 def flash_eligible(tq: int, tk: int, head_dim: int) -> bool:
     """The JAX shape rule for the flash kernel (``ops/flash_attention.py:71-94``)."""
     return tq == tk and tq >= MIN_SEQ and tq % _BLOCK == 0 and head_dim in (64, 128)
+
+
+def narrow_eligible(tq: int, tk: int, head_dim: int, dtype: torch.dtype, hopper: bool,
+                    grad: bool) -> bool:
+    """Whether :func:`dot_product_attention` takes :func:`attention_narrow`: a
+    self-attention of T >= 1024 keys, T a multiple of K2's 128-row tiles, at
+    head dim 40 or 80, in bf16 on a Hopper card (``hopper``), with no input
+    that needs a gradient (``grad``: the kernel saves nothing for a backward)."""
+    return (tq == tk and tq >= MIN_SEQ and tq % BLOCK_Q == 0 and head_dim in NARROW_HEADS
+            and dtype == torch.bfloat16 and hopper and not grad)
 
 
 def _torch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -432,9 +461,39 @@ def attention_bnth_bwd(q, k, v, o, do, lse):
     return dq, dk, dv
 
 
+def attention_narrow(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Self-attention over (B, N, T, H) bf16 views at H = 40 or 80 on a Hopper
+    card, without grad: K2 at the padded head dim (:func:`narrow_plan`), one
+    launch counted by :data:`KERNEL_NARROW`; raises for a view TMA cannot map.
+    Returns a (B, N, T, H) view of a (B, T, N, H) contiguous tensor."""
+    if not is_hopper(q):
+        raise RuntimeError(f"attention_narrow: kernel needs an sm_90 device, got {q.device}")
+    if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
+        raise ValueError(f"attention_narrow: self-attention shapes differ: "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"attention_narrow: {name} on {x.device}, q on {q.device}")
+        _check(name, x, torch.bfloat16)
+    b, n, t, h = q.shape
+    p = narrow_plan(b, n, t, h, sm_count(q.device))
+    out = _bthn_empty(q)
+    strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
+    KERNEL_NARROW(ptr(q), ptr(k), ptr(v), ptr(out), None, b, n, t, h, p.grid[0], p.smem_bytes,
+                  *strides, float(h ** -0.5), stream_of(q))
+    return out
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B, T, N, H) attention: the single-key, tiny-sequence and plain paths of
-    the JAX dispatcher (span ``op.attention.plain``)."""
+    """(B, T, N, H) attention: K2 at head dims 40 and 80 where
+    :func:`narrow_eligible` admits the call (span ``op.attention.narrow``), else
+    the single-key, tiny-sequence and plain paths of the JAX dispatcher (span
+    ``op.attention.plain``)."""
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if narrow_eligible(q.shape[1], k.shape[1], q.shape[-1], q.dtype, is_hopper(q), grad):
+        with profiling.span("op.attention.narrow"):
+            return attention_narrow(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2)).transpose(1, 2)
     with profiling.span("op.attention.plain"):
         tk = k.shape[1]
         if tk == 1:

@@ -25,6 +25,8 @@ H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores
 H100_TF32_FLOPS = 494.5e12  # tensor cores, dense tf32
 TF32X3_FLOPS = H100_TF32_FLOPS / 3  # fp32 products as three tf32 passes
 H100_BYTES_PER_S = 3.35e12  # HBM3
+H100_SM_CLOCK = 1.83e9      # the clock of the peaks above: 989 TFLOP/s = 132 SMs x 4,096 flop
+H100_EXP2_PER_S = 132 * 16 * H100_SM_CLOCK  # ex2 on the SFUs, 16 a clock per SM
 BF16 = 2                    # bytes per element
 FP32 = 4
 
@@ -34,6 +36,7 @@ class Cost:
     flops: float
     bytes: float
     peak_flops: float = H100_BF16_FLOPS
+    exps: float = 0.0  # exponentials on the SFUs, counted where they can bound the kernel
 
     @property
     def compute_ms(self) -> float:
@@ -44,11 +47,17 @@ class Cost:
         return 1e3 * self.bytes / H100_BYTES_PER_S
 
     @property
+    def exp_ms(self) -> float:
+        return 1e3 * self.exps / H100_EXP2_PER_S
+
+    @property
     def bound_ms(self) -> float:
-        return max(self.compute_ms, self.memory_ms)
+        return max(self.compute_ms, self.memory_ms, self.exp_ms)
 
     @property
     def bound_by(self) -> str:
+        if self.exp_ms > max(self.compute_ms, self.memory_ms):
+            return "exponentials"
         return "operations" if self.compute_ms >= self.memory_ms else "bytes"
 
 
@@ -67,6 +76,15 @@ def attention(b: int, n: int, t: int, s: int, h: int, itemsize: int = BF16) -> C
     on the tensor cores, or (``itemsize`` 4) fp32 in 3xTF32."""
     return Cost(flops=4 * b * n * t * s * h, bytes=itemsize * b * n * h * (2 * t + 2 * s),
                 peak_flops=H100_BF16_FLOPS if itemsize == BF16 else TF32X3_FLOPS)
+
+
+def attention_narrow(b: int, n: int, t: int, s: int, h: int) -> Cost:
+    """K2 at head dim 40 or 80 (bf16): the products at the true H on the
+    tensor cores (the padded columns are the kernel's cost, not the
+    function's), and one exponential a logit on the SFUs, which bounds these
+    head dims at T = 4096."""
+    return Cost(flops=4 * b * n * t * s * h, bytes=BF16 * b * n * h * (2 * t + 2 * s),
+                exps=b * n * t * s)
 
 
 def attention_bwd(b: int, n: int, t: int, h: int, itemsize: int = BF16) -> Cost:

@@ -138,6 +138,103 @@ def test_gpu_k2_kernel_matches_plain(t, h, layout):
     _check(got, want, atol=1e-2, rtol=2e-2, rel_norm=1e-2)
 
 
+# the SD-v1.5 ControlNet's self-attentions at a 64^2 latent: down.0 (T = 4096,
+# 8 heads of 40) and down.1 (T = 1024, 8 heads of 80), at the SVD clip's CFG
+# batch (28), I2VGen-XL's (32) and SVD training's (14)
+NARROW_SHAPES = [(28, 8, 4096, 40), (32, 8, 4096, 40), (14, 8, 4096, 40), (28, 8, 1024, 80),
+                 (32, 8, 1024, 80)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,t,h", NARROW_SHAPES,
+                         ids=["svd-down0", "i2vgenxl-down0", "svd-train-down0", "svd-down1",
+                              "i2vgenxl-down1"])
+def test_gpu_k2_narrow_matches_plain(b, n, t, h):
+    """K2 at head dims 40 and 80 on head-split views of (B, T, N*H)
+    projections (head strides of 80 and 160 bytes), against the plain
+    version with K2's tolerance: the columns TMA fills past H with zeros
+    neither take the next head's values nor reach the output. One launch of
+    the narrow entry, none of K2's own."""
+    dev = _dev()
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (_rand(g, dev, b, t, n * h).to(BF).view(b, t, n, h).transpose(1, 2)
+               for _ in range(3))
+    k2 = tfa.KERNEL.launches
+    got = _launches(tfa.KERNEL_NARROW, lambda: tfa.attention_narrow(q, k, v))
+    assert tfa.KERNEL.launches == k2
+    assert got.shape == q.shape and got.transpose(1, 2).is_contiguous()
+    _check(got, tfa._torch_attention(q, k, v), atol=1e-2, rtol=2e-2, rel_norm=1e-2)
+
+
+@pytest.mark.gpu
+def test_gpu_dot_product_attention_takes_k2_narrow_where_the_rule_admits_it():
+    """``dot_product_attention`` on (B, T, N, H) views: bf16 self-attention of
+    T >= 1024 at H = 40 or 80 without grad launches K2 narrow once and
+    matches the plain path; fp32, T = 256, a cross-attention of 77 keys,
+    inputs that require grad and H = 64 stay plain."""
+    dev = _dev()
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def proj(t, h, dtype=BF, n=8, b=2):
+        return _rand(g, dev, b, t, n * h).to(dtype).view(b, t, n, h)
+
+    def plain(q, k, v):
+        return tfa._torch_attention(*(x.transpose(1, 2) for x in (q, k, v))).transpose(1, 2)
+
+    for t, h in ((4096, 40), (1024, 80)):
+        q, k, v = proj(t, h), proj(t, h), proj(t, h)
+        got = _launches(tfa.KERNEL_NARROW, lambda: tfa.dot_product_attention(q, k, v))
+        assert got.is_contiguous()
+        _check(got, plain(q, k, v), atol=1e-2, rtol=2e-2, rel_norm=1e-2)
+    grad = proj(1024, 40).requires_grad_()
+    cases = {"fp32": [proj(1024, 40, torch.float32)] * 3, "t256": [proj(256, 40)] * 3,
+             "cross": [proj(1024, 40), proj(77, 40), proj(77, 40)],
+             "grad": [grad, proj(1024, 40), proj(1024, 40)], "h64": [proj(1024, 64)] * 3}
+    for name, (q, k, v) in cases.items():
+        before = tfa.KERNEL_NARROW.launches, tfa.KERNEL.launches
+        got = tfa.dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert (tfa.KERNEL_NARROW.launches, tfa.KERNEL.launches) == before, name
+        _check(got.detach(), plain(q.detach(), k, v), atol=1e-2, rtol=2e-2, rel_norm=1e-2)
+
+
+@pytest.mark.gpu
+def test_gpu_controlnet_at_a_64_latent_takes_k2_narrow_four_times(monkeypatch):
+    """One forward of the SD-v1.5 ControlNet at a 64^2 latent, as both
+    generation cells run it: its two down.0 and two down.1 self-attentions
+    are 4 launches of K2 narrow under ``op.attention.narrow``; no
+    self-attention of T >= 1024 is left to the plain path, and K2's own
+    kernel, which none of the ControlNet's heads fit, does not launch."""
+    from ctrl_adapter_tpu_torch.models.controlnet import ControlNetConfig, ControlNetModel
+    from ctrl_adapter_tpu_torch.utils import profiling
+
+    dev = _dev()
+    torch.manual_seed(0)
+    net = ControlNetModel(ControlNetConfig(), device=dev, dtype=BF)
+    plain_lengths, orig = [], tfa._torch_attention
+
+    def spy(q, k, v, *args):
+        plain_lengths.append((q.shape[2], k.shape[2]))
+        return orig(q, k, v, *args)
+
+    monkeypatch.setattr(tfa, "_torch_attention", spy)
+    g = torch.Generator(device=dev).manual_seed(7)
+    b = 2
+    sample = _rand(g, dev, b, 4, 64, 64).to(BF)
+    text = _rand(g, dev, b, 77, 768).to(BF)
+    cond = torch.rand(b, 3, 512, 512, generator=g, device=dev).to(BF)
+    narrow, k2 = tfa.KERNEL_NARROW.launches, tfa.KERNEL.launches
+    with torch.no_grad(), profiling.recording() as rec:
+        down, mid = net(sample, 500, text, cond)
+    torch.cuda.synchronize()
+    assert tfa.KERNEL_NARROW.launches - narrow == 4
+    assert tfa.KERNEL.launches == k2
+    assert [s.name for s in rec.spans].count("op.attention.narrow") == 4
+    assert not [tk for tq, tk in plain_lengths if tq == tk and tq >= 1024], plain_lengths
+    assert plain_lengths  # the cross-attentions and down.2's T = 256 stay plain
+    assert all(torch.isfinite(x.float()).all() for x in (*down, mid))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n,t,h", [(2, 3, 1024, 64), (1, 2, 4096, 64), (2, 2, 1024, 128),
                                      (2, 3, 128, 64), (1, 2, 128, 128), (3, 7, 2048, 64),

@@ -161,6 +161,52 @@ def test_k2_dot_product_attention_paths_match_jax(tq, tk):
     assert_close(got.numpy(), want, atol=2e-5, what=f"K2 {tq}x{tk}")
 
 
+# ------------------------------------------- K2 narrow: head dims 40 and 80
+# (tq, tk, H, dtype, on a Hopper card, an input that needs grad) -> whether
+# ``dot_product_attention`` takes K2 narrow
+_NARROW_RULE = {
+    "svd-down0": ((4096, 4096, 40, torch.bfloat16, True, False), True),
+    "svd-down1": ((1024, 1024, 80, torch.bfloat16, True, False), True),
+    "h64": ((4096, 4096, 64, torch.bfloat16, True, False), False),
+    "h128": ((1024, 1024, 128, torch.bfloat16, True, False), False),
+    "down2-t256": ((256, 256, 40, torch.bfloat16, True, False), False),
+    "t1088": ((1088, 1088, 40, torch.bfloat16, True, False), False),
+    "cross-77": ((4096, 77, 40, torch.bfloat16, True, False), False),
+    "fp32": ((4096, 4096, 40, torch.float32, True, False), False),
+    "grad": ((4096, 4096, 40, torch.bfloat16, True, True), False),
+    "cpu": ((1024, 1024, 80, torch.bfloat16, False, False), False),
+}
+
+
+@pytest.mark.parametrize("case", list(_NARROW_RULE))
+def test_k2_narrow_rule_and_jax_rule_unchanged(case):
+    """The narrow entry's rule, and beside it JAX's rule (``flash_eligible``,
+    which ``Attention``'s K2 branch keeps) on the same shapes: JAX's takes
+    H = 64 and 128 only, so the two never take the same call."""
+    args, want = _NARROW_RULE[case]
+    assert tfa.narrow_eligible(*args) == want
+    tq, tk, h = args[:3]
+    shape = lambda t: jax.ShapeDtypeStruct((1, t, 8, h), jnp.float32)  # noqa: E731
+    assert tfa.flash_eligible(tq, tk, h) == jfa._eligible(shape(tq), shape(tk))
+    assert not (want and tfa.flash_eligible(tq, tk, h))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_narrow_head_dim_40_on_the_cpu_stays_plain_and_matches_jax(dtype):
+    """At (2, 1024, 8, 40) on the CPU ``dot_product_attention`` keeps the plain
+    path (no card): it matches ``jax.nn.dot_product_attention`` and the narrow
+    entry's counter does not move."""
+    rng = np.random.default_rng(8)
+    q, k, v = (rng.standard_normal((2, 1024, 8, 40)).astype(np.float32) for _ in range(3))
+    ins = [torch.from_numpy(a).to(dtype) for a in (q, k, v)]
+    want = jax.nn.dot_product_attention(*(jnp.asarray(x.float().numpy()) for x in ins))
+    before = tfa.KERNEL_NARROW.launches, tfa.KERNEL.launches
+    got = tfa.dot_product_attention(*ins)
+    assert (tfa.KERNEL_NARROW.launches, tfa.KERNEL.launches) == before
+    atol = 2e-5 if dtype == torch.float32 else 2e-2  # bf16: one rounding of P and of out
+    assert_close(got.float().numpy(), want, atol=atol, what=f"dot_product_attention H=40 {dtype}")
+
+
 # ---------------------------------------------------- K3 temporal attention
 def _temporal_params(rng, c, ia):
     mk = lambda *s, sc=0.05: (rng.standard_normal(s) * sc).astype(np.float32)  # noqa: E731

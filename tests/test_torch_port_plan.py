@@ -71,6 +71,41 @@ def test_flash_plan_refuses_what_the_tiling_does_not_fit(t, h):
         fa.plan(2, 3, t, h, sms=132)
 
 
+@pytest.mark.parametrize("b,n,t,h,padded", [
+    (28, 8, 4096, 40, 64), (32, 8, 4096, 40, 64), (14, 8, 4096, 40, 64),
+    (28, 8, 1024, 80, 128), (32, 8, 1024, 80, 128),
+], ids=["svd-down0", "i2vgenxl-down0", "svd-train-down0", "svd-down1", "i2vgenxl-down1"])
+def test_flash_narrow_plan_is_k2s_at_the_padded_head_dim(b, n, t, h, padded):
+    """K2 narrow runs H = 40 on ``Cfg<64>`` and H = 80 on ``Cfg<128>``: the same
+    Q tiles, grid, ring and shared memory as K2 at the padded width."""
+    p = fa.narrow_plan(b, n, t, h, sms=132)
+    assert p == fa.plan(b, n, t, padded, sms=132)
+    smem = 7 * 16384 + 88 + 1024 if padded == 64 else 5 * 32768 + 64 + 1024
+    assert (p.work, p.grid, p.stages, p.smem_bytes) == ((t // 128) * b * n, (132,),
+                                                        3 if padded == 64 else 2, smem)
+
+
+@pytest.mark.parametrize("t,h", [(4096, 64), (1024, 128), (4096, 48), (1088, 40), (64, 80)])
+def test_flash_narrow_plan_refuses_other_head_dims_and_lengths(t, h):
+    with pytest.raises(ValueError):
+        fa.narrow_plan(2, 8, t, h, sms=132)
+
+
+@pytest.mark.parametrize("h", [40, 80])
+def test_flash_tma_check_takes_the_controlnet_projection_views(h):
+    """The ControlNet's (B, N, T, H) views of its (B, T, 8 * H) projections:
+    head strides of 80 and 160 bytes, row strides of 640 and 1,280 bytes, all
+    multiples of 16, so TMA maps them; a head dim sliced out of 44 columns
+    (88-byte head strides) is refused."""
+    t = 4096 if h == 40 else 1024
+    view = torch.zeros(2, t, 8 * h, dtype=torch.bfloat16).view(2, t, 8, h).transpose(1, 2)
+    assert view.stride() == (t * 8 * h, h, 8 * h, 1)
+    assert fa.tma_view_error(view.shape, view.stride(), view.data_ptr()) is None
+    assert (2 * h, 16 * h) == ({40: 80, 80: 160}[h], {40: 640, 80: 1280}[h])
+    odd = torch.zeros(2, t, 8, h + 4, dtype=torch.bfloat16)[..., :h].transpose(1, 2)
+    assert "multiple of 16" in fa.tma_view_error(odd.shape, odd.stride(), 0)
+
+
 # one pass: a CTA holds 128 keys (K, V) and streams Q, dO tiles of q_tile
 # queries with their L, D (fp32) through two slots; dS^T (bf16, 128 keys x
 # q_tile) in two buffers; each consumer's 64 x 64 fp32 dQ partial; 9 mbarriers
@@ -865,6 +900,23 @@ def test_roofline_attention_hand_worked():
     assert cost.bound_by == "operations"
     assert cost.bound_ms == pytest.approx(601_295_421_440 / 989e9, rel=1e-12)
     assert rl.attention(28, 10, 1024, 1024, 64).bound_ms == pytest.approx(0.0760, abs=1e-4)
+
+
+def test_roofline_attention_narrow_takes_the_larger_of_products_and_exponentials():
+    """K2 narrow's bound: the products at the true H on the tensor cores, or
+    one ex2 a logit on the SFUs (132 SMs x 16 a clock at 1.83 GHz, 3.865e12
+    a second), the larger. At (28, 8, 4096, 40) the exponentials bound it
+    (0.972 ms against 0.608); at (28, 8, 1024, 80) the products (0.0760)."""
+    assert rl.H100_EXP2_PER_S == pytest.approx(3.86496e12, rel=1e-9)
+    down0 = rl.attention_narrow(28, 8, 4096, 4096, 40)
+    assert down0.flops == 4 * 28 * 8 * 4096 * 4096 * 40 == 601_295_421_440
+    assert down0.exps == 28 * 8 * 4096 * 4096
+    assert down0.bound_by == "exponentials"
+    assert down0.bound_ms == pytest.approx(0.97235, abs=1e-5)
+    down1 = rl.attention_narrow(28, 8, 1024, 1024, 80)
+    assert down1.bound_by == "operations"
+    assert down1.bound_ms == pytest.approx(0.0760, abs=1e-4)
+    assert rl.attention(28, 5, 4096, 4096, 64).exps == 0  # K2's rows keep their bound
 
 
 def test_roofline_attention_backward_hand_worked():

@@ -279,3 +279,35 @@ def test_plain_attention_span_fires_where_k2_does_not(tq, cross):
     assert y.shape == x.shape
     k2 = not cross and fa.flash_eligible(tq, tq, 64)
     assert _names(rec)["op.attention.plain"] == int(not k2)
+
+
+@pytest.mark.parametrize("h,tq,narrow", [(40, 1024, True), (80, 1024, True), (40, 256, False)])
+def test_narrow_attention_span_stands_apart_from_the_plain_one(h, tq, narrow, monkeypatch):
+    """A bf16 self-attention at head dim 40 or 80 and T >= 1024, with the card
+    stood in for (``is_hopper`` true, ``attention_narrow`` its plain version),
+    opens ``op.attention.narrow`` on (B, N, T, H) views and no
+    ``op.attention.plain`` around or inside it; T = 256 stays plain. The
+    output is the plain path's, bit for bit."""
+    torch.manual_seed(0)
+    attn = Attention(8 * h, heads=8, dim_head=h, dtype=torch.bfloat16)
+    x = torch.randn(1, tq, 8 * h, dtype=torch.bfloat16)
+    with torch.no_grad():
+        want = attn(x)
+    shapes = []
+
+    def stand_in(q, k, v):
+        shapes.append(tuple(q.shape))
+        return fa._torch_attention(q, k, v)
+
+    monkeypatch.setattr(fa, "is_hopper", lambda t: True)
+    monkeypatch.setattr(fa, "attention_narrow", stand_in)
+    with profiling.recording() as rec, torch.no_grad():
+        got = attn(x)
+    names = _names(rec)
+    assert (names["op.attention.narrow"], names["op.attention.plain"]) == (narrow, not narrow)
+    assert shapes == ([(1, 8, tq, h)] if narrow else [])
+    for i, span in enumerate(rec.spans):
+        if span.name == "op.attention.narrow":
+            assert "op.attention.plain" not in _ancestors(rec.spans, i)
+            assert not [s for s in rec.spans if s.parent == i]
+    assert torch.equal(got, want)
