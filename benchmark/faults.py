@@ -11,7 +11,13 @@ produces it (its first frame inverted). Training: an optimizer step that
 leaves the state unchanged; the loss taken over the first half of the frames
 only (half of the batch's rows left out, the mean taken over the rest); the
 largest leaf of each step's gradient zeroed before the optimizer gets it.
-One chip holds each cell, so no exchange between chips can be left out.
+Training on several cards: rank 1 leaves the exchange out, stepping on its
+own gradient and discarding the average (``ddp_own_gradient``); the
+gradients summed over the ranks where they should be averaged (``ddp_sum``);
+the mean taken over the first half of the ranks only, the others' gradients
+left out (``ddp_subset``; on two ranks, rank 0's gradient in place of the
+mean).
+Every rank still joins each collective, so neither hangs the run.
 """
 
 from __future__ import annotations
@@ -123,7 +129,54 @@ def leaf_zeroed():
     return patched((MasterOptimizer, "step", run))
 
 
+def _all_reduce(change):
+    """The trainer's gradient all-reduce, ``change(flat, group)`` in its place."""
+    from ctrl_adapter_tpu_torch.train import trainer
+
+    return patched((trainer, "all_reduce_mean_", change))
+
+
+def ddp_own_gradient():
+    import torch.distributed as dist
+
+    from ctrl_adapter_tpu_torch.train import trainer
+
+    mean = trainer.all_reduce_mean_
+
+    def own(flat, group):
+        kept = flat.clone()
+        averaged = mean(flat, group)
+        return kept if dist.get_rank(group) == 1 else averaged
+
+    return _all_reduce(own)
+
+
+def ddp_sum():
+    import torch.distributed as dist
+
+    def summed(flat, group):
+        dist.all_reduce(flat, group=group)
+        return flat
+
+    return _all_reduce(summed)
+
+
+def ddp_subset():
+    import torch.distributed as dist
+
+    def first_half(flat, group):
+        kept = dist.get_world_size(group) // 2
+        if dist.get_rank(group) >= kept:
+            flat.zero_()
+        dist.all_reduce(flat, group=group)
+        return flat.div_(kept)
+
+    return _all_reduce(first_half)
+
+
 FAULTS = {"generate": {"state_unchanged": state_unchanged, "half_batch": half_batch,
                        "cfg_half": cfg_half, "answer_altered": answer_altered},
           "train": {"state_unchanged": optimizer_unchanged, "half_frames": half_frames,
-                    "leaf_zeroed": leaf_zeroed}}
+                    "leaf_zeroed": leaf_zeroed, "ddp_own_gradient": ddp_own_gradient,
+                    "ddp_sum": ddp_sum, "ddp_subset": ddp_subset}}
+DDP_FAULTS = ("ddp_own_gradient", "ddp_sum", "ddp_subset")  # faults of the gradients' exchange

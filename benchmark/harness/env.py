@@ -18,6 +18,13 @@ def prepare(root: str) -> None:
     os.environ["USE_JAX"] = "0"
 
 
+def started(t: float) -> float:
+    """The run's start on ``time.perf_counter``'s clock, which on Linux is the
+    host's monotonic clock, the same in every process: ``t`` in the process
+    the run began with, which hands it to the ranks it launches."""
+    return float(os.environ.setdefault("BENCHMARK_T_START", repr(t)))
+
+
 def jax_loaded() -> list:
     """Top-level names among ``sys.modules`` that are JAX or the JAX package,
     compared whole (``ctrl_adapter_tpu_torch`` is not ``ctrl_adapter_tpu``)."""

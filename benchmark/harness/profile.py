@@ -18,7 +18,16 @@ The profiler has been seen to drop events late in a long trace. A trace counts
 only if it holds an event of each op's once-a-launch device function for every
 launch the op's counters saw; else ``run()`` is made again, up to three times,
 and then the segment is "not measured" (None). A partial trace is never
-scaled up.
+scaled up. Where several ranks trace together, a trace counts only where it
+counts on every rank (``agree``), so that all make the same calls.
+
+The program's span recording (``ctrl_adapter_tpu_torch/utils/profiling.py``)
+costs the host some microseconds a span, which a host that paces the device
+turns into idle time. So it is open only in a third trace of the same work
+(``spans=True``), which the modes read for nothing but the spans' table over
+its trace (``harness/spans.py``: device time, launches and idle gaps by
+span), handed to the per-layer readers as ``record["spans"]``; the times and
+the named gaps come from the two traces without it.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from harness import spans as span_table
+
 
 @dataclass
 class Segment:
@@ -44,22 +55,26 @@ class Segment:
     kernel_time_s: float                  # the ops' device functions' seconds
     kernel_calls: Dict[str, int] = field(default_factory=dict)
     result: object = None
+    spans: Optional[span_table.SpanTable] = None  # the program's spans over the trace
 
     def scaled(self, w: float) -> "Segment":
         return Segment(self.busy_s * w, self.span_s * w,
                        {k: v * w for k, v in self.device_ops.items()},
                        {k: v * w for k, v in self.idle_gaps.items()},
                        self.kernel_bound_s * w, self.kernel_time_s * w,
-                       {k: round(v * w) for k, v in self.kernel_calls.items()})
+                       {k: round(v * w) for k, v in self.kernel_calls.items()},
+                       spans=None if self.spans is None else self.spans.scaled(w))
 
     def __add__(self, other: "Segment") -> "Segment":
         def add(a, b):
             return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+        both = self.spans is not None and other.spans is not None
         return Segment(self.busy_s + other.busy_s, self.span_s + other.span_s,
                        add(self.device_ops, other.device_ops), add(self.idle_gaps, other.idle_gaps),
                        self.kernel_bound_s + other.kernel_bound_s,
                        self.kernel_time_s + other.kernel_time_s,
-                       add(self.kernel_calls, other.kernel_calls))
+                       add(self.kernel_calls, other.kernel_calls),
+                       spans=self.spans + other.spans if both else None)
 
 
 def _entry_module(op):
@@ -120,12 +135,18 @@ def _host_op(cpu_starts, cpu_events, t: float) -> str:
 
 
 def trace(run: Callable[[], object], ops: Dict[str, object], host: bool = False,
-          attempts: int = 3, log=print) -> Optional[Segment]:
+          attempts: int = 3, log=print, agree: Callable[[bool], bool] = bool,
+          spans: bool = False) -> Optional[Segment]:
     """``run()`` under the profiler, read as set out in the module's doc;
-    with ``host``, the host's operations are traced too."""
+    with ``host``, the host's operations are traced too; with ``spans``, the
+    program's spans are recorded and their table is the segment's ``spans``.
+    ``agree`` takes whether this rank's trace counts and returns whether
+    every rank's does."""
     from torch.autograd import DeviceType
     from torch.autograd.profiler_util import _rewrite_name
     from torch.profiler import ProfilerActivity, profile
+
+    from ctrl_adapter_tpu_torch.utils import profiling
 
     once = {name: _pattern(op.ONE_PER_LAUNCH) for name, op in ops.items()}
     owned = {name: _pattern(op.DEVICE_FUNCTIONS) for name, op in ops.items()}
@@ -134,7 +155,8 @@ def trace(run: Callable[[], object], ops: Dict[str, object], host: bool = False,
         before = _launches(ops)
         bounds, calls = {}, {}
         activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
-        with recorded(ops, bounds, calls), profile(activities=activities) as prof:
+        recording = profiling.recording() if spans else contextlib.nullcontext()
+        with recorded(ops, bounds, calls), recording as rec, profile(activities=activities) as prof:
             result = run()
             torch.cuda.synchronize()
         launched = {k: v - before[k] for k, v in _launches(ops).items()}
@@ -156,7 +178,7 @@ def trace(run: Callable[[], object], ops: Dict[str, object], host: bool = False,
         short = {k: (sum(1 for _, _, n in kern if once[k].search(n)), n)
                  for k, n in launched.items()}
         short = {k: v for k, v in short.items() if v[0] < v[1]}
-        if kern and not short:
+        if agree(bool(kern) and not short):
             break
         log(f"profile: trace {attempt + 1} of {attempts} is partial ("
             + (", ".join(f"{k} {a} events of {b} launches" for k, (a, b) in short.items())
@@ -178,10 +200,16 @@ def trace(run: Callable[[], object], ops: Dict[str, object], host: bool = False,
         gaps[name] = gaps.get(name, 0.0) + (nxt - end) / 1e6
     kernel_time = sum(sec for n, sec in per_name.items()
                       if any(p.search(n) for p in owned.values()))
-    log(f"profile: {len(kern)} device events, {len(cpu)} host events, read in "
+    table, read = None, ""
+    if spans:
+        kernels, launches, trace_start = span_table.trace_events(prof)
+        table = span_table.attribute(rec.spans, kernels, launches, since_ns=trace_start)
+        read = (f", {sum(r.calls for r in table.rows.values())} spans ({table.unmatched} "
+                f"device events without their launch)")
+    log(f"profile: {len(kern)} device events, {len(cpu)} host events{read}, read in "
         f"{time.perf_counter() - t0:.1f} s")
     return Segment(busy / 1e6, span / 1e6, per_name, gaps, sum(bounds.values()), kernel_time,
-                   calls, result)
+                   calls, result, table)
 
 
 def named_gaps(timed: Segment, named: Segment) -> Dict[str, float]:

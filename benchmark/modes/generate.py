@@ -20,7 +20,9 @@ from the seed and recomputes each of these from the program's own state
 With ``--trace 1`` the window also times the towers with CUDA events (forward
 hooks on the UNet, the ControlNet and the adapter, and the decode), and after
 it a short segment runs under the profiler: ``generate`` at ``profile_steps``
-steps without the decode, then the decode, weighted to a clip's step counts.
+steps without the decode, then the decode, weighted to a clip's step counts;
+each part traced three times, the third with the program's spans recorded
+(``harness/profile.py``).
 """
 
 from __future__ import annotations
@@ -192,9 +194,12 @@ class TowerTimer:
 
 
 def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float, log=print,
-        control=None) -> dict:
+        control=None, group=None) -> dict:
     """One run of the cell; with ``control`` (``control.py``), also the
-    control's numbers under ``control``."""
+    control's numbers under ``control``. One client on one card: no
+    ``group``."""
+    if group is not None:
+        raise ValueError("the generate mode runs on one card")
     fam = cell.family()
     cfg, traffic = cell.config, cell.traffic
     check_traffic(traffic, TRAFFIC)
@@ -244,6 +249,7 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float, log=p
     if trace:
         segment = profile_clip(fam, pipe, cfg, traffic, dev, seed, log)
         record["segment"] = segment
+        record["spans"] = segment.spans if segment is not None else None
         record["clip_flops"] = flops.clip_flops(fam, cfg, window, steps)
         record["peak_flops"] = BF16_FLOPS
     del pipe
@@ -304,9 +310,11 @@ def profile_clip(fam, pipe, cfg, traffic, dev, seed, log) -> Optional[profile.Se
                 lambda: fam.decode(pipe, parts[0][0].result, cfg)):
         timed = profile.trace(run, ops, log=log)
         named = profile.trace(run, ops, host=True, log=log)
-        if timed is None or named is None:
+        spanned = profile.trace(run, ops, log=log, spans=True)
+        if timed is None or named is None or spanned is None:
             return None
         timed.idle_gaps = profile.named_gaps(timed, named)
+        timed.spans = spanned.spans
         parts.append((timed, named))
     (sample, _), (decode, _) = parts
     log(f"profile: {w:g} x ({psteps} steps: busy {sample.busy_s:.4f} s of {sample.span_s:.4f} s)"

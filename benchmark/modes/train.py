@@ -23,7 +23,25 @@ the change.
 
 With ``--trace 1`` the window times the loss (``loss_and_weights``) and the
 backward (from the loss's end to the optimizer's start) with CUDA events, and
-one step then runs under the profiler.
+one step then runs under the profiler, traced three times, the third with the
+program's spans recorded (``harness/profile.py``).
+
+A cell of several cards runs this on each rank (``harness/ranks.py``), the
+trainer built with the group, so that its gradients are averaged over the
+ranks before the optimizer. Each rank draws its own batches and noise (the
+keys get the rank), and rank 0 decides whether another step fits in the
+window and tells the others (one one-element broadcast a step, outside
+``train_step``), so that every rank takes the same steps. Rank 0's window
+and steps give the step time, the fullest card the peak. The check adds
+``masters_equal``: after each checked step, the number of ranks whose fp32
+masters are not rank 0's to the bit (exact, 0). The reference takes each
+rank's steps on that rank's batches and averages its gradients over the
+ranks in fp32 before the clip and AdamW, as the program does; the loss
+compared is the mean over the ranks, the leaves are rank 0's. With
+``--trace 1`` the trainer's flat all-reduce is also timed alone, on a buffer
+of the gradients' size, every rank waiting for the others before each
+(``exchange_ms``): the exchange without the wait for the last rank that the
+step's all-reduce holds.
 """
 
 from __future__ import annotations
@@ -36,6 +54,7 @@ import torch
 
 from harness import compare, flops, profile, seeds
 from harness.manifest import check_traffic, kernel_ops
+from harness.ranks import Ranks
 from harness.peaks import BF16_FLOPS
 from modes.generate import _sync, device_info, read_metrics
 
@@ -95,31 +114,35 @@ def _gaps(got: List[float], want: List[float], keep=None) -> List[float]:
 
 
 def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float, log=print,
-        control=None) -> dict:
+        control=None, group=None) -> dict:
     fam = cell.family()
     cfg, traffic = cell.config, cell.traffic
     check_traffic(traffic, TRAFFIC)
     tc = cfg["train"]["config"]
     checked = traffic["checked_steps"]
+    ranks = Ranks(group, dev)
+    rank = () if ranks.world == 1 else ("rank", ranks.rank)
 
     def step_inputs(k):
-        return fam.train_inputs(cfg, dev, seeds.generator(dev, seed, "step", k))
+        return fam.train_inputs(cfg, dev, seeds.generator(dev, seed, "step", k, *rank))
 
-    trainer, n_params = fam.build_trainer(cfg, dev, seed)
+    trainer, n_params = fam.build_trainer(cfg, dev, seed, process_group=group)
     opt = trainer.optimizer
     names = list(trainer.names)
     start = [m.detach().clone() for m in opt.masters]
-    losses, norms, grad1 = [], [], None
+    losses, norms, grad1, differ = [], [], None, 0
     for k in range(checked):
         batch, draws = step_inputs(k)
         out = trainer.train_step(batch, draws=draws)
         losses.append(out["loss"].item())
         norms.append(out["grad_norm"].item())
+        differ += ranks.differ(opt.masters)
         if k == 0:  # an optimizer that took no step holds no moment: a zero gradient
             grad1 = _leaf_norms(opt.adamw.state.get(m, {}).get("exp_avg", torch.zeros(1))
                                 / (1 - tc["adam_beta1"]) for m in opt.masters)
     change = _leaf_norms(m - s for m, s in zip(opt.masters, start))
     del start
+    ranks.all(True)  # every rank's set-up is done
     _sync(dev)
     setup_s = time.perf_counter() - t_start
     log(f"set-up {setup_s:.3f} s ({n_params} parameters; losses {losses}, gradient norms "
@@ -131,7 +154,7 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float, log=p
     times = []
     _sync(dev)
     t0 = time.perf_counter()
-    while not times or (time.perf_counter() - t0) + times[-1] <= seconds:
+    while ranks.lead(not times or (time.perf_counter() - t0) + times[-1] <= seconds):
         batch, draws = step_inputs(checked + len(times))
         c0 = time.perf_counter()
         trainer.train_step(batch, draws=draws)["loss"].item()
@@ -139,23 +162,30 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float, log=p
     steps = len(times)
     _sync(dev)
     window_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    peak = ranks.max(torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
     record = {"window_s": window_s, "steps": steps,
               "step_ms": timer.close() if timer else {}}
     log(f"window {window_s:.3f} s, {steps} steps (each {min(times):.4f}-{max(times):.4f} s, "
-        f"median {sorted(times)[steps // 2]:.4f}), peak {peak} bytes")
+        f"median {sorted(times)[steps // 2]:.4f}), peak {peak} bytes"
+        + (f"; steps by rank {ranks.gather(steps)}" if group is not None else ""))
 
     segment = None
     if trace:
+        if group is not None:
+            record["exchange_ms"] = exchange_ms(sum(m.numel() for m in opt.masters), dev, ranks)
         batch, draws = step_inputs("profile")
         timed = profile.trace(lambda: trainer.train_step(batch, draws=draws), kernel_ops(),
-                              log=log)
+                              log=log, agree=ranks.all)
         named = profile.trace(lambda: trainer.train_step(batch, draws=draws), kernel_ops(),
-                              host=True, log=log)
-        if timed is not None and named is not None:
+                              host=True, log=log, agree=ranks.all)
+        spanned = profile.trace(lambda: trainer.train_step(batch, draws=draws), kernel_ops(),
+                                log=log, agree=ranks.all, spans=True)
+        if timed is not None and named is not None and spanned is not None:
             timed.idle_gaps = profile.named_gaps(timed, named)
+            timed.spans = spanned.spans
             segment = timed
         record["segment"] = segment
+        record["spans"] = segment.spans if segment is not None else None
         record["step_flops"] = flops.train_step_flops(fam, cfg)
         record["peak_flops"] = BF16_FLOPS
     del trainer, opt
@@ -164,13 +194,15 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float, log=p
         torch.cuda.empty_cache()
 
     t_check = time.perf_counter()
-    program = {"losses": losses, "norms": norms, "grad1": grad1, "change": change}
-    ref = reference_steps(fam, cfg, dev, seed, checked, step_inputs)
+    program = {"losses": ranks.mean(losses), "norms": norms, "grad1": grad1, "change": change}
+    ref = reference_steps(fam, cfg, dev, seed, checked, step_inputs, ranks=ranks)
     numbers = compare_steps(program, ref)
+    if group is not None:
+        numbers["masters_equal"] = float(differ)
     ok, checks = compare.judge(numbers, cell.limits())
-    log(f"check {time.perf_counter() - t_check:.1f} s; "
-        f"losses {losses}, reference's "
-        f"{ref['losses']}; gradient norms {norms}, reference's {ref['norms']}")
+    log(f"check {time.perf_counter() - t_check:.1f} s; losses {program['losses']}, "
+        f"reference's {ref['losses']}" + " (means over the ranks)" * (group is not None)
+        + f"; gradient norms {norms}, reference's {ref['norms']}")
     for key in ("grad1", "change"):
         log(f"{key}: median leaf {_median(program[key]):.4e}, reference's "
             f"{_median(ref[key]):.4e}; widest gaps: " + ", ".join(
@@ -186,20 +218,50 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float, log=p
         result["metrics"] = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
                              for m in cell.end_to_end}
     result["device"] = device_info(dev, cell.chips, peak)
-    if segment is not None:
-        result["device"].update(busy_s=segment.busy_s, window_s=segment.span_s)
+    if segment is not None:  # busy and traced time averaged over the cards
+        busy_s, span_s = ranks.mean([segment.busy_s, segment.span_s])
+        result["device"].update(busy_s=busy_s, window_s=span_s)
         result["breakdown"] = {"device_ops": profile.top(segment.device_ops),
                                "idle_gaps": profile.top(segment.idle_gaps)}
     if control is not None:
         result["control"] = compare_steps(
-            reference_steps(fam, cfg, dev, seed, checked, step_inputs, control), ref)
+            reference_steps(fam, cfg, dev, seed, checked, step_inputs, control, ranks), ref)
     result["checks"] = checks
     return result
 
 
-def reference_steps(fam, cfg, dev, seed, checked, step_inputs, control=None) -> dict:
-    """The float32 reference's losses, first-gradient and change norms per
-    leaf over the checked steps, TF32 off; with ``control``, of the control."""
+def exchange_ms(numel: int, dev, ranks: Ranks, repeats: int = 5) -> float:
+    """The median ms of the trainer's flat fp32 all-reduce (the program's
+    ``all_reduce_mean_``) of ``numel`` elements, each call started once every
+    rank has arrived: CUDA events on the card, the host's clock on the CPU."""
+    from ctrl_adapter_tpu_torch.parallel.mesh import all_reduce_mean_
+
+    flat = torch.ones(numel, dtype=torch.float32, device=dev)
+    times = []
+    for i in range(repeats + 1):  # the first call sets NCCL's buffers up
+        ranks.all(True)
+        _sync(dev)
+        if dev.type == "cuda":
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            all_reduce_mean_(flat, ranks.group)
+            b.record()
+            b.synchronize()
+            ms = a.elapsed_time(b)
+        else:
+            t0 = time.perf_counter()
+            all_reduce_mean_(flat, ranks.group)
+            ms = 1000.0 * (time.perf_counter() - t0)
+        times.append(ms)
+    return _median(times[1:])
+
+
+def reference_steps(fam, cfg, dev, seed, checked, step_inputs, control=None,
+                    ranks: Ranks = None) -> dict:
+    """The float32 reference's losses (averaged over the ``ranks``), first-gradient
+    and change norms per leaf over the checked steps, TF32 off, each step's
+    gradients averaged over the ranks; with ``control``, of the control."""
+    ranks = ranks or Ranks(None, dev)
     flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
@@ -210,14 +272,14 @@ def reference_steps(fam, cfg, dev, seed, checked, step_inputs, control=None) -> 
         start = [m.detach().clone() for m in ref.masters]
         losses, norms, grad1 = [], [], None
         for k in range(checked):
-            value, grads, norm = ref.step(*step_inputs(k))
+            value, grads, norm = ref.step(*step_inputs(k), reduce=ranks.average)
             losses.append(value)
             norms.append(norm)
             if k == 0:
                 grad1 = _leaf_norms(grads)
             del grads
         change = _leaf_norms(m.detach() - s for m, s in zip(ref.masters, start))
-        return {"losses": losses, "norms": norms, "grad1": grad1, "change": change}
+        return {"losses": ranks.mean(losses), "norms": norms, "grad1": grad1, "change": change}
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
         if dev.type == "cuda":

@@ -58,14 +58,16 @@ def sampler(towers, clip_inputs: dict, cfg: dict):
     return SVDSampler(towers, clip_inputs, cfg["generate"])
 
 
-def build_trainer(cfg: dict, device, seed: int):
+def build_trainer(cfg: dict, device, seed: int, process_group=None):
     """(the program's ``CtrlAdapterTrainer`` at the configuration's training
-    settings, on towers filled from ``seed``, its parameter count)."""
+    settings, on towers filled from ``seed``, its gradients averaged over
+    ``process_group`` where there is one; its parameter count)."""
     from ctrl_adapter_tpu_torch.train.trainer import CtrlAdapterTrainer, TrainConfig
 
     pipe, n = build(cfg, device, seed)
     trainer = CtrlAdapterTrainer(TrainConfig(**cfg["train"]["config"]), pipe.unet,
-                                 pipe.controlnet, pipe.adapter, pipe.vae, device=device)
+                                 pipe.controlnet, pipe.adapter, pipe.vae, device=device,
+                                 process_group=process_group)
     return trainer, n
 
 

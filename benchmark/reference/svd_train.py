@@ -104,14 +104,18 @@ class Trainer:
                                      betas=(tc["adam_beta1"], tc["adam_beta2"]),
                                      eps=tc["adam_epsilon"], weight_decay=tc["adam_weight_decay"])
 
-    def step(self, batch, draws) -> (float, List[torch.Tensor], float):
+    def step(self, batch, draws, reduce=None) -> (float, List[torch.Tensor], float):
         """One step: (its loss, the gradients the optimizer got, clipped, their
-        norm before the clip)."""
+        norm before the clip). ``reduce`` (data parallelism) takes this
+        process's gradients and returns them averaged over the processes,
+        before the clip."""
         for p in self.params:
             p.grad = None
         value = loss(self.towers, batch, draws, self.tc)
         value.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        if reduce is not None:
+            grads = reduce(grads)
         norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads)).float()
         if norm.item() >= self.tc["max_grad_norm"]:
             grads = [g / norm * self.tc["max_grad_norm"] for g in grads]

@@ -1,8 +1,9 @@
 """Readings of a cell by the program's spans: one run of the cell as
-``run.py --trace 1`` makes it, with the program's span recording
-(``ctrl_adapter_tpu_torch/utils/profiling.py``) open around each profiled
-segment, and each segment's trace set beside the spans
-(``harness/spans.py``). The benchmark's own runs never open the recording.
+``run.py --trace 1`` makes it (the program's span recording,
+``ctrl_adapter_tpu_torch/utils/profiling.py``, open in the third trace of
+each profiled part, and that trace set beside the spans, ``harness/spans.py``),
+with the whole table printed. A cell of several cards runs on its ranks as
+``run.py`` runs it; rank 0 prints.
 
     python3 benchmark/spans.py --workload <name> --seed <n> --seconds <s>
 
@@ -10,8 +11,8 @@ Standard error gets the span table of the profiled segment (weighted to a
 clip, or one training step). Standard output gets one line of JSON:
 ``span_metrics`` (the readers ``metrics/plain_norm_ms.generate.py``,
 ``plain_attention_ms.generate.py``, ``launches.generate.py``,
-``optimizer_ms.train.py``, ``recompute_ms.train.py``, ``launches.train.py``
-on that table, and the same on the host-traced segment under ``named``),
+``optimizer_ms.train.py``, ``recompute_ms.train.py``, ``launches.train.py``,
+``allreduce_ms.train.py`` on that table),
 ``coverage`` (the share of the device time that falls under the outermost
 spans), ``agreement`` (span intervals beside the hooks' timings of the same
 run), ``span_cost_ns`` (a span's host cost with the recording off and on),
@@ -23,70 +24,40 @@ import time
 T_START = time.perf_counter()
 
 import json  # noqa: E402
-from collections import Counter  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 
 import run  # noqa: E402
 
 READERS = ("plain_norm_ms.generate", "plain_attention_ms.generate", "launches.generate",
-           "optimizer_ms.train", "recompute_ms.train", "launches.train")
+           "optimizer_ms.train", "recompute_ms.train", "launches.train", "allreduce_ms.train")
 ROOTS = {"generate": ("pipeline.generate", "pipeline.decode"), "train": ("trainer.step",)}
 
 
-def recorded_trace(original, tables):
-    """``profile.trace`` with the program's recording open around it; the
-    accepted trace's span table (None for none) goes into ``tables`` with
-    whether the host was traced."""
-    import torch
-
-    from ctrl_adapter_tpu_torch.utils import profiling
-    from harness import spans
-
-    def trace(fn, ops, host=False, attempts=3, log=print):
-        kept = []
-
-        class Keeping(torch.profiler.profile):
-            def __exit__(self, *exc):
-                out = super().__exit__(*exc)
-                kept.append(self)
-                return out
-
-        saved, torch.profiler.profile = torch.profiler.profile, Keeping
-        try:
-            with profiling.recording() as rec:
-                segment = original(fn, ops, host, attempts, log)
-        finally:
-            torch.profiler.profile = saved
-        table = None
-        if segment is not None:
-            kernels, launches, start = spans.trace_events(kept[-1])
-            table = spans.attribute(rec.spans, kernels, launches, since_ns=start)
-            lost = Counter(n for _, _, n, c in kernels if c not in launches)
-            if lost:
-                log(f"spans: {sum(lost.values())} device events without their launch: "
-                    f"{lost.most_common(3)}")
-        tables.append((host, table))
+def collecting(original, tables):
+    """``profile.trace`` that also puts the span table of each trace that
+    recorded spans (None for no segment) into ``tables``."""
+    def trace(fn, ops, spans=False, **kwargs):
+        segment = original(fn, ops, spans=spans, **kwargs)
+        if spans:
+            tables.append(None if segment is None else segment.spans)
         return segment
 
     return trace
 
 
 def weighted(cell, tables):
-    """The timed (device-only) tables as the mode weights its segment: one
-    training step, or the profiled steps scaled to a clip plus the decode."""
-    timed = [t for host, t in tables if not host]
-    named = [t for host, t in tables if host]
+    """The span tables as the mode weights its segment: one training step,
+    or the profiled steps scaled to a clip plus the decode."""
     if cell.traffic["mode"] == "train":
-        return timed[0], named[0]
-    if None in timed + named:
-        return None, None
+        return tables[0]
+    if None in tables:
+        return None
     mode = cell.mode()
     g = cell.config["generate"]
     (lo, hi), _ = mode.control_steps(g)
     (plo, phi), _ = mode.control_steps(g, cell.traffic["profile_steps"])
-    w = (hi - lo) / (phi - plo)
-    return timed[0].scaled(w) + timed[1], named[0].scaled(w) + named[1]
+    return tables[0].scaled((hi - lo) / (phi - plo)) + tables[1]
 
 
 def readings(table, readers) -> dict:
@@ -139,29 +110,40 @@ def span_cost(n: int = 200_000) -> dict:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = run.parser().parse_args(argv)
     sys.path[:0] = [run.BENCH_DIR, run.ROOT]
     import torch
 
-    from harness import env, profile
+    from harness import env, profile, ranks
     from harness.manifest import load_cell, load_module
 
     env.prepare(run.ROOT)
     cell = load_cell(args.workload)
-    if not torch.cuda.is_available():
-        run.log("span readings need a CUDA card")
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
+        run.log(f"span readings need {cell.chips} CUDA card(s)")
         return 2
     readers = {name: load_module(os.path.join(run.BENCH_DIR, "metrics", name + ".py"))
                for name in READERS}
     tables = []
-    profile.trace = recorded_trace(profile.trace, tables)
-    result = cell.mode().run(cell, args.seed, args.seconds, True, torch.device("cuda", 0),
-                             T_START, run.log)
-    table, named = weighted(cell, tables)
+    profile.trace = collecting(profile.trace, tables)
+
+    start = env.started(T_START)
+
+    def body(dev, group):
+        return cell.mode().run(cell, args.seed, args.seconds, True, dev, start, run.log,
+                               group=group)
+
+    try:
+        result = run.on_ranks(cell, argv, body, os.path.abspath(__file__))
+    except ranks.ChildFailed:
+        return ranks.FAILED
+    if result is None or ranks.rank():
+        return 0
+    table = weighted(cell, tables)
     out = {"workload": args.workload, "seed": args.seed, "correct": result["correct"],
            "metrics": {k: v["value"] for k, v in result["metrics"].items()},
-           "device": result["device"], "span_metrics": readings(table, readers),
-           "named": readings(named, readers)}
+           "device": result["device"], "span_metrics": readings(table, readers)}
     if table is not None:
         for line in table.lines():
             run.log(line)

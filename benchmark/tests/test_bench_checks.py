@@ -7,7 +7,7 @@ A traffic mix with a setting that its mode does not implement is refused."""
 import pytest
 import torch
 
-from faults import FAULTS
+from faults import DDP_FAULTS, FAULTS
 from harness import compare
 from reference.precision import fp8_towers
 from thin_cells import run_thin, thin_cell
@@ -36,7 +36,7 @@ def test_control_is_not_correct(name):
     assert not ok, checks
 
 
-@pytest.mark.parametrize("fault", sorted(FAULTS["train"]))
+@pytest.mark.parametrize("fault", sorted(set(FAULTS["train"]) - set(DDP_FAULTS)))
 def test_training_faults_are_not_correct(fault):
     with FAULTS["train"][fault]():
         result = run_thin("svd_depth.train", 2 ** 31 + 29)

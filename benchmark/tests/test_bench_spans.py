@@ -1,6 +1,8 @@
 """The attribution of device events and idle gaps to the program's spans
 (``harness/spans.py``) on a synthetic trace worked out by hand, the table's
-scaling and sum, and the span readers of ``metrics/``.
+scaling and sum, and the span readers of ``metrics/``; and a traced thin run
+of each one-card cell on the CPU, whose ``record["spans"]`` gives its span
+readers numbers.
 
 The trace (times in µs): a training step on the main thread (1) whose
 backward's recompute opens a tower and a norm on the engine's thread (2);
@@ -9,12 +11,16 @@ span has (a device-only trace's launches), one whose launch the trace lacks,
 and one after every span."""
 
 import os
+import time
 
 import pytest
+import torch
 
 from ctrl_adapter_tpu_torch.utils.profiling import SpanRecord
+from harness import profile
 from harness import spans as hs
 from harness.manifest import BENCH_DIR, load_module
+from thin_cells import cpu_trace, thin_cell, traced_mode
 
 US = 1000  # ns
 
@@ -111,7 +117,7 @@ DECODE_LAUNCHES = {1: (12, 1), 2: (30, 1)}
 def _readers():
     return {p: load_module(os.path.join(BENCH_DIR, "metrics", p + ".py")) for p in (
         "plain_norm_ms.generate", "plain_attention_ms.generate", "launches.generate",
-        "optimizer_ms.train", "recompute_ms.train", "launches.train")}
+        "optimizer_ms.train", "recompute_ms.train", "launches.train", "allreduce_ms.train")}
 
 
 def test_scaled_and_added_and_the_generate_readers():
@@ -132,7 +138,8 @@ def test_scaled_and_added_and_the_generate_readers():
     assert r["plain_norm_ms.generate"].read(record) == pytest.approx(4 * 90e-3 + 20e-3)
     assert r["plain_attention_ms.generate"].read(record) == pytest.approx(4 * 60e-3)
     assert r["launches.generate"].read(record) == 4 * 5 + 2
-    for name in ("optimizer_ms.train", "recompute_ms.train", "launches.train"):
+    for name in ("optimizer_ms.train", "recompute_ms.train", "launches.train",
+                 "allreduce_ms.train"):
         assert r[name].read(record) is None
 
 
@@ -142,7 +149,8 @@ def test_the_train_readers():
     assert r["optimizer_ms.train"].read(record) == pytest.approx(30e-3)
     assert r["recompute_ms.train"].read(record) == pytest.approx(150e-3)
     assert r["launches.train"].read(record) == 8
-    for name in ("plain_norm_ms.generate", "plain_attention_ms.generate", "launches.generate"):
+    for name in ("plain_norm_ms.generate", "plain_attention_ms.generate", "launches.generate",
+                 "allreduce_ms.train"):  # one card: no exchange
         assert r[name].read(record) is None
 
 
@@ -150,3 +158,34 @@ def test_the_train_readers():
 def test_readers_find_nothing_without_spans(record):
     for name, reader in _readers().items():
         assert reader.read(record) is None, name
+
+
+SPAN_READERS = {"svd_depth.generate": ("plain_norm_ms.generate", "plain_attention_ms.generate",
+                                       "launches.generate"),
+                "svd_depth.train": ("optimizer_ms.train", "recompute_ms.train", "launches.train")}
+SPAN_READERS["i2vgenxl_depth.generate"] = SPAN_READERS["svd_depth.generate"]
+
+
+@pytest.mark.parametrize("name", sorted(SPAN_READERS))
+def test_traced_thin_run_gives_the_span_readers_numbers(name, monkeypatch):
+    """``--trace 1`` on the CPU (``thin_cells.cpu_trace``): the mode puts the
+    profiled segment's span table in ``record["spans"]``, and each of the
+    cell's span readers prints a number."""
+    cell = thin_cell(name)
+    calls = []
+
+    def trace(*args, host=False, spans=False, **kwargs):
+        calls.append((host, spans))
+        return cpu_trace(*args, host=host, spans=spans, **kwargs)
+
+    monkeypatch.setattr(profile, "trace", trace)
+    result = traced_mode(cell).run(cell, 2 ** 31 + 43, 0.1, True, torch.device("cpu"),
+                                   time.perf_counter(), lambda *a: None)
+    for reader in SPAN_READERS[name]:
+        assert result["metrics"][reader]["value"] > 0, (reader, result["metrics"])
+    assert "allreduce_ms.train" not in result["metrics"]
+    assert "exchange_ms.train" not in result["metrics"]
+    # each profiled part: the device-only and the host trace without the
+    # span recording, then a third trace that records the spans
+    parts = 1 if cell.traffic["mode"] == "train" else 2
+    assert calls == [(False, False), (True, False), (False, True)] * parts
